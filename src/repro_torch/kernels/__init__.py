@@ -1,0 +1,37 @@
+"""Hand-written Hopper kernels of the port, their wrappers and plans.
+
+Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its
+plain PyTorch version (``ref``) for a CPU tensor, and counts its launches
+in a plain integer attribute ``launches``: :func:`launch_counts` reads
+them, :func:`reset_launch_counts` sets them to 0.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from .feature_map import gaussian_feature_map
+from .logmatvec import log_feature_contract, log_halfstep
+
+__all__ = [
+    "KERNELS",
+    "gaussian_feature_map",
+    "log_feature_contract",
+    "log_halfstep",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+KERNELS = {
+    "gaussian_feature_map": gaussian_feature_map,
+    "log_feature_contract": log_feature_contract,
+    "log_halfstep": log_halfstep,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

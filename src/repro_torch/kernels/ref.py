@@ -1,0 +1,87 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each repeats its kernel's arithmetic in tensor operations: the kernel
+wrappers run them for CPU tensors, the tests hold them against the JAX
+package's Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card. Every log-sum-exp here is the explicit max-shift
+form with the shift of an all ``-inf`` slice pinned to 0, so such a slice
+gives ``-inf`` and not NaN (``_finite_or_zero`` in the JAX package).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = [
+    "ieee_fp32",
+    "lse",
+    "gaussian_norm_terms",
+    "gaussian_feature_map_ref",
+    "log_feature_contract_ref",
+    "log_halfstep_ref",
+]
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Scope in which float32 matrix products and convolutions on the card
+    run in full float32, not TF32: the Gaussian map multiplies dot-product
+    errors by 4/eps, so TF32's three decimal digits would move log-features
+    by nats."""
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def _finite_or_zero(m: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+def lse(z: torch.Tensor, dim: int) -> torch.Tensor:
+    """log-sum-exp of ``z`` over ``dim`` with the exact max shift."""
+    m = _finite_or_zero(torch.amax(z, dim=dim, keepdim=True))
+    out = m + torch.log(torch.sum(torch.exp(z - m), dim=dim, keepdim=True))
+    return out.squeeze(dim)
+
+
+def gaussian_norm_terms(x: torch.Tensor, anchors: torch.Tensor,
+                        log_const: torch.Tensor, inv_eps: float):
+    """The rank-1 terms the feature-map wrapper precomputes:
+    ``x2 = ||x_i||^2`` and ``u2c = log_const - 2/eps ||u_k||^2``."""
+    x2 = torch.sum(x * x, dim=-1)
+    u2c = log_const - (2.0 * inv_eps) * torch.sum(anchors * anchors, dim=-1)
+    return x2.contiguous(), u2c.contiguous()
+
+
+def gaussian_feature_map_ref(x: torch.Tensor, anchors: torch.Tensor,
+                             log_const: torch.Tensor, *, inv_eps: float,
+                             log_space: bool = False) -> torch.Tensor:
+    """log Xi = u2c - 2/eps x2 + 4/eps x.u, shape (n, r); ``exp`` of it
+    unless ``log_space``. A ``-inf`` ``log_const`` gives exactly ``-inf``
+    (linear: exactly 0)."""
+    x2, u2c = gaussian_norm_terms(x, anchors, log_const, inv_eps)
+    with ieee_fp32():
+        dot = x @ anchors.T
+    log_xi = (u2c[None, :] - (2.0 * inv_eps) * x2[:, None]) \
+        + (4.0 * inv_eps) * dot
+    return log_xi if log_space else torch.exp(log_xi)
+
+
+def log_feature_contract_ref(log_w: torch.Tensor,
+                             s: torch.Tensor) -> torch.Tensor:
+    """t[k, c] = LSE_i(log_w[i, k] + s[i, c]) : (n, r), (n, B) -> (r, B)."""
+    return lse(log_w[:, :, None] + s[:, None, :], dim=0)
+
+
+def log_halfstep_ref(log_w: torch.Tensor, t: torch.Tensor,
+                     lmarg: torch.Tensor, *, scale: float = 1.0
+                     ) -> torch.Tensor:
+    """out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :])), shape (m, B)."""
+    return scale * (lmarg - lse(log_w[:, :, None] + t[None, :, :], dim=1))

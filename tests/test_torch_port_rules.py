@@ -1,0 +1,192 @@
+"""The rules the port keeps: no JAX and nothing of ``repro`` inside it, the
+card by default with no silent CPU fallback, and explicit refusals for
+what is not ported yet."""
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert
+from repro_torch.core import (
+    OTProblem,
+    sinkhorn_divergence_geometry,
+    solve,
+)
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.ops import geometry_ops
+
+PKG = Path(repro_torch.__file__).resolve().parent
+SOURCES = sorted(PKG.rglob("*.py"))
+
+
+def _module_name(path):
+    parts = path.relative_to(PKG.parent).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+MODULES = sorted(_module_name(p) for p in SOURCES)
+
+
+def _cloud_arrays(n=12, m=10, d=2, r=5):
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            rng.standard_normal((m, d)).astype(np.float32),
+            rng.standard_normal((r, d)).astype(np.float32))
+
+
+def test_importing_every_module_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 13
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
+def test_source_imports_no_jax_and_no_repro(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_without_cuda_the_default_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, y, u = _cloud_arrays()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OTProblem.from_point_clouds(x, y, u, eps=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.gaussian_point_cloud(x, y, u, eps=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backend.resolve_device()
+    assert backend.resolve_device("cpu") == torch.device("cpu")
+    prob = OTProblem.from_point_clouds(x, y, u, eps=0.5, device="cpu")
+    assert prob.a.device.type == "cpu"
+
+
+def test_unsupported_device_is_refused():
+    x, y, u = _cloud_arrays()
+    geom = convert.gaussian_point_cloud(x, y, u, eps=0.5, device="cpu")
+    with pytest.raises(ValueError, match="meta"):
+        OTProblem.from_geometry(geom, device="meta")
+
+
+def _geometries():
+    x, y, u = _cloud_arrays()
+    rng = np.random.default_rng(1)
+    lxi = rng.standard_normal((12, 5)).astype(np.float32)
+    lzt = rng.standard_normal((10, 5)).astype(np.float32)
+    return {
+        "gaussian": convert.gaussian_point_cloud(x, y, u, eps=0.5,
+                                                 device="cpu"),
+        "factored": convert.factored_positive(xi=np.exp(lxi),
+                                              zeta=np.exp(lzt), eps=0.5,
+                                              device="cpu"),
+        "log_factored": convert.factored_positive(log_xi=lxi, log_zeta=lzt,
+                                                  eps=0.5, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "factored", "log_factored"])
+def test_scaling_plan_raises_not_implemented(kind):
+    geom = _geometries()[kind]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        geometry_ops(geom, mode="scaling")
+    assert geometry_ops(geom, mode="log").kind == kind
+
+
+def test_factored_method_needs_plain_operators_until_the_trio_lands():
+    prob = convert.ot_problem(_geometries()["factored"], device="cpu")
+    with pytest.raises(NotImplementedError, match="scaling"):
+        solve(prob)
+    assert np.isfinite(float(solve(prob, use_pallas=False).cost))
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+def test_bf16_precision_raises_not_implemented(use_pallas):
+    prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        solve(prob, precision="bf16", use_pallas=use_pallas)
+
+
+def test_unknown_precision_is_a_value_error():
+    prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
+    with pytest.raises(ValueError):
+        solve(prob, precision="fp8")
+
+
+def test_requires_grad_input_raises_not_implemented():
+    x, y, u = _cloud_arrays()
+    xt = torch.as_tensor(x).requires_grad_(True)
+    geom = repro_torch.core.GaussianPointCloud.build(
+        xt, torch.as_tensor(y), torch.as_tensor(u), eps=0.5)
+    with pytest.raises(NotImplementedError, match="gradients"):
+        sinkhorn_divergence_geometry(geom)
+    prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
+    with pytest.raises(NotImplementedError, match="gradients"):
+        solve(OTProblem(prob.geometry, prob.a.clone().requires_grad_(True),
+                        prob.b))
+
+
+@pytest.mark.parametrize("method", ["accelerated", "arccos", "nystrom",
+                                    "sharded", "sharded_log"])
+def test_unported_methods_raise_not_implemented(method):
+    prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        solve(prob, method=method)
+
+
+def test_build_imports_without_nvcc_and_refuses_to_build(monkeypatch,
+                                                         tmp_path):
+    code = "import repro_torch.kernels.build as b; print(b.BUILD_DIR.name)"
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent), PATH="/nonexistent")
+    env.pop("CUDA_HOME", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "repro_torch", \
+        out.stderr
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+
+
+def test_cuda_sources_hold_one_kernel_per_ported_function():
+    csrc = PKG / "kernels" / "csrc"
+    fm = (csrc / "feature_map.cu").read_text()
+    lm = (csrc / "logmatvec.cu").read_text()
+    assert "__global__" in fm and "gaussian_feature_map_launch" in fm
+    for name in ("log_contract_partial_kernel", "log_contract_combine_kernel",
+                 "log_halfstep_kernel", "log_feature_contract_launch",
+                 "log_halfstep_launch"):
+        assert name in lm
+    for src in (fm, lm):
+        assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+        for lib in ("cublas", "cudnn", "cutlass"):
+            assert lib not in src.lower()
