@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,2,3,4,5]
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
@@ -9,22 +9,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (``nvcc``, in
    parallel);
 2. each kernel against its plain PyTorch version on the card: at the main
-   path's shape, at ragged shapes, and on inputs with ``-inf`` rows,
-   columns and constants. Tolerances: the feature map within 1e-5 of
-   max |value|; the two LSE kernels atol 1e-4 + rtol 1e-5 (summation
-   order differs);
+   paths' shapes, at ragged shapes, and on inputs with ``-inf`` rows,
+   columns and constants; the LSE kernels on float32 and bf16 factors; the
+   megakernel in bf16 and float32, at momentum 1.0 and 1.3, with dead
+   atoms and a dead anchor, and its refusal of shapes the plan does not
+   admit. Tolerances: the feature map within 1e-5 of max |value|; the LSE
+   kernels and the megakernel's potentials atol 1e-4 + rtol 1e-5
+   (summation order differs); the megakernel's block-end error 1e-4
+   relative + 1e-6, and a second launch bit-identical;
 3. times (CUDA events, median of 21 batches of 10 launches, queued behind a
    device spin so that host overhead is not timed) of each kernel, its plain
-   version and one PyTorch library call computing the same function,
-   beside the least time the card could take (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s, whichever is larger);
-4. the main path: three annealed ``solve()`` requests on Gaussian point
+   version and one PyTorch library call computing the same function where
+   there is one, beside the least time the card could take (bytes over
+   3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger):
+   at the solve path's shape, the LSE kernels at batch 2048, r = 128 in
+   bf16, and the megakernel at the OT-GAN shape;
+4. the solve path: three annealed ``solve()`` requests on Gaussian point
    clouds (N(1, I) against N(0, 0.1 I), n = m = 16384, d = 8, r = 1024,
    eps = 0.1, seeds 0, 1, 2, tol = 1e-4, well above the float32 noise floor
    of the marginal error at this n) and one ``sinkhorn_divergence_geometry``,
    with the launch counters set to 0 before and read after; each request
    is then rerun with ``use_pallas=False`` (the plain torch operators) and
-   must agree: cost within 1e-4 relative, iterations within 1 per stage.
+   must agree: cost within 1e-4 relative, iterations within 1 per stage;
+5. the training path, with the counters set to 0 before and read after:
+   the OT-GAN trainer's own ``--strict`` run at its default configuration
+   (batch 256, r = 128, 40 iterations, 60 steps; 15 megakernel launches a
+   step) and bench_gan's batch-2048 gradient (streaming bf16 plan). Then
+   the same with ``use_pallas=False``: W̄ within 1e-4 relative and every
+   gradient within 1e-3 of its max |grad|, from the same weights (the
+   strict run's step-0 weights and data, whose W̄ is also held against the
+   run's own, and its trained weights); a profile of one adversary and one
+   generator step; and ms per step of the megakernel plan against the
+   streaming plan on the same data.
 
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``. TF32 is off throughout.
@@ -54,6 +70,10 @@ TOL = 1e-4                      # marginal L1 tolerance of the main path
 FEATURE_REL_TOL = 1e-5
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 COST_RTOL = 1e-4
+GRAD_REL_TOL = 1e-3             # of max |grad|
+GAN_BATCH = 256                 # the OT-GAN example's default batch
+GAN_BIG_BATCH = 2048            # bench_gan's largest batch
+GAN_STEPS = 60                  # the reference CI's train-smoke length
 
 KERNEL_INFO = {
     "gaussian_feature_map": {
@@ -67,6 +87,10 @@ KERNEL_INFO = {
     "log_halfstep": {
         "source": "src/repro_torch/kernels/csrc/logmatvec.cu",
         "replaces": "src/repro/kernels/logmatvec.py:279",
+    },
+    "log_sinkhorn_block": {
+        "source": "src/repro_torch/kernels/csrc/fused_loop.cu",
+        "replaces": "src/repro/kernels/fused_loop.py:383",
     },
 }
 
@@ -126,7 +150,8 @@ def feature_inputs(torch, np, n, r, d, eps, seed, device):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(torch, np, device, shapes, lse_shapes):
+def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
+                  block_shapes):
     from repro_torch.kernels import ref
     from repro_torch.kernels.feature_map import gaussian_feature_map
     from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
@@ -136,7 +161,7 @@ def check_kernels(torch, np, device, shapes, lse_shapes):
 
     def record(name, case, err, ok):
         errs[name] = max(errs[name], err) if math.isfinite(err) else err
-        log(f"  {name:22s} {case:40s} max_abs_err={err:.3e} "
+        log(f"  {name:22s} {case:48s} max_abs_err={err:.3e} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {case}")
@@ -184,7 +209,128 @@ def check_kernels(torch, np, device, shapes, lse_shapes):
             err, ok = compare(torch, got, want, atol=LSE_ATOL, rtol=LSE_RTOL)
             record("log_halfstep",
                    f"m={m} r={r} B={B} scale={scale} -inf={neg_inf}", err, ok)
+    check_bf16_lse(torch, np, device, bf16_shapes, record)
+    check_block(torch, np, device, block_shapes, record)
     return errs, failures
+
+
+def check_bf16_lse(torch, np, device, shapes, record):
+    """The two LSE kernels on bfloat16 factors against their plain versions
+    (which widen the same bf16 values to float32)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
+
+    for (n, m, r, B, neg_inf) in shapes:
+        g = torch.Generator(device=device).manual_seed(n * 13 + r + B)
+        lw_n = (30.0 * torch.randn((n, r), generator=g, device=device)
+                - 50.0).to(torch.bfloat16)
+        lw_m = (30.0 * torch.randn((m, r), generator=g, device=device)
+                - 50.0).to(torch.bfloat16)
+        s = 10.0 * torch.randn((n, B), generator=g, device=device)
+        t = 10.0 * torch.randn((r, B), generator=g, device=device)
+        lmarg = torch.full((m, B), -math.log(m), device=device)
+        if neg_inf:
+            lw_n[n // 3, :] = -math.inf
+            lw_n[:, r // 2] = -math.inf
+            lw_m[m // 4, :] = -math.inf
+            s[n // 5, :] = -math.inf
+            t[r // 3, 0] = -math.inf
+        got = log_feature_contract(lw_n, s)
+        want = ref.log_feature_contract_ref(lw_n, s)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, atol=LSE_ATOL, rtol=LSE_RTOL)
+        record("log_feature_contract", f"bf16 n={n} r={r} B={B} -inf={neg_inf}",
+               err, ok)
+        for scale, lm in ((EPS, lmarg), (-1.0, torch.zeros_like(lmarg))):
+            got = log_halfstep(lw_m, t, lm, scale=scale)
+            want = ref.log_halfstep_ref(lw_m, t, lm, scale=scale)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, want, atol=LSE_ATOL, rtol=LSE_RTOL)
+            record("log_halfstep",
+                   f"bf16 m={m} r={r} B={B} scale={scale} -inf={neg_inf}",
+                   err, ok)
+
+
+def block_inputs(torch, np, n, m, r, d, eps, dtype, dead, seed, device):
+    """A megakernel block's inputs as the log plan builds them: Gaussian
+    log-features of two clouds stored at ``dtype``, uniform weights with
+    ``dead`` zero-weight atoms on each side (potentials -inf), the carry
+    (f0 = g0 = 0, t0 = LSE_i(log_xi + f0/eps)) and, with ``dead``, one
+    anchor whose constant is -inf (an all -inf factor column)."""
+    from repro_torch.kernels import ref
+    x, u, c = feature_inputs(torch, np, n, r, d, eps, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    y = torch.as_tensor(0.5 * rng.standard_normal((m, d)), dtype=torch.float32,
+                        device=device)
+    if dead:
+        c[r // 2] = -math.inf
+    lxi = ref.gaussian_feature_map_ref(x, u, c, inv_eps=1 / eps,
+                                       log_space=True).to(dtype)
+    lzt = ref.gaussian_feature_map_ref(y, u, c, inv_eps=1 / eps,
+                                       log_space=True).to(dtype)
+    a = torch.ones(n, device=device)
+    b = torch.ones(m, device=device)
+    if dead:
+        a[n // 3::max(n // dead, 1)][:dead] = 0.0
+        b[m // 4::max(m // dead, 1)][:dead] = 0.0
+    a, b = a / a.sum(), b / b.sum()
+
+    def masked_log(w):
+        return torch.where(w > 0, torch.log(torch.where(w > 0, w, 1.0)),
+                           -math.inf)[:, None].contiguous()
+
+    loga, logb = masked_log(a), masked_log(b)
+    f0 = torch.where(loga > -math.inf, 0.0, -math.inf).contiguous()
+    g0 = torch.where(logb > -math.inf, 0.0, -math.inf).contiguous()
+    t0 = ref.log_feature_contract_ref(lxi, f0 / eps)
+    return lxi, lzt, loga, logb, b[:, None].contiguous(), f0, g0, t0
+
+
+def check_block(torch, np, device, shapes, record):
+    """The megakernel against log_sinkhorn_block_ref on the same inputs:
+    f, g, t within atol 1e-4 + rtol 1e-5 (as the LSE kernels), the
+    block-end error within 1e-4 relative + 1e-6; a second launch must be
+    bit-identical (no atomics). Shapes the plan does not admit are refused
+    by block_plan_fits and by the kernel's wrapper (ValueError)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_loop import (
+        block_plan_fits,
+        log_sinkhorn_block,
+    )
+
+    for (n, m, r, dtype, mom, dead, steps) in shapes:
+        eps = 0.5
+        args = block_inputs(torch, np, n, m, r, D, eps, dtype, dead,
+                            n + m + r, device)
+        case = (f"n={n} m={m} r={r} {str(dtype)[6:]} momentum={mom} "
+                f"dead={dead} steps={steps}")
+        if not block_plan_fits(n, m, r, 1, dtype):
+            try:
+                log_sinkhorn_block(*args, inner_steps=steps, eps=eps,
+                                   momentum=mom)
+                refused = False
+            except ValueError:
+                refused = True
+            record("log_sinkhorn_block", case + " (not admitted: refused)",
+                   0.0, refused)
+            continue
+        got = log_sinkhorn_block(*args, inner_steps=steps, eps=eps,
+                                 momentum=mom)
+        again = log_sinkhorn_block(*args, inner_steps=steps, eps=eps,
+                                   momentum=mom)
+        want = ref.log_sinkhorn_block_ref(*args, inner_steps=steps, eps=eps,
+                                          momentum=mom)
+        torch.cuda.synchronize()
+        worst, all_ok = 0.0, True
+        for gv, wv in zip(got[:3], want[:3]):
+            err, ok = compare(torch, gv, wv, atol=LSE_ATOL, rtol=LSE_RTOL)
+            worst, all_ok = max(worst, err), all_ok and ok
+        e_got, e_want = float(got[3]), float(want[3])
+        e_ok = abs(e_got - e_want) <= 1e-4 * abs(e_want) + 1e-6
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        record("log_sinkhorn_block",
+               f"{case} err={e_got:.4e}/{e_want:.4e} repeat_identical={same}",
+               worst, all_ok and e_ok and same)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +433,84 @@ def time_kernels(torch, np, device):
     return rows
 
 
+def time_training_kernels(torch, np, device):
+    """Phase 3 at the training path's shapes: the bf16 contract and
+    half-step at the streaming plan's batch 2048, r = 128 (float32 beside
+    them), and the megakernel at the OT-GAN shape n = m = 256, r = 128,
+    bf16, inner_steps = 8. No PyTorch call computes eight Sinkhorn
+    iterations, so the megakernel has no library time."""
+    from repro_torch.kernels import logmatvec, ref
+    from repro_torch.kernels.fused_loop import log_sinkhorn_block
+    from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
+
+    rows = {}
+    n, r, B = GAN_BIG_BATCH, 128, 1
+    x, u, c = feature_inputs(torch, np, n, r, D, 2.0, 3, device)
+    log_w32 = ref.gaussian_feature_map_ref(x, u, c, inv_eps=0.5,
+                                           log_space=True)
+    g = torch.Generator(device=device).manual_seed(3)
+    s = torch.randn((n, 1), generator=g, device=device)
+    lmarg = torch.full((n, 1), -math.log(n), device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        log_w = log_w32.to(dtype)
+        t = log_feature_contract(log_w, s)
+        fb = log_w.element_size()
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for name, kernel, plain, library, nbytes, flops in (
+            ("log_feature_contract",
+             lambda: log_feature_contract(log_w, s),
+             lambda: ref.log_feature_contract_ref(log_w, s),
+             lambda: torch.logsumexp(log_w.float()[:, :, None]
+                                     + s[:, None, :], dim=0),
+             fb * n * r + 4.0 * (n * B + r * B), 3.0 * n * r * B),
+            ("log_halfstep",
+             lambda: log_halfstep(log_w, t, lmarg, scale=2.0),
+             lambda: ref.log_halfstep_ref(log_w, t, lmarg, scale=2.0),
+             lambda: torch.logsumexp(log_w.float()[:, :, None]
+                                     + t[None, :, :], dim=1),
+             fb * n * r + 4.0 * (r * B + 2 * n * B), 3.0 * n * r * B)):
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, plain)
+            library_ms = time_ms(torch, library)
+            b_ms, b_by = bound(nbytes, flops)
+            rows[f"{name}/{tag}"] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=library_ms, bound_ms=b_ms,
+                                         bound_by=b_by)
+            log(f"  {name:22s} {tag} n={n} r={r}: kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  bound "
+                f"{b_ms:.5f} ms ({b_by})  kernel/bound {ms / b_ms:.2f}")
+        # At r = 128 the contract takes its scalar path; the vector path,
+        # which leaves most of each CTA idle here, is timed beside it.
+        chosen = logmatvec._contract_vectorized
+        logmatvec._contract_vectorized = logmatvec._vectorized
+        try:
+            vec_ms = time_ms(torch, lambda: log_feature_contract(log_w, s))
+        finally:
+            logmatvec._contract_vectorized = chosen
+        log(f"  log_feature_contract   {tag} n={n} r={r}: 16-byte vector path "
+            f"forced {vec_ms:.4f} ms (the wrapper takes the "
+            f"{'vector' if chosen(log_w, B) else 'scalar'} path)")
+
+    n = m = GAN_BATCH
+    steps = 8
+    args = block_inputs(torch, np, n, m, 128, D, 0.5, torch.bfloat16, 0, 7,
+                        device)
+    nbytes = 2.0 * (n + m) * 128 + 4.0 * (3 * n + 4 * m + 2 * 128 + 1)
+    flops = 3.0 * 128 * (steps * 2 * (n + m) + m)
+    ms = time_ms(torch, lambda: log_sinkhorn_block(
+        *args, inner_steps=steps, eps=0.5))
+    plain_ms = time_ms(torch, lambda: ref.log_sinkhorn_block_ref(
+        *args, inner_steps=steps, eps=0.5))
+    b_ms, b_by = bound(nbytes, flops)
+    rows["log_sinkhorn_block"] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=None, bound_ms=b_ms,
+                                      bound_by=b_by)
+    log(f"  log_sinkhorn_block     bf16 n=m={n} r=128 inner_steps={steps}: "
+        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library none  bound "
+        f"{b_ms:.5f} ms ({b_by})  kernel/bound {ms / b_ms:.1f}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -349,6 +573,14 @@ def run_main_path(torch, np, device):
     return problems, results, div, counts
 
 
+def kernel_rows(torch, prof):
+    """The profiler's rows that are device kernels. A CPU-side row (an aten
+    op, the autograd Function around a solve) also reports the device time
+    of the kernels it launched, so summing every row counts them twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages() if e.device_type == cuda]
+
+
 def profile_solve(torch, problem, schedule):
     """Device busy share of one solve request: the device time of every
     kernel the profiler saw over the request's wall time (both under the
@@ -364,9 +596,9 @@ def profile_solve(torch, problem, schedule):
         res = solve(problem, schedule=schedule, tol=TOL)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
-    top = sorted(rows, key=lambda e: -getattr(e, "self_device_time_total", 0))
+    rows = kernel_rows(torch, prof)
+    device_us = sum(e.self_device_time_total for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)
     log(f"  profiled solve seed=0: wall={wall:.4f} s n_iter={res.n_iter} "
         f"device kernel time={device_us / 1e3:.3f} ms")
     if device_us <= 0:
@@ -377,7 +609,7 @@ def profile_solve(torch, problem, schedule):
         f"(idle {1 - device_us / 1e6 / wall:.3f}) under the profiler")
     for e in top[:6]:
         log(f"    {e.key[:60]:60s} {e.count:6d} calls "
-            f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:9.3f} ms")
+            f"{e.self_device_time_total / 1e3:9.3f} ms")
 
 
 def compare_main_path(torch, problems, results, div, schedule_cls):
@@ -435,9 +667,266 @@ def compare_main_path(torch, problems, results, div, schedule_cls):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the training path
+# ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def counts_delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def run_trainer(torch, device="cuda"):
+    """The OT-GAN trainer's own entry point at its default configuration
+    (8-mode ring, batch 256, r = 128, eps 0.5, 40 iterations, n_c = 3),
+    ``--strict``."""
+    from repro_torch.examples import ot_gan
+    return ot_gan.main(["--steps", str(GAN_STEPS), "--device", str(device),
+                        "--strict"])
+
+
+def trainer_step0(torch, device):
+    """The strict run's first step: its initial weights and its first data
+    and z, drawn as ``ot_gan.main`` draws them (weights from a CPU generator
+    seeded 0, data then z from a device generator seeded 1)."""
+    from repro_torch.examples import ot_gan
+    model = ot_gan.OTGAN.init(2, 128, torch.Generator().manual_seed(0),
+                              device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    data = ot_gan.make_data(gen, GAN_BATCH)
+    z = torch.randn((GAN_BATCH, ot_gan.LATENT_Z), generator=gen, device=device)
+    return model, z, data
+
+
+def step_summary(out):
+    """Median ms of adversary and generator steps after the first cycle."""
+    adv = [t for t, a in zip(out["step_ms"][4:], out["adv"][4:]) if a]
+    gen = [t for t, a in zip(out["step_ms"][4:], out["adv"][4:]) if not a]
+    return statistics.median(adv), statistics.median(gen)
+
+
+def profile_train_steps(torch, device):
+    """Busy share of one adversary step and one generator step at the
+    default configuration under torch.profiler, with the kernel device time
+    by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import ExecutionPolicy, OTObjective
+    from repro_torch.examples import ot_gan
+
+    model = ot_gan.OTGAN.init(2, 128, torch.Generator().manual_seed(0),
+                              device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    obj = OTObjective(eps=ot_gan.EPS, tol=0.0, max_iter=40,
+                      policy=ExecutionPolicy.training())
+    batches = [(ot_gan.make_data(gen, GAN_BATCH),
+                torch.randn((GAN_BATCH, ot_gan.LATENT_Z), generator=gen,
+                            device=device)) for _ in range(3)]
+    ot_gan.train_step(model, batches[0][1], batches[0][0], obj, adv=True)
+    torch.cuda.synchronize()
+    for (data, z), adv in zip(batches[1:], (True, False)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            d, _ = ot_gan.train_step(model, z, data, obj, adv=adv)
+            float(d)
+            wall = time.perf_counter() - t0
+        rows = kernel_rows(torch, prof)
+        dev_us = sum(e.self_device_time_total for e in rows)
+        kind = "adversary" if adv else "generator"
+        if dev_us <= 0:
+            log(f"  profiled {kind} step: wall {wall * 1e3:.3f} ms; busy share"
+                " not measured (the profiler saw no device time)")
+            continue
+        log(f"  profiled {kind} step: wall {wall * 1e3:.3f} ms, device "
+            f"kernel time {dev_us / 1e3:.3f} ms, busy share "
+            f"{dev_us / 1e3 / (wall * 1e3):.3f} under the profiler")
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)
+        log(f"    {len(rows)} kernels by name, {sum(e.count for e in rows)} "
+            "launches")
+        for e in top[:6]:
+            log(f"    {e.key[:60]:60s} {e.count:6d} calls "
+                f"{e.self_device_time_total / 1e3:9.3f} ms")
+
+
+def compare_step_plans(torch, device, steps=8):
+    """ms per trainer step at the default configuration with the auto
+    cadence (the megakernel, 8 iterations a launch) against the streaming
+    per-iteration plan (inner_steps=1) on the same data, in the order
+    auto, streaming, streaming, auto, each from fresh weights."""
+    from repro_torch.core import ExecutionPolicy, OTObjective
+    from repro_torch.examples import ot_gan
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    batches = [(ot_gan.make_data(gen, GAN_BATCH),
+                torch.randn((GAN_BATCH, ot_gan.LATENT_Z), generator=gen,
+                            device=device)) for _ in range(steps)]
+    out = {}
+    for label in ("megakernel", "streaming", "streaming", "megakernel"):
+        policy = ExecutionPolicy.training(
+            inner_steps=None if label == "megakernel" else 1)
+        obj = OTObjective(eps=ot_gan.EPS, tol=0.0, max_iter=40, policy=policy)
+        model = ot_gan.OTGAN.init(2, 128, torch.Generator().manual_seed(0),
+                                  device)
+        ot_gan.train_step(model, batches[0][1], batches[0][0], obj, adv=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, (data, z) in enumerate(batches):
+            d, _ = ot_gan.train_step(model, z, data, obj, adv=k % 4 != 3)
+        float(d)
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        out.setdefault(label, []).append(ms)
+        log(f"  {label:10s} plan: {ms:.3f} ms per trainer step (mean of "
+            f"{steps}, 3 adversary : 1 generator)")
+    return out
+
+
+def gan_gradient(torch, device, *, batch, r, eps, iters, use_pallas, seed=0):
+    """bench_gan's training-step gradient: Wbar of the Gaussian geometry of
+    a generator output against data (d = 8, N(0, 1)/2 against
+    (N(0, 1) + 0.5)/2, R = 3) and learnable anchors, under the training
+    policy, with its gradients in the generator output and the anchors."""
+    from repro_torch.core import (
+        ExecutionPolicy,
+        GaussianFeatureMap,
+        OTObjective,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    gen = (0.5 * torch.randn((batch, D), generator=g, device=device))
+    dat = 0.5 * (torch.randn((batch, D), generator=g, device=device) + 0.5)
+    anchors = GaussianFeatureMap(r=r, d=D, eps=eps, R=3.0).init(g)
+    gen.requires_grad_(True)
+    anchors.requires_grad_(True)
+    obj = OTObjective(eps=eps, tol=0.0, max_iter=iters,
+                      policy=ExecutionPolicy.training(use_pallas=use_pallas))
+
+    def once():
+        geom = obj.gaussian(gen, dat, anchors, R=3.0)
+        w = obj.divergence(geom)
+        gg, ga = torch.autograd.grad(w, [gen, anchors])
+        return w.detach(), gg, ga
+
+    return once
+
+
+def grads_agree(pairs, rel=GRAD_REL_TOL):
+    """Max abs difference of each gradient pair over its max |grad|."""
+    worst = 0.0
+    for got, want in pairs:
+        scale = float(want.abs().max())
+        worst = max(worst, float((got - want).abs().max()) / scale)
+    return worst, worst <= rel
+
+
+def run_training_path(torch, np, device):
+    """Phase 5: the trainer's --strict run, its profile, the batch-2048
+    gradient, and the comparison of both with use_pallas=False. Returns
+    (launch counts of the counted runs, failures)."""
+    from repro_torch.core import ExecutionPolicy, OTObjective
+    from repro_torch.examples import ot_gan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    failures = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out_k = run_trainer(torch, device=device)
+    wall = time.perf_counter() - t0
+    counts_train = launch_counts()
+    adv_ms, gen_ms = step_summary(out_k)
+    per_step = 3 * math.ceil(40 / 8)
+    log(f"  trainer --strict: {GAN_STEPS} steps in {wall:.3f} s; median "
+        f"{adv_ms:.3f} ms per adversary step, {gen_ms:.3f} ms per generator "
+        f"step; Wbar {out_k['divergences'][0]:.5f} -> "
+        f"{out_k['divergences'][-1]:.5f}; launches {counts_train} "
+        f"({counts_train['log_sinkhorn_block'] / GAN_STEPS:.1f} megakernel "
+        f"launches a step, expected {per_step})")
+    if counts_train["log_sinkhorn_block"] != per_step * GAN_STEPS:
+        failures.append("trainer megakernel launches")
+
+    once = gan_gradient(torch, device, batch=GAN_BIG_BATCH, r=128, eps=2.0,
+                        iters=30, use_pallas=None)
+    before = launch_counts()
+    w_k, gg_k, ga_k = once()
+    torch.cuda.synchronize()
+    delta = counts_delta(before, launch_counts())
+    counts = launch_counts()
+    log(f"  batch {GAN_BIG_BATCH} gradient (d={D}, r=128, eps=2, 30 "
+        f"iterations): Wbar {float(w_k):.7f}, launches {delta}")
+    if delta["log_sinkhorn_block"] != 0 or delta["log_halfstep"] <= 0 \
+            or delta["log_feature_contract"] <= 0:
+        failures.append("batch-2048 gradient did not take the streaming plan")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"  batch {GAN_BIG_BATCH} gradient: median {statistics.median(times):.3f}"
+        f" ms over 5 (value and both gradients)")
+
+    log("  -- the same with use_pallas=False (the plain torch operators), "
+        "from the same weights: a second trainer run would update its own "
+        "weights, and 60 adversarial steps amplify last-bit differences")
+    first, z, data = trainer_step0(torch, device)
+    for label, model in (("step-0", first),
+                         (f"trained {GAN_STEPS} steps", out_k["model"])):
+        res = {}
+        for plain in (False, True):
+            obj = OTObjective(eps=ot_gan.EPS, tol=0.0, max_iter=40,
+                              policy=ExecutionPolicy.training(
+                                  use_pallas=False if plain else None))
+            d, _ = ot_gan.gan_losses(model, z, data, obj)
+            res[plain] = (d.detach(),
+                          torch.autograd.grad(d, list(model.parameters())))
+        w_rel = abs(float(res[False][0]) - float(res[True][0])) / \
+            abs(float(res[True][0]))
+        g_rel, g_ok = grads_agree(zip(res[False][1], res[True][1]))
+        ok = w_rel <= COST_RTOL and g_ok
+        if model is first:
+            # the strict run's own step-0 Wbar against the plain operators
+            w0 = out_k["divergences"][0]
+            run_rel = abs(w0 - float(res[True][0])) / abs(float(res[True][0]))
+            ok = ok and run_rel <= COST_RTOL
+            log(f"  trainer --strict step-0 Wbar {w0:.7f}, plain rel diff "
+                f"{run_rel:.3e}")
+        log(f"  trainer gradient, {label} weights (all parameters): Wbar "
+            f"{float(res[False][0]):.7f} rel diff {w_rel:.3e}, gradients max "
+            f"diff / max |grad| {g_rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"trainer gradient ({label}) against "
+                            "use_pallas=False")
+
+    once_p = gan_gradient(torch, device, batch=GAN_BIG_BATCH, r=128, eps=2.0,
+                          iters=30, use_pallas=False)
+    w_p, gg_p, ga_p = once_p()
+    w_rel = abs(float(w_k) - float(w_p)) / abs(float(w_p))
+    g_rel, g_ok = grads_agree([(gg_k, gg_p), (ga_k, ga_p)])
+    ok = w_rel <= COST_RTOL and g_ok
+    log(f"  batch {GAN_BIG_BATCH} gradient plain: Wbar {float(w_p):.7f} rel "
+        f"diff {w_rel:.3e}, gradients max diff / max |grad| {g_rel:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("batch-2048 gradient against use_pallas=False")
+    profile_train_steps(torch, device)
+    compare_step_plans(torch, device)
+    return counts, failures
+
+
+# ---------------------------------------------------------------------------
+
+
+SOLVE_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
+                      "log_halfstep")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="comma-separated phases to run (default: all; the "
+                    "result lines need all five)")
+    phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
 
     if not torch.cuda.is_available():
@@ -459,6 +948,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     log("== phase 1: card and build")
     smi = subprocess.run(
@@ -479,44 +969,93 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
-    log("== phase 2: kernels against their plain versions")
-    shapes = [(N, R_ANCHORS, D, EPS, False), (1001, 3, 5, 0.5, True),
-              (777, 1000, 3, 0.1, True), (33, 70, 20, 1.0, False)]
-    lse_shapes = [(N, M, R_ANCHORS, 1, False), (1001, 777, 3, 1, True),
-                  (1001, 777, 1000, 3, True), (777, 1001, 1000, 1, False),
-                  (1001, 777, 1000, 1, True), (5, 3, 129, 3, True),
-                  (5, 3, 128, 1, True)]
-    errs, failures = check_kernels(torch, np, device, shapes, lse_shapes)
-    if failures:
-        log(f"phase 2 FAILED: {failures}")
-        return 1
+    errs = {}
+    if 2 in phases:
+        log("== phase 2: kernels against their plain versions")
+        shapes = [(N, R_ANCHORS, D, EPS, False), (1001, 3, 5, 0.5, True),
+                  (777, 1000, 3, 0.1, True), (33, 70, 20, 1.0, False)]
+        lse_shapes = [(N, M, R_ANCHORS, 1, False), (1001, 777, 3, 1, True),
+                      (1001, 777, 1000, 3, True), (777, 1001, 1000, 1, False),
+                      (1001, 777, 1000, 1, True), (5, 3, 129, 3, True),
+                      (5, 3, 128, 1, True)]
+        bf16_shapes = [(GAN_BIG_BATCH, GAN_BIG_BATCH, 128, 1, False),
+                       (GAN_BIG_BATCH, 1001, 128, 1, True),
+                       (1001, 777, 100, 1, True), (1001, 777, 1000, 3, True),
+                       (1001, 777, 1032, 1, True),        # contract vectors
+                       (5, 3, 129, 1, True)]
+        bf, f32 = torch.bfloat16, torch.float32
+        block_shapes = [
+            (GAN_BATCH, GAN_BATCH, 128, bf, 1.0, 0, 8),
+            (GAN_BATCH, GAN_BATCH, 128, bf, 1.3, 5, 8),
+            (GAN_BATCH, GAN_BATCH, 128, f32, 1.0, 0, 8),   # not admitted
+            (176, 176, 128, f32, 1.0, 3, 8),
+            (176, 160, 128, f32, 1.3, 0, 3),
+            (200, 120, 100, bf, 1.3, 4, 8),
+            (37, 53, 13, f32, 1.0, 2, 8),
+            (37, 53, 13, bf, 1.3, 2, 5),
+            (20, 24, 1100, bf, 1.0, 1, 8),                  # r > 1024 threads
+            (GAN_BIG_BATCH, GAN_BIG_BATCH, 128, bf, 1.0, 0, 8),  # not admitted
+        ]
+        errs, failures = check_kernels(torch, np, device, shapes, lse_shapes,
+                                       bf16_shapes, block_shapes)
+        if failures:
+            log(f"phase 2 FAILED: {failures}")
+            return 1
 
-    log("== phase 3: times at the main path's shape "
-        f"(n={N}, r={R_ANCHORS}, d={D}, B=1)")
-    calibrate_sleep(torch)
-    log(f"  device spin ahead of each batch: {SLEEP_MS[0]:.3f} ms")
-    times = time_kernels(torch, np, device)
+    times = {}
+    if 3 in phases:
+        log("== phase 3: times at the main path's shape "
+            f"(n={N}, r={R_ANCHORS}, d={D}, B=1) and the training path's")
+        calibrate_sleep(torch)
+        log(f"  device spin ahead of each batch: {SLEEP_MS[0]:.3f} ms")
+        times = time_kernels(torch, np, device)
+        times.update(time_training_kernels(torch, np, device))
 
-    log(f"== phase 4: main path (n=m={N}, d={D}, r={R_ANCHORS}, eps={EPS}, "
-        f"tol={TOL}, EpsSchedule(eps_init=1.0, decay=0.5))")
-    problems, results, div, counts = run_main_path(torch, np, device)
-    log(f"  launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        log(f"phase 4 FAILED: kernels never launched: {missing}")
-        return 1
-    profile_solve(torch, problems[0], EpsSchedule(eps_init=1.0, decay=0.5))
-    failures = compare_main_path(torch, problems, results, div, EpsSchedule)
-    if failures:
-        log(f"phase 4 FAILED: {failures}")
-        return 1
+    counts = {}
+    if 4 in phases:
+        log(f"== phase 4: main path (n=m={N}, d={D}, r={R_ANCHORS}, "
+            f"eps={EPS}, tol={TOL}, EpsSchedule(eps_init=1.0, decay=0.5))")
+        problems, results, div, c4 = run_main_path(torch, np, device)
+        log(f"  launches on the main path: {c4}")
+        counts["solve"] = c4
+        missing = [k for k in SOLVE_PATH_KERNELS if c4[k] <= 0]
+        if missing:
+            log(f"phase 4 FAILED: kernels never launched: {missing}")
+            return 1
+        profile_solve(torch, problems[0],
+                      EpsSchedule(eps_init=1.0, decay=0.5))
+        failures = compare_main_path(torch, problems, results, div,
+                                     EpsSchedule)
+        if failures:
+            log(f"phase 4 FAILED: {failures}")
+            return 1
+
+    if 5 in phases:
+        log(f"== phase 5: training path (OT-GAN trainer, batch {GAN_BATCH}, "
+            f"r=128, eps=0.5, 40 iterations, {GAN_STEPS} steps; bench_gan "
+            f"gradient at batch {GAN_BIG_BATCH})")
+        c5, failures = run_training_path(torch, np, device)
+        log(f"  launches on the training path: {c5}")
+        counts["train"] = c5
+        missing = [k for k, v in c5.items() if v <= 0]
+        if missing:
+            failures.append(f"kernels never launched: {missing}")
+        if failures:
+            log(f"phase 5 FAILED: {failures}")
+            return 1
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if phases != {1, 2, 3, 4, 5}:
+        log(f"phases {sorted(phases)} passed; no result line without all five")
+        return 0
 
     kernels = []
     for name, info in KERNEL_INFO.items():
+        by_path = {path: c[name] for path, c in counts.items()}
         kernels.append(dict(name=name, route="cuda", source=info["source"],
                             replaces=info["replaces"],
-                            launches=counts[name], max_abs_err=errs[name],
-                            **times[name]))
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path,
+                            max_abs_err=errs[name], **times[name]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

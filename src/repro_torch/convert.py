@@ -5,14 +5,19 @@ A JAX ``GaussianPointCloud`` / ``FactoredPositive`` / ``DenseCost`` /
 ``eps``, ``R``, ``(log_)xi``, ``(log_)zeta``, ``C``, ``a``, ``b``. Each
 function here takes those as numpy arrays (``np.asarray`` of the JAX
 arrays) and builds the port's object on ``device`` (default: the card), so
-one set of arrays can be handed to both packages.
+one set of arrays can be handed to both packages. :func:`mlp_stack` and
+:func:`gan_params` carry the JAX OT-GAN example's parameters (lists of
+``{"w": (d_in, d_out), "b": (d_out,)}`` layers) into the port's modules.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional, Sequence
+
+import torch
 
 from .core.api import OTProblem
 from .core.geometry import DenseCost, FactoredPositive, GaussianPointCloud
+from .examples.ot_gan import MLP, OTGAN
 from .kernels.backend import as_f32, resolve_device
 
 __all__ = [
@@ -20,6 +25,8 @@ __all__ = [
     "factored_positive",
     "dense_cost",
     "ot_problem",
+    "mlp_stack",
+    "gan_params",
 ]
 
 
@@ -50,3 +57,26 @@ def ot_problem(geometry, a=None, b=None, *, device=None) -> OTProblem:
     """An :class:`OTProblem` on ``geometry`` (a port geometry already on
     ``device``) with weights ``a``/``b`` (uniform when ``None``)."""
     return OTProblem.from_geometry(geometry, a, b, device=device)
+
+
+def mlp_stack(params: Sequence[Mapping], *, device=None):
+    """The port's :class:`~repro_torch.examples.ot_gan.MLP` holding a JAX
+    layer list; the JAX layer is ``x @ w + b``, so ``weight = w.T``."""
+    dev = resolve_device(device)
+    ws = [as_f32(p["w"], dev) for p in params]
+    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    mlp = MLP(dims, device=dev)
+    with torch.no_grad():
+        for lin, w, p in zip(mlp.layers, ws, params):
+            lin.weight.copy_(w.T)
+            lin.bias.copy_(as_f32(p["b"], dev))
+    return mlp
+
+
+def gan_params(params: Mapping, *, device=None):
+    """The port's :class:`~repro_torch.examples.ot_gan.OTGAN` from the JAX
+    example's ``{"gen", "emb", "anchors"}`` parameter dict."""
+    dev = resolve_device(device)
+    return OTGAN(mlp_stack(params["gen"], device=dev),
+                 mlp_stack(params["emb"], device=dev),
+                 as_f32(params["anchors"], dev))

@@ -27,6 +27,7 @@ from .geometry import (
     squared_euclidean,
 )
 from .grad import rot_geometry
+from .objective import ExecutionPolicy, OTObjective
 from .sinkhorn import (
     SinkhornResult,
     sinkhorn_geometry,
@@ -54,6 +55,8 @@ __all__ = [
     "data_radius",
     "squared_euclidean",
     "rot_geometry",
+    "ExecutionPolicy",
+    "OTObjective",
     "SinkhornResult",
     "sinkhorn_geometry",
     "sinkhorn_log_geometry",

@@ -301,7 +301,9 @@ def solve(problem: OTProblem, *, method: str = "auto",
     geometries). ``use_pallas``: ``None``/``True`` run the fused plan (the
     CUDA kernels on the card, their plain versions on the CPU), ``False``
     the geometry's plain torch operators. ``check_every``/``inner_steps``
-    set the convergence-check cadence. ``precision="bf16"`` is not ported.
+    set the cadence (iterations per megakernel launch and per check).
+    ``precision="bf16"`` stores the factors in bfloat16 with float32
+    accumulation.
     """
     if method == "auto":
         method = _auto_method(problem)

@@ -4,7 +4,10 @@
 
 The geometry supplies the (mu, nu) kernel and its ``xx()``/``yy()``
 self-geometries the two correction terms, so the divergence costs three
-linear-time solves. Forward value only (see ``grad``). Counterpart of
+linear-time solves. Each term is a ``grad.rot_geometry`` call, so the
+divergence is differentiable through the envelope theorem; ``xx()`` and
+``yy()`` share the geometry's tensors, so their gradients add up with the
+cross term's. Counterpart of
 ``repro.core.divergence.sinkhorn_divergence_geometry``.
 """
 from __future__ import annotations
@@ -27,8 +30,9 @@ def sinkhorn_divergence_geometry(geom: Geometry,
                                  check_every=None,
                                  precision: str = "highest") -> torch.Tensor:
     """Wbar on a log-capable Geometry with per-measure parametrization
-    (factored and point-cloud families), a 0-d tensor. ``a``/``b`` default
-    to uniform weights on the geometry's device."""
+    (factored and point-cloud families), a 0-d tensor, differentiable in
+    the geometry's tensors and the weights. ``a``/``b`` default to uniform
+    weights on the geometry's device."""
     n, m = geom.shape
     dev = geom.device
     a = torch.full((n,), 1.0 / n, device=dev) if a is None else a

@@ -67,6 +67,21 @@ def _masked_log(w: torch.Tensor) -> torch.Tensor:
                        torch.full_like(w, -torch.inf))
 
 
+def _stored(arr: torch.Tensor, precision: str) -> torch.Tensor:
+    """The storage half of the mixed-precision policy: ``"bf16"`` keeps the
+    loop-invariant kernel representation (features, log-features, dense
+    Gibbs kernel) in bfloat16, as the fused plan stores its factors."""
+    check_precision(precision)
+    return arr.to(torch.bfloat16) if precision == "bf16" else arr
+
+
+def _compute(arr: torch.Tensor) -> torch.Tensor:
+    """Widen a bf16-stored operand to float32 where it is applied, inside
+    the operator closures, so every contraction and LSE accumulates in
+    float32 while the hoisted array stays bf16."""
+    return arr.float()
+
+
 def _factored_log_apply(log_u: torch.Tensor, log_w: torch.Tensor,
                         s: torch.Tensor) -> torch.Tensor:
     """log((e^{log_u} e^{log_w}^T) e^{s}) via the exact two-stage LSE:
@@ -195,16 +210,17 @@ class _FeatureKernelOps:
     ``log_features()``, materialized once per ``operators()`` call."""
 
     def operators(self, *, precision: str = "highest"):
-        check_precision(precision)
-        xi, zeta = self.features()
-        return (lambda v: xi @ (zeta.T @ v), lambda u: zeta @ (xi.T @ u))
+        xi, zeta = (_stored(w, precision) for w in self.features())
+        return (lambda v: _compute(xi) @ (_compute(zeta).T @ v),
+                lambda u: _compute(zeta) @ (_compute(xi).T @ u))
 
     def log_operators(self, *, precision: str = "highest"):
-        check_precision(precision)
         eps = self.eps
-        lxi, lzt = self.log_features()
-        return (lambda g: _factored_log_apply(lxi, lzt, g / eps),
-                lambda f: _factored_log_apply(lzt, lxi, f / eps))
+        lxi, lzt = (_stored(w, precision) for w in self.log_features())
+        return (lambda g: _factored_log_apply(_compute(lxi), _compute(lzt),
+                                              g / eps),
+                lambda f: _factored_log_apply(_compute(lzt), _compute(lxi),
+                                              f / eps))
 
     def apply_k(self, v):
         return self.operators()[0](v)
@@ -238,16 +254,14 @@ class DenseCost(Geometry):
         return tuple(self.C.shape)
 
     def operators(self, *, precision: str = "highest"):
-        check_precision(precision)
-        K = torch.exp(-self.C / self.eps)
-        return (lambda v: K @ v), (lambda u: K.T @ u)
+        K = _stored(torch.exp(-self.C / self.eps), precision)
+        return (lambda v: _compute(K) @ v), (lambda u: _compute(K).T @ u)
 
     def log_operators(self, *, precision: str = "highest"):
-        check_precision(precision)
         eps = self.eps
-        negC = -self.C / eps
-        return (lambda g: lse(negC + (g / eps)[None, :], dim=1),
-                lambda f: lse(negC + (f / eps)[:, None], dim=0))
+        negC = _stored(-self.C / eps, precision)
+        return (lambda g: lse(_compute(negC) + (g / eps)[None, :], dim=1),
+                lambda f: lse(_compute(negC) + (f / eps)[:, None], dim=0))
 
     def apply_k(self, v):
         return self.operators()[0](v)
@@ -346,7 +360,8 @@ class GaussianPointCloud(_FeatureKernelOps, Geometry):
     @classmethod
     def build(cls, x, y, anchors, *, eps: float,
               R: Optional[float] = None) -> "GaussianPointCloud":
-        R = float(data_radius(x, y)) if R is None else float(R)
+        R = float(data_radius(x.detach(), y.detach())) if R is None \
+            else float(R)
         return cls(x=x, y=y, anchors=anchors, eps=float(eps), R=R)
 
     @property

@@ -1,21 +1,72 @@
-"""The regularized OT value on any Geometry (forward only, for now).
+"""Envelope-theorem differentiation of the ROT value (Prop. 3.2).
 
-The JAX package differentiates W_hat through the envelope theorem
-(Prop. 3.2): the backward pass differentiates -eps u*^T K_theta v* at the
-frozen fixed point, without backprop through the loop. That rule comes to
-the port as a ``torch.autograd.Function`` with the training slice. Until
-then every solve refuses an input that requires grad
-(``NotImplementedError``), so no wrong gradient can be produced silently.
-Counterpart of ``repro.core.grad.rot_geometry``.
+At the optimal potentials (f*, g*) the dual value's only theta-dependent
+term is the correlation, so for any kernel parametrization
+
+    dW/dtheta = d/dtheta [ -eps * sum_i exp(f*_i/eps + log(K_theta e^{g*/eps})_i) ]
+    dW/da = f*,   dW/db = g*
+
+with the potentials frozen: the backward pass differentiates the
+geometry's own log operator once, and never the Sinkhorn loop. Every term
+of the sum is about a_i at the fixed point, so the expression is stable at
+any eps. The backward is plain PyTorch in float32 at "highest", whatever
+precision the forward solve ran at, as the JAX package computes it in XLA
+outside any Pallas kernel. Counterpart of ``repro.core.grad.rot_geometry``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..kernels.ref import ieee_fp32
 from .geometry import Geometry
 from .sinkhorn import sinkhorn_log_geometry
 
 __all__ = ["rot_geometry"]
+
+
+def _tensor_fields(geom: Geometry):
+    return [f.name for f in dataclasses.fields(geom)
+            if isinstance(getattr(geom, f.name), torch.Tensor)]
+
+
+class _RotGeometry(torch.autograd.Function):
+    """W_hat with the envelope VJP. Inputs: the geometry (its tensors are
+    re-supplied as ``leaves`` so autograd tracks them), the names of those
+    fields, the solve's keywords, the weights and the leaves."""
+
+    @staticmethod
+    def forward(ctx, geom, names, solve_kw, a, b, *leaves):
+        fresh = dataclasses.replace(
+            geom, **{n: t.detach() for n, t in zip(names, leaves)})
+        with torch.no_grad():
+            res = sinkhorn_log_geometry(fresh, a.detach(), b.detach(),
+                                        **solve_kw)
+        ctx.geom, ctx.names = fresh, names
+        ctx.save_for_backward(res.f, res.g)
+        return res.cost
+
+    @staticmethod
+    def backward(ctx, ct):
+        f, g = ctx.saved_tensors
+        geom, names = ctx.geom, ctx.names
+        eps = geom.eps
+        grads = [None] * len(names)
+        want = [i for i, need in enumerate(ctx.needs_input_grad[5:]) if need]
+        if want:
+            with torch.enable_grad(), ieee_fp32():
+                leaves = {n: getattr(geom, n).detach().requires_grad_(True)
+                          for n in names}
+                gm = dataclasses.replace(geom, **leaves)
+                # zero-weight atoms carry f = -inf and add exactly 0
+                corr = -eps * torch.sum(torch.exp(f / eps + gm.log_apply_k(g)))
+                got = torch.autograd.grad(
+                    corr, [leaves[names[i]] for i in want], allow_unused=True)
+            for i, gr in zip(want, got):
+                grads[i] = (torch.zeros_like(leaves[names[i]]) if gr is None
+                            else ct * gr)
+        return (None, None, None, ct * f, ct * g, *grads)
 
 
 def rot_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor,
@@ -23,9 +74,13 @@ def rot_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor,
                  inner_steps=None, check_every=None,
                  precision: str = "highest") -> torch.Tensor:
     """W_hat_{eps,c}(mu, nu), a 0-d tensor: the Eq.-6 dual value of the
-    log-domain solve. The keywords are the forward solve's execution
-    policy (see ``sinkhorn_log_geometry``)."""
-    return sinkhorn_log_geometry(
-        geom, a, b, tol=tol, max_iter=max_iter, use_pallas=use_pallas,
-        inner_steps=inner_steps, check_every=check_every,
-        precision=precision).cost
+    log-domain solve, differentiable in the geometry's tensors (supports,
+    anchors, features) and in the weights through the envelope theorem,
+    with no backprop through the loop. The keywords are the forward
+    solve's execution policy (see ``sinkhorn_log_geometry``)."""
+    names = _tensor_fields(geom)
+    solve_kw = dict(tol=tol, max_iter=max_iter, use_pallas=use_pallas,
+                    inner_steps=inner_steps, check_every=check_every,
+                    precision=precision)
+    return _RotGeometry.apply(geom, names, solve_kw, a, b,
+                              *(getattr(geom, n) for n in names))

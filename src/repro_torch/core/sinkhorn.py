@@ -15,7 +15,11 @@ masked. Counterpart of ``repro.core.sinkhorn``.
 
 :func:`run_marginal_loop` is a host loop: PyTorch runs eagerly, so the
 marginal error is read to the host once per check block (one device
-synchronisation per check).
+synchronisation per check). With the fused plan on the card the auto
+cadence runs 8 iterations per launch of the megakernel
+(``kernels.fused_loop``) wherever it is admitted, as the JAX package does
+on a compiled backend; on the CPU it checks every iteration, as the JAX
+package does in interpret mode.
 """
 from __future__ import annotations
 
@@ -72,12 +76,15 @@ def _f32(x: float) -> float:
 def _check_inputs(geom: Geometry, *tensors: torch.Tensor) -> None:
     """Forward solves only: a differentiable input would let autograd trace
     the whole loop and return a gradient that is not the envelope-theorem
-    one, so it is refused until the envelope VJP is ported."""
+    one, so it is refused, as the JAX package cannot reverse-differentiate
+    its while_loop either. Gradients go through ``core.grad.rot_geometry``
+    (the envelope VJP), e.g. ``sinkhorn_divergence_geometry``."""
     for t in (*geom.tensors(), *(t for t in tensors if t is not None)):
         if t.requires_grad:
             raise NotImplementedError(
-                "gradients are not ported yet (ROADMAP.md, queue A: the "
-                "envelope-VJP autograd.Function); pass tensors that do not "
+                "gradients of a solve are not taken through the loop: "
+                "differentiate rot_geometry / sinkhorn_divergence_geometry "
+                "(the envelope-theorem VJP), or pass tensors that do not "
                 "require grad")
         if t.device != geom.device:
             raise ValueError(f"input on {t.device}, geometry on "
@@ -128,15 +135,18 @@ def make_log_step(log_matvec, log_rmatvec, a, b, *, eps: float,
 
 
 def run_marginal_loop(step, carry0, *, tol: float, max_iter: int,
-                      steps_per_check: int = 1):
+                      steps_per_check: int = 1, iters_per_step: int = 1):
     """Run ``step`` until the marginal error drops below ``tol``.
 
-    One check block is always taken. Each block runs ``steps_per_check``
-    iterations back to back, then reads the error to the host once; the
-    loop stops when it is ``<= tol``, is not finite, or ``max_iter`` is
-    reached. ``n_iter`` is therefore a multiple of the cadence and
-    ``max_iter`` rounds up to one. Returns ``(n_iter, carry, err)``."""
+    One check block is always taken. Each block calls ``step``
+    ``steps_per_check`` times back to back, each call advancing
+    ``iters_per_step`` iterations (``inner_steps`` for the megakernel block
+    step, 1 otherwise), then reads the error to the host once; the loop
+    stops when it is ``<= tol``, is not finite, or ``max_iter`` is reached.
+    ``n_iter`` is therefore a multiple of the cadence and ``max_iter``
+    rounds up to one. Returns ``(n_iter, carry, err)``."""
     tol = _f32(tol)
+    cadence = steps_per_check * iters_per_step
 
     def block(carry):
         for _ in range(steps_per_check):
@@ -144,11 +154,11 @@ def run_marginal_loop(step, carry0, *, tol: float, max_iter: int,
         return carry, err
 
     carry, err = block(carry0)
-    it = steps_per_check
+    it = cadence
     e = float(err)
     while it < max_iter and e > tol and math.isfinite(e):
         carry, err = block(carry)
-        it += steps_per_check
+        it += cadence
         e = float(err)
     return it, carry, err
 
@@ -177,13 +187,21 @@ def _maybe_pallas_plan(geom: Geometry, use_pallas: Optional[bool], mode: str,
     return plan
 
 
-def _resolve_cadence(inner_steps: Optional[int],
-                   check_every: Optional[int]) -> int:
-    """Iterations per convergence check from the knobs. With no megakernel
-    block step ported, ``inner_steps`` only sets the check cadence, as on
-    the JAX package's operator path; both ``None`` means every iteration."""
+def _resolve_cadence(plan, inner_steps: Optional[int],
+                     check_every: Optional[int]):
+    """``(inner, check, auto)``: iterations per megakernel launch and per
+    convergence check from the knobs.
+
+    Auto (both ``None``): 8 and 8 when the fused plan runs on the card
+    (``_plan_loop`` still takes the per-iteration step at shapes the
+    megakernel does not admit); 1 and 1 everywhere else,
+    including the CPU, as the JAX package keeps 1/1 in interpret mode.
+    Explicit values hold on every path; on the plain operators
+    ``inner_steps`` only sets the check cadence."""
     if inner_steps is None and check_every is None:
-        return 1
+        if plan is not None and plan.features[0].is_cuda:
+            return 8, 8, True
+        return 1, 1, True
     inner = 1 if inner_steps is None else int(inner_steps)
     if inner < 1:
         raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
@@ -194,7 +212,30 @@ def _resolve_cadence(inner_steps: Optional[int],
         raise ValueError(
             f"check_every ({check}) must be a multiple of inner_steps "
             f"({inner}): the marginal error only exists at block boundaries")
-    return check
+    return inner, check, False
+
+
+def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
+               check_every, momentum):
+    """Run a fused plan's hot loop: the megakernel block step
+    (``inner_steps`` iterations per launch) where the plan admits it, else
+    the per-iteration step at the same check cadence (every iteration
+    under auto). ``carry0`` is ``(f0, g0)``; returns ``(n_iter, carry,
+    err)``."""
+    inner, check, auto = _resolve_cadence(plan, inner_steps, check_every)
+    block = None
+    if inner > 1:
+        block = plan.make_block_step(a, b, inner_steps=inner,
+                                     momentum=momentum)
+    if block is not None:
+        step, init = block
+        return run_marginal_loop(step, init(*carry0), tol=tol,
+                                 max_iter=max_iter,
+                                 steps_per_check=check // inner,
+                                 iters_per_step=inner)
+    step, init = plan.make_step(a, b, momentum=momentum)
+    return run_marginal_loop(step, init(*carry0), tol=tol, max_iter=max_iter,
+                             steps_per_check=1 if auto else check)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +281,7 @@ def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     # raises for factored geometries until the scaling plan is ported;
     # dense costs have no fused plan and fall through to their operators
     _maybe_pallas_plan(geom, use_pallas, "scaling", precision)
-    check = _resolve_cadence(inner_steps, check_every)
+    _, check, _ = _resolve_cadence(None, inner_steps, check_every)
     matvec, rmatvec = geom.operators(precision=precision)
     return sinkhorn_operator(matvec, rmatvec, a, b, eps=geom.eps, tol=tol,
                              max_iter=max_iter, momentum=momentum,
@@ -282,22 +323,28 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     With the fused plan (``use_pallas`` not ``False``) each iteration runs
     the log kernels: three ``log_halfstep`` and two ``log_feature_contract``
     launches, the stage-1 LSE carried so the convergence check costs one
-    half-step. ``f_init``/``g_init`` warm-start the potentials."""
+    half-step; or ``inner_steps`` iterations run in one launch of the
+    megakernel (see :func:`_resolve_cadence`). ``precision="bf16"`` stores
+    the factors in bfloat16 with float32 accumulation, on the plan and on
+    the plain operators alike. ``f_init``/``g_init`` warm-start the
+    potentials."""
     check_precision(precision)
     _check_inputs(geom, a, b, f_init, g_init)
     f0, g0 = _log_init(a, b, f_init, g_init)
-    check = _resolve_cadence(inner_steps, check_every)
     plan = _maybe_pallas_plan(geom, use_pallas, "log", precision)
     if plan is not None:
-        step, init = plan.make_step(a, b, momentum=momentum)
-        carry0 = init(f0, g0)
+        it, carry, err = _plan_loop(plan, a, b, (f0, g0), tol=tol,
+                                    max_iter=max_iter,
+                                    inner_steps=inner_steps,
+                                    check_every=check_every,
+                                    momentum=momentum)
     else:
+        _, check, _ = _resolve_cadence(None, inner_steps, check_every)
         log_matvec, log_rmatvec = geom.log_operators(precision=precision)
         step = make_log_step(log_matvec, log_rmatvec, a, b, eps=geom.eps,
                              momentum=momentum)
-        carry0 = (f0, g0)
-    it, carry, err = run_marginal_loop(step, carry0, tol=tol,
-                                       max_iter=max_iter,
-                                       steps_per_check=check)
+        it, carry, err = run_marginal_loop(step, (f0, g0), tol=tol,
+                                           max_iter=max_iter,
+                                           steps_per_check=check)
     return _finish_log(a, b, carry[0], carry[1], it, err, eps=geom.eps,
                        tol=tol)

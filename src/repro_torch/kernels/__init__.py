@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .feature_map import gaussian_feature_map
+from .fused_loop import log_sinkhorn_block
 from .logmatvec import log_feature_contract, log_halfstep
 
 __all__ = [
@@ -17,6 +18,7 @@ __all__ = [
     "gaussian_feature_map",
     "log_feature_contract",
     "log_halfstep",
+    "log_sinkhorn_block",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -25,6 +27,7 @@ KERNELS = {
     "gaussian_feature_map": gaussian_feature_map,
     "log_feature_contract": log_feature_contract,
     "log_halfstep": log_halfstep,
+    "log_sinkhorn_block": log_sinkhorn_block,
 }
 
 

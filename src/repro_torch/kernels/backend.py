@@ -14,10 +14,17 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "as_f32", "check_operand",
-           "sm_count"]
+__all__ = ["DEFAULT_DEVICE", "MEGAKERNEL_BUDGET", "resolve_device", "as_f32",
+           "check_operand", "sm_count"]
 
 DEFAULT_DEVICE = "cuda"
+
+# Working-set ceiling of the log megakernel (``fused_loop.block_plan_fits``):
+# one CTA holds both factors in shared memory. It is the JAX package's
+# gpu-triton budget, so both packages admit the megakernel at the same
+# shapes; the bytes are counted on the JAX package's padded shapes, which
+# bound what the CUDA kernel really holds (``fused_loop.smem_bytes``).
+MEGAKERNEL_BUDGET = 192 * 2**10
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -48,13 +55,17 @@ def as_f32(arr, device: Optional[torch.device]) -> torch.Tensor:
 
 
 def check_operand(t: torch.Tensor, name: str, ndim: int,
-                  device: torch.device) -> None:
+                  device: torch.device, *, factor: bool = False) -> None:
     """What every kernel wrapper requires of an operand: a contiguous
-    float32 tensor of ``ndim`` dimensions on ``device`` (CPU or CUDA)."""
+    float32 tensor of ``ndim`` dimensions on ``device`` (CPU or CUDA). A
+    ``factor`` operand (the (n, r) log-features) may also be bfloat16, the
+    storage half of ``precision="bf16"``; kernels accumulate in float32."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    allowed = (torch.float32, torch.bfloat16) if factor else (torch.float32,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(str(d) for d in allowed)}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dimensions, got shape "
                          f"{tuple(t.shape)}")

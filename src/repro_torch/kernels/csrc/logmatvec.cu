@@ -23,14 +23,21 @@
 // one warp per output row; scale = eps gives the potential update and
 // scale = -1 with lmarg = 0 the raw LSE of the convergence check.
 //
-// Bound on the H100: both read the (n, r) f32 factor once, 64 MiB at
+// The factor log_w is stored as float or as bfloat16 (precision="bf16",
+// half the bytes); each kernel is a template on that storage type T,
+// widens every element to float on load and accumulates in float.
+//
+// Bound on the H100: both read the (n, r) factor once, 64 MiB in float at
 // n = 16384, r = 1024, which is more than the 50 MB L2, so each launch
-// streams it from device memory (about 20 us at 3.35 TB/s). One expf per
-// entry (16.8 M) is far below the SFU rate, so both are bound by bytes.
-// Loads are coalesced along r and many are kept in flight per thread: on
-// the solver's path (B = 1, r a multiple of 4, 16-byte aligned rows) both
-// kernels read float4 vectors, eight per thread at a time; other shapes
-// take a scalar path with the same arithmetic per entry.
+// streams it from device memory (about 20 us at 3.35 TB/s; half that in
+// bf16). One expf per entry (16.8 M) is far below the SFU rate, so both
+// are bound by bytes. Loads are coalesced along r and many are kept in
+// flight per thread: on the solver's path (B = 1, rows a multiple of 16
+// bytes, 16-byte aligned) both kernels read 16-byte vectors (4 floats or 8
+// bf16), eight per thread at a time; other shapes take a scalar path with
+// the same arithmetic per entry. The contract's wrapper also takes the
+// scalar path where r is too small for the vectors of a row to fill a CTA
+// (r < 1024 in bf16, as at the training batches' r = 128).
 #include "common.cuh"
 
 namespace {
@@ -42,8 +49,9 @@ constexpr int kHalfstepWarps = 8;
 constexpr int kUnroll = 8;             // loads in flight per thread
 
 // Scalar path: thread k owns column k of log_w, any B <= kMaxCols.
+template <typename T>
 __global__ void __launch_bounds__(kContractThreads)
-log_contract_partial_kernel(const float* __restrict__ log_w,
+log_contract_partial_kernel(const T* __restrict__ log_w,
                             const float* __restrict__ s,
                             float* __restrict__ partial, int n, int r, int B,
                             int rows_per_split) {
@@ -66,12 +74,13 @@ log_contract_partial_kernel(const float* __restrict__ log_w,
       s_sh[e] = s[(size_t)base * B + e];
     __syncthreads();
     if (k < r) {
-      const float* col = log_w + (size_t)base * r + k;
+      const T* col = log_w + (size_t)base * r + k;
       int i = 0;
       for (; i + kUnroll <= rows; i += kUnroll) {
         float w[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(col + (size_t)(i + u) * r);
+        for (int u = 0; u < kUnroll; ++u)
+          w[u] = load_factor(col + (size_t)(i + u) * r);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
@@ -80,7 +89,7 @@ log_contract_partial_kernel(const float* __restrict__ log_w,
         }
       }
       for (; i < rows; ++i) {
-        const float w = __ldg(col + (size_t)i * r);
+        const float w = load_factor(col + (size_t)i * r);
 #pragma unroll
         for (int c = 0; c < kMaxCols; ++c)
           if (c < B) lse_push(mx[c], acc[c], w + s_sh[i * B + c]);
@@ -95,64 +104,71 @@ log_contract_partial_kernel(const float* __restrict__ log_w,
     if (c < B) partial[((size_t)split * r + k) * B + c] = lse_value(mx[c], acc[c]);
 }
 
-// Vector path (B == 1, r % 4 == 0, aligned rows): thread q owns columns
-// 4q .. 4q+3 and reads them as one float4 per row.
+// Vector path (B == 1, rows of a multiple of 16 bytes, aligned): thread q
+// owns the V = kVec<T> columns V*q .. V*q + V-1 and reads them as one
+// 16-byte vector per row.
+template <typename T>
 __global__ void __launch_bounds__(kContractThreads)
-log_contract_partial_vec_kernel(const float* __restrict__ log_w,
+log_contract_partial_vec_kernel(const T* __restrict__ log_w,
                                 const float* __restrict__ s,
                                 float* __restrict__ partial, int n, int r,
                                 int rows_per_split) {
+  constexpr int V = kVec<T>;
   __shared__ float s_sh[kContractChunk];
   const int q = blockIdx.x * kContractThreads + threadIdx.x;
-  const int r4 = r >> 2;
+  const int rv = r / V;
   const int split = blockIdx.y;
   const int i_begin = split * rows_per_split;
   const int i_end = min(n, i_begin + rows_per_split);
-  const float4* w4 = reinterpret_cast<const float4*>(log_w);
+  const uint4* wv = reinterpret_cast<const uint4*>(log_w);
 
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float mx[V], acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    mx[e] = -INFINITY;
+    acc[e] = 0.0f;
+  }
 
   for (int base = i_begin; base < i_end; base += kContractChunk) {
     const int rows = min(kContractChunk, i_end - base);
     for (int e = threadIdx.x; e < rows; e += kContractThreads)
       s_sh[e] = s[base + e];
     __syncthreads();
-    if (q < r4) {
-      const float4* col = w4 + (size_t)base * r4 + q;
+    if (q < rv) {
+      const uint4* col = wv + (size_t)base * rv + q;
       int i = 0;
       for (; i + kUnroll <= rows; i += kUnroll) {
-        float4 w[kUnroll];
+        uint4 raw[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(col + (size_t)(i + u) * r4);
+        for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(col + (size_t)(i + u) * rv);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
+          float w[V];
+          unpack16(raw[u], w);
           const float sv = s_sh[i + u];
-          lse_push(mx[0], acc[0], w[u].x + sv);
-          lse_push(mx[1], acc[1], w[u].y + sv);
-          lse_push(mx[2], acc[2], w[u].z + sv);
-          lse_push(mx[3], acc[3], w[u].w + sv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) lse_push(mx[e], acc[e], w[e] + sv);
         }
       }
       for (; i < rows; ++i) {
-        const float4 w = __ldg(col + (size_t)i * r4);
+        float w[V];
+        unpack16(__ldg(col + (size_t)i * rv), w);
         const float sv = s_sh[i];
-        lse_push(mx[0], acc[0], w.x + sv);
-        lse_push(mx[1], acc[1], w.y + sv);
-        lse_push(mx[2], acc[2], w.z + sv);
-        lse_push(mx[3], acc[3], w.w + sv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) lse_push(mx[e], acc[e], w[e] + sv);
       }
     }
     __syncthreads();
   }
 
-  if (q >= r4) return;
-  float4 out;
-  out.x = lse_value(mx[0], acc[0]);
-  out.y = lse_value(mx[1], acc[1]);
-  out.z = lse_value(mx[2], acc[2]);
-  out.w = lse_value(mx[3], acc[3]);
-  reinterpret_cast<float4*>(partial + (size_t)split * r)[q] = out;
+  if (q >= rv) return;
+  float* out = partial + (size_t)split * r + (size_t)V * q;
+#pragma unroll
+  for (int e = 0; e < V; e += 4)
+    *reinterpret_cast<float4*>(out + e) =
+        make_float4(lse_value(mx[e], acc[e]), lse_value(mx[e + 1], acc[e + 1]),
+                    lse_value(mx[e + 2], acc[e + 2]),
+                    lse_value(mx[e + 3], acc[e + 3]));
 }
 
 // Exact LSE over the split axis of the partials, one warp per output: the
@@ -191,13 +207,15 @@ __device__ __forceinline__ void warp_lse_merge(float& mx, float& acc) {
   }
 }
 
-// One warp per output row. Vector path when B == 1 and rows are float4
-// aligned (vec != 0): lane l reads float4 l, l + 32, ... of the row.
+// One warp per output row. Vector path when B == 1 and rows are 16-byte
+// vectors (vec != 0): lane l reads vectors l, l + 32, ... of the row.
+template <typename T>
 __global__ void __launch_bounds__(kHalfstepWarps * 32)
-log_halfstep_kernel(const float* __restrict__ log_w,
+log_halfstep_kernel(const T* __restrict__ log_w,
                     const float* __restrict__ t,
                     const float* __restrict__ lmarg, float* __restrict__ out,
                     int m, int r, int B, float scale, int vec) {
+  constexpr int V = kVec<T>;
   extern __shared__ float4 t_sh4[];  // (r, B), the layout of t
   float* t_sh = reinterpret_cast<float*>(t_sh4);
   for (int e = threadIdx.x; e < r * B; e += kHalfstepWarps * 32) t_sh[e] = t[e];
@@ -208,36 +226,35 @@ log_halfstep_kernel(const float* __restrict__ log_w,
   for (int j = blockIdx.x * kHalfstepWarps + warp; j < m;
        j += gridDim.x * kHalfstepWarps) {
     if (vec) {
-      const int r4 = r >> 2;
-      const float4* row = reinterpret_cast<const float4*>(log_w) + (size_t)j * r4;
+      const int rv = r / V;
+      const uint4* row = reinterpret_cast<const uint4*>(log_w) + (size_t)j * rv;
       float mx = -INFINITY, acc = 0.0f;
       int k = lane;
-      for (; k + 32 * (kUnroll - 1) < r4; k += 32 * kUnroll) {
-        float4 w[kUnroll];
+      for (; k + 32 * (kUnroll - 1) < rv; k += 32 * kUnroll) {
+        uint4 raw[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(row + k + 32 * u);
+        for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(row + k + 32 * u);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const float4 tv = t_sh4[k + 32 * u];
-          lse_push(mx, acc, w[u].x + tv.x);
-          lse_push(mx, acc, w[u].y + tv.y);
-          lse_push(mx, acc, w[u].z + tv.z);
-          lse_push(mx, acc, w[u].w + tv.w);
+          float w[V], tv[V];
+          unpack16(raw[u], w);
+          load_floats(t_sh + (size_t)V * (k + 32 * u), tv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) lse_push(mx, acc, w[e] + tv[e]);
         }
       }
-      for (; k < r4; k += 32) {
-        const float4 w = __ldg(row + k);
-        const float4 tv = t_sh4[k];
-        lse_push(mx, acc, w.x + tv.x);
-        lse_push(mx, acc, w.y + tv.y);
-        lse_push(mx, acc, w.z + tv.z);
-        lse_push(mx, acc, w.w + tv.w);
+      for (; k < rv; k += 32) {
+        float w[V], tv[V];
+        unpack16(__ldg(row + k), w);
+        load_floats(t_sh + (size_t)V * k, tv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) lse_push(mx, acc, w[e] + tv[e]);
       }
       warp_lse_merge(mx, acc);
       if (lane == 0) out[j] = scale * (lmarg[j] - lse_value(mx, acc));
       continue;
     }
-    const float* row = log_w + (size_t)j * r;
+    const T* row = log_w + (size_t)j * r;
     float mx[kMaxCols], acc[kMaxCols];
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
@@ -248,7 +265,7 @@ log_halfstep_kernel(const float* __restrict__ log_w,
     for (; k + 32 * (kUnroll - 1) < r; k += 32 * kUnroll) {
       float w[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(row + k + 32 * u);
+      for (int u = 0; u < kUnroll; ++u) w[u] = load_factor(row + k + 32 * u);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
@@ -257,7 +274,7 @@ log_halfstep_kernel(const float* __restrict__ log_w,
       }
     }
     for (; k < r; k += 32) {
-      const float w = __ldg(row + k);
+      const float w = load_factor(row + k);
 #pragma unroll
       for (int c = 0; c < kMaxCols; ++c)
         if (c < B) lse_push(mx[c], acc[c], w + t_sh[k * B + c]);
@@ -276,25 +293,19 @@ log_halfstep_kernel(const float* __restrict__ log_w,
   }
 }
 
-}  // namespace
-
-// vec != 0 selects the float4 path; the caller passes it only for B == 1,
-// r % 4 == 0 and a 16-byte aligned log_w. Columns per CTA: 4 * 128 on the
-// vector path, 128 on the scalar path.
-REPRO_EXPORT int log_feature_contract_launch(const float* log_w,
-                                             const float* s, float* partial,
-                                             float* t, int n, int r, int B,
-                                             int n_splits,
-                                             int rows_per_split, int vec,
-                                             cudaStream_t stream) {
-  if (vec && (B != 1 || r % 4 != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = vec ? 4 * kContractThreads : kContractThreads;
+template <typename T>
+int contract_launch(const T* log_w, const float* s, float* partial, float* t,
+                    int n, int r, int B, int n_splits, int rows_per_split,
+                    int vec, cudaStream_t stream) {
+  constexpr int V = kVec<T>;
+  if (vec && (B != 1 || r % V != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = vec ? V * kContractThreads : kContractThreads;
   const dim3 grid((r + cols - 1) / cols, n_splits);
   if (vec) {
-    log_contract_partial_vec_kernel<<<grid, kContractThreads, 0, stream>>>(
+    log_contract_partial_vec_kernel<T><<<grid, kContractThreads, 0, stream>>>(
         log_w, s, partial, n, r, rows_per_split);
   } else {
-    log_contract_partial_kernel<<<grid, kContractThreads, 0, stream>>>(
+    log_contract_partial_kernel<T><<<grid, kContractThreads, 0, stream>>>(
         log_w, s, partial, n, r, B, rows_per_split);
   }
   cudaError_t err = cudaGetLastError();
@@ -306,19 +317,51 @@ REPRO_EXPORT int log_feature_contract_launch(const float* log_w,
   return static_cast<int>(cudaGetLastError());
 }
 
-REPRO_EXPORT int log_halfstep_launch(const float* log_w, const float* t,
-                                     const float* lmarg, float* out, int m,
-                                     int r, int B, float scale, int vec,
-                                     int grid, cudaStream_t stream) {
-  if (vec && (B != 1 || r % 4 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int halfstep_launch(const T* log_w, const float* t, const float* lmarg,
+                    float* out, int m, int r, int B, float scale, int vec,
+                    int grid, cudaStream_t stream) {
+  if (vec && (B != 1 || r % kVec<T> != 0)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (size_t)r * B * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        log_halfstep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        log_halfstep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  log_halfstep_kernel<<<grid, kHalfstepWarps * 32, smem, stream>>>(
+  log_halfstep_kernel<T><<<grid, kHalfstepWarps * 32, smem, stream>>>(
       log_w, t, lmarg, out, m, r, B, scale, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// log_w is float (bf16 == 0) or bfloat16 (bf16 != 0). vec != 0 selects the
+// 16-byte vector path; the caller passes it only for B == 1, rows of a
+// multiple of 16 bytes and a 16-byte aligned log_w. Columns per CTA:
+// 128 * (16 / element size) on the vector path, 128 on the scalar path.
+REPRO_EXPORT int log_feature_contract_launch(const void* log_w, int bf16,
+                                             const float* s, float* partial,
+                                             float* t, int n, int r, int B,
+                                             int n_splits,
+                                             int rows_per_split, int vec,
+                                             cudaStream_t stream) {
+  if (bf16)
+    return contract_launch(static_cast<const __nv_bfloat16*>(log_w), s,
+                           partial, t, n, r, B, n_splits, rows_per_split, vec,
+                           stream);
+  return contract_launch(static_cast<const float*>(log_w), s, partial, t, n,
+                         r, B, n_splits, rows_per_split, vec, stream);
+}
+
+REPRO_EXPORT int log_halfstep_launch(const void* log_w, int bf16,
+                                     const float* t, const float* lmarg,
+                                     float* out, int m, int r, int B,
+                                     float scale, int vec, int grid,
+                                     cudaStream_t stream) {
+  if (bf16)
+    return halfstep_launch(static_cast<const __nv_bfloat16*>(log_w), t, lmarg,
+                           out, m, r, B, scale, vec, grid, stream);
+  return halfstep_launch(static_cast<const float*>(log_w), t, lmarg, out, m,
+                         r, B, scale, vec, grid, stream);
 }

@@ -8,7 +8,9 @@
   ``out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :]))``, shape (m, B).
   ``scale=eps`` is the potential update, ``scale=-1, lmarg=0`` the raw LSE.
 
-A row or column whose entries are all ``-inf`` (dead atoms carry
+``log_w`` is stored as float32 or bfloat16 (``precision="bf16"``); the
+kernels widen it on load and accumulate in float32, as the plain versions
+do. A row or column whose entries are all ``-inf`` (dead atoms carry
 ``f = -inf``) gives ``-inf``, never NaN. B is small (the solvers run B = 1):
 the kernels keep one running LSE per column in registers, up to
 ``MAX_COLS`` columns. Counterpart of ``repro.kernels.logmatvec``.
@@ -37,10 +39,12 @@ _MAX_SMEM = 227 * 1024          # dynamic shared memory of one CTA (t)
 def _lib():
     lib = build.load("logmatvec")
     c = lib.log_feature_contract_launch
-    c.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    c.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     c.restype = ctypes.c_int
     h = lib.log_halfstep_launch
-    h.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    h.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 3
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p])
     h.restype = ctypes.c_int
@@ -53,15 +57,33 @@ def _check_cols(B: int, what: str) -> None:
                          f"got {B}")
 
 
+def _vec_width(log_w: torch.Tensor) -> int:
+    """Elements of ``log_w`` in one 16-byte load: 4 float32 or 8 bfloat16."""
+    return 16 // log_w.element_size()
+
+
 def _vectorized(log_w: torch.Tensor, B: int) -> bool:
-    """Whether the kernels take their float4 path: one column (the solvers'
-    B = 1) and rows that start on 16-byte boundaries."""
-    return B == 1 and log_w.shape[1] % 4 == 0 and log_w.data_ptr() % 16 == 0
+    """Whether the kernels take their 16-byte vector path: one column (the
+    solvers' B = 1) and rows that start on 16-byte boundaries, which for
+    2-byte bfloat16 elements needs r to be a multiple of 8."""
+    return (B == 1 and log_w.shape[1] % _vec_width(log_w) == 0
+            and log_w.data_ptr() % 16 == 0)
 
 
-def _split_rows(n: int, r: int, vec: bool, device: torch.device):
-    """(n_splits, rows_per_split): about 8 contract CTAs per SM."""
-    cols = _CONTRACT_THREADS * (4 if vec else 1)
+def _contract_vectorized(log_w: torch.Tensor, B: int) -> bool:
+    """Whether the contract takes its vector path: as :func:`_vectorized`,
+    and only where the ``r / V`` vectors of a row fill a CTA. Below that
+    (r < 1024 in bfloat16, r < 512 in float32) most threads of a vector CTA
+    would idle while the rest reduce V columns each, so the scalar path,
+    one column a thread, finishes sooner."""
+    return (_vectorized(log_w, B)
+            and log_w.shape[1] // _vec_width(log_w) >= _CONTRACT_THREADS)
+
+
+def _split_rows(n: int, r: int, vec: int, device: torch.device):
+    """(n_splits, rows_per_split): about 8 contract CTAs per SM. ``vec`` is
+    the vector width in elements, 0 on the scalar path."""
+    cols = _CONTRACT_THREADS * max(vec, 1)
     r_tiles = -(-r // cols)
     want = max(1, (8 * sm_count(device)) // r_tiles)
     rows = max(_MIN_ROWS_PER_SPLIT, -(-n // want))
@@ -74,7 +96,7 @@ def log_feature_contract(log_w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.log_feature_contract_ref`."""
     dev = log_w.device
-    check_operand(log_w, "log_w", 2, dev)
+    check_operand(log_w, "log_w", 2, dev, factor=True)
     check_operand(s, "s", 2, dev)
     n, r = log_w.shape
     B = s.shape[1]
@@ -87,14 +109,15 @@ def log_feature_contract(log_w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if n < 1 or r < 1:
         raise ValueError(f"log_feature_contract kernel takes n, r >= 1, got "
                          f"n={n}, r={r}")
-    vec = _vectorized(log_w, B)
-    n_splits, rows = _split_rows(n, r, vec, dev)
+    vec = _contract_vectorized(log_w, B)
+    n_splits, rows = _split_rows(n, r, _vec_width(log_w) if vec else 0, dev)
     partial = torch.empty((n_splits, r, B), dtype=torch.float32, device=dev)
     t = torch.empty((r, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().log_feature_contract_launch(
-            log_w.data_ptr(), s.data_ptr(), partial.data_ptr(), t.data_ptr(),
+            log_w.data_ptr(), int(log_w.dtype == torch.bfloat16),
+            s.data_ptr(), partial.data_ptr(), t.data_ptr(),
             n, r, B, n_splits, rows, int(vec), stream)
     build.check_launch(_lib(), code, "log_feature_contract")
     log_feature_contract.launches += 1
@@ -108,7 +131,7 @@ def log_halfstep(log_w: torch.Tensor, t: torch.Tensor, lmarg: torch.Tensor,
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.log_halfstep_ref`."""
     dev = log_w.device
-    check_operand(log_w, "log_w", 2, dev)
+    check_operand(log_w, "log_w", 2, dev, factor=True)
     check_operand(t, "t", 2, dev)
     check_operand(lmarg, "lmarg", 2, dev)
     m, r = log_w.shape
@@ -127,7 +150,8 @@ def log_halfstep(log_w: torch.Tensor, t: torch.Tensor, lmarg: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().log_halfstep_launch(
-            log_w.data_ptr(), t.data_ptr(), lmarg.data_ptr(), out.data_ptr(),
+            log_w.data_ptr(), int(log_w.dtype == torch.bfloat16),
+            t.data_ptr(), lmarg.data_ptr(), out.data_ptr(),
             m, r, B, float(scale), int(_vectorized(log_w, B)), grid, stream)
     build.check_launch(_lib(), code, "log_halfstep")
     log_halfstep.launches += 1

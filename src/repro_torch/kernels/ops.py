@@ -11,11 +11,14 @@ log mode, the plan of every family the port has is :func:`_log_plan`:
 * ``factored`` — the masked log of the linear factors.
 
 Each iteration then runs ``log_halfstep`` three times and
-``log_feature_contract`` twice. The scaling plan needs the scaling trio
-(``feature_contract`` / ``sinkhorn_halfstep`` / ``feature_matvec``), which
-is not ported yet: ``mode="scaling"`` raises for every kind. There is no
-persistent megakernel either (``make_block_step`` is ``None``), so the
-cadence is one iteration per step. Counterpart of ``repro.kernels.ops``.
+``log_feature_contract`` twice; ``make_block_step`` runs ``inner_steps``
+iterations in one launch of the megakernel ``log_sinkhorn_block`` where
+``fused_loop.block_plan_fits`` admits the shape. ``precision="bf16"``
+stores the log-factors in bfloat16 (cast after the feature map, as the JAX
+package casts them); every kernel accumulates in float32. The scaling plan
+needs the scaling trio (``feature_contract`` / ``sinkhorn_halfstep`` /
+``feature_matvec``), which is not ported yet: ``mode="scaling"`` raises
+for every kind. Counterpart of ``repro.kernels.ops``.
 
 ``observe_plan_selection`` is the test hook: while it is active every plan
 installed on a solve path appends an event dict.
@@ -28,7 +31,9 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from .feature_map import gaussian_feature_map
+from .fused_loop import block_plan_fits, log_sinkhorn_block
 from .logmatvec import log_feature_contract, log_halfstep
+from .ref import relax_log, relax_scaling
 
 __all__ = [
     "PRECISIONS",
@@ -53,36 +58,22 @@ SCALING_PLAN_TODO = (
 
 
 def check_precision(precision: str) -> str:
-    """Validate a ``precision=`` value. ``"bf16"`` factor storage is not
-    ported yet and raises ``NotImplementedError``."""
+    """Validate a ``precision=`` value: ``"highest"`` (float32 factors) or
+    ``"bf16"`` (bfloat16 factor storage, float32 accumulation)."""
     if precision not in PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; expected one of {PRECISIONS}")
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (bf16 factor storage) is not ported yet "
-            "(ROADMAP.md, queue A: bf16 factor storage); use 'highest'")
     return precision
 
 
-def relax_scaling(new: torch.Tensor, old: torch.Tensor,
-                  momentum: float) -> torch.Tensor:
-    """Geometric over-relaxation ``u <- old^{1-w} * new^w``; zero scalings
-    (dead atoms) take ``new`` verbatim, so ``0^{1-w} * 0`` never makes NaN."""
-    if momentum == 1.0:
-        return new
-    mixed = old ** (1.0 - momentum) * new ** momentum
-    return torch.where((old > 0) & (new > 0), mixed, new)
-
-
-def relax_log(new: torch.Tensor, old: torch.Tensor,
-              momentum: float) -> torch.Tensor:
-    """Log-space over-relaxation ``f <- (1-w) old + w new``; ``-inf``
-    potentials (dead atoms) take ``new`` verbatim."""
-    if momentum == 1.0:
-        return new
-    mixed = (1.0 - momentum) * old + momentum * new
-    return torch.where(torch.isfinite(old) & torch.isfinite(new), mixed, new)
+def _store_features(xi: torch.Tensor, zeta: torch.Tensor, precision: str):
+    """The storage half of the mixed-precision policy: ``"bf16"`` halves
+    the bytes of the (n, r)/(m, r) factors every kernel streams, while
+    every kernel widens them to float32 before it adds or sums."""
+    check_precision(precision)
+    if precision == "bf16":
+        return xi.to(torch.bfloat16), zeta.to(torch.bfloat16)
+    return xi, zeta
 
 
 def _masked_log(w: torch.Tensor) -> torch.Tensor:
@@ -107,8 +98,13 @@ class GeometryOps(NamedTuple):
                     operators; ``init`` lifts ``(f0, g0)`` into the carry
                     ``(f, g, t1)`` with ``t1 = LSE(logXi + f/eps)``.
     ``eps``       — the regularization the potentials live at.
-    ``make_block_step`` — the persistent megakernel; not ported (``None``).
-    ``precision`` — "highest" (float32 factors and accumulation).
+    ``make_block_step`` — ``(a, b, *, inner_steps, momentum) ->
+                    Optional[(step, init)]``: ``step`` advances
+                    ``inner_steps`` iterations in one megakernel launch
+                    over the same carry as ``make_step``; ``None`` where
+                    ``fused_loop.block_plan_fits`` refuses the shape.
+    ``precision`` — "highest" (float32 factors) or "bf16" (bfloat16
+                    factor storage); accumulation is float32 in both.
     """
 
     mode: str
@@ -117,13 +113,14 @@ class GeometryOps(NamedTuple):
     iteration: Callable
     make_step: Callable
     eps: float
-    make_block_step: Optional[Callable] = None
+    make_block_step: Callable
     precision: str = "highest"
 
 
 def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
               eps: float, precision: str = "highest") -> GeometryOps:
-    log_xi, log_zeta = log_xi.contiguous(), log_zeta.contiguous()
+    log_xi, log_zeta = _store_features(log_xi.contiguous(),
+                                       log_zeta.contiguous(), precision)
 
     def iteration(loga, logb, f):
         t = log_feature_contract(log_xi, f / eps)
@@ -135,6 +132,10 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
         """Stage-1 LSE over logXi: computed once per iteration, it serves
         both the convergence check and the next iteration's g-update."""
         return log_feature_contract(log_xi, f[:, None] / eps)
+
+    def init(f0, g0):
+        """The carry ``(f, g, t1)`` both step kinds advance."""
+        return (f0, g0, contract_f(f0))
 
     def make_step(a, b, *, momentum: float = 1.0):
         loga = _masked_log(a)[:, None].contiguous()
@@ -155,14 +156,29 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
             err = torch.sum(torch.abs(torch.exp(log_col) - b))
             return (f_new, g_new, t3), err
 
-        def init(f0, g0):
-            return (f0, g0, contract_f(f0))
+        return step, init
+
+    def make_block_step(a, b, *, inner_steps: int, momentum: float = 1.0):
+        n, m = a.shape[0], b.shape[0]
+        if not block_plan_fits(n, m, log_xi.shape[1], 1, log_xi.dtype):
+            return None
+        loga = _masked_log(a)[:, None].contiguous()
+        logb = _masked_log(b)[:, None].contiguous()
+        bc = b[:, None].contiguous()
+
+        def step(carry):
+            f, g, t1 = carry
+            f2, g2, t2, err = log_sinkhorn_block(
+                log_xi, log_zeta, loga, logb, bc, f[:, None].contiguous(),
+                g[:, None].contiguous(), t1, inner_steps=inner_steps,
+                eps=eps, momentum=momentum)
+            return (f2[:, 0], g2[:, 0], t2), err
 
         return step, init
 
     return GeometryOps(mode="log", kind=kind, features=(log_xi, log_zeta),
                        iteration=iteration, make_step=make_step, eps=eps,
-                       precision=precision)
+                       make_block_step=make_block_step, precision=precision)
 
 
 def geometry_ops(geom, *, mode: str = "log",

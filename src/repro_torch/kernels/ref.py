@@ -5,7 +5,10 @@ wrappers run them for CPU tensors, the tests hold them against the JAX
 package's Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card. Every log-sum-exp here is the explicit max-shift
 form with the shift of an all ``-inf`` slice pinned to 0, so such a slice
-gives ``-inf`` and not NaN (``_finite_or_zero`` in the JAX package).
+gives ``-inf`` and not NaN (``_finite_or_zero`` in the JAX package). The
+shift is held constant under autograd, as ``jax.nn.logsumexp`` holds it,
+so the gradient is the softmax. Factors stored in bfloat16 are upcast to
+float32 before any arithmetic: every sum accumulates in float32.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ __all__ = [
     "gaussian_feature_map_ref",
     "log_feature_contract_ref",
     "log_halfstep_ref",
+    "relax_scaling",
+    "relax_log",
+    "log_sinkhorn_block_ref",
 ]
 
 
@@ -46,7 +52,7 @@ def _finite_or_zero(m: torch.Tensor) -> torch.Tensor:
 
 def lse(z: torch.Tensor, dim: int) -> torch.Tensor:
     """log-sum-exp of ``z`` over ``dim`` with the exact max shift."""
-    m = _finite_or_zero(torch.amax(z, dim=dim, keepdim=True))
+    m = _finite_or_zero(torch.amax(z.detach(), dim=dim, keepdim=True))
     out = m + torch.log(torch.sum(torch.exp(z - m), dim=dim, keepdim=True))
     return out.squeeze(dim)
 
@@ -77,11 +83,56 @@ def gaussian_feature_map_ref(x: torch.Tensor, anchors: torch.Tensor,
 def log_feature_contract_ref(log_w: torch.Tensor,
                              s: torch.Tensor) -> torch.Tensor:
     """t[k, c] = LSE_i(log_w[i, k] + s[i, c]) : (n, r), (n, B) -> (r, B)."""
-    return lse(log_w[:, :, None] + s[:, None, :], dim=0)
+    return lse(log_w.float()[:, :, None] + s[:, None, :], dim=0)
 
 
 def log_halfstep_ref(log_w: torch.Tensor, t: torch.Tensor,
                      lmarg: torch.Tensor, *, scale: float = 1.0
                      ) -> torch.Tensor:
     """out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :])), shape (m, B)."""
-    return scale * (lmarg - lse(log_w[:, :, None] + t[None, :, :], dim=1))
+    return scale * (lmarg - lse(log_w.float()[:, :, None] + t[None, :, :],
+                                dim=1))
+
+
+def relax_scaling(new: torch.Tensor, old: torch.Tensor,
+                  momentum: float) -> torch.Tensor:
+    """Geometric over-relaxation ``u <- old^{1-w} * new^w``; zero scalings
+    (dead atoms) take ``new`` verbatim, so ``0^{1-w} * 0`` never makes NaN."""
+    if momentum == 1.0:
+        return new
+    mixed = old ** (1.0 - momentum) * new ** momentum
+    return torch.where((old > 0) & (new > 0), mixed, new)
+
+
+def relax_log(new: torch.Tensor, old: torch.Tensor,
+              momentum: float) -> torch.Tensor:
+    """Log-space over-relaxation ``f <- (1-w) old + w new``; ``-inf``
+    potentials (dead atoms) take ``new`` verbatim."""
+    if momentum == 1.0:
+        return new
+    mixed = (1.0 - momentum) * old + momentum * new
+    return torch.where(torch.isfinite(old) & torch.isfinite(new), mixed, new)
+
+
+def log_sinkhorn_block_ref(log_xi: torch.Tensor, log_zeta: torch.Tensor,
+                           loga: torch.Tensor, logb: torch.Tensor,
+                           b: torch.Tensor, f0: torch.Tensor,
+                           g0: torch.Tensor, t0: torch.Tensor, *,
+                           inner_steps: int, eps: float,
+                           momentum: float = 1.0):
+    """``inner_steps`` log-domain iterations over the carry
+    ``(f, g, t = LSE_i(log_xi + f/eps))``, then the marginal error
+    ``sum |exp(LSE_k(log_zeta + t) + g/eps) - b|`` at the block end.
+    Shapes (n, r), (m, r); (n, B), (m, B), (m, B); (n, B), (m, B), (r, B);
+    any B. Returns ``(f, g, t, err)`` with ``err`` 0-d."""
+    lxi, lzt = log_xi.float(), log_zeta.float()
+    f, g, t = f0, g0, t0
+    for _ in range(inner_steps):
+        g = relax_log(eps * (logb - lse(lzt[:, :, None] + t[None], dim=1)),
+                      g, momentum)
+        t = lse(lzt[:, :, None] + (g / eps)[:, None, :], dim=0)
+        f = relax_log(eps * (loga - lse(lxi[:, :, None] + t[None], dim=1)),
+                      f, momentum)
+        t = lse(lxi[:, :, None] + (f / eps)[:, None, :], dim=0)
+    log_col = lse(lzt[:, :, None] + t[None], dim=1) + g / eps
+    return f, g, t, torch.sum(torch.abs(torch.exp(log_col) - b))

@@ -124,13 +124,6 @@ def test_factored_method_needs_plain_operators_until_the_trio_lands():
     assert np.isfinite(float(solve(prob, use_pallas=False).cost))
 
 
-@pytest.mark.parametrize("use_pallas", [None, False])
-def test_bf16_precision_raises_not_implemented(use_pallas):
-    prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        solve(prob, precision="bf16", use_pallas=use_pallas)
-
-
 def test_unknown_precision_is_a_value_error():
     prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
     with pytest.raises(ValueError):
@@ -138,12 +131,15 @@ def test_unknown_precision_is_a_value_error():
 
 
 def test_requires_grad_input_raises_not_implemented():
+    """A solve refuses inputs that require grad (no backprop through the
+    loop); the divergence differentiates them through the envelope VJP."""
     x, y, u = _cloud_arrays()
     xt = torch.as_tensor(x).requires_grad_(True)
     geom = repro_torch.core.GaussianPointCloud.build(
         xt, torch.as_tensor(y), torch.as_tensor(u), eps=0.5)
-    with pytest.raises(NotImplementedError, match="gradients"):
-        sinkhorn_divergence_geometry(geom)
+    (grad,) = torch.autograd.grad(sinkhorn_divergence_geometry(geom), [xt])
+    assert grad.shape == xt.shape and torch.isfinite(grad).all()
+    assert float(grad.abs().max()) > 0
     prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
     with pytest.raises(NotImplementedError, match="gradients"):
         solve(OTProblem(prob.geometry, prob.a.clone().requires_grad_(True),
@@ -181,12 +177,18 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     csrc = PKG / "kernels" / "csrc"
     fm = (csrc / "feature_map.cu").read_text()
     lm = (csrc / "logmatvec.cu").read_text()
+    fl = (csrc / "fused_loop.cu").read_text()
     assert "__global__" in fm and "gaussian_feature_map_launch" in fm
     for name in ("log_contract_partial_kernel", "log_contract_combine_kernel",
                  "log_halfstep_kernel", "log_feature_contract_launch",
-                 "log_halfstep_launch"):
+                 "log_halfstep_launch", "__nv_bfloat16"):
         assert name in lm
-    for src in (fm, lm):
+    for name in ("__global__", "log_sinkhorn_block_kernel",
+                 "log_sinkhorn_block_launch", "__nv_bfloat16",
+                 "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+        assert name in fl
+    assert set(build.SOURCES) == {"feature_map", "logmatvec", "fused_loop"}
+    for src in (fm, lm, fl):
         assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
         for lib in ("cublas", "cudnn", "cutlass"):
             assert lib not in src.lower()
