@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6]
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
@@ -11,19 +11,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. each kernel against its plain PyTorch version on the card: at the main
    paths' shapes, at ragged shapes, and on inputs with ``-inf`` rows,
    columns and constants; the LSE kernels on float32 and bf16 factors; the
-   megakernel in bf16 and float32, at momentum 1.0 and 1.3, with dead
+   log megakernel in bf16 and float32, at momentum 1.0 and 1.3, with dead
    atoms and a dead anchor, and its refusal of shapes the plan does not
-   admit. Tolerances: the feature map within 1e-5 of max |value|; the LSE
-   kernels and the megakernel's potentials atol 1e-4 + rtol 1e-5
-   (summation order differs); the megakernel's block-end error 1e-4
-   relative + 1e-6, and a second launch bit-identical;
+   admit; the scaling contract, half-step (with a zero-weight atom and an
+   all-zero row) and matvec on float32 and bf16 factors, the contract on
+   both of its paths at r = 128; the scaling megakernel as the log one.
+   Tolerances: the feature map and the scaling kernels within 1e-5 of max
+   |value|; the LSE kernels and the log megakernel's potentials atol 1e-4
+   + rtol 1e-5 (summation order differs); the scaling megakernel's
+   carries within 1e-5 of max |value|; both megakernels' block-end errors
+   1e-4 relative + 1e-6, and a second launch bit-identical;
 3. times (CUDA events, median of 21 batches of 10 launches, queued behind a
    device spin so that host overhead is not timed) of each kernel, its plain
    version and one PyTorch library call computing the same function where
    there is one, beside the least time the card could take (bytes over
    3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger):
    at the solve path's shape, the LSE kernels at batch 2048, r = 128 in
-   bf16, and the megakernel at the OT-GAN shape;
+   bf16, and the log megakernel at the OT-GAN shape; the scaling kernels
+   at n = 16384, r = 1024 and 256, float32 and bf16, and the scaling
+   megakernel at the OT-GAN shape;
 4. the solve path: three annealed ``solve()`` requests on Gaussian point
    clouds (N(1, I) against N(0, 0.1 I), n = m = 16384, d = 8, r = 1024,
    eps = 0.1, seeds 0, 1, 2, tol = 1e-4, well above the float32 noise floor
@@ -40,7 +46,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    strict run's step-0 weights and data, whose W̄ is also held against the
    run's own, and its trained weights); a profile of one adversary and one
    generator step; and ms per step of the megakernel plan against the
-   streaming plan on the same data.
+   streaming plan on the same data;
+6. the scaling path (Algorithm 1 in scaling space), with the counters set
+   to 0 before and read after: ``solve(method="auto")`` on explicit
+   features U(0, 1) + 0.05 (n = m = 16384, r = 1024 and 256, eps 0.5, 20
+   iterations, float32 and bf16; the JAX package's hot-loop benchmark),
+   ``solve(method="factored")`` on phase 4's clouds at eps 1.0, tol 1e-4,
+   ``OTObjective.solve`` at the OT-GAN batch (256, r = 128, bf16, 40
+   iterations: the scaling megakernel) and the scaling divergence with its
+   envelope gradient (n = m = 4096, r = 256, 20 iterations). Then each is
+   held against ``use_pallas=False`` (cost 1e-4 relative, u and v within
+   1e-4 of max |value|, |d n_iter| <= 1), the clouds also against
+   ``method="log_factored"``, the divergence against the same call on the
+   CPU (value 1e-4 relative, gradients within 1e-3 of max |grad|); plus a
+   profile of one feature solve and ms per objective solve of the
+   megakernel against the streaming plan.
 
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``. TF32 is off throughout.
@@ -74,6 +94,9 @@ GRAD_REL_TOL = 1e-3             # of max |grad|
 GAN_BATCH = 256                 # the OT-GAN example's default batch
 GAN_BIG_BATCH = 2048            # bench_gan's largest batch
 GAN_STEPS = 60                  # the reference CI's train-smoke length
+SCALING_REL_TOL = 1e-5          # scaling kernels: of max |value|
+SCALING_EPS = 0.5               # the JAX hot-loop benchmark's eps
+SCALING_ITERS = 20              # and its iteration count
 
 KERNEL_INFO = {
     "gaussian_feature_map": {
@@ -91,6 +114,22 @@ KERNEL_INFO = {
     "log_sinkhorn_block": {
         "source": "src/repro_torch/kernels/csrc/fused_loop.cu",
         "replaces": "src/repro/kernels/fused_loop.py:383",
+    },
+    "feature_contract": {
+        "source": "src/repro_torch/kernels/csrc/kermatvec.cu",
+        "replaces": "src/repro/kernels/kermatvec.py:130",
+    },
+    "sinkhorn_halfstep": {
+        "source": "src/repro_torch/kernels/csrc/kermatvec.cu",
+        "replaces": "src/repro/kernels/kermatvec.py:218",
+    },
+    "feature_matvec": {
+        "source": "src/repro_torch/kernels/csrc/kermatvec.cu",
+        "replaces": "src/repro/kernels/kermatvec.py:225",
+    },
+    "sinkhorn_block": {
+        "source": "src/repro_torch/kernels/csrc/fused_loop.cu",
+        "replaces": "src/repro/kernels/fused_loop.py:254",
     },
 }
 
@@ -151,7 +190,7 @@ def feature_inputs(torch, np, n, r, d, eps, seed, device):
 
 
 def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
-                  block_shapes):
+                  block_shapes, scaling_shapes, scaling_block_shapes):
     from repro_torch.kernels import ref
     from repro_torch.kernels.feature_map import gaussian_feature_map
     from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
@@ -211,6 +250,8 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
                    f"m={m} r={r} B={B} scale={scale} -inf={neg_inf}", err, ok)
     check_bf16_lse(torch, np, device, bf16_shapes, record)
     check_block(torch, np, device, block_shapes, record)
+    check_scaling(torch, np, device, scaling_shapes, record)
+    check_scaling_block(torch, device, scaling_block_shapes, record)
     return errs, failures
 
 
@@ -333,6 +374,131 @@ def check_block(torch, np, device, shapes, record):
                worst, all_ok and e_ok and same)
 
 
+def explicit_features(np, n, r, seed):
+    """Features U(0, 1) + 0.05 from a numpy seed (benchmarks/run.py's
+    bench_solver_iteration draws them so)."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(size=(n, r)) + 0.05).astype(np.float32)
+
+
+def check_scaling(torch, np, device, shapes, record):
+    """The scaling contract, half-step and matvec against their plain
+    versions on the same inputs, within 1e-5 of max |value|. The half-step
+    has a zero-weight atom on a positive row (exactly 0) and an all-zero
+    factor row (marg / 0 = inf, in both). The contract runs on both of its
+    paths where the vector path applies (B = 1, rows of 16 bytes)."""
+    from repro_torch.kernels import kermatvec, ref
+    from repro_torch.kernels.kermatvec import (
+        feature_contract,
+        feature_matvec,
+        sinkhorn_halfstep,
+    )
+
+    for (n, r, B, dtype) in shapes:
+        tag = f"{str(dtype)[6:]} n={n} r={r} B={B}"
+        xi = torch.as_tensor(explicit_features(np, n, r, n + 7 * r + B),
+                             device=device).to(dtype)
+        g = torch.Generator(device=device).manual_seed(n * 3 + r + B)
+        u = torch.rand((n, B), generator=g, device=device)
+        t = torch.rand((r, B), generator=g, device=device)
+        marg = torch.full((n, B), 1.0 / n, device=device)
+        marg[n // 2] = 0.0
+        want = ref.feature_contract_ref(xi, u)
+        paths = [("chosen", kermatvec._contract_vectorized)]
+        if kermatvec._vectorized(xi, B):
+            paths.append(("vector", kermatvec._vectorized))
+            paths.append(("scalar", lambda *_: False))
+        chosen = kermatvec._contract_vectorized
+        for label, rule in paths:
+            kermatvec._contract_vectorized = rule
+            try:
+                got = feature_contract(xi, u)
+            finally:
+                kermatvec._contract_vectorized = chosen
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
+            record("feature_contract", f"{tag} {label} path", err, ok)
+        got = feature_matvec(xi, t)
+        want = ref.feature_matvec_ref(xi, t)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
+        record("feature_matvec", tag, err, ok)
+        xz = xi.clone()
+        xz[n // 5] = 0.0
+        got = sinkhorn_halfstep(xz, t, marg)
+        want = ref.sinkhorn_halfstep_ref(xz, t, marg)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
+        ok = ok and bool((got[n // 2] == 0).all())
+        record("sinkhorn_halfstep", f"{tag} zero row/weight", err, ok)
+
+
+def scaling_block_inputs(torch, n, m, r, dtype, dead, seed, device):
+    """A scaling megakernel block's inputs as the plan builds them:
+    features exp(N(0, 1)) (a range wide enough that 8 iterations do not
+    converge), scaled by (r max(n, m))^-1/2 so that K's row sums, and with
+    them u, v and s, are of order 1, at ``dtype``; uniform weights with
+    ``dead`` zero-weight atoms a side, and the carry at u = v = 1,
+    s = Zeta (Xi^T u)."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = (r * max(n, m)) ** -0.5
+    xi = (c * torch.exp(torch.randn((n, r), generator=g,
+                                    device=device))).to(dtype)
+    zeta = (c * torch.exp(torch.randn((m, r), generator=g,
+                                      device=device))).to(dtype)
+    a = torch.ones((n, 1), device=device)
+    b = torch.ones((m, 1), device=device)
+    if dead:
+        a[n // 3::max(n // dead, 1)][:dead] = 0.0
+        b[m // 4::max(m // dead, 1)][:dead] = 0.0
+    a, b = a / a.sum(), b / b.sum()
+    u0 = torch.ones((n, 1), device=device)
+    v0 = torch.ones((m, 1), device=device)
+    s0 = ref.feature_matvec_ref(zeta, ref.feature_contract_ref(xi, u0))
+    return (xi.contiguous(), zeta.contiguous(), a, b, u0, v0,
+            s0.contiguous())
+
+
+def check_scaling_block(torch, device, shapes, record):
+    """The scaling megakernel against sinkhorn_block_ref on the same
+    inputs: u, v, s within 1e-5 of max |value|, the block-end error within
+    1e-4 relative + 1e-6, a second launch bit-identical; shapes the plan
+    does not admit are refused by block_plan_fits and by the wrapper."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_loop import block_plan_fits, sinkhorn_block
+
+    for (n, m, r, dtype, mom, dead, steps) in shapes:
+        args = scaling_block_inputs(torch, n, m, r, dtype, dead, n + m + r,
+                                    device)
+        case = (f"n={n} m={m} r={r} {str(dtype)[6:]} momentum={mom} "
+                f"dead={dead} steps={steps}")
+        if not block_plan_fits(n, m, r, 1, dtype):
+            try:
+                sinkhorn_block(*args, inner_steps=steps, momentum=mom)
+                refused = False
+            except ValueError:
+                refused = True
+            record("sinkhorn_block", case + " (not admitted: refused)", 0.0,
+                   refused)
+            continue
+        got = sinkhorn_block(*args, inner_steps=steps, momentum=mom)
+        again = sinkhorn_block(*args, inner_steps=steps, momentum=mom)
+        want = ref.sinkhorn_block_ref(*args, inner_steps=steps, momentum=mom)
+        torch.cuda.synchronize()
+        worst, all_ok = 0.0, True
+        for gv, wv in zip(got[:3], want[:3]):
+            err, ok = compare(torch, gv, wv, rel_to_max=SCALING_REL_TOL)
+            worst, all_ok = max(worst, err), all_ok and ok
+        e_got, e_want = float(got[3]), float(want[3])
+        e_ok = abs(e_got - e_want) <= 1e-4 * abs(e_want) + 1e-6
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        dead_ok = bool((got[0][args[2] == 0] == 0).all())
+        record("sinkhorn_block",
+               f"{case} err={e_got:.4e}/{e_want:.4e} repeat_identical={same}",
+               worst, all_ok and e_ok and same and dead_ok)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: times
 # ---------------------------------------------------------------------------
@@ -365,6 +531,17 @@ def time_ms(torch, fn, batches=21, per_batch=10, warmup=3):
         log(f"  (warning: {host_bound} of {batches} batches took longer to "
             "enqueue than the spin; their times include host time)")
     return statistics.median(means)
+
+
+def cycling(fn, args):
+    """A call of ``fn`` on the next of ``args`` each time (round robin)."""
+    state = [0]
+
+    def call():
+        state[0] = (state[0] + 1) % len(args)
+        return fn(args[state[0]])
+
+    return call
 
 
 def calibrate_sleep(torch):
@@ -511,6 +688,106 @@ def time_training_kernels(torch, np, device):
     return rows
 
 
+def time_scaling_kernels(torch, np, device):
+    """Phase 3 for the scaling path: the contract, half-step and matvec at
+    n = 16384, r = 1024 and 256, float32 and bf16 (B = 1), each beside its
+    plain version and the one PyTorch call computing the same function
+    (``xi.T @ u``, ``marg / (xi @ t)``, ``xi @ t``; bf16 factors widened
+    first, as the kernels widen them), and the scaling megakernel at the
+    OT-GAN shape n = m = 256, r = 128, bf16, 8 iterations (no PyTorch call
+    runs Sinkhorn iterations). A factor of 8 to 32 MiB fits the 50 MB L2,
+    so each call is timed cold, cycling through copies of the factor that
+    together exceed 100 MB (the bound counts device-memory bytes), and warm,
+    on one copy (what a solve whose two factors fit the L2 finds). The
+    JSON line takes the cold float32 r = 1024 rows, the shape of the
+    scaling path's first request."""
+    from repro_torch.kernels import kermatvec, ref
+    from repro_torch.kernels.fused_loop import sinkhorn_block
+    from repro_torch.kernels.kermatvec import (
+        feature_contract,
+        feature_matvec,
+        sinkhorn_halfstep,
+    )
+
+    rows = {}
+    n, B = N, 1
+    g = torch.Generator(device=device).manual_seed(11)
+    u = torch.rand((n, B), generator=g, device=device)
+    marg = torch.full((n, B), 1.0 / n, device=device)
+    for r in (R_ANCHORS, 256):
+        xi32 = torch.as_tensor(explicit_features(np, n, r, r), device=device)
+        t = torch.rand((r, B), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            fb = torch.finfo(dtype).bits // 8
+            copies = [xi32.to(dtype) for _ in
+                      range(max(1, math.ceil(100e6 / (fb * n * r))))]
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for name, kernel, plain, library, nbytes, flops in (
+                ("feature_contract",
+                 lambda xi: feature_contract(xi, u),
+                 lambda xi: ref.feature_contract_ref(xi, u),
+                 lambda xi: xi.float().T @ u,
+                 fb * n * r + 4.0 * (n * B + r * B), 2.0 * n * r * B),
+                ("sinkhorn_halfstep",
+                 lambda xi: sinkhorn_halfstep(xi, t, marg),
+                 lambda xi: ref.sinkhorn_halfstep_ref(xi, t, marg),
+                 lambda xi: marg / (xi.float() @ t),
+                 fb * n * r + 4.0 * (r * B + 2 * n * B),
+                 2.0 * n * r * B + n * B),
+                ("feature_matvec",
+                 lambda xi: feature_matvec(xi, t),
+                 lambda xi: ref.feature_matvec_ref(xi, t),
+                 lambda xi: xi.float() @ t,
+                 fb * n * r + 4.0 * (r * B + n * B), 2.0 * n * r * B)):
+                cold = [time_ms(torch, cycling(fn, copies))
+                        for fn in (kernel, plain, library)]
+                warm = time_ms(torch, lambda: kernel(copies[0]))
+                b_ms, b_by = bound(nbytes, flops)
+                row = dict(ms=cold[0], plain_ms=cold[1], library_ms=cold[2],
+                           bound_ms=b_ms, bound_by=b_by)
+                rows[f"{name}/{tag}/r={r}"] = row
+                if tag == "f32" and r == R_ANCHORS:
+                    rows[name] = row
+                log(f"  {name:22s} {tag} n={n} r={r}: kernel {cold[0]:.4f} ms"
+                    f" (L2-warm {warm:.4f})  plain {cold[1]:.4f} ms  library "
+                    f"{cold[2]:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+                    f"kernel/bound {cold[0] / b_ms:.2f}")
+            if not kermatvec._contract_vectorized(copies[0], B) and \
+                    kermatvec._vectorized(copies[0], B):
+                # the vector path, which the wrapper leaves at this r
+                chosen = kermatvec._contract_vectorized
+                kermatvec._contract_vectorized = kermatvec._vectorized
+                try:
+                    vec_ms = time_ms(torch, cycling(
+                        lambda xi: feature_contract(xi, u), copies))
+                finally:
+                    kermatvec._contract_vectorized = chosen
+                log(f"  feature_contract       {tag} n={n} r={r}: 16-byte "
+                    f"vector path forced {vec_ms:.4f} ms (the wrapper takes "
+                    "the scalar path)")
+
+    n = m = GAN_BATCH
+    r, steps = 128, 8
+    args = scaling_block_inputs(torch, n, m, r, torch.bfloat16, 0, 7, device)
+    nbytes = 2.0 * (n + m) * r + 4.0 * (3 * n + 5 * m + 1)
+    flops = steps * (4.0 * r * (n + m) + 4.0 * (n + m)) + 3.0 * m
+    ms = time_ms(torch, lambda: sinkhorn_block(*args, inner_steps=steps))
+    plain_ms = time_ms(torch, lambda: ref.sinkhorn_block_ref(
+        *args, inner_steps=steps))
+    b_ms, b_by = bound(nbytes, flops)
+    rows["sinkhorn_block"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                  bound_ms=b_ms, bound_by=b_by)
+    log(f"  sinkhorn_block         bf16 n=m={n} r={r} inner_steps={steps}: "
+        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library none  bound "
+        f"{b_ms:.6f} ms ({b_by})  kernel/bound {ms / b_ms:.1f}")
+    # a launch of one iteration splits the fixed cost (staging the factors,
+    # the block-end error) from the cost of an iteration
+    one_ms = time_ms(torch, lambda: sinkhorn_block(*args, inner_steps=1))
+    log(f"  sinkhorn_block         inner_steps=1: kernel {one_ms:.4f} ms; "
+        f"each further iteration {(ms - one_ms) / (steps - 1):.4f} ms")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -582,24 +859,29 @@ def kernel_rows(torch, prof):
 
 
 def profile_solve(torch, problem, schedule):
-    """Device busy share of one solve request: the device time of every
-    kernel the profiler saw over the request's wall time (both under the
-    profiler, which slows the host side)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device busy share of one annealed solve request."""
     from repro_torch.core import solve
+    profile_call(torch, "solve seed=0",
+                 lambda: solve(problem, schedule=schedule, tol=TOL))
+
+
+def profile_call(torch, label, fn):
+    """Device busy share of one call of ``fn`` (a solve): the device time
+    of every kernel the profiler saw over the call's wall time (both under
+    the profiler, which slows the host side)."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = solve(problem, schedule=schedule, tol=TOL)
+        res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = kernel_rows(torch, prof)
     device_us = sum(e.self_device_time_total for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)
-    log(f"  profiled solve seed=0: wall={wall:.4f} s n_iter={res.n_iter} "
+    log(f"  profiled {label}: wall={wall:.4f} s n_iter={res.n_iter} "
         f"device kernel time={device_us / 1e3:.3f} ms")
     if device_us <= 0:
         log("  device busy share: not measured (the profiler saw no device "
@@ -913,8 +1195,216 @@ def run_training_path(torch, np, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the scaling path
+# ---------------------------------------------------------------------------
 
 
+def scaling_inputs(torch, np, device):
+    """Phase 6's requests, built before the counted run: the explicit
+    feature problems (r = 1024 and 256), the clouds of phase 4 at eps 1.0,
+    the OT-GAN-batch geometry and the divergence's leaves."""
+    from repro_torch.core import FactoredPositive, OTProblem
+    feats = {r: OTProblem.from_features(explicit_features(np, N, r, 2 * r),
+                                        explicit_features(np, M, r, 2 * r + 1),
+                                        eps=SCALING_EPS)
+             for r in (R_ANCHORS, 256)}
+    clouds_ = []
+    for seed in SEEDS:
+        prob = build_problem(torch, np, seed, device)
+        clouds_.append(OTProblem(prob.geometry.rebuild_at(1.0), prob.a,
+                                 prob.b))
+    gan = FactoredPositive(
+        xi=torch.as_tensor(explicit_features(np, GAN_BATCH, 128, 5),
+                           device=device),
+        zeta=torch.as_tensor(explicit_features(np, GAN_BATCH, 128, 6),
+                             device=device),
+        eps=SCALING_EPS)
+    n_div, r_div = 4096, 256
+    leaves = [torch.as_tensor(explicit_features(np, n_div, r_div, s),
+                              device=device) for s in (8, 9)]
+    leaves += [torch.full((n_div,), 1.0 / n_div, device=device)
+               for _ in range(2)]
+    return feats, clouds_, gan, leaves
+
+
+def scaling_objective(policy_kw=None):
+    from repro_torch.core import ExecutionPolicy, OTObjective
+    return OTObjective(eps=SCALING_EPS, tol=0.0, max_iter=40,
+                       policy=ExecutionPolicy.training(**(policy_kw or {})))
+
+
+def scaling_divergence(torch, leaves):
+    """The scaling divergence and its gradients in all four tensors."""
+    from repro_torch.core import sinkhorn_divergence_features
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    w = sinkhorn_divergence_features(*leaves, eps=SCALING_EPS, tol=0.0,
+                                     max_iter=SCALING_ITERS)
+    return w.detach(), torch.autograd.grad(w, leaves)
+
+
+def run_scaling_path(torch, np, device):
+    """The counted run of phase 6: four feature solves, three cloud solves,
+    one objective solve and one divergence with its gradient, with the
+    launch counters set to 0 just before and read just after."""
+    from repro_torch.core import solve
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import observe_plan_selection
+
+    feats, clouds_, gan, leaves = scaling_inputs(torch, np, device)
+    torch.cuda.synchronize()
+    out = {"feats": {}, "clouds": []}
+    failures = []
+    reset_launch_counts()
+    for r, prob in feats.items():
+        for precision in ("highest", "bf16"):
+            before = launch_counts()
+            with observe_plan_selection() as events:
+                t0 = time.perf_counter()
+                res = solve(prob, tol=0.0, max_iter=SCALING_ITERS,
+                            precision=precision)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            modes = [(e["mode"], e["kind"]) for e in events]
+            if modes != [("scaling", "factored")]:
+                failures.append(f"auto method on features r={r}: {modes}")
+            out["feats"][(r, precision)] = res
+            log(f"  features n=m={N} r={r} {precision}: cost="
+                f"{float(res.cost):.7f} n_iter={res.n_iter} wall={wall:.4f} s"
+                f" ({wall / res.n_iter * 1e3:.4f} ms/iteration) plan={modes}"
+                f" launches={counts_delta(before, launch_counts())}")
+    for seed, prob in zip(SEEDS, clouds_):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = solve(prob, method="factored", tol=TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["clouds"].append(res)
+        dead_rows = sum(int((w.sum(1) == 0).sum()) for w in
+                        prob.geometry.features())
+        log(f"  clouds seed={seed} eps=1.0 method=factored: cost="
+            f"{float(res.cost):.7f} n_iter={res.n_iter} marginal_err="
+            f"{float(res.marginal_err):.3e} wall={wall:.4f} s; feature rows "
+            f"that underflow to 0: {dead_rows}; launches="
+            f"{counts_delta(before, launch_counts())}")
+    before = launch_counts()
+    obj = scaling_objective()
+    t0 = time.perf_counter()
+    out["gan"] = obj.solve(gan, *obj.uniform_weights(gan))
+    torch.cuda.synchronize()
+    delta = counts_delta(before, launch_counts())
+    log(f"  OTObjective.solve n=m={GAN_BATCH} r=128 bf16 40 iterations: cost="
+        f"{float(out['gan'].cost):.7f} wall={time.perf_counter() - t0:.4f} s "
+        f"launches={delta}")
+    if delta["sinkhorn_block"] != 40 // 8:
+        failures.append("objective solve did not take the megakernel 5 times")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out["div"] = scaling_divergence(torch, leaves)
+    torch.cuda.synchronize()
+    log(f"  scaling divergence n=m=4096 r=256: value "
+        f"{float(out['div'][0]):.7f} wall={time.perf_counter() - t0:.4f} s "
+        f"(value and 4 gradients) "
+        f"launches={counts_delta(before, launch_counts())}")
+    counts = launch_counts()
+    missing = [k for k in SCALING_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    return (feats, clouds_, gan, leaves), out, counts, failures
+
+
+def compare_scaling_path(torch, inputs, out):
+    """Each request of the counted run against use_pallas=False (and the
+    clouds against method="log_factored", the divergence against the CPU);
+    a profile of one feature solve; the objective's megakernel plan against
+    its streaming plan."""
+    from repro_torch.core import rot_factored, solve
+
+    feats, clouds_, gan, leaves = inputs
+    failures = []
+
+    def check(label, ok):
+        log(f"  {label} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label.split(":")[0])
+
+    for (r, precision), res in out["feats"].items():
+        p = solve(feats[r], tol=0.0, max_iter=SCALING_ITERS,
+                  precision=precision, use_pallas=False)
+        rel = abs(float(res.cost) - float(p.cost)) / abs(float(p.cost))
+        eu, oku = compare(torch, res.u, p.u, rel_to_max=COST_RTOL)
+        ev, okv = compare(torch, res.v, p.v, rel_to_max=COST_RTOL)
+        check(f"features r={r} {precision}: plain cost={float(p.cost):.7f} "
+              f"rel_diff={rel:.3e} u err={eu:.3e} v err={ev:.3e} n_iter "
+              f"{res.n_iter}/{p.n_iter}",
+              rel <= COST_RTOL and oku and okv and res.n_iter == p.n_iter)
+    prob = feats[R_ANCHORS]
+    profile_call(torch, f"feature solve r={R_ANCHORS} f32",
+                 lambda: solve(prob, tol=0.0, max_iter=SCALING_ITERS))
+    for seed, prob, res in zip(SEEDS, clouds_, out["clouds"]):
+        p = solve(prob, method="factored", tol=TOL, use_pallas=False)
+        lg = solve(prob, method="log_factored", tol=TOL)
+        rel = abs(float(res.cost) - float(p.cost)) / abs(float(p.cost))
+        rel_log = abs(float(res.cost) - float(lg.cost)) / abs(float(lg.cost))
+        check(f"clouds seed={seed}: plain cost={float(p.cost):.7f} n_iter="
+              f"{p.n_iter} rel_diff={rel:.3e}; log_factored cost="
+              f"{float(lg.cost):.7f} n_iter={lg.n_iter} rel_diff="
+              f"{rel_log:.3e}",
+              rel <= COST_RTOL and abs(res.n_iter - p.n_iter) <= 1
+              and rel_log <= COST_RTOL)
+    obj = scaling_objective({"use_pallas": False})
+    p = obj.solve(gan, *obj.uniform_weights(gan))
+    rel = abs(float(out["gan"].cost) - float(p.cost)) / abs(float(p.cost))
+    check(f"objective solve: plain cost={float(p.cost):.7f} rel_diff="
+          f"{rel:.3e}", rel <= COST_RTOL)
+    cpu = [x.cpu() for x in leaves]
+    w_c, g_c = scaling_divergence(torch, cpu)
+    w_k, g_k = out["div"]
+    # W̄ of two samples of one distribution is far smaller than its three
+    # terms, so it is held, as phase 4 holds its divergence, relative to
+    # the largest term
+    xs, zs, a_, b_ = cpu
+    terms = [float(rot_factored(p_, q_, w1, w2, SCALING_EPS, 0.0,
+                                SCALING_ITERS))
+             for p_, q_, w1, w2 in ((xs, zs, a_, b_), (xs, xs, a_, a_),
+                                    (zs, zs, b_, b_))]
+    scale = max(abs(v) for v in terms)
+    w_rel = abs(float(w_k) - float(w_c)) / scale
+    g_rel, g_ok = grads_agree(zip((g.cpu() for g in g_k), g_c))
+    check(f"scaling divergence: CPU value {float(w_c):.9f} (terms "
+          f"{terms[0]:.7f}, {terms[1]:.7f}, {terms[2]:.7f}), diff / largest "
+          f"term {w_rel:.3e}, gradients max diff / max |grad| {g_rel:.3e}",
+          w_rel <= COST_RTOL and g_ok)
+    compare_objective_plans(torch, gan)
+    return failures
+
+
+def compare_objective_plans(torch, gan, solves=10):
+    """ms per OTObjective.solve at the OT-GAN batch with the auto cadence
+    (the scaling megakernel, 8 iterations a launch) against the streaming
+    plan (inner_steps=1), in the order megakernel, streaming, streaming,
+    megakernel."""
+    for label in ("megakernel", "streaming", "streaming", "megakernel"):
+        obj = scaling_objective(
+            {"inner_steps": None if label == "megakernel" else 1})
+        a, b = obj.uniform_weights(gan)
+        obj.solve(gan, a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(solves):
+            res = obj.solve(gan, a, b)
+        float(res.cost)
+        ms = (time.perf_counter() - t0) * 1e3 / solves
+        log(f"  {label:10s} plan: {ms:.4f} ms per objective solve (mean of "
+            f"{solves})")
+
+
+# ---------------------------------------------------------------------------
+
+
+SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
+                        "feature_matvec", "sinkhorn_block")
+TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
+                      "log_halfstep", "log_sinkhorn_block")
 SOLVE_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
                       "log_halfstep")
 
@@ -923,9 +1413,9 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all five)")
+                    "result lines need all six)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
 
@@ -996,8 +1486,25 @@ def main(argv=None) -> int:
             (20, 24, 1100, bf, 1.0, 1, 8),                  # r > 1024 threads
             (GAN_BIG_BATCH, GAN_BIG_BATCH, 128, bf, 1.0, 0, 8),  # not admitted
         ]
+        scaling_shapes = [
+            (shape + (dtype,)) for dtype in (f32, bf) for shape in (
+                (N, R_ANCHORS, 1), (N, 256, 1), (GAN_BIG_BATCH, 128, 1),
+                (1001, 3, 1), (777, 1000, 3), (5, 129, 1), (1001, 1032, 1),
+                (300, 40, 11))]                  # B > 8: two column chunks
+        scaling_block_shapes = [
+            (GAN_BATCH, GAN_BATCH, 128, bf, mom, dead, 8)
+            for mom in (1.0, 1.3) for dead in (0, 5)] + [
+            (176, 176, 128, f32, mom, dead, 8)
+            for mom in (1.0, 1.3) for dead in (0, 3)] + [
+            (37, 53, 13, f32, mom, dead, 8)
+            for mom in (1.0, 1.3) for dead in (0, 2)] + [
+            (20, 24, 1100, bf, 1.3, 1, 8),                  # r > 1024 threads
+            (GAN_BATCH, GAN_BATCH, 128, f32, 1.0, 0, 8),    # not admitted
+            (GAN_BIG_BATCH, GAN_BIG_BATCH, 128, bf, 1.0, 0, 8),  # not admitted
+        ]
         errs, failures = check_kernels(torch, np, device, shapes, lse_shapes,
-                                       bf16_shapes, block_shapes)
+                                       bf16_shapes, block_shapes,
+                                       scaling_shapes, scaling_block_shapes)
         if failures:
             log(f"phase 2 FAILED: {failures}")
             return 1
@@ -1010,6 +1517,7 @@ def main(argv=None) -> int:
         log(f"  device spin ahead of each batch: {SLEEP_MS[0]:.3f} ms")
         times = time_kernels(torch, np, device)
         times.update(time_training_kernels(torch, np, device))
+        times.update(time_scaling_kernels(torch, np, device))
 
     counts = {}
     if 4 in phases:
@@ -1037,15 +1545,29 @@ def main(argv=None) -> int:
         c5, failures = run_training_path(torch, np, device)
         log(f"  launches on the training path: {c5}")
         counts["train"] = c5
-        missing = [k for k, v in c5.items() if v <= 0]
+        missing = [k for k in TRAIN_PATH_KERNELS if c5[k] <= 0]
         if missing:
             failures.append(f"kernels never launched: {missing}")
         if failures:
             log(f"phase 5 FAILED: {failures}")
             return 1
+    if 6 in phases:
+        log(f"== phase 6: scaling path (features n=m={N}, r={R_ANCHORS} and "
+            f"256, eps={SCALING_EPS}, {SCALING_ITERS} iterations; clouds at "
+            f"eps=1.0, tol={TOL}; objective at batch {GAN_BATCH}; divergence "
+            "at n=m=4096, r=256)")
+        t6 = time.perf_counter()
+        inputs, out, c6, failures = run_scaling_path(torch, np, device)
+        log(f"  launches on the scaling path: {c6}")
+        counts["scaling"] = c6
+        failures += compare_scaling_path(torch, inputs, out)
+        log(f"  phase 6: {time.perf_counter() - t6:.1f} s")
+        if failures:
+            log(f"phase 6 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    if phases != {1, 2, 3, 4, 5}:
-        log(f"phases {sorted(phases)} passed; no result line without all five")
+    if phases != {1, 2, 3, 4, 5, 6}:
+        log(f"phases {sorted(phases)} passed; no result line without all six")
         return 0
 
     kernels = []

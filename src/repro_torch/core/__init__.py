@@ -10,7 +10,11 @@ from .api import (
     solve,
     solve_annealed,
 )
-from .divergence import sinkhorn_divergence_geometry
+from .divergence import (
+    sinkhorn_divergence_features,
+    sinkhorn_divergence_gaussian,
+    sinkhorn_divergence_geometry,
+)
 from .features import (
     GaussianFeatureMap,
     gaussian_features,
@@ -26,10 +30,11 @@ from .geometry import (
     data_radius,
     squared_euclidean,
 )
-from .grad import rot_geometry
+from .grad import rot_factored, rot_geometry
 from .objective import ExecutionPolicy, OTObjective
 from .sinkhorn import (
     SinkhornResult,
+    sinkhorn_factored,
     sinkhorn_geometry,
     sinkhorn_log_geometry,
 )
@@ -43,6 +48,8 @@ __all__ = [
     "solve",
     "solve_annealed",
     "sinkhorn_divergence_geometry",
+    "sinkhorn_divergence_features",
+    "sinkhorn_divergence_gaussian",
     "GaussianFeatureMap",
     "gaussian_features",
     "gaussian_log_features",
@@ -54,10 +61,12 @@ __all__ = [
     "Geometry",
     "data_radius",
     "squared_euclidean",
+    "rot_factored",
     "rot_geometry",
     "ExecutionPolicy",
     "OTObjective",
     "SinkhornResult",
     "sinkhorn_geometry",
+    "sinkhorn_factored",
     "sinkhorn_log_geometry",
 ]

@@ -296,11 +296,14 @@ def solve(problem: OTProblem, *, method: str = "auto",
 
     ``method``: "auto" (point clouds and log-features -> "log_factored",
     linear features -> "factored", dense costs -> "log_quadratic"),
-    "factored", "log_factored", "quadratic" or "log_quadratic".
+    "factored" (Algorithm 1 in scaling space, on features or point
+    clouds), "log_factored", "quadratic" or "log_quadratic".
     ``schedule``: optional :class:`EpsSchedule` (anneal-capable
-    geometries). ``use_pallas``: ``None``/``True`` run the fused plan (the
-    CUDA kernels on the card, their plain versions on the CPU), ``False``
-    the geometry's plain torch operators. ``check_every``/``inner_steps``
+    geometries; scaling stages warm-start from ``u = exp(f / eps)``).
+    ``use_pallas``: ``None``/``True`` run the fused plan of the method's
+    mode, scaling or log (the CUDA kernels on the card, their plain
+    versions on the CPU), ``False`` the geometry's plain torch operators;
+    dense costs always run their operators. ``check_every``/``inner_steps``
     set the cadence (iterations per megakernel launch and per check).
     ``precision="bf16"`` stores the factors in bfloat16 with float32
     accumulation.

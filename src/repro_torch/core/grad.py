@@ -1,7 +1,15 @@
 """Envelope-theorem differentiation of the ROT value (Prop. 3.2).
 
-At the optimal potentials (f*, g*) the dual value's only theta-dependent
-term is the correlation, so for any kernel parametrization
+:func:`rot_factored` is the scaling-space rule for K = xi zeta^T: with
+the scalings (u*, v*) frozen, dW/dxi = -eps u* (zeta^T v*)^T, dW/dzeta =
+-eps v* (xi^T u*)^T, dW/da = eps log u* and dW/db = eps log v*. Its two
+contractions run through the ``feature_contract`` kernel, as its forward
+solve runs through the scaling plan; it needs no backward kernel (the JAX
+package has none).
+
+:func:`rot_geometry` is the generic log-domain rule. At the optimal
+potentials (f*, g*) the dual value's only theta-dependent term is the
+correlation, so for any kernel parametrization
 
     dW/dtheta = d/dtheta [ -eps * sum_i exp(f*_i/eps + log(K_theta e^{g*/eps})_i) ]
     dW/da = f*,   dW/db = g*
@@ -11,7 +19,7 @@ geometry's own log operator once, and never the Sinkhorn loop. Every term
 of the sum is about a_i at the fixed point, so the expression is stable at
 any eps. The backward is plain PyTorch in float32 at "highest", whatever
 precision the forward solve ran at, as the JAX package computes it in XLA
-outside any Pallas kernel. Counterpart of ``repro.core.grad.rot_geometry``.
+outside any Pallas kernel. Counterpart of ``repro.core.grad``.
 """
 from __future__ import annotations
 
@@ -19,11 +27,47 @@ import dataclasses
 
 import torch
 
+from ..kernels.kermatvec import feature_contract
 from ..kernels.ref import ieee_fp32
 from .geometry import Geometry
-from .sinkhorn import sinkhorn_log_geometry
+from .sinkhorn import sinkhorn_factored, sinkhorn_log_geometry
 
-__all__ = ["rot_geometry"]
+__all__ = ["rot_factored", "rot_geometry"]
+
+
+class _RotFactored(torch.autograd.Function):
+    """W_hat for K = xi zeta^T with the closed-form envelope VJP."""
+
+    @staticmethod
+    def forward(ctx, xi, zeta, a, b, eps, tol, max_iter, momentum):
+        with torch.no_grad():
+            res = sinkhorn_factored(xi.detach(), zeta.detach(), a.detach(),
+                                    b.detach(), eps=eps, tol=tol,
+                                    max_iter=max_iter, momentum=momentum)
+        ctx.eps = eps
+        ctx.save_for_backward(xi, zeta, res.u, res.v)
+        return res.cost
+
+    @staticmethod
+    def backward(ctx, ct):
+        xi, zeta, u, v = ctx.saved_tensors
+        eps = ctx.eps
+        zv = feature_contract(zeta.detach().contiguous(), v[:, None])[:, 0]
+        xu = feature_contract(xi.detach().contiguous(), u[:, None])[:, 0]
+        g_xi = (-eps * ct) * (u[:, None] * zv[None, :])
+        g_zeta = (-eps * ct) * (v[:, None] * xu[None, :])
+        return (g_xi, g_zeta, ct * eps * torch.log(u),
+                ct * eps * torch.log(v), None, None, None, None)
+
+
+def rot_factored(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, eps: float, tol: float = 1e-6,
+                 max_iter: int = 2000, momentum: float = 1.0) -> torch.Tensor:
+    """W_hat_{eps,c_theta}(mu, nu) for K = xi zeta^T, a 0-d tensor: the
+    scaling-space solve's dual value, differentiable in all four tensors
+    through the envelope theorem, with no backprop through the loop."""
+    return _RotFactored.apply(xi, zeta, a, b, float(eps), tol, max_iter,
+                              momentum)
 
 
 def _tensor_fields(geom: Geometry):

@@ -152,9 +152,9 @@ class OTObjective:
     def solve(self, geom: Geometry, a: torch.Tensor,
               b: torch.Tensor) -> SinkhornResult:
         """Raw balanced-transport solve in scaling space under this policy
-        (the routing entry point), not differentiable. The fused scaling
-        plan is not ported, so a factored geometry raises unless the policy
-        sets ``use_pallas=False``."""
+        (the routing entry point), not differentiable: the fused scaling
+        plan, with the megakernel ``sinkhorn_block`` where it is admitted,
+        or the plain operators with ``use_pallas=False``."""
         self._check(geom)
         return sinkhorn_geometry(geom, a, b, tol=self.tol,
                                  max_iter=self.max_iter,

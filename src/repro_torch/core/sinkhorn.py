@@ -17,9 +17,10 @@ masked. Counterpart of ``repro.core.sinkhorn``.
 marginal error is read to the host once per check block (one device
 synchronisation per check). With the fused plan on the card the auto
 cadence runs 8 iterations per launch of the megakernel
-(``kernels.fused_loop``) wherever it is admitted, as the JAX package does
-on a compiled backend; on the CPU it checks every iteration, as the JAX
-package does in interpret mode.
+(``kernels.fused_loop``: ``sinkhorn_block`` in scaling space,
+``log_sinkhorn_block`` in the log domain) wherever it is admitted, as the
+JAX package does on a compiled backend; on the CPU it checks every
+iteration, as the JAX package does in interpret mode.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from ..kernels.ops import (
     relax_log,
     relax_scaling,
 )
-from .geometry import Geometry, _masked_log
+from .geometry import FactoredPositive, Geometry, _masked_log
 
 __all__ = [
     "SinkhornResult",
@@ -45,6 +46,7 @@ __all__ = [
     "run_marginal_loop",
     "sinkhorn_operator",
     "sinkhorn_geometry",
+    "sinkhorn_factored",
     "sinkhorn_log_geometry",
 ]
 
@@ -263,6 +265,24 @@ def sinkhorn_operator(matvec, rmatvec, a, b, *, eps: float, tol: float = 1e-6,
     return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol)
 
 
+def _solve_scaling_plan(plan, a, b, *, eps, tol, max_iter, momentum,
+                        u_init, inner_steps=None,
+                        check_every=None) -> SinkhornResult:
+    """Algorithm 1 with the loop body routed through the fused scaling
+    plan: the semantics of :func:`sinkhorn_operator` (warm start, marginal
+    check, momentum) up to the check cadence. The plan divides ``b / s``
+    without the dead-atom pin of :func:`make_scaling_step`, as the JAX
+    package's plan does."""
+    u0 = torch.ones_like(a) if u_init is None else u_init
+    v0 = torch.ones_like(b)
+    it, (u, v, _), err = _plan_loop(plan, a, b, (u0, v0), tol=tol,
+                                    max_iter=max_iter,
+                                    inner_steps=inner_steps,
+                                    check_every=check_every,
+                                    momentum=momentum)
+    return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol)
+
+
 def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
                       tol: float = 1e-6, max_iter: int = 2000,
                       momentum: float = 1.0,
@@ -271,21 +291,43 @@ def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
                       inner_steps: Optional[int] = None,
                       check_every: Optional[int] = None,
                       precision: str = "highest") -> SinkhornResult:
-    """Algorithm 1 in scaling space on any Geometry's operators.
+    """Algorithm 1 in scaling space on any Geometry.
 
-    The fused scaling plan is not ported: for a factored geometry
-    ``use_pallas`` other than ``False`` raises ``NotImplementedError``;
-    dense costs have no fused plan and run their operators."""
+    With the fused plan (``use_pallas`` not ``False``) a factored or
+    point-cloud geometry runs the scaling kernels: per iteration two
+    ``feature_contract`` launches, one fused ``sinkhorn_halfstep`` (a
+    ``feature_matvec`` and the relaxation at momentum other than 1) and one
+    ``feature_matvec`` for the carried ``s = K^T u``; or ``inner_steps``
+    iterations in one launch of the megakernel ``sinkhorn_block`` where it
+    is admitted (see :func:`_resolve_cadence`). ``use_pallas=False``, and
+    dense costs, which have no fused plan, run the geometry's plain torch
+    operators. ``precision="bf16"`` stores the factors in bfloat16 with
+    float32 accumulation on both paths. ``u_init`` warm-starts u."""
     check_precision(precision)
     _check_inputs(geom, a, b, u_init)
-    # raises for factored geometries until the scaling plan is ported;
-    # dense costs have no fused plan and fall through to their operators
-    _maybe_pallas_plan(geom, use_pallas, "scaling", precision)
+    plan = _maybe_pallas_plan(geom, use_pallas, "scaling", precision)
+    if plan is not None:
+        return _solve_scaling_plan(plan, a, b, eps=geom.eps, tol=tol,
+                                   max_iter=max_iter, momentum=momentum,
+                                   u_init=u_init, inner_steps=inner_steps,
+                                   check_every=check_every)
     _, check, _ = _resolve_cadence(None, inner_steps, check_every)
     matvec, rmatvec = geom.operators(precision=precision)
     return sinkhorn_operator(matvec, rmatvec, a, b, eps=geom.eps, tol=tol,
                              max_iter=max_iter, momentum=momentum,
                              u_init=u_init, check_every=check)
+
+
+def sinkhorn_factored(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, *, eps: float, tol: float = 1e-6,
+                      max_iter: int = 2000, momentum: float = 1.0,
+                      u_init: Optional[torch.Tensor] = None
+                      ) -> SinkhornResult:
+    """Linear-time Sinkhorn on K = xi zeta^T (the paper's Section 3.1),
+    through the fused scaling plan."""
+    return sinkhorn_geometry(FactoredPositive(xi=xi, zeta=zeta, eps=eps), a,
+                             b, tol=tol, max_iter=max_iter,
+                             momentum=momentum, u_init=u_init)
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,17 @@ from __future__ import annotations
 from typing import Dict
 
 from .feature_map import gaussian_feature_map
-from .fused_loop import log_sinkhorn_block
+from .fused_loop import log_sinkhorn_block, sinkhorn_block
+from .kermatvec import feature_contract, feature_matvec, sinkhorn_halfstep
 from .logmatvec import log_feature_contract, log_halfstep
 
 __all__ = [
     "KERNELS",
     "gaussian_feature_map",
+    "feature_contract",
+    "sinkhorn_halfstep",
+    "feature_matvec",
+    "sinkhorn_block",
     "log_feature_contract",
     "log_halfstep",
     "log_sinkhorn_block",
@@ -25,6 +30,10 @@ __all__ = [
 
 KERNELS = {
     "gaussian_feature_map": gaussian_feature_map,
+    "feature_contract": feature_contract,
+    "sinkhorn_halfstep": sinkhorn_halfstep,
+    "feature_matvec": feature_matvec,
+    "sinkhorn_block": sinkhorn_block,
     "log_feature_contract": log_feature_contract,
     "log_halfstep": log_halfstep,
     "log_sinkhorn_block": log_sinkhorn_block,

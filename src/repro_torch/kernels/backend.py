@@ -19,7 +19,7 @@ __all__ = ["DEFAULT_DEVICE", "MEGAKERNEL_BUDGET", "resolve_device", "as_f32",
 
 DEFAULT_DEVICE = "cuda"
 
-# Working-set ceiling of the log megakernel (``fused_loop.block_plan_fits``):
+# Working-set ceiling of the megakernels (``fused_loop.block_plan_fits``):
 # one CTA holds both factors in shared memory. It is the JAX package's
 # gpu-triton budget, so both packages admit the megakernel at the same
 # shapes; the bytes are counted on the JAX package's padded shapes, which

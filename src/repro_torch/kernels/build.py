@@ -41,6 +41,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {
     "feature_map": CSRC / "feature_map.cu",
     "logmatvec": CSRC / "logmatvec.cu",
+    "kermatvec": CSRC / "kermatvec.cu",
     "fused_loop": CSRC / "fused_loop.cu",
 }
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")

@@ -1,14 +1,16 @@
-"""The persistent log-domain megakernel: wrapper of ``csrc/fused_loop.cu``.
+"""The persistent Sinkhorn megakernels: wrappers of ``csrc/fused_loop.cu``.
 
-:func:`log_sinkhorn_block` advances the log plan's carry
-``(f, g, t = LSE_i(log_xi + f/eps))`` by ``inner_steps`` full iterations
-in one launch and returns the marginal error at the block end, the only
-scalar a block hands back. The CUDA kernel is one CTA that holds both
-factors in shared memory for the whole block (``csrc/fused_loop.cu``), so
-the plan takes it only where :func:`block_plan_fits` admits the shape,
-under the JAX package's 192 KiB GPU budget; larger shapes run the
-streaming per-iteration plan. Counterpart of ``repro.kernels.fused_loop``
-(log mode; the scaling-space megakernel is not ported yet).
+:func:`sinkhorn_block` advances the scaling plan's carry
+``(u, v, s = Zeta (Xi^T u))`` and :func:`log_sinkhorn_block` the log
+plan's carry ``(f, g, t = LSE_i(log_xi + f/eps))`` by ``inner_steps`` full
+iterations in one launch; each returns the marginal error at the block
+end, the only scalar a block hands back. Each CUDA kernel is one CTA that
+holds both factors in shared memory for the whole block, so the plans take
+them only where :func:`block_plan_fits` admits the shape, under the JAX
+package's 192 KiB GPU budget; larger shapes run the streaming
+per-iteration plan. A shape the budget admits but whose shared-memory
+layout does not fit one CTA raises. Counterpart of
+``repro.kernels.fused_loop``.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ import torch
 
 from . import build
 from .backend import MEGAKERNEL_BUDGET, check_operand
-from .ref import log_sinkhorn_block_ref
+from .ref import log_sinkhorn_block_ref, sinkhorn_block_ref
 
 __all__ = [
     "block_vmem_bytes",
     "block_plan_fits",
     "smem_bytes",
+    "sinkhorn_block",
     "log_sinkhorn_block",
 ]
 
@@ -57,25 +60,96 @@ def block_plan_fits(n: int, m: int, r: int, B: int = 1,
     return block_vmem_bytes(n, m, r, B, feature_dtype) <= MEGAKERNEL_BUDGET
 
 
-def smem_bytes(n: int, m: int, r: int, feature_dtype: torch.dtype) -> int:
-    """Dynamic shared memory one CUDA launch takes (the kernel's layout);
-    it stays under :data:`_MAX_SMEM` wherever :func:`block_plan_fits`
-    admits the shape."""
-    return int(_lib().log_sinkhorn_block_smem_bytes(
-        n, m, r, int(feature_dtype == torch.bfloat16)))
+def smem_bytes(n: int, m: int, r: int, feature_dtype: torch.dtype, *,
+               mode: str = "log") -> int:
+    """Dynamic shared memory one CUDA launch of the ``mode`` ("scaling" or
+    "log") megakernel takes (the kernel's layout); it stays under
+    :data:`_MAX_SMEM` wherever :func:`block_plan_fits` admits the shape."""
+    fn = {"log": _lib().log_sinkhorn_block_smem_bytes,
+          "scaling": _lib().sinkhorn_block_smem_bytes}[mode]
+    return int(fn(n, m, r, int(feature_dtype == torch.bfloat16)))
 
 
 @functools.cache
 def _lib():
     lib = build.load("fused_loop")
-    lib.log_sinkhorn_block_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.log_sinkhorn_block_smem_bytes.restype = ctypes.c_longlong
+    for name in ("log_sinkhorn_block_smem_bytes",
+                 "sinkhorn_block_smem_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 4
+        getattr(lib, name).restype = ctypes.c_longlong
     fn = lib.log_sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.sinkhorn_block_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
+
+
+def _check_block_shape(what, n, m, r, dtype, mode):
+    smem = smem_bytes(n, m, r, dtype, mode=mode)
+    if min(n, m, r) < 1 or smem > _MAX_SMEM:
+        raise ValueError(
+            f"{what} kernel takes n, m, r >= 1 within {_MAX_SMEM} bytes of "
+            f"shared memory; got n={n}, m={m}, r={r} ({dtype}), {smem} bytes")
+
+
+def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, u0: torch.Tensor, v0: torch.Tensor,
+                   s0: torch.Tensor, *, inner_steps: int,
+                   momentum: float = 1.0):
+    """``inner_steps`` scaling-space iterations: ``(u, v, s, err)``.
+
+    ``xi`` (n, r) and ``zeta`` (m, r) are float32 or bfloat16; ``a``/``u0``
+    (n, B) and ``b``/``v0``/``s0`` (m, B) float32 (a zero weight marks a
+    dead atom). On a CUDA tensor this launches the kernel, which takes
+    B = 1; on a CPU tensor it runs
+    :func:`~repro_torch.kernels.ref.sinkhorn_block_ref` (any B). ``err``
+    is a 0-d tensor."""
+    dev = xi.device
+    check_operand(xi, "xi", 2, dev, factor=True)
+    check_operand(zeta, "zeta", 2, dev, factor=True)
+    for name, t in (("a", a), ("b", b), ("u0", u0), ("v0", v0), ("s0", s0)):
+        check_operand(t, name, 2, dev)
+    n, r = xi.shape
+    m = zeta.shape[0]
+    B = a.shape[1]
+    if (zeta.dtype != xi.dtype or zeta.shape[1] != r
+            or any(tuple(w.shape) != (n, B) for w in (a, u0))
+            or any(tuple(w.shape) != (m, B) for w in (b, v0, s0))):
+        raise ValueError(
+            f"shape mismatch: xi {tuple(xi.shape)} {xi.dtype}, zeta "
+            f"{tuple(zeta.shape)} {zeta.dtype}, a {tuple(a.shape)}, b "
+            f"{tuple(b.shape)}, u0 {tuple(u0.shape)}, v0 {tuple(v0.shape)}, "
+            f"s0 {tuple(s0.shape)}")
+    if inner_steps < 1:
+        raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
+    if dev.type == "cpu":
+        return sinkhorn_block_ref(xi, zeta, a, b, u0, v0, s0,
+                                  inner_steps=inner_steps, momentum=momentum)
+    if B != 1:
+        raise ValueError(f"sinkhorn_block kernel takes B = 1 column, got {B}")
+    _check_block_shape("sinkhorn_block", n, m, r, xi.dtype, "scaling")
+    u = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    v = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    s = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    err = torch.empty((1,), dtype=torch.float32, device=dev)
+    mom = float(momentum)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _lib().sinkhorn_block_launch(
+            xi.data_ptr(), zeta.data_ptr(), int(xi.dtype == torch.bfloat16),
+            a.data_ptr(), b.data_ptr(), u0.data_ptr(), v0.data_ptr(),
+            s0.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
+            err.data_ptr(), n, m, r, int(inner_steps), mom, 1.0 - mom,
+            int(mom != 1.0), stream)
+    build.check_launch(_lib(), code, "sinkhorn_block")
+    sinkhorn_block.launches += 1
+    return u, v, s, err[0]
 
 
 def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
@@ -119,12 +193,7 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     if B != 1:
         raise ValueError(f"log_sinkhorn_block kernel takes B = 1 column, "
                          f"got {B}")
-    smem = smem_bytes(n, m, r, log_xi.dtype)
-    if min(n, m, r) < 1 or smem > _MAX_SMEM:
-        raise ValueError(
-            f"log_sinkhorn_block kernel takes n, m, r >= 1 within {_MAX_SMEM}"
-            f" bytes of shared memory; got n={n}, m={m}, r={r} "
-            f"({log_xi.dtype}), {smem} bytes")
+    _check_block_shape("log_sinkhorn_block", n, m, r, log_xi.dtype, "log")
     f = torch.empty((n, 1), dtype=torch.float32, device=dev)
     g = torch.empty((m, 1), dtype=torch.float32, device=dev)
     t = torch.empty((r, 1), dtype=torch.float32, device=dev)
@@ -144,4 +213,5 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     return f, g, t, err[0]
 
 
+sinkhorn_block.launches = 0
 log_sinkhorn_block.launches = 0

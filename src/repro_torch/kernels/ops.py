@@ -2,8 +2,22 @@
 
 ``geometry_ops`` consumes the Geometry layer's ``pallas_ops()`` hook (the
 name is kept from the JAX package so the two read side by side): the
-geometry declares its cost family and this module maps it to kernels. In
-log mode, the plan of every family the port has is :func:`_log_plan`:
+geometry declares its cost family and this module maps it to kernels, in
+one of two modes.
+
+``mode="scaling"`` is Algorithm 1 on the factors, :func:`_scaling_plan`:
+
+* ``gaussian`` — the fused feature map with ``log_space=False`` builds the
+  factors once per solve;
+* ``log_factored`` — ``exp`` of the log-factors;
+* ``factored`` — the factors as given.
+
+Each iteration runs ``feature_contract`` twice, the fused
+``sinkhorn_halfstep`` once (``feature_matvec`` and ``relax_scaling`` in its
+place at momentum other than 1) and ``feature_matvec`` once for the carried
+``s = K^T u``.
+
+``mode="log"`` is the log-domain twin, :func:`_log_plan`:
 
 * ``gaussian`` — the fused feature map with ``log_space=True`` builds the
   log-factors once per solve;
@@ -11,14 +25,15 @@ log mode, the plan of every family the port has is :func:`_log_plan`:
 * ``factored`` — the masked log of the linear factors.
 
 Each iteration then runs ``log_halfstep`` three times and
-``log_feature_contract`` twice; ``make_block_step`` runs ``inner_steps``
-iterations in one launch of the megakernel ``log_sinkhorn_block`` where
-``fused_loop.block_plan_fits`` admits the shape. ``precision="bf16"``
-stores the log-factors in bfloat16 (cast after the feature map, as the JAX
-package casts them); every kernel accumulates in float32. The scaling plan
-needs the scaling trio (``feature_contract`` / ``sinkhorn_halfstep`` /
-``feature_matvec``), which is not ported yet: ``mode="scaling"`` raises
-for every kind. Counterpart of ``repro.kernels.ops``.
+``log_feature_contract`` twice.
+
+In both modes ``make_block_step`` runs ``inner_steps`` iterations in one
+launch of the megakernel (``sinkhorn_block`` or ``log_sinkhorn_block``)
+where ``fused_loop.block_plan_fits`` admits the shape, and returns ``None``
+elsewhere, where the solvers take the streaming per-iteration step.
+``precision="bf16"`` stores the factors in bfloat16 (cast after the
+feature map, as the JAX package casts them); every kernel accumulates in
+float32. Counterpart of ``repro.kernels.ops``.
 
 ``observe_plan_selection`` is the test hook: while it is active every plan
 installed on a solve path appends an event dict.
@@ -31,7 +46,8 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from .feature_map import gaussian_feature_map
-from .fused_loop import block_plan_fits, log_sinkhorn_block
+from .fused_loop import block_plan_fits, log_sinkhorn_block, sinkhorn_block
+from .kermatvec import feature_contract, feature_matvec, sinkhorn_halfstep
 from .logmatvec import log_feature_contract, log_halfstep
 from .ref import relax_log, relax_scaling
 
@@ -40,6 +56,10 @@ __all__ = [
     "check_precision",
     "relax_scaling",
     "relax_log",
+    "feature_contract",
+    "sinkhorn_halfstep",
+    "feature_matvec",
+    "fused_sinkhorn_iteration",
     "GeometryOps",
     "geometry_ops",
     "observe_plan_selection",
@@ -47,14 +67,6 @@ __all__ = [
 ]
 
 PRECISIONS = ("highest", "bf16")
-
-SCALING_PLAN_TODO = (
-    "the scaling plan (mode='scaling') needs the scaling kernel trio "
-    "feature_contract / sinkhorn_halfstep / feature_matvec, which is not "
-    "ported yet (ROADMAP.md, queue A, next item: the scaling trio, queue B "
-    "items 2-4); use use_pallas=False for the plain torch operators, or a "
-    "log-domain method"
-)
 
 
 def check_precision(precision: str) -> str:
@@ -84,20 +96,43 @@ def _masked_log(w: torch.Tensor) -> torch.Tensor:
                        torch.full_like(w, -torch.inf))
 
 
+def fused_sinkhorn_iteration(xi: torch.Tensor, zeta: torch.Tensor,
+                             a: torch.Tensor, b: torch.Tensor,
+                             u: torch.Tensor):
+    """One full Alg.-1 iteration through the kernels, on (n, B) / (m, B)
+    columns::
+
+        t  = Xi^T u ;   v  = b / (Zeta t)     (fused half-step)
+        s  = Zeta^T v ; u' = a / (Xi s)       (fused half-step)
+
+    Returns ``(u', v)``."""
+    t = feature_contract(xi, u)
+    v = sinkhorn_halfstep(zeta, t, b)
+    s = feature_contract(zeta, v)
+    return sinkhorn_halfstep(xi, s, a), v
+
+
 class GeometryOps(NamedTuple):
     """Fused execution plan for one geometry's cost family.
 
-    ``mode``      — "log" (the only mode ported: potentials, log-factors).
+    ``mode``      — "scaling" (scalings, factors) or "log" (potentials,
+                    log-factors).
     ``kind``      — the ``pallas_ops()`` spec kind the plan was built from.
-    ``features``  — the materialized log-factors ``(log_xi, log_zeta)``.
-    ``iteration`` — one full fused iteration ``(loga, logb, f) -> (f', g)``
-                    on (n, B) / (m, B) columns.
+    ``features``  — the materialized factors the plan runs on: ``(xi,
+                    zeta)`` in scaling mode, ``(log_xi, log_zeta)`` in log
+                    mode, at their storage precision.
+    ``iteration`` — one full fused iteration on (n, B) / (m, B) columns:
+                    scaling ``(a, b, u) -> (u', v)``, log ``(loga, logb, f)
+                    -> (f', g)``.
     ``make_step`` — ``(a, b, *, momentum) -> (step, init)``: ``step`` is
                     drop-in for ``core.sinkhorn.run_marginal_loop`` and
-                    matches ``make_log_step`` over the geometry's plain
-                    operators; ``init`` lifts ``(f0, g0)`` into the carry
-                    ``(f, g, t1)`` with ``t1 = LSE(logXi + f/eps)``.
-    ``eps``       — the regularization the potentials live at.
+                    matches ``make_scaling_step`` / ``make_log_step`` over
+                    the geometry's plain operators; ``init`` lifts the start
+                    values into the carry, which holds the reusable
+                    intermediate: ``(u, v, s)`` with ``s = K^T u`` in
+                    scaling mode, ``(f, g, t1)`` with ``t1 = LSE(logXi +
+                    f/eps)`` in log mode.
+    ``eps``       — the regularization the kernel lives at.
     ``make_block_step`` — ``(a, b, *, inner_steps, momentum) ->
                     Optional[(step, init)]``: ``step`` advances
                     ``inner_steps`` iterations in one megakernel launch
@@ -115,6 +150,63 @@ class GeometryOps(NamedTuple):
     eps: float
     make_block_step: Callable
     precision: str = "highest"
+
+
+def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
+                  eps: float, precision: str = "highest") -> GeometryOps:
+    xi, zeta = _store_features(xi.contiguous(), zeta.contiguous(), precision)
+
+    def iteration(a, b, u):
+        return fused_sinkhorn_iteration(xi, zeta, a, b, u)
+
+    def apply_kt(u):
+        """``u (n,) -> K^T u (m,)``."""
+        t = feature_contract(xi, u[:, None].contiguous())
+        return feature_matvec(zeta, t)[:, 0]
+
+    def init(u0, v0):
+        """The carry ``(u, v, s = K^T u)`` both step kinds advance."""
+        return (u0, v0, apply_kt(u0))
+
+    def make_step(a, b, *, momentum: float = 1.0):
+        ac = a[:, None].contiguous()
+
+        def step(carry):
+            u, v, s = carry
+            v_new = relax_scaling(b / s, v, momentum)
+            t = feature_contract(zeta, v_new[:, None].contiguous())
+            if momentum == 1.0:
+                # matvec and marginal divide fused in one pass
+                u_new = sinkhorn_halfstep(xi, t, ac)[:, 0]
+            else:
+                kv = feature_matvec(xi, t)[:, 0]
+                u_new = relax_scaling(a / kv, u, momentum)
+            t2 = feature_contract(xi, u_new[:, None].contiguous())
+            s_new = feature_matvec(zeta, t2)[:, 0]
+            err = torch.sum(torch.abs(v_new * s_new - b))
+            return (u_new, v_new, s_new), err
+
+        return step, init
+
+    def make_block_step(a, b, *, inner_steps: int, momentum: float = 1.0):
+        n, m = a.shape[0], b.shape[0]
+        if not block_plan_fits(n, m, xi.shape[1], 1, xi.dtype):
+            return None
+        ac, bc = a[:, None].contiguous(), b[:, None].contiguous()
+
+        def step(carry):
+            u, v, s = carry
+            u2, v2, s2, err = sinkhorn_block(
+                xi, zeta, ac, bc, u[:, None].contiguous(),
+                v[:, None].contiguous(), s[:, None].contiguous(),
+                inner_steps=inner_steps, momentum=momentum)
+            return (u2[:, 0], v2[:, 0], s2[:, 0]), err
+
+        return step, init
+
+    return GeometryOps(mode="scaling", kind=kind, features=(xi, zeta),
+                       iteration=iteration, make_step=make_step, eps=eps,
+                       make_block_step=make_block_step, precision=precision)
 
 
 def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
@@ -195,20 +287,26 @@ def geometry_ops(geom, *, mode: str = "log",
     kind = spec["kind"]
     if kind not in ("factored", "log_factored", "gaussian"):
         raise ValueError(f"unknown pallas_ops spec kind {kind!r}")
-    if mode == "scaling":
-        raise NotImplementedError(f"{kind}: {SCALING_PLAN_TODO}")
+    eps = float(geom.eps)
     if kind == "factored":
-        return _log_plan(kind, _masked_log(spec["xi"]),
-                         _masked_log(spec["zeta"]), float(geom.eps),
+        xi, zeta = spec["xi"], spec["zeta"]
+        if mode == "scaling":
+            return _scaling_plan(kind, xi, zeta, eps, precision)
+        return _log_plan(kind, _masked_log(xi), _masked_log(zeta), eps,
                          precision)
     if kind == "log_factored":
-        return _log_plan(kind, spec["log_xi"], spec["log_zeta"],
-                         float(spec["eps"]), precision)
+        lxi, lzt = spec["log_xi"], spec["log_zeta"]
+        if mode == "log":
+            return _log_plan(kind, lxi, lzt, float(spec["eps"]), precision)
+        return _scaling_plan(kind, torch.exp(lxi), torch.exp(lzt), eps,
+                             precision)
     kw = dict(anchors=spec["anchors"], log_const=spec["log_const"],
-              inv_eps=spec["inv_eps"], log_space=True)
-    log_xi = gaussian_feature_map(spec["x"], **kw)
-    log_zeta = gaussian_feature_map(spec["y"], **kw)
-    return _log_plan(kind, log_xi, log_zeta, float(geom.eps), precision)
+              inv_eps=spec["inv_eps"], log_space=mode == "log")
+    xi = gaussian_feature_map(spec["x"], **kw)
+    zeta = gaussian_feature_map(spec["y"], **kw)
+    if mode == "scaling":
+        return _scaling_plan(kind, xi, zeta, eps, precision)
+    return _log_plan(kind, xi, zeta, eps, precision)
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,14 @@
 Each repeats its kernel's arithmetic in tensor operations: the kernel
 wrappers run them for CPU tensors, the tests hold them against the JAX
 package's Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel
-against them on the card. Every log-sum-exp here is the explicit max-shift
-form with the shift of an all ``-inf`` slice pinned to 0, so such a slice
-gives ``-inf`` and not NaN (``_finite_or_zero`` in the JAX package). The
-shift is held constant under autograd, as ``jax.nn.logsumexp`` holds it,
-so the gradient is the softmax. Factors stored in bfloat16 are upcast to
-float32 before any arithmetic: every sum accumulates in float32.
+against them on the card. The products of the scaling kernels run in full
+float32 (``ieee_fp32``), never TF32. Every log-sum-exp here is the explicit
+max-shift form with the shift of an all ``-inf`` slice pinned to 0, so such
+a slice gives ``-inf`` and not NaN (``_finite_or_zero`` in the JAX
+package). The shift is held constant under autograd, as
+``jax.nn.logsumexp`` holds it, so the gradient is the softmax. Factors
+stored in bfloat16 are upcast to float32 before any arithmetic: every sum
+accumulates in float32.
 """
 from __future__ import annotations
 
@@ -21,10 +23,14 @@ __all__ = [
     "lse",
     "gaussian_norm_terms",
     "gaussian_feature_map_ref",
+    "feature_contract_ref",
+    "sinkhorn_halfstep_ref",
+    "feature_matvec_ref",
     "log_feature_contract_ref",
     "log_halfstep_ref",
     "relax_scaling",
     "relax_log",
+    "sinkhorn_block_ref",
     "log_sinkhorn_block_ref",
 ]
 
@@ -80,6 +86,24 @@ def gaussian_feature_map_ref(x: torch.Tensor, anchors: torch.Tensor,
     return log_xi if log_space else torch.exp(log_xi)
 
 
+def feature_contract_ref(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """t = Xi^T u : (n, r), (n, B) -> (r, B)."""
+    with ieee_fp32():
+        return xi.float().T @ u
+
+
+def sinkhorn_halfstep_ref(xi: torch.Tensor, t: torch.Tensor,
+                          marg: torch.Tensor) -> torch.Tensor:
+    """out = marg / (Xi t) : (n, r), (r, B), (n, B) -> (n, B)."""
+    return marg / feature_matvec_ref(xi, t)
+
+
+def feature_matvec_ref(xi: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """out = Xi t : (n, r), (r, B) -> (n, B)."""
+    with ieee_fp32():
+        return xi.float() @ t
+
+
 def log_feature_contract_ref(log_w: torch.Tensor,
                              s: torch.Tensor) -> torch.Tensor:
     """t[k, c] = LSE_i(log_w[i, k] + s[i, c]) : (n, r), (n, B) -> (r, B)."""
@@ -112,6 +136,24 @@ def relax_log(new: torch.Tensor, old: torch.Tensor,
         return new
     mixed = (1.0 - momentum) * old + momentum * new
     return torch.where(torch.isfinite(old) & torch.isfinite(new), mixed, new)
+
+
+def sinkhorn_block_ref(xi: torch.Tensor, zeta: torch.Tensor,
+                       a: torch.Tensor, b: torch.Tensor, u0: torch.Tensor,
+                       v0: torch.Tensor, s0: torch.Tensor, *,
+                       inner_steps: int, momentum: float = 1.0):
+    """``inner_steps`` scaling-space iterations over the carry
+    ``(u, v, s = Zeta (Xi^T u))``, then the marginal error
+    ``sum |v s - b|`` at the block end. Shapes (n, r), (m, r); (n, B),
+    (m, B); (n, B), (m, B), (m, B); any B. Returns ``(u, v, s, err)`` with
+    ``err`` 0-d."""
+    u, v, s = u0, v0, s0
+    for _ in range(inner_steps):
+        v = relax_scaling(b / s, v, momentum)
+        t = feature_contract_ref(zeta, v)
+        u = relax_scaling(a / feature_matvec_ref(xi, t), u, momentum)
+        s = feature_matvec_ref(zeta, feature_contract_ref(xi, u))
+    return u, v, s, torch.sum(torch.abs(v * s - b))
 
 
 def log_sinkhorn_block_ref(log_xi: torch.Tensor, log_zeta: torch.Tensor,

@@ -6,7 +6,8 @@ tensors, where it runs the kernel's plain PyTorch version. The CUDA kernels
 themselves are held against those plain versions on the card by
 chip_smoke.py. Tolerances are the ones tests/test_kernels.py holds the
 Pallas kernels to: rtol 2e-4 / atol 1e-6 for the feature map, rtol 1e-4 /
-atol 1e-4 for the LSE kernels.
+atol 1e-4 for the LSE kernels; the scaling kernels, whose own comparisons
+are in tests/test_torch_scaling.py, within 1e-5 of max |value|.
 """
 import math
 
@@ -18,19 +19,23 @@ import torch
 from repro.core import features as jfeat
 from repro.kernels import (
     fused_log_sinkhorn_iteration as j_iteration,
+    fused_sinkhorn_iteration as j_scaling_iteration,
     gaussian_feature_map as j_feature_map,
     log_feature_contract as j_contract,
     log_halfstep as j_halfstep,
 )
 from repro_torch.core import features as tfeat
 from repro_torch.kernels import (
+    feature_contract,
+    feature_matvec,
     gaussian_feature_map,
     launch_counts,
     log_feature_contract,
     log_halfstep,
     ref,
+    sinkhorn_halfstep,
 )
-from repro_torch.kernels.ops import _log_plan
+from repro_torch.kernels.ops import _log_plan, fused_sinkhorn_iteration
 
 CPU = torch.device("cpu")
 
@@ -166,6 +171,26 @@ def test_fused_log_iteration_matches_pallas():
                                atol=1e-5)
 
 
+def test_fused_scaling_iteration_matches_pallas():
+    """One full scaling iteration (two contracts, two fused half-steps)
+    against the JAX package's in interpret mode, within 1e-5 of max
+    |value|."""
+    n, m, r, B = 40, 30, 16, 3
+    rng = np.random.default_rng(1)
+    xi = (rng.uniform(size=(n, r)) + 0.05).astype(np.float32)
+    zt = (rng.uniform(size=(m, r)) + 0.05).astype(np.float32)
+    a = np.full((n, B), 1.0 / n, np.float32)
+    b = np.full((m, B), 1.0 / m, np.float32)
+    u = rng.uniform(size=(n, B)).astype(np.float32)
+    jout = j_scaling_iteration(*(jnp.asarray(x) for x in (xi, zt, a, b, u)),
+                               backend="interpret")
+    tout = fused_sinkhorn_iteration(*(_t(x) for x in (xi, zt, a, b, u)))
+    for got, want in zip(tout, jout):
+        want = np.asarray(want)
+        assert np.max(np.abs(got.numpy() - want)) <= 1e-5 * np.max(
+            np.abs(want))
+
+
 @pytest.mark.parametrize("z", [1e-6, 0.3, 1.0, math.e, 7.5, 56.25, 4e4])
 def test_lambert_w0_matches_jax(z):
     assert tfeat.lambert_w0(z) == pytest.approx(jfeat.lambert_w0(z),
@@ -219,6 +244,22 @@ def test_wrappers_check_operands():
     with pytest.raises(ValueError):
         log_halfstep(torch.zeros((4, 8)).T, torch.zeros((8, 1)),
                      torch.zeros((4, 1)))
+
+
+def test_scaling_wrappers_check_operands_and_launch_nothing_on_cpu():
+    before = launch_counts()
+    xi, t = torch.ones((8, 4)), torch.ones((4, 1))
+    feature_matvec(xi, t)
+    feature_contract(xi, torch.ones((8, 2)))
+    assert launch_counts() == before
+    with pytest.raises(TypeError):
+        feature_contract(xi.double(), torch.ones((8, 1)).double())
+    with pytest.raises(ValueError):
+        feature_contract(xi, torch.ones((7, 1)))
+    with pytest.raises(ValueError):
+        sinkhorn_halfstep(xi, t, torch.ones((8, 2)))
+    with pytest.raises(ValueError):
+        feature_matvec(torch.ones((4, 8)).T, torch.ones((4, 1)))
 
 
 @pytest.mark.parametrize("dtype,r,B,want", [

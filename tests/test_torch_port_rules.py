@@ -1,6 +1,7 @@
 """The rules the port keeps: no JAX and nothing of ``repro`` inside it, the
-card by default with no silent CPU fallback, and explicit refusals for
-what is not ported yet."""
+card by default with no silent CPU fallback, a fused plan for every
+factored kind in both modes, and explicit refusals for what is not ported
+yet."""
 import ast
 import os
 import re
@@ -20,7 +21,7 @@ from repro_torch.core import (
     solve,
 )
 from repro_torch.kernels import backend, build
-from repro_torch.kernels.ops import geometry_ops
+from repro_torch.kernels.ops import geometry_ops, observe_plan_selection
 
 PKG = Path(repro_torch.__file__).resolve().parent
 SOURCES = sorted(PKG.rglob("*.py"))
@@ -111,17 +112,31 @@ def _geometries():
 
 @pytest.mark.parametrize("kind", ["gaussian", "factored", "log_factored"])
 def test_scaling_plan_raises_not_implemented(kind):
+    """The scaling plan is built for every kind (it no longer raises): its
+    factors are the positive features, the log plan's their logs."""
     geom = _geometries()[kind]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        geometry_ops(geom, mode="scaling")
-    assert geometry_ops(geom, mode="log").kind == kind
+    plan = geometry_ops(geom, mode="scaling")
+    log_plan = geometry_ops(geom, mode="log")
+    assert (plan.mode, plan.kind) == ("scaling", kind)
+    assert (log_plan.mode, log_plan.kind) == ("log", kind)
+    for w, lw in zip(plan.features, log_plan.features):
+        assert torch.all(w > 0)
+        torch.testing.assert_close(torch.log(w), lw, rtol=1e-5, atol=1e-5)
 
 
 def test_factored_method_needs_plain_operators_until_the_trio_lands():
+    """``solve`` on linear features selects the fused scaling plan (it no
+    longer needs ``use_pallas=False``) and agrees with the plain
+    operators."""
     prob = convert.ot_problem(_geometries()["factored"], device="cpu")
-    with pytest.raises(NotImplementedError, match="scaling"):
-        solve(prob)
-    assert np.isfinite(float(solve(prob, use_pallas=False).cost))
+    with observe_plan_selection() as events:
+        fused = solve(prob)
+    assert events == [{"geometry": "FactoredPositive", "mode": "scaling",
+                       "kind": "factored", "precision": "highest"}]
+    plain = solve(prob, use_pallas=False)
+    assert fused.n_iter == plain.n_iter
+    assert float(fused.cost) == pytest.approx(float(plain.cost), rel=1e-5)
+    torch.testing.assert_close(fused.u, plain.u, rtol=1e-5, atol=1e-6)
 
 
 def test_unknown_precision_is_a_value_error():
@@ -177,18 +192,27 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     csrc = PKG / "kernels" / "csrc"
     fm = (csrc / "feature_map.cu").read_text()
     lm = (csrc / "logmatvec.cu").read_text()
+    km = (csrc / "kermatvec.cu").read_text()
     fl = (csrc / "fused_loop.cu").read_text()
     assert "__global__" in fm and "gaussian_feature_map_launch" in fm
     for name in ("log_contract_partial_kernel", "log_contract_combine_kernel",
                  "log_halfstep_kernel", "log_feature_contract_launch",
                  "log_halfstep_launch", "__nv_bfloat16"):
         assert name in lm
+    for name in ("feature_contract_partial_kernel",
+                 "feature_contract_partial_vec_kernel",
+                 "feature_contract_combine_kernel", "feature_rows_kernel",
+                 "feature_contract_launch", "sinkhorn_halfstep_launch",
+                 "feature_matvec_launch", "__fdiv_rn", "__nv_bfloat16"):
+        assert name in km
     for name in ("__global__", "log_sinkhorn_block_kernel",
-                 "log_sinkhorn_block_launch", "__nv_bfloat16",
+                 "log_sinkhorn_block_launch", "sinkhorn_block_kernel",
+                 "sinkhorn_block_launch", "__nv_bfloat16",
                  "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert name in fl
-    assert set(build.SOURCES) == {"feature_map", "logmatvec", "fused_loop"}
-    for src in (fm, lm, fl):
+    assert set(build.SOURCES) == {"feature_map", "logmatvec", "kermatvec",
+                                  "fused_loop"}
+    for src in (fm, lm, km, fl):
         assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
-        for lib in ("cublas", "cudnn", "cutlass"):
+        for lib in ("cublas", "cudnn", "cutlass", "wmma", "mma.sync"):
             assert lib not in src.lower()

@@ -44,6 +44,7 @@ from repro_torch.core.sinkhorn import _resolve_cadence
 from repro_torch.examples import ot_gan
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_loop import block_plan_fits, log_sinkhorn_block
+from repro_torch.kernels.ops import observe_plan_selection
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -368,6 +369,9 @@ def test_trainer_step_matches_jax_example(jax_example, adv):
 
 
 def test_objective_solve_matches_jax_and_waits_for_the_scaling_plan():
+    """``OTObjective.solve`` on point clouds runs the fused scaling plan
+    (it no longer waits for it) and the plain operators; both match the
+    JAX objective's solve."""
     eps = 0.5
     x, y, u, R = _clouds(8, 30, 20, 2, 16, eps)
     jobj = JObjective(eps=eps, tol=0.0, max_iter=50,
@@ -376,12 +380,15 @@ def test_objective_solve_matches_jax_and_waits_for_the_scaling_plan():
     want = jobj.solve(jgeom, *jobj.uniform_weights(jgeom))
     fused = OTObjective(eps=eps, tol=0.0, max_iter=50)
     geom = fused.gaussian(_t(x), _t(y), _t(u), R=R)
-    with pytest.raises(NotImplementedError, match="scaling"):
-        fused.solve(geom, *fused.uniform_weights(geom))
+    with observe_plan_selection() as events:
+        got_fused = fused.solve(geom, *fused.uniform_weights(geom))
+    assert [e["mode"] for e in events] == ["scaling"]
     plain = OTObjective(eps=eps, tol=0.0, max_iter=50,
                         policy=ExecutionPolicy(use_pallas=False))
     got = plain.solve(geom, *plain.uniform_weights(geom))
-    assert float(got.cost) == pytest.approx(float(want.cost), rel=1e-5)
+    for res in (got, got_fused):
+        assert res.n_iter == 50
+        assert float(res.cost) == pytest.approx(float(want.cost), rel=1e-5)
 
 
 def test_trainer_entry_point_strict_on_the_cpu():
