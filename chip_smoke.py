@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
@@ -15,12 +15,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    atoms and a dead anchor, and its refusal of shapes the plan does not
    admit; the scaling contract, half-step (with a zero-weight atom and an
    all-zero row) and matvec on float32 and bf16 factors, the contract on
-   both of its paths at r = 128; the scaling megakernel as the log one.
-   Tolerances: the feature map and the scaling kernels within 1e-5 of max
+   both of its paths at r = 128; the scaling megakernel as the log one;
+   the paged contract, half-step and matvec in float32 and bf16, B = 1, 3
+   and 11, page sizes 8, 64 and 128, an all-dead buffer, garbage on dead
+   pages (1e6 in u, NaN in the factor) and dead slots on live pages; and
+   log_matvec with -inf entries and an all -inf row. Tolerances: the feature map and the scaling kernels within 1e-5 of max
    |value|; the LSE kernels and the log megakernel's potentials atol 1e-4
    + rtol 1e-5 (summation order differs); the scaling megakernel's
    carries within 1e-5 of max |value|; both megakernels' block-end errors
-   1e-4 relative + 1e-6, and a second launch bit-identical;
+   1e-4 relative + 1e-6, and a second launch bit-identical; the paged
+   kernels within 1e-5 of max |value|, dead pages exactly 0, a second
+   contract launch bit-identical; log_matvec as the LSE kernels;
 3. times (CUDA events, median of 21 batches of 10 launches, queued behind a
    device spin so that host overhead is not timed) of each kernel, its plain
    version and one PyTorch library call computing the same function where
@@ -29,7 +34,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    at the solve path's shape, the LSE kernels at batch 2048, r = 128 in
    bf16, and the log megakernel at the OT-GAN shape; the scaling kernels
    at n = 16384, r = 1024 and 256, float32 and bf16, and the scaling
-   megakernel at the OT-GAN shape;
+   megakernel at the OT-GAN shape; the paged kernels at C = 32768, r =
+   1024 and 256, float32 and bf16, 100%, 50% and 25% of pages live, each
+   beside the flat kernel on the same buffer; log_matvec at (16384, 1024);
 4. the solve path: three annealed ``solve()`` requests on Gaussian point
    clouds (N(1, I) against N(0, 0.1 I), n = m = 16384, d = 8, r = 1024,
    eps = 0.1, seeds 0, 1, 2, tol = 1e-4, well above the float32 noise floor
@@ -60,7 +67,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``method="log_factored"``, the divergence against the same call on the
    CPU (value 1e-4 relative, gradients within 1e-3 of max |grad|); plus a
    profile of one feature solve and ms per objective solve of the
-   megakernel against the streaming plan.
+   megakernel against the streaming plan;
+7. the streaming path, with the counters set to 0 before and read after:
+   two ``StreamingDistribution.from_points`` stores of 16384 live points
+   (bench_stream's clouds, 0.5 N(0, I_2) and 0.5 N(0, I_2) + 0.3, through
+   r = 1024 Lemma-1 Gaussian features at eps 0.5; capacity 32768, so half
+   the pages are dead) behind a ``StreamingOTService`` (max_batch 4), tol
+   1e-4: warmup, a cold solve, 8 submitted mutations (each evicts 256
+   random ids and inserts 256 new points a side) drained as 2 coalesced
+   warm re-solves, then 2 direct ``StreamingSolver.update`` calls; in
+   scaling f32, scaling bf16 (bf16 device buffers) and log f32. Then each
+   solve is held against the same solve with ``use_pallas=False`` from
+   the same state (cost 1e-4 relative, |d n_iter| <= 1, f and g on live
+   slots within 1e-4 of max |value|) and against a cold
+   ``solve(method="factored")`` on the compact live support (cost 1e-4
+   relative), and the warm re-solves must take fewer iterations in all
+   than those cold solves; in scaling mode the plan must be ``paged``,
+   the paged kernels launched and the flat trio not; plus a split and a
+   profile of one more update.
 
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``. TF32 is off throughout.
@@ -97,6 +121,16 @@ GAN_STEPS = 60                  # the reference CI's train-smoke length
 SCALING_REL_TOL = 1e-5          # scaling kernels: of max |value|
 SCALING_EPS = 0.5               # the JAX hot-loop benchmark's eps
 SCALING_ITERS = 20              # and its iteration count
+STREAM_CAPACITY = 32768         # bucket_capacity(N, 64): half the pages dead
+STREAM_PAGE = 64                # the stores' default page
+STREAM_DELTA = 256              # ids evicted and rows inserted a mutation
+STREAM_MUTATIONS = 8            # submitted a run, coalesced 4 to a flush
+STREAM_RUNS = (("scaling", "highest"), ("scaling", "bf16"),
+               ("log", "highest"))
+STREAM_D = 2                    # bench_stream's clouds: 0.5 N(0, I_2) and
+STREAM_SHIFT = 0.3              # 0.5 N(0, I_2) + 0.3
+STREAM_EPS = 0.5                # the smallest eps whose Gaussian features
+                                # do not underflow to 0 at this size
 
 KERNEL_INFO = {
     "gaussian_feature_map": {
@@ -130,6 +164,22 @@ KERNEL_INFO = {
     "sinkhorn_block": {
         "source": "src/repro_torch/kernels/csrc/fused_loop.cu",
         "replaces": "src/repro/kernels/fused_loop.py:254",
+    },
+    "log_matvec": {
+        "source": "src/repro_torch/kernels/csrc/logmatvec.cu",
+        "replaces": "src/repro/kernels/logmatvec.py:90",
+    },
+    "paged_feature_contract": {
+        "source": "src/repro_torch/kernels/csrc/paged.cu",
+        "replaces": "src/repro/kernels/paged.py:128",
+    },
+    "paged_halfstep": {
+        "source": "src/repro_torch/kernels/csrc/paged.cu",
+        "replaces": "src/repro/kernels/paged.py:221",
+    },
+    "paged_feature_matvec": {
+        "source": "src/repro_torch/kernels/csrc/paged.cu",
+        "replaces": "src/repro/kernels/paged.py:221",
     },
 }
 
@@ -252,6 +302,8 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
     check_block(torch, np, device, block_shapes, record)
     check_scaling(torch, np, device, scaling_shapes, record)
     check_scaling_block(torch, device, scaling_block_shapes, record)
+    check_paged(torch, np, device, record)
+    check_log_matvec(torch, device, record)
     return errs, failures
 
 
@@ -499,6 +551,128 @@ def check_scaling_block(torch, device, shapes, record):
                worst, all_ok and e_ok and same and dead_ok)
 
 
+def page_table(np, n_pages, page_size, pattern, seed):
+    """int32 live counts: ``"front"`` fills the first half of the pages, as
+    a store packs its rows; ``"mixed"`` draws dead, partly live and full
+    pages; ``"dead"`` is an all-dead buffer."""
+    if pattern == "front":
+        return np.array([page_size] * (n_pages // 2)
+                        + [0] * (n_pages - n_pages // 2), np.int32)
+    if pattern == "dead":
+        return np.zeros(n_pages, np.int32)
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 3, n_pages)
+    partial = rng.integers(1, page_size, n_pages)
+    return np.where(kind == 0, 0, np.where(kind == 1, partial, page_size)
+                    ).astype(np.int32)
+
+
+def check_paged(torch, np, device, record):
+    """The paged contract, half-step and matvec against their plain
+    versions, within 1e-5 of max |value|, in float32 and bf16, B = 1 and 3
+    (and 11: two column chunks), page sizes 8, 64 and 128, an all-dead
+    buffer; dead pages hold garbage (1e6 in u, NaN in the factor rows), so
+    a kernel that read them would disagree; live pages hold dead slots
+    (marg 0, so the half-step gives exactly 0 there). Dead pages' outputs
+    are exactly 0 and a second contract launch is bit-identical; the
+    contract runs on both of its paths where the vector path applies."""
+    from repro_torch.kernels import paged, ref
+    from repro_torch.kernels.paged import (
+        paged_feature_contract,
+        paged_feature_matvec,
+        paged_halfstep,
+    )
+
+    cases = [(STREAM_CAPACITY, R_ANCHORS, 1, STREAM_PAGE, "front"),
+             (4096, 256, 3, 64, "mixed"), (4096, 1024, 1, 8, "mixed"),
+             (4096, 1001, 1, 128, "mixed"), (1024, 64, 3, 128, "dead"),
+             (2048, 40, 11, 8, "mixed"), (4096, 1032, 1, 64, "mixed")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (C, r, B, ps, pattern) in cases:
+            tag = f"{str(dtype)[6:]} C={C} r={r} B={B} page={ps} {pattern}"
+            live_np = page_table(np, C // ps, ps, pattern, C + r + ps)
+            live = torch.as_tensor(live_np, device=device)
+            page_mask = torch.as_tensor(np.repeat(live_np > 0, ps),
+                                        device=device)
+            slot_live = torch.zeros(C, dtype=torch.bool, device=device)
+            for p in np.nonzero(live_np)[0]:      # the first live[p] slots
+                slot_live[p * ps:p * ps + live_np[p]] = True
+            xi = torch.as_tensor(explicit_features(np, C, r, C + r + B),
+                                 device=device).to(dtype)
+            xi[~page_mask] = math.nan
+            g = torch.Generator(device=device).manual_seed(C + B + ps)
+            u = torch.rand((C, B), generator=g, device=device)
+            u[~page_mask] = 1e6
+            t = torch.rand((r, B), generator=g, device=device)
+            marg = torch.where(slot_live[:, None],
+                               torch.full((C, B), 1.0 / C, device=device),
+                               torch.zeros((C, B), device=device))
+            want = ref.paged_contract_ref(xi, u, live, page_size=ps)
+            paths = [("chosen", paged._contract_vectorized)]
+            if paged._vectorized(xi, B):
+                paths += [("vector", paged._vectorized),
+                          ("scalar", lambda *_: False)]
+            chosen = paged._contract_vectorized
+            for label, rule in paths:
+                paged._contract_vectorized = rule
+                try:
+                    got = paged_feature_contract(xi, u, live, page_size=ps)
+                    again = paged_feature_contract(xi, u, live, page_size=ps)
+                finally:
+                    paged._contract_vectorized = chosen
+                torch.cuda.synchronize()
+                err, ok = compare(torch, got, want,
+                                  rel_to_max=SCALING_REL_TOL)
+                record("paged_feature_contract",
+                       f"{tag} {label} path", err,
+                       ok and torch.equal(got, again))
+            for name, got, want in (
+                    ("paged_halfstep",
+                     paged_halfstep(xi, t, marg, live, page_size=ps),
+                     ref.paged_halfstep_ref(xi, t, marg, live,
+                                            page_size=ps)),
+                    ("paged_feature_matvec",
+                     paged_feature_matvec(xi, t, live, page_size=ps),
+                     ref.paged_matvec_ref(xi, t, live, page_size=ps))):
+                torch.cuda.synchronize()
+                err, ok = compare(torch, got, want,
+                                  rel_to_max=SCALING_REL_TOL)
+                ok = ok and bool((got[~page_mask] == 0).all())
+                if name == "paged_halfstep":
+                    ok = ok and bool((got[~slot_live] == 0).all())
+                record(name, tag, err, ok)
+
+
+def check_log_matvec(torch, device, record):
+    """log_matvec against its plain version (atol 1e-4 + rtol 1e-5, the LSE
+    kernels' tolerance) in float32 and bf16, on both load paths, with
+    -inf entries, an all -inf row (gives -inf) and -inf in t."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.logmatvec import log_matvec
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for (m, r, neg_inf) in ((N, R_ANCHORS, False), (1023, 300, True),
+                                (777, 1001, True), (5, 129, True),
+                                (4096, 1032, True)):
+            g = torch.Generator(device=device).manual_seed(m + r)
+            log_m = (30.0 * torch.randn((m, r), generator=g, device=device)
+                     - 50.0)
+            t = 10.0 * torch.randn((r,), generator=g, device=device)
+            if neg_inf:
+                log_m[m // 2] = -math.inf
+                log_m[:, r // 3] = -math.inf
+                t[r - 1] = -math.inf
+            log_m = log_m.to(dtype)
+            got = log_matvec(log_m, t)
+            want = ref.log_matvec_ref(log_m, t)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, want, atol=LSE_ATOL, rtol=LSE_RTOL)
+            if neg_inf:
+                ok = ok and float(got[m // 2]) == -math.inf
+            record("log_matvec", f"{str(dtype)[6:]} m={m} r={r} "
+                   f"-inf={neg_inf}", err, ok)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: times
 # ---------------------------------------------------------------------------
@@ -719,7 +893,7 @@ def time_scaling_kernels(torch, np, device):
         t = torch.rand((r, B), generator=g, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             fb = torch.finfo(dtype).bits // 8
-            copies = [xi32.to(dtype) for _ in
+            copies = [xi32.to(dtype, copy=True) for _ in
                       range(max(1, math.ceil(100e6 / (fb * n * r))))]
             tag = "f32" if dtype == torch.float32 else "bf16"
             for name, kernel, plain, library, nbytes, flops in (
@@ -785,6 +959,127 @@ def time_scaling_kernels(torch, np, device):
     one_ms = time_ms(torch, lambda: sinkhorn_block(*args, inner_steps=1))
     log(f"  sinkhorn_block         inner_steps=1: kernel {one_ms:.4f} ms; "
         f"each further iteration {(ms - one_ms) / (steps - 1):.4f} ms")
+    return rows
+
+
+def time_paged_kernels(torch, np, device):
+    """Phase 3 for the streaming path: the paged contract, half-step and
+    matvec at C = 32768, r = 1024 and 256, float32 and bf16, B = 1, with
+    100%, 50% and 25% of the pages live (the first pages, as a store packs
+    them), each beside the flat kernel on the same buffer, its plain
+    version and the PyTorch calls ``xi.T @ (u * mask)``, ``marg / (xi @ t)
+    * mask`` and ``(xi @ t) * mask``. The bound counts the bytes of the
+    live pages (each read once), the page table and the outputs. Each call
+    is timed cold, cycling through copies of the buffer whose live pages
+    together exceed 100 MB, and warm on one copy. Then log_matvec at
+    (16384, 1024), float32 and bf16, against ``torch.logsumexp(log_m + t,
+    1)``. The JSON line takes the cold float32 r = 1024 rows at 50% live
+    (the streaming path's buffers) and log_matvec in float32."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kermatvec import (
+        feature_contract,
+        feature_matvec,
+        sinkhorn_halfstep,
+    )
+    from repro_torch.kernels.logmatvec import log_matvec
+    from repro_torch.kernels.paged import (
+        paged_feature_contract,
+        paged_feature_matvec,
+        paged_halfstep,
+    )
+
+    rows = {}
+    C, B, ps = STREAM_CAPACITY, 1, STREAM_PAGE
+    n_pages = C // ps
+    g = torch.Generator(device=device).manual_seed(13)
+    u = torch.rand((C, B), generator=g, device=device)
+    marg = torch.full((C, B), 1.0 / C, device=device)
+    for r in (R_ANCHORS, 256):
+        xi32 = torch.as_tensor(explicit_features(np, C, r, 3 * r),
+                               device=device)
+        t = torch.rand((r, B), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            fb = torch.finfo(dtype).bits // 8
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for share in (1.0, 0.5, 0.25):
+                n_live = int(n_pages * share)
+                live = torch.as_tensor(
+                    [ps] * n_live + [0] * (n_pages - n_live),
+                    dtype=torch.int32, device=device)
+                mask = ref.page_mask(live, ps)[:, None].float()
+                rows_live = n_live * ps
+                copies = [xi32.to(dtype, copy=True) for _ in range(max(
+                    1, math.ceil(100e6 / (fb * rows_live * r))))]
+                table = 4.0 * n_pages
+                for name, kernel, flat, plain, library, nbytes, flops in (
+                    ("paged_feature_contract",
+                     lambda xi: paged_feature_contract(xi, u, live,
+                                                       page_size=ps),
+                     lambda xi: feature_contract(xi, u),
+                     lambda xi: ref.paged_contract_ref(xi, u, live,
+                                                       page_size=ps),
+                     lambda xi: xi.float().T @ (u * mask),
+                     fb * rows_live * r + 4.0 * (rows_live * B + r * B)
+                     + table, 2.0 * rows_live * r * B),
+                    ("paged_halfstep",
+                     lambda xi: paged_halfstep(xi, t, marg, live,
+                                               page_size=ps),
+                     lambda xi: sinkhorn_halfstep(xi, t, marg),
+                     lambda xi: ref.paged_halfstep_ref(xi, t, marg, live,
+                                                       page_size=ps),
+                     lambda xi: marg / (xi.float() @ t) * mask,
+                     fb * rows_live * r + 4.0 * (r * B + rows_live * B
+                                                 + C * B) + table,
+                     2.0 * rows_live * r * B + rows_live * B),
+                    ("paged_feature_matvec",
+                     lambda xi: paged_feature_matvec(xi, t, live,
+                                                     page_size=ps),
+                     lambda xi: feature_matvec(xi, t),
+                     lambda xi: ref.paged_matvec_ref(xi, t, live,
+                                                     page_size=ps),
+                     lambda xi: (xi.float() @ t) * mask,
+                     fb * rows_live * r + 4.0 * (r * B + C * B) + table,
+                     2.0 * rows_live * r * B)):
+                    cold = [time_ms(torch, cycling(fn, copies))
+                            for fn in (kernel, flat, plain, library)]
+                    warm = time_ms(torch, lambda: kernel(copies[0]))
+                    b_ms, b_by = bound(nbytes, flops)
+                    row = dict(ms=cold[0], plain_ms=cold[2],
+                               library_ms=cold[3], bound_ms=b_ms,
+                               bound_by=b_by)
+                    rows[f"{name}/{tag}/r={r}/{share:.2f}"] = row
+                    if tag == "f32" and r == R_ANCHORS and share == 0.5:
+                        rows[name] = row
+                    log(f"  {name:22s} {tag} C={C} r={r} live={share:.0%}: "
+                        f"kernel {cold[0]:.4f} ms (L2-warm {warm:.4f})  flat "
+                        f"{cold[1]:.4f} ms  plain {cold[2]:.4f} ms  library "
+                        f"{cold[3]:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+                        f"kernel/bound {cold[0] / b_ms:.2f}")
+                del copies
+
+    m, r = N, R_ANCHORS
+    t = torch.randn((r,), generator=g, device=device)
+    log_m32 = torch.randn((m, r), generator=g, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        fb = torch.finfo(dtype).bits // 8
+        copies = [log_m32.to(dtype, copy=True) for _ in range(max(1, math.ceil(
+            100e6 / (fb * m * r))))]
+        cold = [time_ms(torch, cycling(fn, copies)) for fn in (
+            lambda lm: log_matvec(lm, t),
+            lambda lm: ref.log_matvec_ref(lm, t),
+            lambda lm: torch.logsumexp(lm.float() + t[None, :], dim=1))]
+        warm = time_ms(torch, lambda: log_matvec(copies[0], t))
+        b_ms, b_by = bound(fb * m * r + 4.0 * (r + m), 3.0 * m * r)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        row = dict(ms=cold[0], plain_ms=cold[1], library_ms=cold[2],
+                   bound_ms=b_ms, bound_by=b_by)
+        rows[f"log_matvec/{tag}"] = row
+        if tag == "f32":
+            rows["log_matvec"] = row
+        log(f"  log_matvec             {tag} m={m} r={r}: kernel "
+            f"{cold[0]:.4f} ms (L2-warm {warm:.4f})  plain {cold[1]:.4f} ms  "
+            f"library {cold[2]:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+            f"kernel/bound {cold[0] / b_ms:.2f}")
     return rows
 
 
@@ -1399,6 +1694,273 @@ def compare_objective_plans(torch, gan, solves=10):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the streaming path
+# ---------------------------------------------------------------------------
+
+
+def stream_points(np, rng, k, side):
+    """k points of one side's cloud: bench_stream's 0.5 N(0, I_2), shifted
+    by 0.3 on the y side."""
+    pts = 0.5 * rng.standard_normal((k, STREAM_D))
+    return (pts + (STREAM_SHIFT if side == "y" else 0.0)).astype(np.float32)
+
+
+def stream_mutation(np, rng, live_ids, side, tag):
+    """Evict STREAM_DELTA random ids of ``live_ids`` (one side) and insert
+    as many new points of that side's cloud. The evicted ids leave
+    ``live_ids``; the new ones are returned for the caller to add once
+    they are in the store (a flush applies every eviction of its batch
+    before any insertion)."""
+    drop = rng.choice(len(live_ids), STREAM_DELTA, replace=False)
+    gone = [live_ids[i] for i in drop]
+    keep = np.ones(len(live_ids), bool)
+    keep[drop] = False
+    live_ids[:] = [i for i, k in zip(live_ids, keep) if k]
+    new = [(side, tag, i) for i in range(STREAM_DELTA)]
+    return gone, dict(ids=new, points=stream_points(np, rng, STREAM_DELTA,
+                                                    side),
+                      weights=np.ones(STREAM_DELTA, np.float32))
+
+
+def stream_state(np, pair, saved):
+    """What a solve started from, on the host: each side's feature buffer,
+    weights, live mask and page table, and the start potentials as
+    ``StreamingSolver._solve`` prepares them (no bucket is crossed here;
+    ``saved`` is None for a cold solve)."""
+    from repro_torch.streaming.solver import _prep_init
+    state = {}
+    for side, pot in zip(("x", "y"), saved):
+        st = getattr(pair, side).store
+        live = st.live_mask()
+        state[side] = dict(feats=st._feats.copy(), weights=st.weights_host(),
+                           live=live, page_live=st.page_live,
+                           f0=_prep_init(pot, live, None, st.capacity)[0])
+    return state
+
+
+def drive_stream(torch, np, device, method, precision, seed):
+    """One run of phase 7's traffic through the entry points a user calls:
+    two ``from_points`` stores of N live points (capacity 32768: half the
+    pages dead; the bf16 run reads bf16 device buffers) behind a
+    StreamingOTService (max_batch 4), warmup, a cold solve, 8 submitted
+    mutations drained as 2 coalesced warm re-solves, then 2 direct
+    StreamingSolver.update calls. Each solve's result, wall (mutation,
+    flush and re-solve, ending in a synchronise) and start state are kept
+    for the comparisons, which run after the counted traffic."""
+    from repro_torch.core import GaussianFeatureMap
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ops import observe_plan_selection
+    from repro_torch.serving import StreamingOTService
+    from repro_torch.streaming import StreamingDistribution, StreamingSolver
+
+    rng = np.random.default_rng(seed)
+    live_ids = {side: [(side, i) for i in range(N)] for side in "xy"}
+    pts = {side: stream_points(np, rng, N, side) for side in "xy"}
+    R = float(np.max(np.linalg.norm(np.concatenate(list(pts.values())),
+                                    axis=1)))
+    fm = GaussianFeatureMap(r=R_ANCHORS, d=STREAM_D, eps=STREAM_EPS, R=R)
+    anchors = (math.sqrt(fm.sigma2) * rng.standard_normal(
+        (R_ANCHORS, STREAM_D))).astype(np.float32)
+    sides = [StreamingDistribution.from_points(
+        live_ids[side], pts[side], np.ones(N, np.float32), anchors,
+        eps=STREAM_EPS, q=fm.q, page_size=STREAM_PAGE) for side in "xy"]
+    solver = StreamingSolver(method=method, tol=TOL, precision=precision)
+    svc = StreamingOTService(solver=solver, max_batch=4, max_wait=1.0,
+                             clock=lambda: 0.0)
+    records, mark, label = [], [0.0], ["coalesced flush"]
+    real_re_solve = solver.re_solve
+
+    def recorded(pair_):
+        saved = (pair_.f, pair_.g)
+        res = real_re_solve(pair_)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - mark[0]
+        records.append(dict(label=label[0], res=res, wall=wall,
+                            state=stream_state(np, pair_, saved)))
+        mark[0] = time.perf_counter()
+        return res
+
+    before = launch_counts()
+    with observe_plan_selection() as events:
+        t0 = time.perf_counter()
+        pair = svc.register("stream", *sides)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        state = stream_state(np, pair, (None, None))
+        t0 = time.perf_counter()
+        res = solver.cold_solve(pair)
+        torch.cuda.synchronize()
+        records.append(dict(label="cold solve", res=res, state=state,
+                            wall=time.perf_counter() - t0))
+        solver.re_solve = recorded
+        batch = []
+        for k in range(STREAM_MUTATIONS):
+            if k % svc.queue.max_batch == 0:    # the previous flush's inserts
+                for _, add in batch:
+                    live_ids[add["ids"][0][0]] += add["ids"]
+                batch = []
+            gx, ax = stream_mutation(np, rng, live_ids["x"], "x", k)
+            gy, ay = stream_mutation(np, rng, live_ids["y"], "y", k)
+            batch += [(gx, ax), (gy, ay)]
+            svc.submit_update("stream", remove_x=gx, add_x=ax, remove_y=gy,
+                              add_y=ay)
+        for _, add in batch:
+            live_ids[add["ids"][0][0]] += add["ids"]
+        mark[0] = time.perf_counter()
+        resolved = svc.pump() + svc.drain()
+        label[0] = "direct update"
+        for k in range(2):
+            gx, ax = stream_mutation(np, rng, live_ids["x"], "x", f"u{k}")
+            gy, ay = stream_mutation(np, rng, live_ids["y"], "y", f"u{k}")
+            live_ids["x"] += ax["ids"]
+            live_ids["y"] += ay["ids"]
+            mark[0] = time.perf_counter()
+            solver.update(pair, remove_x=gx, add_x=ax, remove_y=gy,
+                          add_y=ay)
+    solver.re_solve = real_re_solve
+    delta = counts_delta(before, launch_counts())
+    stats = svc.stats()
+    log(f"  {method} {precision}: warmup {warmup_s:.3f} s; {resolved} "
+        f"mutations in {stats['solves']} flushes (coalesce ratio "
+        f"{stats['coalesce_ratio']:.1f}); pages live "
+        f"{pair.x.store.stats()['live_pages']}/{pair.x.store.n_pages}; "
+        f"launches {delta}")
+    return dict(method=method, precision=precision, solver=solver,
+                pair=pair, records=records, delta=delta,
+                events=[(e["mode"], e["kind"]) for e in events],
+                resolved=resolved, solves=stats["solves"])
+
+
+def compare_stream(torch, np, device, run):
+    """Each solve of a run against the same solver with use_pallas=False
+    from the same start state (cost 1e-4 relative, |d n_iter| <= 1, f and g
+    on live slots within 1e-4 of max |f| or |g|) and against a cold
+    ``solve(method="factored")`` on the compact live support, built from
+    host arrays as a caller without the streaming layer would (cost 1e-4
+    relative; its wall is the cold pipeline's). Then the path checks and
+    a profile of one more update."""
+    from repro_torch.core import OTProblem, solve
+    from repro_torch.streaming.solver import run_paged
+
+    method, precision = run["method"], run["precision"]
+    failures = []
+    solver, pair = run["solver"], run["pair"]
+    warm_iters = cold_iters = 0
+    for rec in run["records"]:
+        st, res = rec["state"], rec["res"]
+        # the plain operators on the same host state; a bf16 run's float32
+        # rows round to the bf16 values its stores hold
+        p = run_paged(*(torch.as_tensor(st[s]["feats"], device=device)
+                        for s in "xy"),
+                      st["x"]["page_live"], st["y"]["page_live"],
+                      st["x"]["weights"], st["y"]["weights"],
+                      st["x"]["f0"], st["y"]["f0"], page_size=STREAM_PAGE,
+                      eps=STREAM_EPS, method=method, tol=TOL,
+                      max_iter=solver.max_iter, momentum=solver.momentum,
+                      use_pallas=False, precision=precision)
+        rel = abs(float(res.cost) - float(p.cost)) / abs(float(p.cost))
+        pot_ok, pot_err = True, 0.0
+        for side, got, want in (("x", res.f, p.f), ("y", res.g, p.g)):
+            live = torch.as_tensor(st[side]["live"], device=device)
+            err, ok = compare(torch, got[live], want[live],
+                              rel_to_max=COST_RTOL)
+            pot_ok, pot_err = pot_ok and ok, max(pot_err, err)
+        xi_c, zeta_c = (st[s]["feats"][st[s]["live"]] for s in "xy")
+        a_c, b_c = (st[s]["weights"][st[s]["live"]] for s in "xy")
+        t0 = time.perf_counter()
+        prob = OTProblem.from_features(xi_c, zeta_c, a_c / a_c.sum(),
+                                       b_c / b_c.sum(), eps=STREAM_EPS)
+        cold = solve(prob, method="factored", tol=TOL, precision=precision)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        rel_cold = abs(float(res.cost) - float(cold.cost)) / \
+            abs(float(cold.cost))
+        ok = (rel <= COST_RTOL and abs(res.n_iter - p.n_iter) <= 1
+              and pot_ok and rel_cold <= COST_RTOL
+              and math.isfinite(float(res.cost)))
+        if rec["label"] != "cold solve":
+            warm_iters += res.n_iter
+            cold_iters += cold.n_iter
+        log(f"  {method} {precision} {rec['label']:15s}: n_iter {res.n_iter}"
+            f" (plain {p.n_iter}, cold compact {cold.n_iter}) cost "
+            f"{float(res.cost):.7f} rel diff plain {rel:.3e} cold "
+            f"{rel_cold:.3e}, potentials err {pot_err:.3e}; wall "
+            f"{rec['wall'] * 1e3:.3f} ms ({rec['wall'] * 1e3 / res.n_iter:.4f}"
+            f" ms/iteration), cold pipeline {cold_s * 1e3:.3f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{method} {precision} {rec['label']}")
+    d = run["delta"]
+    paged = ("paged_feature_contract", "paged_halfstep",
+             "paged_feature_matvec")
+    flat = ("feature_contract", "sinkhorn_halfstep", "feature_matvec",
+            "sinkhorn_block")
+    if method == "scaling":
+        path_ok = all(d[k] > 0 for k in paged) and all(d[k] == 0
+                                                       for k in flat)
+    else:
+        path_ok = d["log_feature_contract"] > 0 and d["log_halfstep"] > 0
+    path_ok = (path_ok and set(run["events"]) == {(method, "paged")}
+               and run["resolved"] == STREAM_MUTATIONS and run["solves"] == 2)
+    log(f"  {method} {precision} path: plan events {set(run['events'])} "
+        f"{'ok' if path_ok else 'FAIL'}")
+    if not path_ok:
+        failures.append(f"{method} {precision} path")
+    # the warm start must save iterations over the run: a re-solve that
+    # lost its saved potentials would take the cold solve's count
+    warm_ok = warm_iters < cold_iters
+    log(f"  {method} {precision} warm start: {warm_iters} iterations over "
+        f"the {len(run['records']) - 1} warm re-solves against {cold_iters} "
+        f"for cold compact solves of the same states "
+        f"{'ok' if warm_ok else 'FAIL'}")
+    if not warm_ok:
+        failures.append(f"{method} {precision} warm start")
+    rng = np.random.default_rng(99)
+    live_ids = {s: list(getattr(pair, s).store.ids()) for s in "xy"}
+    # one more update, step by step: where the wall of an update goes
+    muts = [stream_mutation(np, rng, live_ids[s], s, "split") for s in "xy"]
+    t0 = time.perf_counter()
+    for side, (gone, add) in zip("xy", muts):
+        getattr(pair, side).remove(gone)
+        getattr(pair, side).add(**add)
+    t1 = time.perf_counter()
+    dirty = len(pair.x.store._dirty) + len(pair.y.store._dirty)
+    pair.x.device_features(solver.storage_dtype)
+    pair.y.device_features(solver.storage_dtype)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = solver.re_solve(pair)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"  {method} {precision} update split: evictions and inserts "
+        f"(host bookkeeping) {(t1 - t0) * 1e3:.3f} ms, flush of {dirty} "
+        f"dirty pages {(t2 - t1) * 1e3:.3f} ms, re-solve ({res.n_iter} "
+        f"iterations) {(t3 - t2) * 1e3:.3f} ms")
+    gx, ax = stream_mutation(np, rng, live_ids["x"], "x", "profiled")
+    gy, ay = stream_mutation(np, rng, live_ids["y"], "y", "profiled")
+    profile_call(torch, f"streaming update {method} {precision}",
+                 lambda: solver.update(pair, remove_x=gx, add_x=ax,
+                                       remove_y=gy, add_y=ay))
+    return failures
+
+
+def run_streaming_path(torch, np, device):
+    """The counted run of phase 7: three runs of the streaming traffic
+    (scaling f32, scaling bf16, log f32) with the launch counters set to 0
+    just before and read just after; the comparisons follow."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    runs = [drive_stream(torch, np, device, method, precision, 70 + k)
+            for k, (method, precision) in enumerate(STREAM_RUNS)]
+    counts = launch_counts()
+    failures = []
+    for run in runs:
+        failures += compare_stream(torch, np, device, run)
+    return counts, failures
+
+
+# ---------------------------------------------------------------------------
 
 
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
@@ -1407,15 +1969,21 @@ TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
                       "log_halfstep", "log_sinkhorn_block")
 SOLVE_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
                       "log_halfstep")
+STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
+                       "paged_feature_matvec", "log_feature_contract",
+                       "log_halfstep")
+
+
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7)
 
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all six)")
+                    "result lines need all seven)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
 
@@ -1518,6 +2086,7 @@ def main(argv=None) -> int:
         times = time_kernels(torch, np, device)
         times.update(time_training_kernels(torch, np, device))
         times.update(time_scaling_kernels(torch, np, device))
+        times.update(time_paged_kernels(torch, np, device))
 
     counts = {}
     if 4 in phases:
@@ -1565,9 +2134,29 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 6 FAILED: {failures}")
             return 1
+    if 7 in phases:
+        log(f"== phase 7: streaming path (two stores of {N} live points, "
+            f"d={STREAM_D}, capacity {STREAM_CAPACITY}, page {STREAM_PAGE}, "
+            f"r={R_ANCHORS}, eps={STREAM_EPS}, tol={TOL}; "
+            f"{STREAM_MUTATIONS} mutations of "
+            f"{STREAM_DELTA} evictions and insertions a side, coalesced 4 to "
+            "a flush, then 2 direct updates; scaling f32, scaling bf16, log "
+            "f32)")
+        t7 = time.perf_counter()
+        c7, failures = run_streaming_path(torch, np, device)
+        log(f"  launches on the streaming path: {c7}")
+        counts["stream"] = c7
+        missing = [k for k in STREAM_PATH_KERNELS if c7[k] <= 0]
+        if missing:
+            failures.append(f"kernels never launched: {missing}")
+        log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
+        if failures:
+            log(f"phase 7 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    if phases != {1, 2, 3, 4, 5, 6}:
-        log(f"phases {sorted(phases)} passed; no result line without all six")
+    if phases != set(ALL_PHASES):
+        log(f"phases {sorted(phases)} passed; no result line without all "
+            "seven")
         return 0
 
     kernels = []

@@ -7,18 +7,23 @@ function here takes those as numpy arrays (``np.asarray`` of the JAX
 arrays) and builds the port's object on ``device`` (default: the card), so
 one set of arrays can be handed to both packages. :func:`mlp_stack` and
 :func:`gan_params` carry the JAX OT-GAN example's parameters (lists of
-``{"w": (d_in, d_out), "b": (d_out,)}`` layers) into the port's modules.
+``{"w": (d_in, d_out), "b": (d_out,)}`` layers) into the port's modules;
+:func:`paged_factored` and :func:`streaming_distribution` carry a paged
+geometry and a streaming store's state, slot for slot.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Hashable, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .core.api import OTProblem
 from .core.geometry import DenseCost, FactoredPositive, GaussianPointCloud
+from .core.paged import PagedFactored
 from .examples.ot_gan import MLP, OTGAN
 from .kernels.backend import as_f32, resolve_device
+from .streaming import PagedFeatureStore, StreamingDistribution
 
 __all__ = [
     "gaussian_point_cloud",
@@ -27,6 +32,8 @@ __all__ = [
     "ot_problem",
     "mlp_stack",
     "gan_params",
+    "paged_factored",
+    "streaming_distribution",
 ]
 
 
@@ -80,3 +87,45 @@ def gan_params(params: Mapping, *, device=None):
     return OTGAN(mlp_stack(params["gen"], device=dev),
                  mlp_stack(params["emb"], device=dev),
                  as_f32(params["anchors"], dev))
+
+
+def paged_factored(*, eps: float, page_live_x, page_live_y,
+                   page_size: int = 64, xi=None, zeta=None, log_xi=None,
+                   log_zeta=None, device=None) -> PagedFactored:
+    """A :class:`PagedFactored` from numpy factors (one pair, linear or
+    log) and the per-page live counts."""
+    dev = resolve_device(device)
+
+    def conv(arr):
+        return None if arr is None else as_f32(arr, dev)
+
+    def live(arr):
+        return torch.as_tensor(np.asarray(arr), dtype=torch.int32,
+                               device=dev).contiguous()
+
+    return PagedFactored(xi=conv(xi), zeta=conv(zeta), log_xi=conv(log_xi),
+                         log_zeta=conv(log_zeta),
+                         page_live_x=live(page_live_x),
+                         page_live_y=live(page_live_y),
+                         page_size=int(page_size), eps=float(eps))
+
+
+def streaming_distribution(feats, weights, live, slot_of: Mapping[
+        Hashable, int], page_live, alloc_order: Sequence[int], *,
+        page_size: int, eps: float, device=None) -> StreamingDistribution:
+    """The port's :class:`StreamingDistribution` holding a JAX store's
+    state slot for slot: its ``(capacity, rank)`` feature buffer, weights,
+    live mask, ``_slot`` (id -> slot, in insertion order), ``page_live``
+    and ``_alloc_order`` (pages in first-touch order). Nothing is on the
+    device yet: the first flush uploads the whole buffer."""
+    feats = np.asarray(feats, np.float32)
+    capacity, rank = feats.shape
+    store = PagedFeatureStore(rank, capacity, page_size=page_size,
+                              device=device)
+    store._feats = feats.copy()
+    store._weights = np.asarray(weights, np.float32).copy()
+    store._live = np.asarray(live, bool).copy()
+    store._page_live = np.asarray(page_live, np.int32).copy()
+    store._slot = dict(slot_of)
+    store._alloc_order = [int(p) for p in alloc_order]
+    return StreamingDistribution(store, eps=eps)

@@ -32,6 +32,7 @@ from .geometry import (
 )
 from .grad import rot_factored, rot_geometry
 from .objective import ExecutionPolicy, OTObjective
+from .paged import PagedFactored
 from .sinkhorn import (
     SinkhornResult,
     sinkhorn_factored,
@@ -65,6 +66,7 @@ __all__ = [
     "rot_geometry",
     "ExecutionPolicy",
     "OTObjective",
+    "PagedFactored",
     "SinkhornResult",
     "sinkhorn_geometry",
     "sinkhorn_factored",

@@ -194,14 +194,16 @@ def _resolve_cadence(plan, inner_steps: Optional[int],
     """``(inner, check, auto)``: iterations per megakernel launch and per
     convergence check from the knobs.
 
-    Auto (both ``None``): 8 and 8 when the fused plan runs on the card
-    (``_plan_loop`` still takes the per-iteration step at shapes the
-    megakernel does not admit); 1 and 1 everywhere else,
-    including the CPU, as the JAX package keeps 1/1 in interpret mode.
+    Auto (both ``None``): 8 and 8 when the fused plan runs on the card and
+    has a megakernel (``_plan_loop`` still takes the per-iteration step at
+    shapes the megakernel does not admit); 1 and 1 everywhere else,
+    including the CPU and a plan with no megakernel (the paged plan), as
+    the JAX package keeps 1/1 in interpret mode and without a block step.
     Explicit values hold on every path; on the plain operators
     ``inner_steps`` only sets the check cadence."""
     if inner_steps is None and check_every is None:
-        if plan is not None and plan.features[0].is_cuda:
+        if plan is not None and plan.features[0].is_cuda \
+                and plan.make_block_step is not None:
             return 8, 8, True
         return 1, 1, True
     inner = 1 if inner_steps is None else int(inner_steps)
@@ -220,13 +222,13 @@ def _resolve_cadence(plan, inner_steps: Optional[int],
 def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
                check_every, momentum):
     """Run a fused plan's hot loop: the megakernel block step
-    (``inner_steps`` iterations per launch) where the plan admits it, else
-    the per-iteration step at the same check cadence (every iteration
-    under auto). ``carry0`` is ``(f0, g0)``; returns ``(n_iter, carry,
-    err)``."""
+    (``inner_steps`` iterations per launch) where the plan has one and
+    admits the shape, else the per-iteration step at the same check
+    cadence (every iteration under auto). ``carry0`` is ``(f0, g0)``;
+    returns ``(n_iter, carry, err)``."""
     inner, check, auto = _resolve_cadence(plan, inner_steps, check_every)
     block = None
-    if inner > 1:
+    if inner > 1 and plan.make_block_step is not None:
         block = plan.make_block_step(a, b, inner_steps=inner,
                                      momentum=momentum)
     if block is not None:

@@ -12,7 +12,8 @@ from typing import Dict
 from .feature_map import gaussian_feature_map
 from .fused_loop import log_sinkhorn_block, sinkhorn_block
 from .kermatvec import feature_contract, feature_matvec, sinkhorn_halfstep
-from .logmatvec import log_feature_contract, log_halfstep
+from .logmatvec import log_feature_contract, log_halfstep, log_matvec
+from .paged import paged_feature_contract, paged_feature_matvec, paged_halfstep
 
 __all__ = [
     "KERNELS",
@@ -24,6 +25,10 @@ __all__ = [
     "log_feature_contract",
     "log_halfstep",
     "log_sinkhorn_block",
+    "log_matvec",
+    "paged_feature_contract",
+    "paged_halfstep",
+    "paged_feature_matvec",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -37,6 +42,10 @@ KERNELS = {
     "log_feature_contract": log_feature_contract,
     "log_halfstep": log_halfstep,
     "log_sinkhorn_block": log_sinkhorn_block,
+    "log_matvec": log_matvec,
+    "paged_feature_contract": paged_feature_contract,
+    "paged_halfstep": paged_halfstep,
+    "paged_feature_matvec": paged_feature_matvec,
 }
 
 

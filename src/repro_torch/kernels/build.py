@@ -6,8 +6,8 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so
 
-The library name carries a hash of the sources and flags, so a stale build
-is never loaded. Sources that are missing a build are compiled in parallel
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale build is never loaded. Sources that are missing a build are compiled in parallel
 (one ``nvcc`` process each, all started together) at first use; nothing
 here runs at import, so importing this module needs no ``nvcc``. The build
 directory is ``build/repro_torch`` at the repository root (listed in
@@ -43,6 +43,7 @@ SOURCES = {
     "logmatvec": CSRC / "logmatvec.cu",
     "kermatvec": CSRC / "kermatvec.cu",
     "fused_loop": CSRC / "fused_loop.cu",
+    "paged": CSRC / "paged.cu",
 }
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = (
@@ -74,8 +75,8 @@ def nvcc_path() -> str:
 def _library_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha256()
-    for part in (src.read_bytes(), (CSRC / "common.cuh").read_bytes(),
-                 " ".join(NVCC_FLAGS).encode()):
+    headers = [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    for part in (src.read_bytes(), *headers, " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
-// Log-domain factored Sinkhorn operators: the log contract and the log
-// half-step.
+// Log-domain factored Sinkhorn operators: the log contract, the log
+// half-step and the single-column row LSE log_matvec.
 //
 // log_feature_contract replaces the TPU kernels in
 // src/repro/kernels/logmatvec.py, _log_contract_kernel and its split-k twin
@@ -23,17 +23,27 @@
 // one warp per output row; scale = eps gives the potential update and
 // scale = -1 with lmarg = 0 the raw LSE of the convergence check.
 //
+// log_matvec replaces _log_matvec_kernel (launched by _log_matvec_impl):
+//
+//   out[j] = LSE_k( log_m[j, k] + t[k] )                 (m, r), (r,) -> (m,)
+//
+// one warp per row, t staged in shared memory, with the TPU kernel's exact
+// row max: a first pass over the row takes the max, pinned to 0 where it
+// is not finite (_finite_or_zero, so an all -inf row gives -inf), a second
+// pass sums exp(x - max). The second pass reads the row again, from the
+// L1 or the L2; the bound counts one read.
+//
 // The factor log_w is stored as float or as bfloat16 (precision="bf16",
 // half the bytes); each kernel is a template on that storage type T,
 // widens every element to float on load and accumulates in float.
 //
-// Bound on the H100: both read the (n, r) factor once, 64 MiB in float at
-// n = 16384, r = 1024, which is more than the 50 MB L2, so each launch
+// Bound on the H100: all three read the (n, r) factor once, 64 MiB in float
+// at n = 16384, r = 1024, which is more than the 50 MB L2, so each launch
 // streams it from device memory (about 20 us at 3.35 TB/s; half that in
-// bf16). One expf per entry (16.8 M) is far below the SFU rate, so both
-// are bound by bytes. Loads are coalesced along r and many are kept in
-// flight per thread: on the solver's path (B = 1, rows a multiple of 16
-// bytes, 16-byte aligned) both kernels read 16-byte vectors (4 floats or 8
+// bf16). One expf per entry (16.8 M) is far below the SFU rate, so all
+// three are bound by bytes. Loads are coalesced along r and many are kept
+// in flight per thread: on the solver's path (B = 1, rows a multiple of 16
+// bytes, 16-byte aligned) the kernels read 16-byte vectors (4 floats or 8
 // bf16), eight per thread at a time; other shapes take a scalar path with
 // the same arithmetic per entry. The contract's wrapper also takes the
 // scalar path where r is too small for the vectors of a row to fill a CTA
@@ -293,6 +303,91 @@ log_halfstep_kernel(const T* __restrict__ log_w,
   }
 }
 
+// Calls f(x) for every entry x = log_m[j, k] + t[k] of row j that lane
+// owns: 16-byte vectors l, l + 32, ... of the row (eight in flight) when
+// vec != 0, else elements l, l + 32, ...
+template <typename T, typename F>
+__device__ __forceinline__ void for_row_entries(const T* __restrict__ log_m,
+                                                const float* t_sh, size_t j,
+                                                int r, int lane, int vec,
+                                                F&& f) {
+  constexpr int V = kVec<T>;
+  if (vec) {
+    const int rv = r / V;
+    const uint4* row = reinterpret_cast<const uint4*>(log_m) + j * rv;
+    int k = lane;
+    for (; k + 32 * (kUnroll - 1) < rv; k += 32 * kUnroll) {
+      uint4 raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(row + k + 32 * u);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float w[V], tv[V];
+        unpack16(raw[u], w);
+        load_floats(t_sh + (size_t)V * (k + 32 * u), tv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) f(w[e] + tv[e]);
+      }
+    }
+    for (; k < rv; k += 32) {
+      float w[V], tv[V];
+      unpack16(__ldg(row + k), w);
+      load_floats(t_sh + (size_t)V * k, tv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) f(w[e] + tv[e]);
+    }
+    return;
+  }
+  const T* row = log_m + j * r;
+  for (int k = lane; k < r; k += 32) f(load_factor(row + k) + t_sh[k]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHalfstepWarps * 32)
+log_matvec_kernel(const T* __restrict__ log_m, const float* __restrict__ t,
+                  float* __restrict__ out, int m, int r, int vec) {
+  extern __shared__ float4 t_sh4[];  // (r,)
+  float* t_sh = reinterpret_cast<float*>(t_sh4);
+  for (int e = threadIdx.x; e < r; e += kHalfstepWarps * 32) t_sh[e] = t[e];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int j = blockIdx.x * kHalfstepWarps + warp; j < m;
+       j += gridDim.x * kHalfstepWarps) {
+    float mx = -INFINITY;
+    for_row_entries(log_m, t_sh, j, r, lane, vec,
+                    [&](float x) { mx = fmaxf(mx, x); });
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (!isfinite(mx)) mx = 0.0f;
+    float acc = 0.0f;
+    for_row_entries(log_m, t_sh, j, r, lane, vec,
+                    [&](float x) { acc += expf(x - mx); });
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) out[j] = mx + logf(acc);
+  }
+}
+
+template <typename T>
+int log_matvec_launch_t(const T* log_m, const float* t, float* out, int m,
+                        int r, int vec, int grid, cudaStream_t stream) {
+  if (vec && r % kVec<T> != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)r * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        log_matvec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  log_matvec_kernel<T><<<grid, kHalfstepWarps * 32, smem, stream>>>(
+      log_m, t, out, m, r, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int contract_launch(const T* log_w, const float* s, float* partial, float* t,
                     int n, int r, int B, int n_splits, int rows_per_split,
@@ -364,4 +459,16 @@ REPRO_EXPORT int log_halfstep_launch(const void* log_w, int bf16,
                            out, m, r, B, scale, vec, grid, stream);
   return halfstep_launch(static_cast<const float*>(log_w), t, lmarg, out, m,
                          r, B, scale, vec, grid, stream);
+}
+
+// log_m is float (bf16 == 0) or bfloat16 (bf16 != 0); vec != 0 selects the
+// 16-byte vector path (rows of a multiple of 16 bytes, 16-byte aligned).
+REPRO_EXPORT int log_matvec_launch(const void* log_m, int bf16,
+                                   const float* t, float* out, int m, int r,
+                                   int vec, int grid, cudaStream_t stream) {
+  if (bf16)
+    return log_matvec_launch_t(static_cast<const __nv_bfloat16*>(log_m), t,
+                               out, m, r, vec, grid, stream);
+  return log_matvec_launch_t(static_cast<const float*>(log_m), t, out, m, r,
+                             vec, grid, stream);
 }

@@ -7,6 +7,10 @@
 * :func:`log_halfstep` — stage 2 with the log half-step fused,
   ``out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :]))``, shape (m, B).
   ``scale=eps`` is the potential update, ``scale=-1, lmarg=0`` the raw LSE.
+* :func:`log_matvec` — the single-column row LSE with the exact row max,
+  ``out[j] = LSE_k(log_m[j, k] + t[k])``, (m, r), (r,) -> (m,). No solver
+  reaches it; ``kernels.ops.log_matvec`` exports it, as the JAX package
+  does.
 
 ``log_w`` is stored as float32 or bfloat16 (``precision="bf16"``); the
 kernels widen it on load and accumulate in float32, as the plain versions
@@ -24,9 +28,9 @@ import torch
 
 from . import build
 from .backend import check_operand, sm_count
-from .ref import log_feature_contract_ref, log_halfstep_ref
+from .ref import log_feature_contract_ref, log_halfstep_ref, log_matvec_ref
 
-__all__ = ["MAX_COLS", "log_feature_contract", "log_halfstep"]
+__all__ = ["MAX_COLS", "log_feature_contract", "log_halfstep", "log_matvec"]
 
 MAX_COLS = 8                    # kMaxCols in csrc/common.cuh
 _CONTRACT_THREADS = 128         # kContractThreads: one column each, or four
@@ -48,6 +52,10 @@ def _lib():
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p])
     h.restype = ctypes.c_int
+    v = lib.log_matvec_launch
+    v.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    v.restype = ctypes.c_int
     return lib
 
 
@@ -158,5 +166,37 @@ def log_halfstep(log_w: torch.Tensor, t: torch.Tensor, lmarg: torch.Tensor,
     return out
 
 
+def log_matvec(log_m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """out[j] = LSE_k(log_m[j, k] + t[k]), shape (m,), float32; an all
+    ``-inf`` row gives ``-inf``.
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor it runs
+    :func:`~repro_torch.kernels.ref.log_matvec_ref`."""
+    dev = log_m.device
+    check_operand(log_m, "log_m", 2, dev, factor=True)
+    check_operand(t, "t", 1, dev)
+    m, r = log_m.shape
+    if t.shape[0] != r:
+        raise ValueError(f"shape mismatch: log_m {tuple(log_m.shape)}, t "
+                         f"{tuple(t.shape)}")
+    if dev.type == "cpu":
+        return log_matvec_ref(log_m, t)
+    if m < 1 or r < 1 or r * 4 > _MAX_SMEM:
+        raise ValueError(f"log_matvec kernel takes m, r >= 1 and r * 4 <= "
+                         f"{_MAX_SMEM} bytes of t; got m={m}, r={r}")
+    grid = min(-(-m // _HALFSTEP_ROWS), 4 * sm_count(dev))
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _lib().log_matvec_launch(
+            log_m.data_ptr(), int(log_m.dtype == torch.bfloat16),
+            t.data_ptr(), out.data_ptr(), m, r, int(_vectorized(log_m, 1)),
+            grid, stream)
+    build.check_launch(_lib(), code, "log_matvec")
+    log_matvec.launches += 1
+    return out
+
+
 log_feature_contract.launches = 0
 log_halfstep.launches = 0
+log_matvec.launches = 0

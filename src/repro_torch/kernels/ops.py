@@ -33,7 +33,17 @@ where ``fused_loop.block_plan_fits`` admits the shape, and returns ``None``
 elsewhere, where the solvers take the streaming per-iteration step.
 ``precision="bf16"`` stores the factors in bfloat16 (cast after the
 feature map, as the JAX package casts them); every kernel accumulates in
-float32. Counterpart of ``repro.kernels.ops``.
+float32.
+
+``paged`` (``core.paged.PagedFactored``, the streaming stores' geometry)
+runs, in scaling mode, :func:`_paged_scaling_plan`: the plan above with
+the paged kernels, which skip every page with no live slot. It has no
+megakernel (``make_block_step`` is ``None``). Unlike the JAX package,
+which refuses the paged kernels on a GPU backend, the port always takes
+them in scaling mode. In log mode a paged geometry runs :func:`_log_plan`
+on its full-capacity log-factors: dead slots have zero weight, so their
+potentials are pinned to ``-inf`` and drop out of every LSE. Counterpart
+of ``repro.kernels.ops``.
 
 ``observe_plan_selection`` is the test hook: while it is active every plan
 installed on a solve path appends an event dict.
@@ -48,7 +58,8 @@ import torch
 from .feature_map import gaussian_feature_map
 from .fused_loop import block_plan_fits, log_sinkhorn_block, sinkhorn_block
 from .kermatvec import feature_contract, feature_matvec, sinkhorn_halfstep
-from .logmatvec import log_feature_contract, log_halfstep
+from .logmatvec import log_feature_contract, log_halfstep, log_matvec
+from .paged import paged_feature_contract, paged_feature_matvec, paged_halfstep
 from .ref import relax_log, relax_scaling
 
 __all__ = [
@@ -59,6 +70,7 @@ __all__ = [
     "feature_contract",
     "sinkhorn_halfstep",
     "feature_matvec",
+    "log_matvec",
     "fused_sinkhorn_iteration",
     "GeometryOps",
     "geometry_ops",
@@ -136,8 +148,10 @@ class GeometryOps(NamedTuple):
     ``make_block_step`` — ``(a, b, *, inner_steps, momentum) ->
                     Optional[(step, init)]``: ``step`` advances
                     ``inner_steps`` iterations in one megakernel launch
-                    over the same carry as ``make_step``; ``None`` where
-                    ``fused_loop.block_plan_fits`` refuses the shape.
+                    over the same carry as ``make_step``; it returns
+                    ``None`` where ``fused_loop.block_plan_fits`` refuses
+                    the shape, and is itself ``None`` for a plan with no
+                    megakernel (the paged plan).
     ``precision`` — "highest" (float32 factors) or "bf16" (bfloat16
                     factor storage); accumulation is float32 in both.
     """
@@ -148,7 +162,7 @@ class GeometryOps(NamedTuple):
     iteration: Callable
     make_step: Callable
     eps: float
-    make_block_step: Callable
+    make_block_step: Optional[Callable]
     precision: str = "highest"
 
 
@@ -273,6 +287,63 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
                        make_block_step=make_block_step, precision=precision)
 
 
+def _paged_scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
+                        live_x: torch.Tensor, live_y: torch.Tensor,
+                        page_size: int, eps: float,
+                        precision: str = "highest") -> GeometryOps:
+    """The scaling plan on paged factor buffers: every contract, half-step
+    and matvec skips the pages with no live slot. Equal to
+    :func:`_scaling_plan` wherever dead slots carry zero weight and
+    scaling, the streaming stores' invariant. No megakernel."""
+    # a bf16 store buffer passes through; a float32 one is cast here
+    xi, zeta = _store_features(xi.contiguous(), zeta.contiguous(), precision)
+    kw = dict(page_size=page_size)
+
+    def iteration(a, b, u):
+        t = paged_feature_contract(xi, u, live_x, **kw)
+        v = paged_halfstep(zeta, t, b, live_y, **kw)
+        s = paged_feature_contract(zeta, v, live_y, **kw)
+        return paged_halfstep(xi, s, a, live_x, **kw), v
+
+    def apply_kt(u):
+        """``u (C_x,) -> K^T u (C_y,)``, 0 on dead pages."""
+        t = paged_feature_contract(xi, u[:, None].contiguous(), live_x, **kw)
+        return paged_feature_matvec(zeta, t, live_y, **kw)[:, 0]
+
+    def init(u0, v0):
+        return (u0, v0, apply_kt(u0))
+
+    def make_step(a, b, *, momentum: float = 1.0):
+        ac = a[:, None].contiguous()
+        zero_a, zero_b = torch.zeros_like(a), torch.zeros_like(b)
+
+        def step(carry):
+            u, v, s = carry
+            # the paged matvec writes zeros on dead pages, so b / s is 0 / 0
+            # there: pinned to the flat plan's value (b = 0 -> v = 0)
+            v_new = relax_scaling(torch.where(b > 0, b / s, zero_b), v,
+                                  momentum)
+            t = paged_feature_contract(zeta, v_new[:, None].contiguous(),
+                                       live_y, **kw)
+            if momentum == 1.0:
+                u_new = paged_halfstep(xi, t, ac, live_x, **kw)[:, 0]
+            else:
+                kv = paged_feature_matvec(xi, t, live_x, **kw)[:, 0]
+                u_new = relax_scaling(torch.where(a > 0, a / kv, zero_a), u,
+                                      momentum)
+            t2 = paged_feature_contract(xi, u_new[:, None].contiguous(),
+                                        live_x, **kw)
+            s_new = paged_feature_matvec(zeta, t2, live_y, **kw)[:, 0]
+            err = torch.sum(torch.abs(v_new * s_new - b))
+            return (u_new, v_new, s_new), err
+
+        return step, init
+
+    return GeometryOps(mode="scaling", kind=kind, features=(xi, zeta),
+                       iteration=iteration, make_step=make_step, eps=eps,
+                       make_block_step=None, precision=precision)
+
+
 def geometry_ops(geom, *, mode: str = "log",
                  precision: str = "highest") -> Optional[GeometryOps]:
     """Fused-kernel plan for ``geom``, chosen by the geometry itself, or
@@ -285,9 +356,23 @@ def geometry_ops(geom, *, mode: str = "log",
     if spec is None:
         return None
     kind = spec["kind"]
-    if kind not in ("factored", "log_factored", "gaussian"):
+    if kind not in ("factored", "log_factored", "gaussian", "paged"):
         raise ValueError(f"unknown pallas_ops spec kind {kind!r}")
     eps = float(geom.eps)
+    if kind == "paged":
+        if "xi" in spec:
+            xi, zeta = spec["xi"], spec["zeta"]
+            lxi = lzt = None
+        else:
+            lxi, lzt = spec["log_xi"], spec["log_zeta"]
+            xi, zeta = torch.exp(lxi), torch.exp(lzt)
+        if mode == "log":
+            if lxi is None:
+                lxi, lzt = _masked_log(xi), _masked_log(zeta)
+            return _log_plan(kind, lxi, lzt, float(spec["eps"]), precision)
+        return _paged_scaling_plan(kind, xi, zeta, spec["page_live_x"],
+                                   spec["page_live_y"],
+                                   int(spec["page_size"]), eps, precision)
     if kind == "factored":
         xi, zeta = spec["xi"], spec["zeta"]
         if mode == "scaling":

@@ -28,6 +28,11 @@ __all__ = [
     "feature_matvec_ref",
     "log_feature_contract_ref",
     "log_halfstep_ref",
+    "log_matvec_ref",
+    "page_mask",
+    "paged_contract_ref",
+    "paged_halfstep_ref",
+    "paged_matvec_ref",
     "relax_scaling",
     "relax_log",
     "sinkhorn_block_ref",
@@ -116,6 +121,51 @@ def log_halfstep_ref(log_w: torch.Tensor, t: torch.Tensor,
     """out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :])), shape (m, B)."""
     return scale * (lmarg - lse(log_w.float()[:, :, None] + t[None, :, :],
                                 dim=1))
+
+
+def log_matvec_ref(log_m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """out[j] = LSE_k(log_m[j, k] + t[k]) : (m, r), (r,) -> (m,), with the
+    exact row max; an all ``-inf`` row gives ``-inf``."""
+    return lse(log_m.float() + t[None, :], dim=1)
+
+
+def page_mask(page_live: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Row mask of a paged buffer, (n_pages,) -> (n_pages * page_size,):
+    True on the rows of pages with at least one live slot."""
+    return torch.repeat_interleave(page_live > 0, page_size)
+
+
+def paged_contract_ref(xi: torch.Tensor, u: torch.Tensor,
+                       page_live: torch.Tensor, *,
+                       page_size: int) -> torch.Tensor:
+    """t = sum over live pages of Xi_p^T u_p : (C, r), (C, B) -> (r, B).
+    The rows of dead pages are replaced by 0 in both operands, not
+    multiplied by 0, so whatever they hold (stale features, garbage or
+    non-finite values) never reaches ``t``."""
+    live = page_mask(page_live, page_size)[:, None]
+    return feature_contract_ref(
+        torch.where(live, xi.float(), torch.zeros((), device=xi.device)),
+        torch.where(live, u, torch.zeros_like(u)))
+
+
+def paged_halfstep_ref(xi: torch.Tensor, t: torch.Tensor, marg: torch.Tensor,
+                       page_live: torch.Tensor, *,
+                       page_size: int) -> torch.Tensor:
+    """out = marg / (Xi t) on live pages, exactly 0 on dead pages:
+    (C, r), (r, B), (C, B) -> (C, B)."""
+    live = page_mask(page_live, page_size)[:, None]
+    return torch.where(live, sinkhorn_halfstep_ref(xi, t, marg),
+                       torch.zeros_like(marg))
+
+
+def paged_matvec_ref(xi: torch.Tensor, t: torch.Tensor,
+                     page_live: torch.Tensor, *,
+                     page_size: int) -> torch.Tensor:
+    """out = Xi t on live pages, exactly 0 on dead pages:
+    (C, r), (r, B) -> (C, B)."""
+    out = feature_matvec_ref(xi, t)
+    live = page_mask(page_live, page_size)[:, None]
+    return torch.where(live, out, torch.zeros_like(out))
 
 
 def relax_scaling(new: torch.Tensor, old: torch.Tensor,

@@ -22,6 +22,7 @@ from repro_torch.core import (
 )
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ops import geometry_ops, observe_plan_selection
+from repro_torch.streaming import PagedFeatureStore, StreamingDistribution
 
 PKG = Path(repro_torch.__file__).resolve().parent
 SOURCES = sorted(PKG.rglob("*.py"))
@@ -87,6 +88,20 @@ def test_without_cuda_the_default_device_raises(monkeypatch):
     assert prob.a.device.type == "cpu"
 
 
+def test_streaming_stores_default_to_the_card_and_raise_without_one(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedFeatureStore(4, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingDistribution.from_features(
+            [0], np.ones((1, 4), np.float32), np.ones(1, np.float32),
+            eps=0.5)
+    store = PagedFeatureStore(4, 64, device="cpu")
+    store.add([0], np.ones((1, 4), np.float32), np.ones(1, np.float32))
+    assert store.device_features().device.type == "cpu"
+
+
 def test_unsupported_device_is_refused():
     x, y, u = _cloud_arrays()
     geom = convert.gaussian_point_cloud(x, y, u, eps=0.5, device="cpu")
@@ -111,7 +126,7 @@ def _geometries():
 
 
 @pytest.mark.parametrize("kind", ["gaussian", "factored", "log_factored"])
-def test_scaling_plan_raises_not_implemented(kind):
+def test_scaling_plan_is_built_for_every_kind(kind):
     """The scaling plan is built for every kind (it no longer raises): its
     factors are the positive features, the log plan's their logs."""
     geom = _geometries()[kind]
@@ -124,7 +139,7 @@ def test_scaling_plan_raises_not_implemented(kind):
         torch.testing.assert_close(torch.log(w), lw, rtol=1e-5, atol=1e-5)
 
 
-def test_factored_method_needs_plain_operators_until_the_trio_lands():
+def test_factored_method_takes_the_fused_scaling_plan():
     """``solve`` on linear features selects the fused scaling plan (it no
     longer needs ``use_pallas=False``) and agrees with the plain
     operators."""
@@ -194,6 +209,9 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     lm = (csrc / "logmatvec.cu").read_text()
     km = (csrc / "kermatvec.cu").read_text()
     fl = (csrc / "fused_loop.cu").read_text()
+    ops = (csrc / "feature_ops.cuh").read_text()   # shared by km and pg
+    assert "__global__" not in ops and "__fdiv_rn" in ops
+    assert '#include "feature_ops.cuh"' in km
     assert "__global__" in fm and "gaussian_feature_map_launch" in fm
     for name in ("log_contract_partial_kernel", "log_contract_combine_kernel",
                  "log_halfstep_kernel", "log_feature_contract_launch",
@@ -203,16 +221,27 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
                  "feature_contract_partial_vec_kernel",
                  "feature_contract_combine_kernel", "feature_rows_kernel",
                  "feature_contract_launch", "sinkhorn_halfstep_launch",
-                 "feature_matvec_launch", "__fdiv_rn", "__nv_bfloat16"):
+                 "feature_matvec_launch", "__nv_bfloat16"):
         assert name in km
     for name in ("__global__", "log_sinkhorn_block_kernel",
                  "log_sinkhorn_block_launch", "sinkhorn_block_kernel",
                  "sinkhorn_block_launch", "__nv_bfloat16",
                  "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert name in fl
+    pg = (csrc / "paged.cu").read_text()
+    for name in ("paged_contract_partial_kernel",
+                 "paged_contract_partial_vec_kernel",
+                 "paged_contract_combine_kernel", "paged_rows_kernel",
+                 "paged_feature_contract_launch", "paged_halfstep_launch",
+                 "paged_feature_matvec_launch", "page_live",
+                 '#include "feature_ops.cuh"', "__nv_bfloat16"):
+        assert name in pg
+    for name in ("log_matvec_kernel", "log_matvec_launch"):
+        assert name in lm
+    assert lm.count("__global__") == 5          # 3 contract, half-step, row LSE
     assert set(build.SOURCES) == {"feature_map", "logmatvec", "kermatvec",
-                                  "fused_loop"}
-    for src in (fm, lm, km, fl):
+                                  "fused_loop", "paged"}
+    for src in (fm, lm, km, fl, pg, ops):
         assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
         for lib in ("cublas", "cudnn", "cutlass", "wmma", "mma.sync"):
             assert lib not in src.lower()
