@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7] [--src DIR]
+
+``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
+time two versions with one script, in turns, on one card).
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
@@ -14,8 +17,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    log megakernel in bf16 and float32, at momentum 1.0 and 1.3, with dead
    atoms and a dead anchor, and its refusal of shapes the plan does not
    admit; the scaling contract, half-step (with a zero-weight atom and an
-   all-zero row) and matvec on float32 and bf16 factors, the contract on
-   both of its paths at r = 128; the scaling megakernel as the log one;
+   all-zero row) and matvec on float32 and bf16 factors, the contract run
+   twice a shape (bit-identical reruns) on its 16-byte path with row groups
+   and forced onto its scalar path, also at float32 r = 4, 12, 128, 256 and
+   bf16 r = 8, 128, 256 (n = 1001 and 16384); the feature map also at the
+   trainer's shape, at d = 64 and 130, r = 70 and 1001, a ragged row tile
+   and n = 2,200,000; the scaling megakernel as the log one;
    the paged contract, half-step and matvec in float32 and bf16, B = 1, 3
    and 11, page sizes 8, 64 and 128, an all-dead buffer, garbage on dead
    pages (1e6 in u, NaN in the factor) and dead slots on live pages; and
@@ -26,14 +33,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    1e-4 relative + 1e-6, and a second launch bit-identical; the paged
    kernels within 1e-5 of max |value|, dead pages exactly 0, a second
    contract launch bit-identical; log_matvec as the LSE kernels;
-3. times (CUDA events, median of 21 batches of 10 launches, queued behind a
-   device spin so that host overhead is not timed) of each kernel, its plain
+3. the device kernels one call of the feature map and of the contract
+   launches (profiler), then times (CUDA events, median of 21 batches of
+   10 launches, queued behind a device spin so that host overhead is not
+   timed) of each kernel, its plain
    version and one PyTorch library call computing the same function where
    there is one, beside the least time the card could take (bytes over
    3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger):
-   at the solve path's shape, the LSE kernels at batch 2048, r = 128 in
+   at the solve path's shape, the feature map in both epilogues there and
+   at the trainer's shapes (beside ``fill_`` of its output, evict-first
+   stores on and off), the LSE kernels at batch 2048, r = 128 in
    bf16, and the log megakernel at the OT-GAN shape; the scaling kernels
-   at n = 16384, r = 1024 and 256, float32 and bf16, and the scaling
+   at n = 16384, r = 1024 and 256, float32 and bf16 (the contract also
+   its slabs alone and its scalar path), and the scaling
    megakernel at the OT-GAN shape; the paged kernels at C = 32768, r =
    1024 and 256, float32 and bf16, 100%, 50% and 25% of pages live, each
    beside the flat kernel on the same buffer; log_matvec at (16384, 1024);
@@ -186,6 +198,20 @@ KERNEL_INFO = {
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's name as ``c++filt`` prints it, without the anonymous
+    namespace and the parameter list (the mangled name where there is no
+    ``c++filt``)."""
+    symbol = symbol.strip()
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    out = out.replace("(anonymous namespace)::", "")
+    return out.split("(", 1)[0] or symbol
 
 
 # ---------------------------------------------------------------------------
@@ -437,8 +463,10 @@ def check_scaling(torch, np, device, shapes, record):
     """The scaling contract, half-step and matvec against their plain
     versions on the same inputs, within 1e-5 of max |value|. The half-step
     has a zero-weight atom on a positive row (exactly 0) and an all-zero
-    factor row (marg / 0 = inf, in both). The contract runs on both of its
-    paths where the vector path applies (B = 1, rows of 16 bytes)."""
+    factor row (marg / 0 = inf, in both). The contract runs twice on each
+    shape (the reruns must be bit-identical), on its 16-byte path with row
+    groups and forced onto its scalar path where the 16-byte path applies
+    (B = 1, rows of 16 bytes); a shape tagged "contract" checks only it."""
     from repro_torch.kernels import kermatvec, ref
     from repro_torch.kernels.kermatvec import (
         feature_contract,
@@ -446,7 +474,8 @@ def check_scaling(torch, np, device, shapes, record):
         sinkhorn_halfstep,
     )
 
-    for (n, r, B, dtype) in shapes:
+    for (n, r, B, dtype, *only) in shapes:
+        only_contract = bool(only)
         tag = f"{str(dtype)[6:]} n={n} r={r} B={B}"
         xi = torch.as_tensor(explicit_features(np, n, r, n + 7 * r + B),
                              device=device).to(dtype)
@@ -456,20 +485,27 @@ def check_scaling(torch, np, device, shapes, record):
         marg = torch.full((n, B), 1.0 / n, device=device)
         marg[n // 2] = 0.0
         want = ref.feature_contract_ref(xi, u)
-        paths = [("chosen", kermatvec._contract_vectorized)]
-        if kermatvec._vectorized(xi, B):
-            paths.append(("vector", kermatvec._vectorized))
+        paths = [("chosen", kermatvec._flat_vectorized)]
+        if kermatvec._flat_vectorized(xi, B):
             paths.append(("scalar", lambda *_: False))
-        chosen = kermatvec._contract_vectorized
+        chosen = kermatvec._flat_vectorized
         for label, rule in paths:
-            kermatvec._contract_vectorized = rule
+            kermatvec._flat_vectorized = rule
             try:
+                path = "vector" if rule(xi, B) else "scalar"
                 got = feature_contract(xi, u)
+                again = feature_contract(xi, u)
             finally:
-                kermatvec._contract_vectorized = chosen
+                kermatvec._flat_vectorized = chosen
             torch.cuda.synchronize()
             err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
-            record("feature_contract", f"{tag} {label} path", err, ok)
+            same = torch.equal(got, again)
+            record("feature_contract",
+                   f"{tag} {label} ({path}) path, rerun "
+                   f"{'bit-identical' if same else 'DIFFERS'}", err,
+                   ok and same)
+        if only_contract:
+            continue
         got = feature_matvec(xi, t)
         want = ref.feature_matvec_ref(xi, t)
         torch.cuda.synchronize()
@@ -736,6 +772,100 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernels_per_call(torch, fn):
+    """Device kernels one call of ``fn`` launches, as the profiler sees
+    them: (count, names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = kernel_rows(torch, prof)
+    return sum(e.count for e in rows), sorted({e.key[:40] for e in rows})
+
+
+def forced(module, key, value):
+    """A context setting ``module._FORCE[key]`` (a launch option the
+    planner otherwise picks) for its body; a no-op where the module has no
+    such option (a checkout from before the option)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        opts = getattr(module, "_FORCE", None)
+        if opts is None or key not in opts:
+            yield False
+            return
+        old = opts[key]
+        opts[key] = value
+        try:
+            yield True
+        finally:
+            opts[key] = old
+
+    return ctx()
+
+
+def launches_per_call(torch, np, device):
+    """The device kernels one call of each redesigned wrapper launches
+    (the profiler's kernel rows), at the solve shape: the feature map,
+    and the scaling contract in float32 and bf16."""
+    from repro_torch.kernels.feature_map import gaussian_feature_map
+    from repro_torch.kernels.kermatvec import feature_contract
+
+    x, u, c = feature_inputs(torch, np, N, R_ANCHORS, D, EPS, 0, device)
+    xi = torch.rand((N, R_ANCHORS), device=device)
+    xi16 = xi.to(torch.bfloat16)
+    w = torch.rand((N, 1), device=device)
+    for label, fn in (
+            ("gaussian_feature_map", lambda: gaussian_feature_map(
+                x, u, c, inv_eps=1 / EPS, log_space=True)),
+            ("feature_contract f32", lambda: feature_contract(xi, w)),
+            ("feature_contract bf16", lambda: feature_contract(xi16, w))):
+        count, names = kernels_per_call(torch, fn)
+        log(f"  {label:22s} device kernels a call: {count} {names}")
+
+
+def time_feature_map(torch, np, device):
+    """Phase 3 for the feature map beyond its JSON row: both epilogues at
+    the solve shape (n = 16384, r = 1024, d = 8, eps 0.1) and at the
+    trainer's shapes (n = 2048 and 256, r = 128, d = 8, eps 0.5), each
+    beside ``x @ anchors.T`` and a ``fill_`` of the same output (the
+    card's own store rate), and the evict-first store hint forced on and
+    off where the planner leaves the choice."""
+    from repro_torch.kernels import feature_map as fm_mod
+    from repro_torch.kernels.feature_map import gaussian_feature_map
+
+    for n, r, eps in ((N, R_ANCHORS, EPS), (GAN_BIG_BATCH, 128, 0.5),
+                      (GAN_BATCH, 128, 0.5)):
+        x, u, c = feature_inputs(torch, np, n, r, D, eps, 1, device)
+        b_ms, b_by = bound(4.0 * (n * D + r * D + r + n * r),
+                           2.0 * n * r * D + 4.0 * n * r)
+        lib_ms = time_ms(torch, lambda: x @ u.T)
+        fill = torch.empty((n, r), device=device)
+        fill_ms = time_ms(torch, lambda: fill.fill_(1.0))
+        log(f"  (n, r) = ({n}, {r}) float32 fill_: {fill_ms:.4f} ms "
+            f"({4e-9 * n * r / fill_ms:.3f} TB/s written)")
+        for log_space in (True, False):
+            def call():
+                return gaussian_feature_map(x, u, c, inv_eps=1 / eps,
+                                            log_space=log_space)
+            ms = time_ms(torch, call)
+            extra = []
+            for hint in (True, False):
+                with forced(fm_mod, "stream", hint) as ok:
+                    if ok:
+                        extra.append(f"evict-first {'on' if hint else 'off'}"
+                                     f" {time_ms(torch, call):.4f} ms")
+            log(f"  gaussian_feature_map   n={n} r={r} d={D} "
+                f"{'log' if log_space else 'exp'}: kernel {ms:.4f} ms  "
+                f"library {lib_ms:.4f} ms (x @ anchors.T)  bound {b_ms:.5f} ms"
+                f" ({b_by})  kernel/bound {ms / b_ms:.2f}  {'; '.join(extra)}")
+
+
 def time_kernels(torch, np, device):
     from repro_torch.kernels import ref
     from repro_torch.kernels.feature_map import gaussian_feature_map
@@ -926,19 +1056,27 @@ def time_scaling_kernels(torch, np, device):
                     f" (L2-warm {warm:.4f})  plain {cold[1]:.4f} ms  library "
                     f"{cold[2]:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
                     f"kernel/bound {cold[0] / b_ms:.2f}")
-            if not kermatvec._contract_vectorized(copies[0], B) and \
-                    kermatvec._vectorized(copies[0], B):
-                # the vector path, which the wrapper leaves at this r
-                chosen = kermatvec._contract_vectorized
-                kermatvec._contract_vectorized = kermatvec._vectorized
+            with forced(kermatvec, "combine", False) as ok:
+                if ok:
+                    slabs_ms = time_ms(torch, cycling(
+                        lambda xi: feature_contract(xi, u), copies))
+                    log(f"  feature_contract       {tag} n={n} r={r}: slabs "
+                        f"only {slabs_ms:.4f} ms (no grid barrier or "
+                        "combine; t not formed)")
+            if getattr(kermatvec, "_flat_vectorized", None) and \
+                    kermatvec._flat_vectorized(copies[0], B):
+                # the scalar path, which the wrapper leaves at this shape
+                chosen = kermatvec._flat_vectorized
+                kermatvec._flat_vectorized = lambda *_: False
                 try:
-                    vec_ms = time_ms(torch, cycling(
+                    scalar_ms = time_ms(torch, cycling(
                         lambda xi: feature_contract(xi, u), copies))
                 finally:
-                    kermatvec._contract_vectorized = chosen
-                log(f"  feature_contract       {tag} n={n} r={r}: 16-byte "
-                    f"vector path forced {vec_ms:.4f} ms (the wrapper takes "
-                    "the scalar path)")
+                    kermatvec._flat_vectorized = chosen
+                log(f"  feature_contract       {tag} n={n} r={r}: scalar "
+                    f"path forced {scalar_ms:.4f} ms (the wrapper takes the "
+                    "16-byte path with row groups)")
+            del copies
 
     n = m = GAN_BATCH
     r, steps = 128, 8
@@ -1984,7 +2122,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
                     "result lines need all seven)")
-    phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src directory whose repro_torch to drive "
+                    "(default: this checkout's; another checkout's, to time "
+                    "two versions with one script)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+    src = args.src.resolve()
     import torch
 
     if not torch.cuda.is_available():
@@ -1992,12 +2136,12 @@ def main(argv=None) -> int:
               "False); this script runs the port on the card only",
               file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not at {SRC}/repro_torch;"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not at {src}/repro_torch;"
               " run this script from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import numpy as np
 
     from repro_torch.core import EpsSchedule
@@ -2016,7 +2160,7 @@ def main(argv=None) -> int:
     log(smi.stdout.strip() if smi.returncode == 0 else
         f"nvidia-smi failed ({smi.returncode}): {smi.stderr.strip()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}; repro_torch from {src}")
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
@@ -2024,14 +2168,21 @@ def main(argv=None) -> int:
         report = Path(str(path) + ".log")
         if report.is_file():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+                if "Function properties for" in line:
+                    log(f"  {name}: {demangle(line.split('for', 1)[1])}")
+                elif "registers" in line or "spill" in line:
+                    log(f"  {name}:   {line.strip()}")
 
     errs = {}
     if 2 in phases:
         log("== phase 2: kernels against their plain versions")
         shapes = [(N, R_ANCHORS, D, EPS, False), (1001, 3, 5, 0.5, True),
-                  (777, 1000, 3, 0.1, True), (33, 70, 20, 1.0, False)]
+                  (777, 1000, 3, 0.1, True), (33, 70, 20, 1.0, False),
+                  (GAN_BIG_BATCH, 128, D, 0.5, False),
+                  (1001, 1001, 64, 0.5, True),      # wide kernel, r % 4 = 1
+                  (3001, 70, 130, 2.0, False),      # d past every budget
+                  (4097, 70, 16, 1.0, True),        # ragged row tile
+                  (2_200_000, 3, 5, 0.5, False)]    # past the old n limit
         lse_shapes = [(N, M, R_ANCHORS, 1, False), (1001, 777, 3, 1, True),
                       (1001, 777, 1000, 3, True), (777, 1001, 1000, 1, False),
                       (1001, 777, 1000, 1, True), (5, 3, 129, 3, True),
@@ -2059,6 +2210,10 @@ def main(argv=None) -> int:
                 (N, R_ANCHORS, 1), (N, 256, 1), (GAN_BIG_BATCH, 128, 1),
                 (1001, 3, 1), (777, 1000, 3), (5, 129, 1), (1001, 1032, 1),
                 (300, 40, 11))]                  # B > 8: two column chunks
+        scaling_shapes += [                      # row groups: contract only
+            (n, r, 1, dtype, "contract") for n in (1001, N)
+            for dtype, rs in ((f32, (4, 12, 128, 256)), (bf, (8, 128, 256)))
+            for r in rs if (n, r) != (N, 256)]
         scaling_block_shapes = [
             (GAN_BATCH, GAN_BATCH, 128, bf, mom, dead, 8)
             for mom in (1.0, 1.3) for dead in (0, 5)] + [
@@ -2083,7 +2238,9 @@ def main(argv=None) -> int:
             f"(n={N}, r={R_ANCHORS}, d={D}, B=1) and the training path's")
         calibrate_sleep(torch)
         log(f"  device spin ahead of each batch: {SLEEP_MS[0]:.3f} ms")
+        launches_per_call(torch, np, device)
         times = time_kernels(torch, np, device)
+        time_feature_map(torch, np, device)
         times.update(time_training_kernels(torch, np, device))
         times.update(time_scaling_kernels(torch, np, device))
         times.update(time_paged_kernels(torch, np, device))

@@ -3,9 +3,11 @@
 One half-step ``v <- b / (Zeta (Xi^T u))`` splits into
 
 * :func:`feature_contract` — ``t = Xi^T u``, (n, r), (n, B) -> (r, B), a
-  reduction over n. On the card: split-n partial sums into a
-  ``(n_splits, r, B)`` scratch buffer, then a fixed-order combine (no
-  atomics, so reruns are bit-identical);
+  reduction over n. On the card: one cooperative launch of at most one
+  wave, each CTA a slab of rows split into row groups, its partial sums
+  into a ``(splits, r, B)`` scratch buffer that the grid adds after a grid
+  barrier in a fixed order (no atomics, so reruns are bit-identical);
+  :func:`_contract_plan` is its geometry, in plain Python;
 * :func:`sinkhorn_halfstep` — ``out = marg / (Xi t)``, the matvec and the
   marginal divide fused, shape (n, B);
 * :func:`feature_matvec` — ``out = Xi t`` without the divide (the
@@ -21,17 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import build
 from .backend import check_operand, sm_count
-from .logmatvec import (
-    _contract_vectorized,
-    _split_rows,
-    _vec_width,
-    _vectorized,
-)
+from .logmatvec import MAX_COLS, _vectorized
 from .ref import (
     feature_contract_ref,
     feature_matvec_ref,
@@ -42,6 +40,63 @@ __all__ = ["feature_contract", "sinkhorn_halfstep", "feature_matvec"]
 
 _ROW_WARPS = 8                  # rows per row-kernel CTA (one per warp)
 _MAX_SMEM = 227 * 1024          # dynamic shared memory of one CTA (t)
+_FLAT_THREADS = 256             # kFlatThreads: threads of a contract CTA
+_MIN_SLAB_ROWS = 16             # rows of the smallest contract slab
+_SLABS_PER_SM = 2
+
+
+class ContractPlan(NamedTuple):
+    vec: bool               # 16-byte loads (B = 1, 16-byte rows)
+    width: int              # columns a slot: 16 / element size, or 1
+    tile: int               # slots (vectors or columns) of a row group
+    groups: int             # row groups of a CTA
+    col_tiles: int          # blockIdx.y
+    chunks: int             # blockIdx.z: kMaxCols columns of u each
+    splits: int             # blockIdx.x: slabs of rows
+    rows_per_split: int
+
+    @property
+    def grid(self) -> int:
+        return self.splits * self.col_tiles * self.chunks
+
+    def slab(self, split: int) -> Tuple[int, int]:
+        """Rows [begin, end) of ``split`` (before clipping to n)."""
+        return split * self.rows_per_split, (split + 1) * self.rows_per_split
+
+
+def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
+                   sms: int, blocks_per_sm: int) -> ContractPlan:
+    """The flat contract's geometry for an (n, r) factor of
+    ``element_size`` bytes and B columns of u, on a card of ``sms`` SMs
+    with ``blocks_per_sm`` contract CTAs resident on each: two slabs an
+    SM (one, four measured slower at n = 16384), fewer where a slab would
+    be under 16 rows, every slab non-empty, never more CTAs than one wave
+    (with more than one split the grid meets at a grid barrier, so it must
+    be resident at once)."""
+    width = 16 // element_size if vec else 1
+    if vec and (B != 1 or r % width):
+        raise ValueError(f"the 16-byte path takes B = 1 and rows of a "
+                         f"multiple of 16 bytes; got r={r}, B={B}")
+    slots = r // width
+    col_tiles = -(-slots // _FLAT_THREADS)
+    tile = -(-slots // col_tiles)
+    groups = _FLAT_THREADS // tile
+    chunks = 1 if vec else -(-B // MAX_COLS)
+    per_tile = max(1, (sms * blocks_per_sm) // (col_tiles * chunks))
+    splits = max(1, min(per_tile, _SLABS_PER_SM * sms, n // _MIN_SLAB_ROWS))
+    rows = -(-n // splits)
+    splits = -(-n // rows)
+    return ContractPlan(vec, width, tile, groups, col_tiles, chunks, splits,
+                        rows)
+
+
+def _flat_vectorized(xi: torch.Tensor, B: int) -> bool:
+    """Whether the contract takes its 16-byte path: one column (the
+    solvers' B = 1), rows of a multiple of 16 bytes and a 16-byte aligned
+    factor. Row groups fill the CTA at any r, so unlike the log contract's
+    rule (``logmatvec._contract_vectorized``) no r is left to the scalar
+    path."""
+    return _vectorized(xi, B)
 
 
 @functools.cache
@@ -49,8 +104,11 @@ def _lib():
     lib = build.load("kermatvec")
     c = lib.feature_contract_launch
     c.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     c.restype = ctypes.c_int
+    o = lib.feature_contract_occupancy
+    o.argtypes = [ctypes.c_int] * 2
+    o.restype = ctypes.c_int
     h = lib.sinkhorn_halfstep_launch
     h.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -60,6 +118,21 @@ def _lib():
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     v.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _blocks_per_sm(device_index: int, bf16: bool, vec: bool) -> int:
+    with torch.cuda.device(device_index):
+        blocks = _lib().feature_contract_occupancy(int(bf16), int(vec))
+    if blocks <= 0:
+        build.check_launch(_lib(), -blocks or 1, "feature_contract")
+    return blocks
+
+
+# A launch option chip_smoke.py times: ``combine=False`` stops after the
+# slabs' partials, so t is NOT formed (it times the slabs apart from the
+# grid barrier and the combine).
+_FORCE = {"combine": True}
 
 
 def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -80,16 +153,20 @@ def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if min(n, r, B) < 1:
         raise ValueError(f"feature_contract kernel takes n, r, B >= 1, got "
                          f"n={n}, r={r}, B={B}")
-    vec = _contract_vectorized(xi, B)
-    n_splits, rows = _split_rows(n, r, _vec_width(xi) if vec else 0, dev)
-    partial = torch.empty((n_splits, r, B), dtype=torch.float32, device=dev)
+    bf16 = xi.dtype == torch.bfloat16
+    vec = _flat_vectorized(xi, B)
+    plan = _contract_plan(n, r, B, vec, xi.element_size(), sm_count(dev),
+                          _blocks_per_sm(dev.index, bf16, vec))
     t = torch.empty((r, B), dtype=torch.float32, device=dev)
+    partial = (torch.empty((plan.splits, r, B), dtype=torch.float32,
+                           device=dev) if plan.splits > 1 else t)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().feature_contract_launch(
-            xi.data_ptr(), int(xi.dtype == torch.bfloat16), u.data_ptr(),
-            partial.data_ptr(), t.data_ptr(), n, r, B, n_splits, rows,
-            int(vec), stream)
+            xi.data_ptr(), int(bf16), u.data_ptr(), partial.data_ptr(),
+            t.data_ptr(), n, r, B, plan.splits, plan.rows_per_split,
+            plan.tile, plan.groups, plan.col_tiles, plan.chunks, int(vec),
+            int(_FORCE["combine"]), stream)
     build.check_launch(_lib(), code, "feature_contract")
     feature_contract.launches += 1
     return t

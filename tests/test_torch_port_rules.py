@@ -213,16 +213,20 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     assert "__global__" not in ops and "__fdiv_rn" in ops
     assert '#include "feature_ops.cuh"' in km
     assert "__global__" in fm and "gaussian_feature_map_launch" in fm
+    for name in ("cp.async", "__stcs", "gaussian_feature_map_occupancy",
+                 "cudaOccupancyMaxActiveBlocksPerMultiprocessor"):
+        assert name in fm
     for name in ("log_contract_partial_kernel", "log_contract_combine_kernel",
                  "log_halfstep_kernel", "log_feature_contract_launch",
                  "log_halfstep_launch", "__nv_bfloat16"):
         assert name in lm
-    for name in ("feature_contract_partial_kernel",
-                 "feature_contract_partial_vec_kernel",
-                 "feature_contract_combine_kernel", "feature_rows_kernel",
+    for name in ("flat_contract_kernel", "grid_combine",
+                 "feature_contract_occupancy",
+                 "feature_rows_kernel",
                  "feature_contract_launch", "sinkhorn_halfstep_launch",
                  "feature_matvec_launch", "__nv_bfloat16"):
         assert name in km
+    assert "feature_contract_combine_kernel" not in km     # one launch
     for name in ("__global__", "log_sinkhorn_block_kernel",
                  "log_sinkhorn_block_launch", "sinkhorn_block_kernel",
                  "sinkhorn_block_launch", "__nv_bfloat16",
@@ -241,7 +245,11 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     assert lm.count("__global__") == 5          # 3 contract, half-step, row LSE
     assert set(build.SOURCES) == {"feature_map", "logmatvec", "kermatvec",
                                   "fused_loop", "paged"}
+    # the flat contract's partials meet at a grid barrier of a cooperative
+    # launch, which the runtime refuses rather than hang
+    assert "cudaLaunchCooperativeKernel" in km and "this_grid().sync()" in km
     for src in (fm, lm, km, fl, pg, ops):
         assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+        assert not re.search(r"\b(?:atom|red)\.[\w.]+", src)
         for lib in ("cublas", "cudnn", "cutlass", "wmma", "mma.sync"):
             assert lib not in src.lower()
