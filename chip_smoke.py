@@ -22,19 +22,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and forced onto its scalar path, also at float32 r = 4, 12, 128, 256 and
    bf16 r = 8, 128, 256 (n = 1001 and 16384); the feature map also at the
    trainer's shape, at d = 64 and 130, r = 70 and 1001, a ragged row tile
-   and n = 2,200,000; the scaling megakernel as the log one;
+   and n = 2,200,000; the scaling megakernel as the log one; the row
+   kernel (half-step and matvec) also at r = 40, 256, 512, 1024 and 4096,
+   B = 1 and 3, n = 1003 and 16 (n not a multiple of the rows a warp
+   reduces at once), and n = 2 and 7;
    the paged contract, half-step and matvec in float32 and bf16, B = 1, 3
-   and 11, page sizes 8, 64 and 128, an all-dead buffer, garbage on dead
-   pages (1e6 in u, NaN in the factor) and dead slots on live pages; and
-   log_matvec with -inf entries and an all -inf row. Tolerances: the feature map and the scaling kernels within 1e-5 of max
+   and 11, page sizes 8, 64 and 128, packed, mixed, scattered (a packed
+   store after random evictions) and five-live-page (fewer live pages
+   than contract CTAs) tables and an all-dead buffer, garbage on dead
+   pages (1e6 in u, NaN in the factor) and dead slots on live pages, the
+   flat contract run twice on the same buffer with its dead pages zeroed,
+   and a table of 8320 pages over 8 slabs (two sweeps, two list windows);
+   and log_matvec with -inf entries and an all -inf row. Tolerances: the
+   feature map and the scaling kernels within 1e-5 of max
    |value|; the LSE kernels and the log megakernel's potentials atol 1e-4
    + rtol 1e-5 (summation order differs); the scaling megakernel's
    carries within 1e-5 of max |value|; both megakernels' block-end errors
    1e-4 relative + 1e-6, and a second launch bit-identical; the paged
    kernels within 1e-5 of max |value|, dead pages exactly 0, a second
    contract launch bit-identical; log_matvec as the LSE kernels;
-3. the device kernels one call of the feature map and of the contract
-   launches (profiler), then times (CUDA events, median of 21 batches of
+3. the device kernels one call of the feature map and of the flat and
+   paged contracts launches (profiler), then times (CUDA events, median of 21 batches of
    10 launches, queued behind a device spin so that host overhead is not
    timed) of each kernel, its plain
    version and one PyTorch library call computing the same function where
@@ -45,10 +53,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    stores on and off), the LSE kernels at batch 2048, r = 128 in
    bf16, and the log megakernel at the OT-GAN shape; the scaling kernels
    at n = 16384, r = 1024 and 256, float32 and bf16 (the contract also
-   its slabs alone and its scalar path), and the scaling
-   megakernel at the OT-GAN shape; the paged kernels at C = 32768, r =
-   1024 and 256, float32 and bf16, 100%, 50% and 25% of pages live, each
-   beside the flat kernel on the same buffer; log_matvec at (16384, 1024);
+   its slabs alone and its scalar path; the row kernel also with
+   evict-first loads, and with t in shared memory where the planner
+   keeps it in registers), each shape
+   beside a read floor (``xi.sum()``, the card's own full read of the
+   same bytes), one iteration of the scaling plan in its order on two
+   factors (evict-first row loads on, off and as planned), a digest of
+   the flat
+   contract's output at fixed seeds (equal between two checkouts whose
+   flat contract sums in the same order), and the scaling megakernel at the
+   OT-GAN shape; the paged kernels at C = 32768, r = 1024 and 256,
+   float32 and bf16, 100%, 50% and 25% of pages live, each beside the
+   flat kernel on the same buffer and a read floor of the live pages (the
+   contract also its slabs alone and evict-first loads on and off, and
+   one iteration of the paged plan in its order on two buffers at 50%
+   live, evict-first loads on, off and as planned);
+   log_matvec at (16384, 1024);
 4. the solve path: three annealed ``solve()`` requests on Gaussian point
    clouds (N(1, I) against N(0, 0.1 I), n = m = 16384, d = 8, r = 1024,
    eps = 0.1, seeds 0, 1, 2, tol = 1e-4, well above the float32 noise floor
@@ -466,7 +486,8 @@ def check_scaling(torch, np, device, shapes, record):
     factor row (marg / 0 = inf, in both). The contract runs twice on each
     shape (the reruns must be bit-identical), on its 16-byte path with row
     groups and forced onto its scalar path where the 16-byte path applies
-    (B = 1, rows of 16 bytes); a shape tagged "contract" checks only it."""
+    (B = 1, rows of 16 bytes); a shape tagged "contract" checks only it, a
+    shape tagged "rows" only the row kernels (matvec and half-step)."""
     from repro_torch.kernels import kermatvec, ref
     from repro_torch.kernels.kermatvec import (
         feature_contract,
@@ -475,7 +496,6 @@ def check_scaling(torch, np, device, shapes, record):
     )
 
     for (n, r, B, dtype, *only) in shapes:
-        only_contract = bool(only)
         tag = f"{str(dtype)[6:]} n={n} r={r} B={B}"
         xi = torch.as_tensor(explicit_features(np, n, r, n + 7 * r + B),
                              device=device).to(dtype)
@@ -484,33 +504,39 @@ def check_scaling(torch, np, device, shapes, record):
         t = torch.rand((r, B), generator=g, device=device)
         marg = torch.full((n, B), 1.0 / n, device=device)
         marg[n // 2] = 0.0
-        want = ref.feature_contract_ref(xi, u)
-        paths = [("chosen", kermatvec._flat_vectorized)]
-        if kermatvec._flat_vectorized(xi, B):
-            paths.append(("scalar", lambda *_: False))
-        chosen = kermatvec._flat_vectorized
-        for label, rule in paths:
-            kermatvec._flat_vectorized = rule
-            try:
-                path = "vector" if rule(xi, B) else "scalar"
-                got = feature_contract(xi, u)
-                again = feature_contract(xi, u)
-            finally:
-                kermatvec._flat_vectorized = chosen
-            torch.cuda.synchronize()
-            err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
-            same = torch.equal(got, again)
-            record("feature_contract",
-                   f"{tag} {label} ({path}) path, rerun "
-                   f"{'bit-identical' if same else 'DIFFERS'}", err,
-                   ok and same)
-        if only_contract:
+        if only != ["rows"]:
+            want = ref.feature_contract_ref(xi, u)
+            paths = [("chosen", kermatvec._flat_vectorized)]
+            if kermatvec._flat_vectorized(xi, B):
+                paths.append(("scalar", lambda *_: False))
+            chosen = kermatvec._flat_vectorized
+            for label, rule in paths:
+                kermatvec._flat_vectorized = rule
+                try:
+                    path = "vector" if rule(xi, B) else "scalar"
+                    got = feature_contract(xi, u)
+                    again = feature_contract(xi, u)
+                finally:
+                    kermatvec._flat_vectorized = chosen
+                torch.cuda.synchronize()
+                err, ok = compare(torch, got, want,
+                                  rel_to_max=SCALING_REL_TOL)
+                same = torch.equal(got, again)
+                record("feature_contract",
+                       f"{tag} {label} ({path}) path, rerun "
+                       f"{'bit-identical' if same else 'DIFFERS'}", err,
+                       ok and same)
+        if only == ["contract"]:
             continue
+        nv, rows, _ = kermatvec._rows_kernel(
+            r, B, kermatvec._vectorized(xi, B), xi.element_size())
+        rows_tag = tag + (f" (t in registers, {nv} vectors a lane, {rows} "
+                          "rows a batch)" if nv else " (t in shared memory)")
         got = feature_matvec(xi, t)
         want = ref.feature_matvec_ref(xi, t)
         torch.cuda.synchronize()
         err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
-        record("feature_matvec", tag, err, ok)
+        record("feature_matvec", rows_tag, err, ok)
         xz = xi.clone()
         xz[n // 5] = 0.0
         got = sinkhorn_halfstep(xz, t, marg)
@@ -518,7 +544,9 @@ def check_scaling(torch, np, device, shapes, record):
         torch.cuda.synchronize()
         err, ok = compare(torch, got, want, rel_to_max=SCALING_REL_TOL)
         ok = ok and bool((got[n // 2] == 0).all())
-        record("sinkhorn_halfstep", f"{tag} zero row/weight", err, ok)
+        if n > 1 and n // 5 != n // 2:
+            ok = ok and bool(torch.isinf(got[n // 5]).all())
+        record("sinkhorn_halfstep", f"{rows_tag} zero row/weight", err, ok)
 
 
 def scaling_block_inputs(torch, n, m, r, dtype, dead, seed, device):
@@ -590,13 +618,27 @@ def check_scaling_block(torch, device, shapes, record):
 def page_table(np, n_pages, page_size, pattern, seed):
     """int32 live counts: ``"front"`` fills the first half of the pages, as
     a store packs its rows; ``"mixed"`` draws dead, partly live and full
-    pages; ``"dead"`` is an all-dead buffer."""
+    pages; ``"scattered"`` is a packed store after random evictions (the
+    first three quarters of the pages, each emptied with probability 0.3,
+    the rest holding 1 to page_size live slots); ``"few"`` has five live
+    pages at random places (fewer than the contract's CTAs); ``"dead"`` is
+    an all-dead buffer."""
+    rng = np.random.default_rng(seed)
     if pattern == "front":
         return np.array([page_size] * (n_pages // 2)
                         + [0] * (n_pages - n_pages // 2), np.int32)
     if pattern == "dead":
         return np.zeros(n_pages, np.int32)
-    rng = np.random.default_rng(seed)
+    if pattern == "scattered":
+        used = np.arange(n_pages) < (3 * n_pages) // 4
+        kept = rng.uniform(size=n_pages) >= 0.3
+        return np.where(used & kept, rng.integers(1, page_size + 1, n_pages),
+                        0).astype(np.int32)
+    if pattern == "few":
+        live = np.zeros(n_pages, np.int32)
+        live[rng.choice(n_pages, size=min(5, n_pages), replace=False)] = \
+            page_size
+        return live
     kind = rng.integers(0, 3, n_pages)
     partial = rng.integers(1, page_size, n_pages)
     return np.where(kind == 0, 0, np.where(kind == 1, partial, page_size)
@@ -606,13 +648,17 @@ def page_table(np, n_pages, page_size, pattern, seed):
 def check_paged(torch, np, device, record):
     """The paged contract, half-step and matvec against their plain
     versions, within 1e-5 of max |value|, in float32 and bf16, B = 1 and 3
-    (and 11: two column chunks), page sizes 8, 64 and 128, an all-dead
-    buffer; dead pages hold garbage (1e6 in u, NaN in the factor rows), so
-    a kernel that read them would disagree; live pages hold dead slots
+    (and 11: two column chunks), page sizes 8, 64 and 128, the page
+    patterns of ``page_table`` (packed, mixed, scattered, five live pages,
+    all dead); dead pages hold garbage (1e6 in u, NaN in the factor rows),
+    so a kernel that read them would disagree; live pages hold dead slots
     (marg 0, so the half-step gives exactly 0 there). Dead pages' outputs
     are exactly 0 and a second contract launch is bit-identical; the
-    contract runs on both of its paths where the vector path applies."""
+    contract runs on both of its paths where the vector path applies. The
+    flat contract on the same buffer with the dead pages zeroed runs twice
+    too (bit-identical) and agrees with the paged one."""
     from repro_torch.kernels import paged, ref
+    from repro_torch.kernels.kermatvec import feature_contract
     from repro_torch.kernels.paged import (
         paged_feature_contract,
         paged_feature_matvec,
@@ -620,9 +666,15 @@ def check_paged(torch, np, device, record):
     )
 
     cases = [(STREAM_CAPACITY, R_ANCHORS, 1, STREAM_PAGE, "front"),
+             (STREAM_CAPACITY, R_ANCHORS, 1, STREAM_PAGE, "scattered"),
+             (STREAM_CAPACITY, 256, 1, STREAM_PAGE, "few"),
              (4096, 256, 3, 64, "mixed"), (4096, 1024, 1, 8, "mixed"),
+             (4096, 256, 3, 64, "scattered"), (4096, 1024, 1, 8, "few"),
              (4096, 1001, 1, 128, "mixed"), (1024, 64, 3, 128, "dead"),
-             (2048, 40, 11, 8, "mixed"), (4096, 1032, 1, 64, "mixed")]
+             (2048, 40, 11, 8, "mixed"), (4096, 1032, 1, 64, "mixed"),
+             # 8320 pages (two sweeps of the page table) over 8 slabs of
+             # about 690 live pages each (two list windows)
+             (66560, 4096, 11, 8, "mixed")]
     for dtype in (torch.float32, torch.bfloat16):
         for (C, r, B, ps, pattern) in cases:
             tag = f"{str(dtype)[6:]} C={C} r={r} B={B} page={ps} {pattern}"
@@ -633,35 +685,47 @@ def check_paged(torch, np, device, record):
             slot_live = torch.zeros(C, dtype=torch.bool, device=device)
             for p in np.nonzero(live_np)[0]:      # the first live[p] slots
                 slot_live[p * ps:p * ps + live_np[p]] = True
-            xi = torch.as_tensor(explicit_features(np, C, r, C + r + B),
-                                 device=device).to(dtype)
-            xi[~page_mask] = math.nan
             g = torch.Generator(device=device).manual_seed(C + B + ps)
+            xi = (torch.rand((C, r), generator=g, device=device)
+                  + 0.05).to(dtype)          # explicit_features, on the card
+            xi_flat = torch.where(page_mask[:, None], xi, 0).contiguous()
+            xi[~page_mask] = math.nan
             u = torch.rand((C, B), generator=g, device=device)
+            u_flat = torch.where(page_mask[:, None], u, 0).contiguous()
             u[~page_mask] = 1e6
             t = torch.rand((r, B), generator=g, device=device)
             marg = torch.where(slot_live[:, None],
                                torch.full((C, B), 1.0 / C, device=device),
                                torch.zeros((C, B), device=device))
             want = ref.paged_contract_ref(xi, u, live, page_size=ps)
-            paths = [("chosen", paged._contract_vectorized)]
-            if paged._vectorized(xi, B):
-                paths += [("vector", paged._vectorized),
-                          ("scalar", lambda *_: False)]
-            chosen = paged._contract_vectorized
+            paths = [("chosen", paged._flat_vectorized)]
+            if paged._flat_vectorized(xi, B):
+                paths.append(("scalar", lambda *_: False))
+            chosen = paged._flat_vectorized
             for label, rule in paths:
-                paged._contract_vectorized = rule
+                paged._flat_vectorized = rule
                 try:
                     got = paged_feature_contract(xi, u, live, page_size=ps)
                     again = paged_feature_contract(xi, u, live, page_size=ps)
                 finally:
-                    paged._contract_vectorized = chosen
+                    paged._flat_vectorized = chosen
                 torch.cuda.synchronize()
                 err, ok = compare(torch, got, want,
                                   rel_to_max=SCALING_REL_TOL)
+                same = torch.equal(got, again)
                 record("paged_feature_contract",
-                       f"{tag} {label} path", err,
-                       ok and torch.equal(got, again))
+                       f"{tag} {label} path, rerun "
+                       f"{'bit-identical' if same else 'DIFFERS'}", err,
+                       ok and same)
+            flat = feature_contract(xi_flat, u_flat)
+            flat_again = feature_contract(xi_flat, u_flat)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, flat, want, rel_to_max=SCALING_REL_TOL)
+            same = torch.equal(flat, flat_again)
+            record("feature_contract",
+                   f"{tag} flat on the zeroed buffer, rerun "
+                   f"{'bit-identical' if same else 'DIFFERS'}", err,
+                   ok and same)
             for name, got, want in (
                     ("paged_halfstep",
                      paged_halfstep(xi, t, marg, live, page_size=ps),
@@ -812,19 +876,26 @@ def forced(module, key, value):
 def launches_per_call(torch, np, device):
     """The device kernels one call of each redesigned wrapper launches
     (the profiler's kernel rows), at the solve shape: the feature map,
-    and the scaling contract in float32 and bf16."""
+    the scaling contract in float32 and bf16, and the paged contract
+    (float32, every other page live)."""
     from repro_torch.kernels.feature_map import gaussian_feature_map
     from repro_torch.kernels.kermatvec import feature_contract
+    from repro_torch.kernels.paged import paged_feature_contract
 
     x, u, c = feature_inputs(torch, np, N, R_ANCHORS, D, EPS, 0, device)
     xi = torch.rand((N, R_ANCHORS), device=device)
     xi16 = xi.to(torch.bfloat16)
     w = torch.rand((N, 1), device=device)
+    live = torch.full((N // STREAM_PAGE,), STREAM_PAGE, dtype=torch.int32,
+                      device=device)
+    live[::2] = 0
     for label, fn in (
             ("gaussian_feature_map", lambda: gaussian_feature_map(
                 x, u, c, inv_eps=1 / EPS, log_space=True)),
             ("feature_contract f32", lambda: feature_contract(xi, w)),
-            ("feature_contract bf16", lambda: feature_contract(xi16, w))):
+            ("feature_contract bf16", lambda: feature_contract(xi16, w)),
+            ("paged_feature_contract", lambda: paged_feature_contract(
+                xi, w, live, page_size=STREAM_PAGE))):
         count, names = kernels_per_call(torch, fn)
         log(f"  {label:22s} device kernels a call: {count} {names}")
 
@@ -1056,6 +1127,44 @@ def time_scaling_kernels(torch, np, device):
                     f" (L2-warm {warm:.4f})  plain {cold[1]:.4f} ms  library "
                     f"{cold[2]:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
                     f"kernel/bound {cold[0] / b_ms:.2f}")
+            floor_ms = time_ms(torch, cycling(lambda xi: xi.sum(), copies))
+            log(f"  read floor             {tag} n={n} r={r}: xi.sum() "
+                f"{floor_ms:.4f} ms ({fb * n * r / floor_ms * 1e-9:.3f} TB/s;"
+                " the card's own full read of the factor, no yardstick)")
+            xi, zeta = copies[0], copies[1]
+
+            def iteration():
+                s = feature_contract(zeta, u)
+                sinkhorn_halfstep(xi, s, marg)
+                feature_contract(xi, u)
+                feature_matvec(zeta, t)
+
+            time_plan_iteration(
+                torch, iteration, f"{tag} n={n} r={r}, two factors of "
+                f"{fb * n * r / 2**20:.0f} MiB", kermatvec)
+            with forced(kermatvec, "stream", True) as ok:
+                if ok:
+                    ef_ms = [time_ms(torch, cycling(fn, copies)) for fn in (
+                        lambda xi: sinkhorn_halfstep(xi, t, marg),
+                        lambda xi: feature_matvec(xi, t))]
+                    log(f"  row kernels            {tag} n={n} r={r}: "
+                        f"evict-first loads forced: half-step "
+                        f"{ef_ms[0]:.4f} ms, matvec {ef_ms[1]:.4f} ms")
+            if getattr(kermatvec, "_rows_kernel", None) and \
+                    kermatvec._rows_kernel(r, B, True, fb)[0]:
+                # t in shared memory, which the planner leaves at this shape
+                chosen = kermatvec._rows_kernel
+                kermatvec._rows_kernel = lambda r, B, *_: (0, 1, 4 * r * B)
+                try:
+                    smem_ms = [time_ms(torch, cycling(fn, copies)) for fn in (
+                        lambda xi: sinkhorn_halfstep(xi, t, marg),
+                        lambda xi: feature_matvec(xi, t))]
+                finally:
+                    kermatvec._rows_kernel = chosen
+                log(f"  row kernels            {tag} n={n} r={r}: t in "
+                    f"shared memory forced: half-step {smem_ms[0]:.4f} ms, "
+                    f"matvec {smem_ms[1]:.4f} ms (the wrapper keeps t in "
+                    "registers)")
             with forced(kermatvec, "combine", False) as ok:
                 if ok:
                     slabs_ms = time_ms(torch, cycling(
@@ -1076,7 +1185,7 @@ def time_scaling_kernels(torch, np, device):
                 log(f"  feature_contract       {tag} n={n} r={r}: scalar "
                     f"path forced {scalar_ms:.4f} ms (the wrapper takes the "
                     "16-byte path with row groups)")
-            del copies
+            del copies, xi, zeta
 
     n = m = GAN_BATCH
     r, steps = 128, 8
@@ -1100,6 +1209,47 @@ def time_scaling_kernels(torch, np, device):
     return rows
 
 
+def time_plan_iteration(torch, iteration, what, module=None):
+    """One Sinkhorn iteration in the plan's order (``ops._scaling_plan``'s
+    and ``_paged_scaling_plan``'s step: contract zeta, half-step xi,
+    contract xi, matvec zeta), run back to back on two factors as a solve
+    runs it: each row kernel is followed by the contract of its own
+    factor, which finds it in the L2 where the row kernel left it there,
+    and each contract by a row kernel of the other factor. With
+    ``module``, also with its evict-first loads forced on and off."""
+    parts = []
+    for label, value in (("evict-first on", True),
+                         ("evict-first off", False)):
+        with forced(module, "stream", value) as ok:
+            if ok:
+                parts.append(f"{label} {time_ms(torch, iteration):.4f} ms")
+    parts.append(f"as planned {time_ms(torch, iteration):.4f} ms")
+    log(f"  plan iteration         {what} (contract, half-step, contract, "
+        f"matvec): {'; '.join(parts)}")
+
+
+def flat_contract_digest(torch, device):
+    """A digest of the flat contract's outputs at fixed seeds, over the
+    16-byte and scalar paths, one and several splits, float32 and bf16:
+    two checkouts (``--src``) print the same digest where their flat
+    contracts are bit-identical."""
+    import hashlib
+
+    from repro_torch.kernels.kermatvec import feature_contract
+
+    h = hashlib.sha256()
+    g = torch.Generator(device=device).manual_seed(23)
+    for n, r, B in ((N, R_ANCHORS, 1), (N, 256, 1), (1001, 40, 3),
+                    (N, R_ANCHORS, 3), (1001, 1032, 1), (7, 12, 1)):
+        xi32 = torch.rand((n, r), generator=g, device=device) + 0.05
+        u = torch.rand((n, B), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            t = feature_contract(xi32.to(dtype), u)
+            h.update(t.cpu().numpy().tobytes())
+    log(f"  feature_contract       output digest at fixed seeds "
+        f"(12 shapes): {h.hexdigest()[:32]}")
+
+
 def time_paged_kernels(torch, np, device):
     """Phase 3 for the streaming path: the paged contract, half-step and
     matvec at C = 32768, r = 1024 and 256, float32 and bf16, B = 1, with
@@ -1113,6 +1263,7 @@ def time_paged_kernels(torch, np, device):
     (16384, 1024), float32 and bf16, against ``torch.logsumexp(log_m + t,
     1)``. The JSON line takes the cold float32 r = 1024 rows at 50% live
     (the streaming path's buffers) and log_matvec in float32."""
+    from repro_torch.kernels import paged as paged_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels.kermatvec import (
         feature_contract,
@@ -1193,6 +1344,40 @@ def time_paged_kernels(torch, np, device):
                         f"{cold[1]:.4f} ms  plain {cold[2]:.4f} ms  library "
                         f"{cold[3]:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
                         f"kernel/bound {cold[0] / b_ms:.2f}")
+                floor_ms = time_ms(torch, cycling(
+                    lambda xi: xi[:rows_live].sum(), copies))
+                log(f"  read floor             {tag} C={C} r={r} "
+                    f"live={share:.0%}: xi[live rows].sum() {floor_ms:.4f} ms "
+                    "(the card's own read of the live pages, no yardstick)")
+                variants = []
+                for label, key, value in (
+                        ("slabs only (no grid barrier or combine; t not "
+                         "formed)", "combine", False),
+                        ("evict-first on", "stream", True),
+                        ("evict-first off", "stream", False)):
+                    with forced(paged_mod, key, value) as ok:
+                        if ok:
+                            ms = time_ms(torch, cycling(
+                                lambda xi: paged_feature_contract(
+                                    xi, u, live, page_size=ps), copies))
+                            variants.append(f"{label} {ms:.4f} ms")
+                if variants:
+                    log(f"  paged_feature_contract {tag} C={C} r={r} "
+                        f"live={share:.0%}: {'; '.join(variants)}")
+                if share == 0.5:
+                    xi, zeta = copies[0], copies[1]
+
+                    def iteration():
+                        s = paged_feature_contract(zeta, u, live,
+                                                   page_size=ps)
+                        paged_halfstep(xi, s, marg, live, page_size=ps)
+                        paged_feature_contract(xi, u, live, page_size=ps)
+                        paged_feature_matvec(zeta, t, live, page_size=ps)
+
+                    time_plan_iteration(
+                        torch, iteration, f"{tag} C={C} r={r} live=50%, two "
+                        f"buffers of {fb * C * r / 2**20:.0f} MiB", paged_mod)
+                    del xi, zeta
                 del copies
 
     m, r = N, R_ANCHORS
@@ -2214,6 +2399,12 @@ def main(argv=None) -> int:
             (n, r, 1, dtype, "contract") for n in (1001, N)
             for dtype, rs in ((f32, (4, 12, 128, 256)), (bf, (8, 128, 256)))
             for r in rs if (n, r) != (N, 256)]
+        scaling_shapes += [                      # the row kernel: rows only
+            (n, r, B, dtype, "rows") for dtype in (f32, bf)
+            for r in (40, 256, 512, 1024, 4096) for B in (1, 3)
+            for n in (1003, 16) if (n, B) != (16, 3)]   # 1003: R does not divide n
+        scaling_shapes += [(n, 1024, 1, dtype, "rows") for dtype in (f32, bf)
+                           for n in (2, 7)]
         scaling_block_shapes = [
             (GAN_BATCH, GAN_BATCH, 128, bf, mom, dead, 8)
             for mom in (1.0, 1.3) for dead in (0, 5)] + [
@@ -2243,6 +2434,7 @@ def main(argv=None) -> int:
         time_feature_map(torch, np, device)
         times.update(time_training_kernels(torch, np, device))
         times.update(time_scaling_kernels(torch, np, device))
+        flat_contract_digest(torch, device)
         times.update(time_paged_kernels(torch, np, device))
 
     counts = {}

@@ -15,7 +15,7 @@ from typing import Optional, Union
 import torch
 
 __all__ = ["DEFAULT_DEVICE", "MEGAKERNEL_BUDGET", "resolve_device", "as_f32",
-           "check_operand", "sm_count"]
+           "check_operand", "l2_bytes", "sm_count"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -80,3 +80,8 @@ def check_operand(t: torch.Tensor, name: str, ndim: int,
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (sizes kernel grids)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def l2_bytes(device: torch.device) -> int:
+    """L2 cache of a CUDA device, bytes (where kernels stream past it)."""
+    return torch.cuda.get_device_properties(device).L2_cache_size

@@ -13,15 +13,15 @@
 // launch of at most one wave (the SM count times the occupancy the runtime
 // reports; kernels/kermatvec.py:_contract_plan; two CTAs an SM measured
 // best): each CTA of 256 threads reduces a slab of rows and writes a
-// partial to a
-// (splits, r, B) buffer; after a grid barrier every CTA adds a slice of
-// the outputs over the splits, in a fixed order (grid_combine). The launch
-// is cooperative, so the runtime refuses a grid that cannot be resident at
-// once instead of letting the barrier hang. Adding the partials by the
-// last CTA to finish (an integer ticket) left one SM reading all of them
-// after the last slab, 5-6 us at the solve shape; spread over the grid the
-// adds take one L2 round trip. No atomics, and every sum has a fixed
-// order, so a rerun is bit-identical whichever CTA finishes last.
+// partial to a (splits, r, B) buffer; after a grid barrier every CTA adds
+// a slice of the outputs over the splits, in a fixed order (grid_combine).
+// The launch is cooperative, so the runtime refuses a grid that cannot be
+// resident at once instead of letting the barrier hang. Adding the
+// partials by the last CTA to finish (an integer ticket) left one SM
+// reading all of them after the last slab, 5-6 us at the solve shape;
+// spread over the grid the adds take one L2 round trip. No atomics, and
+// every sum has a fixed order, so a rerun is bit-identical whichever CTA
+// finishes last.
 //
 // Inside a CTA the threads form row groups of `tile` threads: with B = 1
 // and 16-byte rows, `tile` = r / V vectors of V = 16 / sizeof(T) columns
@@ -31,7 +31,8 @@
 // of the slab, so a CTA is full at any r (r = 256 in float: 4 groups of
 // 64 threads); rows wider than 256 slots tile r across blockIdx.y. Each
 // lane reads u[i] itself (a broadcast within its group), and the groups
-// are added by a fixed pairwise tree in shared memory.
+// are added by a fixed pairwise tree in shared memory. The CTA's loops and
+// the combine are in feature_ops.cuh, shared with paged.cu.
 //
 // sinkhorn_halfstep replaces _halfstep_kernel and feature_matvec replaces
 // _matvec_kernel (both launched by _matvec_like_call):
@@ -39,13 +40,34 @@
 //   out[j, c] = marg[j, c] / sum_k xi[j, k] * t[k, c]    (the half-step)
 //   out[j, c] =              sum_k xi[j, k] * t[k, c]    (the matvec)
 //
-// one row kernel with a compile-time flag for the divide; one warp per
-// row, t staged once per CTA in shared memory, each row's dot product
-// reduced by a fixed shuffle tree. The row dot product is in
-// feature_ops.cuh, shared with paged.cu. The divide is IEEE float32
-// (__fdiv_rn): a zero-weight atom on a positive row gives exactly 0, an
-// all-zero row gives inf, or NaN where marg is 0, as float32 does. Rows are
-// not padded: bounds checks replace the JAX package's pad-with-1 rows.
+// one row kernel with a compile-time flag for the divide, launched as a
+// persistent grid of at most one wave (the occupancy the runtime reports;
+// kernels/kermatvec.py:_rows_plan). A warp reduces R consecutive rows at a
+// time (a batch), and the W warps of the grid take the batches in turn
+// (warp w: w, w + W, ...), so together they sweep the factor as one band.
+// The planner picks the CTAs an SM (up to the occupancy) that leave the
+// fewest warps idle in the last round of batches. On the 16-byte path
+// (B = 1, 16-byte rows) with a row of at most 32 * kNV vectors, kNV <= 4
+// (float r <= 512, bf16 r <= 1024), a lane holds the kNV vectors of t it
+// meets on every row (columns V * (lane + 32 p)) in registers, loaded
+// once; a batch of R = 8 / kNV rows issues its 8 loads a lane before the
+// first FMA (f32 r = 256: 4 rows of 2 vectors), and the R dot products are
+// reduced together: each xor-shuffle step halves the values a lane holds
+// (16 lanes apart, then 8, ...) until one is left, then a plain butterfly,
+// so lane (32 / R) i ends with row i's sum and the R results leave as one
+// coalesced store. Wider rows, B > 1 and unaligned rows keep t in shared
+// memory and take a row a warp (row_dot, kNV = 0): at one row a batch
+// (kNV = 8), t in registers took 80 registers a thread, fewer CTAs an SM,
+// and read 1-2% slower than t in shared memory. Rows are read with plain
+// loads unless the caller asks for evict-first ones: a solve contracts
+// the same factor right after its row kernel, and with evict-first loads
+// an iteration in that order read 5% slower at float r = 1024 and 18% at
+// bf16 r = 1024, where the L2 drops those lines first. The half-step's storing lanes load the marginal after the reduction
+// (loading it with the rows measured slower at bf16 r = 1024).
+// The divide is IEEE float32 (__fdiv_rn): a zero-weight atom on a positive
+// row gives exactly 0, an all-zero row gives inf, or NaN where marg is 0,
+// as float32 does. Rows are not padded: bounds checks replace the JAX
+// package's pad-with-1 rows.
 //
 // The factor xi is stored as float or as bfloat16 (precision="bf16", half
 // the bytes); each kernel is a template on that storage type T, widens
@@ -69,236 +91,140 @@ namespace {
 
 using namespace feature_ops;
 
-constexpr int kFlatThreads = 256;     // threads of a flat-contract CTA
-
-struct ContractArgs {
-  const void* xi;          // (n, r), T
-  const float* u;          // (n, B)
-  float* partial;          // (splits, r, B)
-  float* t;                // (r, B)
-  int n, r, B;
-  int splits, rows_per_split;
-  int tile, groups;        // threads of a row group; row groups of a CTA
-  int combine;             // 0: slabs only, t not formed (phase 3 times it)
-};
-
-// The flat contract: one launch, one wave. CTA (split, column tile, column
-// chunk) reduces the rows [split * rows_per_split, ...) of its slab. Its
-// 256 threads form `groups` row groups of `tile` threads; group g takes
-// rows g, g + groups, ... of the slab, each thread one 16-byte vector
-// (kVec) or one column (scalar path) of the tile. The groups are added by
-// a fixed pairwise tree in shared memory, and the CTA writes its partial
-// (or t itself when there is one split).
-template <typename T, bool kVecPath>
-__device__ __forceinline__ void flat_accumulate(const ContractArgs& a,
-                                                const T* __restrict__ xi,
-                                                float (&acc)[8], int q, int g,
-                                                int c0, int nc, int i0,
-                                                int i1) {
-  const int G = a.groups;
-  const float* __restrict__ u = a.u;
-  // U rows of the group a round, all U loads issued before the first FMA;
-  // the last round is masked rather than finished one row at a time, so a
-  // slab of any length takes ceil(rows / (G * U)) memory round trips.
-  if constexpr (kVecPath) {
-    constexpr int V = kVec<T>;
-    constexpr int U = 64 / V;                 // 256 bytes in flight a thread
-    const int rv = a.r / V;
-    const uint4* col = reinterpret_cast<const uint4*>(xi) + q;
-    for (int i = i0 + g; i < i1; i += G * U) {
-      uint4 raw[U];
-      float uv[U];
-#pragma unroll
-      for (int p = 0; p < U; ++p) {
-        const int row = i + p * G;
-        raw[p] = row < i1 ? __ldg(col + (size_t)row * rv) : make_uint4(0, 0, 0, 0);
-        uv[p] = row < i1 ? __ldg(u + row) : 0.0f;
-      }
-#pragma unroll
-      for (int p = 0; p < U; ++p) {
-        if (i + p * G >= i1) break;
-        float w[V];
-        unpack16(raw[p], w);
-#pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] = fmaf(w[e], uv[p], acc[e]);
-      }
-    }
-  } else if (nc == 1) {         // one column of u: one load and one FMA a row
-    constexpr int U = 16;
-    const T* col = xi + q;
-    const float* uc = u + c0;
-    const int B = a.B;
-    for (int i = i0 + g; i < i1; i += G * U) {
-      float w[U], uv[U];
-#pragma unroll
-      for (int p = 0; p < U; ++p) {
-        const int row = i + p * G;
-        w[p] = row < i1 ? load_factor(col + (size_t)row * a.r) : 0.0f;
-        uv[p] = row < i1 ? __ldg(uc + (size_t)row * B) : 0.0f;
-      }
-#pragma unroll
-      for (int p = 0; p < U; ++p) {
-        if (i + p * G >= i1) break;
-        acc[0] = fmaf(w[p], uv[p], acc[0]);
-      }
-    }
-  } else {
-    constexpr int U = 8;
-    const T* col = xi + q;
-    const int B = a.B;
-    for (int i = i0 + g; i < i1; i += G * U) {
-      float w[U];
-#pragma unroll
-      for (int p = 0; p < U; ++p) {
-        const int row = i + p * G;
-        w[p] = row < i1 ? load_factor(col + (size_t)row * a.r) : 0.0f;
-      }
-#pragma unroll
-      for (int p = 0; p < U; ++p) {
-        if (i + p * G >= i1) break;
-        const float* ur = u + (size_t)(i + p * G) * B + c0;
-#pragma unroll
-        for (int c = 0; c < kMaxCols; ++c)
-          if (c < nc) acc[c] = fmaf(w[p], __ldg(ur + c), acc[c]);
-      }
-    }
-  }
-}
-
-// Index in t (r, B) of element j of a CTA's tile, or -1 past r.
-template <bool kVecPath, int V>
-__device__ __forceinline__ int flat_out_index(const ContractArgs& a, int j,
-                                              int nc) {
-  if constexpr (kVecPath) {
-    const int k = blockIdx.y * a.tile * V + j;
-    return k < a.r ? k : -1;
-  } else {
-    const int jq = j / nc;
-    const int k = blockIdx.y * a.tile + jq;
-    return k < a.r ? k * a.B + blockIdx.z * kMaxCols + (j - jq * nc) : -1;
-  }
-}
-
-// p[0] + p[stride] + ... + p[(count - 1) * stride], added in that order,
-// read from L2 (written by other CTAs of this launch) kChunk loads at a
-// time, so a sum of up to kChunk terms costs one L2 round trip.
-__device__ __forceinline__ float ordered_sum(const float* p, int count,
-                                             size_t stride) {
-  constexpr int kChunk = 16;
-  float s = 0.0f;
-  for (int base = 0; base < count; base += kChunk) {
-    float v[kChunk];
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e)
-      v[e] = base + e < count ? __ldcg(p + (base + e) * stride) : 0.0f;
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e)
-      if (base + e < count) s = __fadd_rn(s, v[e]);
-  }
-  return s;
-}
-
-// After the grid barrier: t = the sum over splits of the partials, every
-// CTA adding a slice of the r * B outputs. A slice of w outputs is split
-// over parts runs of consecutive splits (parts * w <= the CTA's threads),
-// each run summed in split order, and the runs added by a fixed pairwise
-// tree in shared memory: the same order on every launch.
-__device__ __forceinline__ void grid_combine(const ContractArgs& a,
-                                             float* red) {
-  constexpr int kT = kFlatThreads;
-  const int O = a.r * a.B;
-  const int nblocks = gridDim.x * gridDim.y * gridDim.z;
-  const int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int w = (O + nblocks - 1) / nblocks;
-  const int o0 = b * w;
-  if (o0 >= O) return;
-  const int wb = min(w, O - o0);
-  if (w > kT / 2) {            // wide slices: a thread an output, all splits
-    for (int j = threadIdx.x; j < wb; j += kT)
-      a.t[o0 + j] = ordered_sum(a.partial + o0 + j, a.splits, O);
-    return;
-  }
-  int parts = 1;
-  while (parts * 2 * w <= kT && parts < a.splits) parts *= 2;
-  const int len = (a.splits + parts - 1) / parts;
-  const int j = threadIdx.x % w, p = threadIdx.x / w;
-  if (p < parts) {
-    const int first = p * len;
-    red[p * w + j] = j < wb && first < a.splits
-        ? ordered_sum(a.partial + (size_t)first * O + o0 + j,
-                      min(len, a.splits - first), O)
-        : 0.0f;
-  }
-  __syncthreads();
-  for (int h = parts / 2; h > 0; h >>= 1) {
-    if (p < h) red[p * w + j] = __fadd_rn(red[p * w + j], red[(p + h) * w + j]);
-    __syncthreads();
-  }
-  if (p == 0 && j < wb) a.t[o0 + j] = red[j];
-}
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowVectors = 8;        // 16-byte row loads in flight a lane
 
 template <typename T, bool kVecPath>
 __global__ void __launch_bounds__(kFlatThreads, 2)
 flat_contract_kernel(const ContractArgs a) {
-  constexpr int V = kVecPath ? kVec<T> : 1;
   __shared__ __align__(16) float red[kFlatThreads * 8];
-  const int tid = threadIdx.x;
-  const int g = tid / a.tile;
-  const int ql = tid - g * a.tile;
-  const int split = blockIdx.x;
-  const int c0 = blockIdx.z * kMaxCols;
-  const int nc = kVecPath ? 1 : min(kMaxCols, a.B - c0);
-  const int wd = kVecPath ? V : nc;           // elements of a thread's slot
-  const int rv = kVecPath ? a.r / V : a.r;
-  const int q = blockIdx.y * a.tile + ql;
-  const int i0 = split * a.rows_per_split;
+  const ContractThread th = contract_thread<T, kVecPath>(a);
+  const int i0 = blockIdx.x * a.rows_per_split;
   const int i1 = min(a.n, i0 + a.rows_per_split);
-
   float acc[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
-  if (g < a.groups) {
-    if (q < rv)
-      flat_accumulate<T, kVecPath>(a, static_cast<const T*>(a.xi), acc, q, g,
-                                   c0, nc, i0, i1);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (e < wd) red[tid * wd + e] = acc[e];
-  }
-  __syncthreads();
-  // groups -> group 0: a fixed pairwise tree (stride = the largest power of
-  // two below the count), so the order never depends on timing.
-  const int elems = a.tile * wd;
-  for (int count = a.groups; count > 1;) {
-    const int half = 1 << (31 - __clz(count - 1));
-    for (int e = tid; e < (count - half) * elems; e += kFlatThreads)
-      red[e] += red[e + half * elems];
-    count = half;
-    __syncthreads();
-  }
-  const size_t O = (size_t)a.r * a.B;
-  float* dst = a.splits == 1 ? a.t : a.partial + split * O;
-  for (int j = tid; j < elems; j += kFlatThreads) {
-    const int o = flat_out_index<kVecPath, V>(a, j, nc);
-    if (o >= 0) dst[o] = red[j];
-  }
+  if (th.active)
+    flat_accumulate<T, kVecPath>(a, static_cast<const T*>(a.xi), acc, th.q,
+                                 th.g, th.c0, th.nc, i0, i1);
+  contract_partial<T, kVecPath>(a, th, acc, red);
   if (a.splits == 1 || !a.combine) return;   // the same on every CTA
   cooperative_groups::this_grid().sync();
   grid_combine(a, red);
 }
 
-template <typename T, bool kDivide>
+struct RowsArgs {
+  const void* xi;          // (n, r), T
+  const float* t;          // (r, B)
+  const float* marg;       // (n, B), the half-step only
+  float* out;              // (n, B)
+  int n, r, B;
+  int vec;                 // 16-byte rows (the shared-memory path's choice)
+  int evict_first;         // evict-first loads of xi (ld.global.cs)
+};
+
+// A 16-byte load of a row, evict-first or read-only as the launch asks.
+// The choice, made at run time, also keeps the R * kNV loads of a batch
+// ahead of its first FMA (each load is its own branch): with one load
+// instruction the compiler placed each load next to its FMAs, whether
+// through __ldg, inline PTX, rows clamped in range or a __syncwarp after
+// the loads, and the kernels read 20-29% slower at bf16 r = 1024 on an
+// H100 (64 registers a thread instead of 80).
+__device__ __forceinline__ uint4 load_row(const uint4* p, int evict_first) {
+  return evict_first ? __ldcs(p) : __ldg(p);
+}
+
+// The R sums s[0..R) of every lane added over the warp: step o (16, 8, ...)
+// keeps the upper half of the values on lanes with bit o set and the lower
+// half elsewhere, adding the half the partner lane (lane ^ o) sends, until
+// one value is left; a butterfly over the remaining lanes finishes it.
+// Returns, on lane l, the sum of row l / (32 / R).
+template <int R>
+__device__ __forceinline__ float warp_sum_rows(float (&s)[R], int lane) {
+#pragma unroll
+  for (int c = R, o = 16; c > 1; c >>= 1, o >>= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < c / 2; ++i) {
+      const float send = upper ? s[i] : s[i + c / 2];
+      const float keep = upper ? s[i + c / 2] : s[i];
+      s[i] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+  float v = s[0];
+#pragma unroll
+  for (int o = 16 / R; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The batches b0, b0 + step, ... (< b1) of R rows of a warp on the 16-byte
+// path with t in registers: kNV vectors of t a lane, loaded once, and
+// R * kNV row loads in flight a lane.
+template <typename T, bool kDivide, int kNV, int R>
+__device__ __forceinline__ void rows_in_registers(const RowsArgs& a, int lane,
+                                                  int b0, int b1, int step) {
+  constexpr int V = kVec<T>;
+  constexpr int kStride = 32 / R;       // lanes between two rows' sums
+  const int rv = a.r / V;
+  float tr[kNV][V];
+#pragma unroll
+  for (int p = 0; p < kNV; ++p) {
+    const int k = lane + 32 * p;
+#pragma unroll
+    for (int e = 0; e < V; ++e) tr[p][e] = k < rv ? __ldg(a.t + V * k + e) : 0.0f;
+  }
+  const uint4* xv = static_cast<const uint4*>(a.xi);
+  const bool stores = (lane & (kStride - 1)) == 0;   // lane (32 / R) i: row i
+  for (int b = b0; b < b1; b += step) {
+    const int j = b * R;
+    const int row = j + lane / kStride;
+    uint4 raw[R][kNV];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int p = 0; p < kNV; ++p) {
+        const int k = lane + 32 * p;
+        raw[i][p] = j + i < a.n && k < rv
+            ? load_row(xv + (size_t)(j + i) * rv + k, a.evict_first)
+            : make_uint4(0, 0, 0, 0);
+      }
+    float s[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      s[i] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kNV; ++p) {
+        float w[V];
+        unpack16(raw[i][p], w);
+#pragma unroll
+        for (int e = 0; e < V; ++e) s[i] = fmaf(w[e], tr[p][e], s[i]);
+      }
+    }
+    const float v = warp_sum_rows<R>(s, lane);
+    if (stores && row < a.n) a.out[row] = finish<kDivide>(a.marg, row, v);
+  }
+}
+
+// kNV > 0: the 16-byte path with t in registers, R rows a batch; kNV = 0:
+// t in shared memory, a row a warp (R = 1; any B, any r whose t fits the
+// CTA). Warp w of W takes the batches w, w + W, ...
+template <typename T, bool kDivide, int kNV, int R>
 __global__ void __launch_bounds__(kRowWarps * 32)
-feature_rows_kernel(const T* __restrict__ xi, const float* __restrict__ t,
-                    const float* __restrict__ marg, float* __restrict__ out,
-                    int n, int r, int B, int vec) {
-  extern __shared__ float4 t_sh4[];  // (r, B), the layout of t
-  float* t_sh = reinterpret_cast<float*>(t_sh4);
-  stage_t(t, t_sh, r * B);
+feature_rows_kernel(const RowsArgs a) {
   const int lane = threadIdx.x & 31;
-  for (int j = blockIdx.x * kRowWarps + (threadIdx.x >> 5); j < n;
-       j += gridDim.x * kRowWarps)
-    row_dot<T, kDivide>(xi, t_sh, marg, out, j, r, B, vec, lane);
+  const int warps = gridDim.x * kRowWarps;
+  const int warp = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  const int batches = a.n / R + (a.n % R != 0);
+  if constexpr (kNV > 0) {
+    rows_in_registers<T, kDivide, kNV, R>(a, lane, warp, batches, warps);
+  } else {
+    extern __shared__ float4 t_sh4[];  // (r, B), the layout of t
+    float* t_sh = reinterpret_cast<float*>(t_sh4);
+    stage_t(a.t, t_sh, a.r * a.B);
+    for (int j = warp; j < batches; j += warps)
+      row_dot<T, kDivide>(static_cast<const T*>(a.xi), t_sh, a.marg, a.out,
+                          j, a.r, a.B, a.vec, lane);
+  }
 }
 
 // With one split the CTAs are independent and launch as usual; with more
@@ -323,12 +249,8 @@ int flat_launch(const ContractArgs& a, int col_tiles, int chunks,
 template <typename T>
 int contract_launch(const ContractArgs& a, int col_tiles, int chunks,
                     int vec, cudaStream_t stream) {
-  constexpr int V = kVec<T>;
-  const int rv = vec ? a.r / V : a.r;
-  if ((vec && (a.B != 1 || a.r % V != 0 || chunks != 1)) || a.tile < 1 ||
-      a.groups < 1 || a.groups * a.tile > kFlatThreads ||
-      col_tiles * a.tile < rv || chunks * kMaxCols < a.B ||
-      a.splits * a.rows_per_split < a.n)
+  if (contract_plan_invalid<T>(a, col_tiles, chunks, vec) ||
+      (long long)a.splits * a.rows_per_split < a.n)
     return static_cast<int>(cudaErrorInvalidValue);
   return vec ? flat_launch<T, true>(a, col_tiles, chunks, stream)
              : flat_launch<T, false>(a, col_tiles, chunks, stream);
@@ -343,16 +265,57 @@ int contract_occupancy(int vec) {
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
+// The row kernel of (T, kDivide) holding nv vectors of t a lane and
+// reducing R = kRowVectors / nv rows a batch (nv = 0, R = 1: t in shared
+// memory), or nullptr where there is none: the register path takes
+// batches of at least two rows (nv <= 4).
+using RowsKernel = void (*)(RowsArgs);
+
 template <typename T, bool kDivide>
-int rows_launch(const T* xi, const float* t, const float* marg, float* out,
-                int n, int r, int B, int vec, int grid, cudaStream_t stream) {
-  if (vec && (B != 1 || r % kVec<T> != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)r * B * sizeof(float);
-  const int err = reserve_t_smem(feature_rows_kernel<T, kDivide>, smem);
+RowsKernel rows_kernel(int nv) {
+  switch (nv) {
+    case 0: return feature_rows_kernel<T, kDivide, 0, 1>;
+    case 1: return feature_rows_kernel<T, kDivide, 1, 8>;
+    case 2: return feature_rows_kernel<T, kDivide, 2, 4>;
+    case 4: return feature_rows_kernel<T, kDivide, 4, 2>;
+    default: return nullptr;
+  }
+}
+
+template <typename T, bool kDivide>
+int rows_launch(const RowsArgs& a, int nv, int grid, cudaStream_t stream) {
+  constexpr int V = kVec<T>;
+  auto kernel = rows_kernel<T, kDivide>(nv);
+  if (kernel == nullptr || grid < 1 || a.n < 1 || a.r < 1 || a.B < 1 ||
+      (a.vec && (a.B != 1 || a.r % V != 0)) ||
+      (nv > 0 && (!a.vec || (a.r / V + 31) / 32 > nv)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = nv ? 0 : (size_t)a.r * a.B * sizeof(float);
+  const int err = reserve_t_smem(kernel, smem);
   if (err != 0) return err;
-  feature_rows_kernel<T, kDivide><<<grid, kRowWarps * 32, smem, stream>>>(
-      xi, t, marg, out, n, r, B, vec);
+  kernel<<<grid, kRowWarps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kDivide>
+int rows_occupancy(int nv, int smem) {
+  auto kernel = rows_kernel<T, kDivide>(nv);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  const int err = reserve_t_smem(kernel, smem);
+  if (err != 0) return -err;
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kRowWarps * 32, smem);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
+template <bool kDivide>
+int rows_entry(const void* xi, int bf16, const float* t, const float* marg,
+               float* out, int n, int r, int B, int vec, int nv, int grid,
+               int evict_first, cudaStream_t stream) {
+  const RowsArgs a{xi, t, marg, out, n, r, B, vec, evict_first};
+  return bf16 ? rows_launch<__nv_bfloat16, kDivide>(a, nv, grid, stream)
+              : rows_launch<float, kDivide>(a, nv, grid, stream);
 }
 
 }  // namespace
@@ -382,27 +345,38 @@ REPRO_EXPORT int feature_contract_occupancy(int bf16, int vec) {
               : contract_occupancy<float>(vec);
 }
 
+// The row kernels: nv vectors of t a lane in registers (1, 2 or 4; needs
+// vec) and 8 / nv rows a batch, or nv = 0 (t in shared
+// memory, a row a batch), on `grid` CTAs of kRowWarps warps
+// (kernels/kermatvec.py:_rows_plan); evict_first != 0 reads xi with
+// evict-first loads on the register path.
 REPRO_EXPORT int sinkhorn_halfstep_launch(const void* xi, int bf16,
                                           const float* t, const float* marg,
                                           float* out, int n, int r, int B,
-                                          int vec, int grid,
+                                          int vec, int nv, int grid,
+                                          int evict_first,
                                           cudaStream_t stream) {
-  if (bf16)
-    return rows_launch<__nv_bfloat16, true>(
-        static_cast<const __nv_bfloat16*>(xi), t, marg, out, n, r, B, vec,
-        grid, stream);
-  return rows_launch<float, true>(static_cast<const float*>(xi), t, marg, out,
-                                  n, r, B, vec, grid, stream);
+  return rows_entry<true>(xi, bf16, t, marg, out, n, r, B, vec, nv, grid,
+                          evict_first, stream);
 }
 
 REPRO_EXPORT int feature_matvec_launch(const void* xi, int bf16,
                                        const float* t, float* out, int n,
-                                       int r, int B, int vec, int grid,
+                                       int r, int B, int vec, int nv,
+                                       int grid, int evict_first,
                                        cudaStream_t stream) {
+  return rows_entry<false>(xi, bf16, t, nullptr, out, n, r, B, vec, nv, grid,
+                           evict_first, stream);
+}
+
+// Row-kernel CTAs resident on one SM with smem bytes of t (the planner's
+// wave), or a negative CUDA error code. The two kernels of a shape (with
+// and without the divide) are queried apart.
+REPRO_EXPORT int feature_rows_occupancy(int bf16, int divide, int nv,
+                                        int smem) {
   if (bf16)
-    return rows_launch<__nv_bfloat16, false>(
-        static_cast<const __nv_bfloat16*>(xi), t, nullptr, out, n, r, B, vec,
-        grid, stream);
-  return rows_launch<float, false>(static_cast<const float*>(xi), t, nullptr,
-                                   out, n, r, B, vec, grid, stream);
+    return divide ? rows_occupancy<__nv_bfloat16, true>(nv, smem)
+                  : rows_occupancy<__nv_bfloat16, false>(nv, smem);
+  return divide ? rows_occupancy<float, true>(nv, smem)
+                : rows_occupancy<float, false>(nv, smem);
 }

@@ -2,8 +2,7 @@
 // fixed-capacity feature buffer carved into pages of page_size rows, with
 // a per-page live-slot count page_live (int32, one per page).
 //
-// paged_contract_partial_kernel / paged_contract_partial_vec_kernel (and
-// the combine) replace the TPU kernel _paged_contract_kernel in
+// paged_contract_kernel replaces the TPU kernel _paged_contract_kernel in
 // src/repro/kernels/paged.py (launched by _paged_contract_impl):
 //
 //   t[k, c] = sum over live pages p, rows i of p:  xi[i, k] * u[i, c]
@@ -11,14 +10,34 @@
 //
 // The TPU walks the pages on a sequential grid axis, predicated on the
 // scalar-prefetched live count, and accumulates into one revisited output
-// block. Here, as in kermatvec.cu, each CTA owns a slab of whole pages and
-// a tile of r and writes its partial sums to a (n_splits, r, B) scratch
-// buffer; a second launch adds the partials in the order split = 0, 1, ...
-// (one warp per output, fixed lanes and shuffle tree). No atomics, so a
-// rerun is bit-identical. A CTA reads page_live[p] (one int32 load, the
-// same address for every thread) and walks only the runs of consecutive
-// live pages: the xi and u rows of a dead page are never read, so whatever
-// they hold never reaches t. A slab whose pages are all dead writes zeros.
+// block. Here the flat contract's design carries over (kermatvec.cu; the
+// CTA's loops and the combine are feature_ops.cuh's): one cooperative
+// launch of at most one wave, planned by kernels/kermatvec.py:
+// _contract_plan (256-thread CTAs, row groups that fill a CTA at any r,
+// 16-byte loads where B = 1 and rows are 16-byte aligned), each CTA's
+// partial to a (splits, r, B) buffer and, after a grid barrier, a
+// fixed-order combine (grid_combine). No atomics, so a rerun is
+// bit-identical.
+//
+// The slabs split the live pages, not the capacity. Every CTA reads the
+// page table itself (no host read, no extra launch) in sweeps of up to
+// 8192 pages: coalesced loads, a page a thread a tile of 256, all issued
+// at once; a ballot a tile a warp gives a bitmap of 256 words in page
+// order, and an exclusive scan of the words' counts the rank of every live
+// page. With the L live pages laid end to end in page order, the CTA of
+// split s takes its equal share of the L ps live rows (ps = page_size;
+// the first L ps % splits slabs one row more): the live pages that hold
+// them, listed in shared memory kListPages at a time, the first and last
+// cut at those rows.
+// Runs of consecutive listed pages are accumulated as one run of rows, so
+// a packed store's live pages read as the flat contract reads its slab. The partition depends
+// only on page_live and the grid, so at 25% live every CTA still has
+// work, and a rerun takes the same order. The rows of dead pages, and
+// their u, are never read; a CTA with no live page writes zeros. A table
+// of one sweep (C = 524288 rows of 64-row pages) costs a CTA one L2 round
+// trip, 32 loads, 32 ballots, a 256-word scan and three CTA barriers
+// before its first row load; a longer table is first counted in one more
+// pass, then swept 8192 pages at a time.
 //
 // paged_rows_kernel replaces _paged_halfstep_kernel (kDivide) and
 // _paged_matvec_kernel (both launched by _paged_rows_call):
@@ -41,90 +60,166 @@
 // once: at C = 32768, r = 1024 in float that is 128 MiB with every page
 // live (about 40 us at 3.35 TB/s), half and a quarter of it at 50% and 25%
 // of pages live. Two flops an entry are far below the float32 rate, so
-// all three are bound by the bytes of the live pages. The accumulation
-// loops, the combine and the row dot product are kermatvec.cu's, from
-// feature_ops.cuh, so the loads are the same: coalesced along r, 16-byte
-// vectors (4 floats or 8 bf16) eight at a time per thread where B = 1 and
-// rows are 16-byte aligned, a scalar path with the same arithmetic
-// otherwise, and the contract's wrapper takes the scalar path also where a
-// row's vectors do not fill a CTA (r < 512 in float, r < 1024 in bf16).
+// all three are bound by the bytes of the live pages.
+#include <cooperative_groups.h>
+
 #include "feature_ops.cuh"
 
 namespace {
 
 using namespace feature_ops;
 
-// The first live page at or after p (p_end if none) and, in run_end, one
-// past the run of consecutive live pages that starts there.
-__device__ __forceinline__ int next_live_run(const int* __restrict__ live,
-                                             int p, int p_end, int& run_end) {
-  while (p < p_end && __ldg(live + p) == 0) ++p;
-  int q = p;
-  while (q < p_end && __ldg(live + q) != 0) ++q;
-  run_end = q;
-  return p;
-}
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = kFlatThreads / 32;
+constexpr int kScanTiles = 32;                         // a bit each in a word
+constexpr int kSweepPages = kFlatThreads * kScanTiles; // pages a sweep
+constexpr int kListPages = 512;                        // pages a window lists
 
-// Scalar path: thread k owns column k of xi and the columns
-// c0 .. c0 + nc - 1 of u (c0 = kMaxCols * blockIdx.z).
-template <typename T>
-__global__ void __launch_bounds__(kContractThreads)
-paged_contract_partial_kernel(const T* __restrict__ xi,
-                              const float* __restrict__ u,
-                              const int* __restrict__ page_live,
-                              float* __restrict__ partial, int r, int B,
-                              int page_size, int n_pages,
-                              int pages_per_split) {
-  __shared__ float u_sh[kContractChunk * kMaxCols];
-  const int k = blockIdx.x * kContractThreads + threadIdx.x;
-  const int split = blockIdx.y;
-  const int c0 = blockIdx.z * kMaxCols;
-  const int nc = min(kMaxCols, B - c0);
-  const int p_begin = split * pages_per_split;
-  const int p_end = min(n_pages, p_begin + pages_per_split);
-  float acc[kMaxCols];
+struct PageScan {
+  unsigned words[kFlatThreads]; // a sweep's live pages, 32 a word, in order
+  int warp_total[kWarps];
+  int list[kListPages];         // the window's live pages, in page order
+};
+
+// The live pages of the sweep from p0 as a bitmap in page order: bit l of
+// word w is page p0 + 32 w + l. Coalesced loads (a page a thread, up to 32
+// tiles of 256 pages, all issued before the first ballot), then a ballot
+// a tile a warp, lane i keeping tile i's. Ends with the CTA synchronised.
+__device__ __forceinline__ void sweep_words(PageScan& s,
+                                            const int* __restrict__ live,
+                                            int p0, int n_pages) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles = min(kScanTiles, (n_pages - p0 + kFlatThreads - 1) / kFlatThreads);
+  unsigned bits = 0;
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) acc[c] = 0.0f;
-  int run_end;
-  for (int p = next_live_run(page_live, p_begin, p_end, run_end); p < p_end;
-       p = next_live_run(page_live, run_end, p_end, run_end))
-    contract_rows(xi, u, u_sh, acc, k, r, B, c0, nc, p * page_size,
-                  run_end * page_size);
-  contract_store(partial, acc, split, k, r, B, c0, nc);
-}
-
-// Vector path (B == 1, rows of a multiple of 16 bytes, aligned): thread q
-// owns the V = kVec<T> columns V*q .. V*q + V-1 and reads them as one
-// 16-byte vector per row.
-template <typename T>
-__global__ void __launch_bounds__(kContractThreads)
-paged_contract_partial_vec_kernel(const T* __restrict__ xi,
-                                  const float* __restrict__ u,
-                                  const int* __restrict__ page_live,
-                                  float* __restrict__ partial, int r,
-                                  int page_size, int n_pages,
-                                  int pages_per_split) {
-  constexpr int V = kVec<T>;
-  __shared__ float u_sh[kContractChunk];
-  const int q = blockIdx.x * kContractThreads + threadIdx.x;
-  const int split = blockIdx.y;
-  const int p_begin = split * pages_per_split;
-  const int p_end = min(n_pages, p_begin + pages_per_split);
-  float acc[V];
+  for (int i = 0; i < kScanTiles; ++i) {
+    if (i == tiles) break;
+    const int p = p0 + i * kFlatThreads + threadIdx.x;
+    if (p < n_pages && __ldg(live + p) != 0) bits |= 1u << i;
+  }
+  unsigned mine = 0;
 #pragma unroll
-  for (int e = 0; e < V; ++e) acc[e] = 0.0f;
-  int run_end;
-  for (int p = next_live_run(page_live, p_begin, p_end, run_end); p < p_end;
-       p = next_live_run(page_live, run_end, p_end, run_end))
-    contract_rows_vec(xi, u, u_sh, acc, q, r / V, p * page_size,
-                      run_end * page_size);
-  contract_store_vec(partial, acc, split, q, r, r / V);
+  for (int i = 0; i < kScanTiles; ++i) {
+    if (i == tiles) break;
+    const unsigned b = __ballot_sync(kFull, (bits >> i) & 1u);
+    if (lane == i) mine = b;
+  }
+  s.words[lane * kWarps + warp] = mine;   // tile lane, pages 32 warp + ...
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kCombineWarps * 32)
-paged_contract_combine_kernel(const float* __restrict__ partial,
-                              float* __restrict__ t, int n_splits, int size) {
-  contract_combine(partial, t, n_splits, size);
+// The sweep's live pages in all, and in `before` those ahead of word
+// threadIdx.x (an exclusive scan over the words, in page order).
+__device__ __forceinline__ int scan_words(PageScan& s, int& before) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = __popc(s.words[threadIdx.x]);
+  int inc = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s.warp_total[warp] = inc;
+  __syncthreads();
+  int ahead = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    ahead += w < warp ? s.warp_total[w] : 0;
+    total += s.warp_total[w];
+  }
+  before = ahead + inc - c;
+  return total;
+}
+
+// The live pages of word threadIdx.x whose rank (first for its first live
+// page) is in [w_lo, w_hi), into s.list[rank - w_lo]: each found directly
+// as the word's (rank - first + 1)-th set bit.
+__device__ __forceinline__ void list_word(PageScan& s, int p0, int first,
+                                          int w_lo, int w_hi) {
+  const unsigned word = s.words[threadIdx.x];
+  const int k1 = min(first + __popc(word), w_hi);
+  for (int k = max(first, w_lo); k < k1; ++k)
+    s.list[k - w_lo] = p0 + 32 * threadIdx.x + __fns(word, 0, k - first + 1);
+}
+
+// The live pages of a table longer than one sweep (every thread gets it).
+__device__ __forceinline__ int count_live(PageScan& s,
+                                          const int* __restrict__ live,
+                                          int n_pages) {
+  int c = 0;
+#pragma unroll 8
+  for (int p = threadIdx.x; p < n_pages; p += kFlatThreads)
+    c += __ldg(live + p) != 0;
+  c = __reduce_add_sync(kFull, c);
+  if ((threadIdx.x & 31) == 0) s.warp_total[threadIdx.x >> 5] = c;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += s.warp_total[w];
+  __syncthreads();
+  return total;
+}
+
+template <typename T, bool kVecPath, bool kStream>
+__global__ void __launch_bounds__(kFlatThreads, 2)
+paged_contract_kernel(const ContractArgs a, const int* __restrict__ page_live,
+                      int page_size, int n_pages) {
+  __shared__ __align__(16) float red[kFlatThreads * 8];
+  __shared__ PageScan scan;
+  const ContractThread th = contract_thread<T, kVecPath>(a);
+  const T* xi = static_cast<const T*>(a.xi);
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+
+  // live: the live pages L (a table of one sweep counts them in its own
+  // scan). Of the R = L ps live rows, laid end to end in page order, split
+  // s takes R / splits rows, one more for s < R % splits: the pages of
+  // ranks [lo, hi), the first entered skip rows in, the last left cut rows
+  // early; kListPages pages a window, each listed by sweeps of the table.
+  int live = n_pages > kSweepPages ? count_live(scan, page_live, n_pages) : -1;
+  for (int window = 0;; ++window) {
+    int base = 0, lo = 0, hi = 0, skip = 0, cut = 0, w_lo = 0, w_hi = 0;
+    for (int p0 = 0; p0 < n_pages; p0 += kSweepPages) {
+      sweep_words(scan, page_live, p0, n_pages);
+      int before;
+      const int total = scan_words(scan, before);
+      if (live < 0) live = total;
+      const int rows = live * page_size;       // < 2^31: C is an int
+      const int q = rows / a.splits, rem = rows - q * a.splits;
+      const int r_lo = q * blockIdx.x + min(static_cast<int>(blockIdx.x), rem);
+      const int r_hi = r_lo + q + (static_cast<int>(blockIdx.x) < rem);
+      lo = r_lo / page_size;
+      hi = (r_hi + page_size - 1) / page_size;
+      skip = r_lo - lo * page_size;
+      cut = hi * page_size - r_hi;
+      w_lo = lo + window * kListPages;
+      w_hi = min(hi, w_lo + kListPages);
+      list_word(scan, p0, base + before, w_lo, w_hi);
+      base += total;
+      __syncthreads();              // the list is complete, the words free
+      if (base >= w_hi) break;      // the same on every thread
+    }
+    if (th.active) {
+      const int m = w_hi - w_lo;
+      for (int k = 0; k < m;) {     // a run of consecutive live pages
+        const int first = scan.list[k];
+        int e = k + 1;
+        while (e < m && scan.list[e] == first + (e - k)) ++e;
+        const int i0 = first * page_size + (w_lo + k == lo ? skip : 0);
+        const int i1 = (first + e - k) * page_size - (w_lo + e == hi ? cut : 0);
+        flat_accumulate<T, kVecPath, kStream>(a, xi, acc, th.q, th.g, th.c0,
+                                              th.nc, i0, i1);
+        k = e;
+      }
+    }
+    if (w_hi >= hi) break;
+    __syncthreads();                // before the next window's list
+  }
+  contract_partial<T, kVecPath>(a, th, acc, red);
+  if (a.splits == 1 || !a.combine) return;   // the same on every CTA
+  cooperative_groups::this_grid().sync();
+  grid_combine(a, red);
 }
 
 // One warp per row; a row of a dead page gets exact zeros and reads
@@ -149,31 +244,55 @@ paged_rows_kernel(const T* __restrict__ xi, const float* __restrict__ t,
   }
 }
 
-template <typename T>
-int contract_launch(const T* xi, const float* u, const int* page_live,
-                    float* partial, float* t, int r, int B, int page_size,
-                    int n_pages, int n_splits, int pages_per_split, int vec,
-                    cudaStream_t stream) {
-  constexpr int V = kVec<T>;
-  if (vec && (B != 1 || r % V != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = vec ? V * kContractThreads : kContractThreads;
-  if (vec) {
-    const dim3 grid((r + cols - 1) / cols, n_splits);
-    paged_contract_partial_vec_kernel<T><<<grid, kContractThreads, 0, stream>>>(
-        xi, u, page_live, partial, r, page_size, n_pages, pages_per_split);
-  } else {
-    const dim3 grid((r + cols - 1) / cols, n_splits,
-                    (B + kMaxCols - 1) / kMaxCols);
-    paged_contract_partial_kernel<T><<<grid, kContractThreads, 0, stream>>>(
-        xi, u, page_live, partial, r, B, page_size, n_pages, pages_per_split);
+// With one split the CTAs are independent and launch as usual; with more
+// they meet at the grid barrier, so the launch is cooperative: it fails
+// (and the wrapper raises) rather than start more CTAs than can be
+// resident at once.
+template <typename T, bool kVecPath, bool kStream>
+int paged_launch(const ContractArgs& a, const int* page_live, int page_size,
+                 int n_pages, int col_tiles, int chunks, cudaStream_t stream) {
+  const dim3 grid(a.splits, col_tiles, chunks);
+  auto kernel = paged_contract_kernel<T, kVecPath, kStream>;
+  if (a.splits == 1 || !a.combine) {
+    kernel<<<grid, kFlatThreads, 0, stream>>>(a, page_live, page_size,
+                                              n_pages);
+    return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int size = r * B;
-  paged_contract_combine_kernel<<<(size + kCombineWarps - 1) / kCombineWarps,
-                                  kCombineWarps * 32, 0, stream>>>(
-      partial, t, n_splits, size);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {const_cast<ContractArgs*>(&a), &page_live, &page_size,
+                  &n_pages};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), grid, dim3(kFlatThreads), args,
+      0, stream));
+}
+
+// evict_first applies to the 16-byte path only (the scalar path's loads
+// stay as they are).
+template <typename T>
+int contract_launch(const ContractArgs& a, const int* page_live,
+                    int page_size, int n_pages, int col_tiles, int chunks,
+                    int vec, int evict_first, cudaStream_t stream) {
+  if (contract_plan_invalid<T>(a, col_tiles, chunks, vec) || page_size < 1 ||
+      n_pages < 1 || (long long)page_size * n_pages != a.n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!vec)
+    return paged_launch<T, false, false>(a, page_live, page_size, n_pages,
+                                         col_tiles, chunks, stream);
+  return evict_first
+      ? paged_launch<T, true, true>(a, page_live, page_size, n_pages,
+                                    col_tiles, chunks, stream)
+      : paged_launch<T, true, false>(a, page_live, page_size, n_pages,
+                                     col_tiles, chunks, stream);
+}
+
+template <typename T>
+int contract_occupancy(int vec) {
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks,
+      vec ? paged_contract_kernel<T, true, false>
+          : paged_contract_kernel<T, false, false>,
+      kFlatThreads, 0);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 template <typename T, bool kDivide>
@@ -192,21 +311,34 @@ int rows_launch(const T* xi, const float* t, const float* marg,
 }  // namespace
 
 // xi is float (bf16 == 0) or bfloat16 (bf16 != 0); page_live holds n_pages
-// int32 live counts and the buffer has n_pages * page_size rows. vec != 0
-// selects the 16-byte vector path; the caller passes it only for B == 1,
-// rows of a multiple of 16 bytes and a 16-byte aligned xi. Each of the
-// n_splits CTAs along y takes pages_per_split whole pages.
+// int32 live counts and the buffer has C = n_pages * page_size rows. vec
+// != 0 selects the 16-byte path; the caller passes it only for B == 1,
+// rows of a multiple of 16 bytes and a 16-byte aligned xi. The grid
+// (splits, col_tiles, chunks) and the row groups come from
+// kernels/paged.py:_paged_plan; partial holds splits * r * B floats
+// (unused with one split). combine == 0 stops after the partials (t is
+// not formed): chip_smoke.py times the slabs alone that way. evict_first
+// != 0 reads the rows with evict-first loads (16-byte path).
 REPRO_EXPORT int paged_feature_contract_launch(
     const void* xi, int bf16, const float* u, const int* page_live,
-    float* partial, float* t, int r, int B, int page_size, int n_pages,
-    int n_splits, int pages_per_split, int vec, cudaStream_t stream) {
+    float* partial, float* t, int C, int r, int B, int page_size,
+    int n_pages, int splits, int tile, int groups, int col_tiles, int chunks,
+    int vec, int combine, int evict_first, cudaStream_t stream) {
+  const ContractArgs a{xi, u, partial, t, C, r, B, splits, 0, tile, groups,
+                       combine};
   if (bf16)
-    return contract_launch(static_cast<const __nv_bfloat16*>(xi), u,
-                           page_live, partial, t, r, B, page_size, n_pages,
-                           n_splits, pages_per_split, vec, stream);
-  return contract_launch(static_cast<const float*>(xi), u, page_live, partial,
-                         t, r, B, page_size, n_pages, n_splits,
-                         pages_per_split, vec, stream);
+    return contract_launch<__nv_bfloat16>(a, page_live, page_size, n_pages,
+                                          col_tiles, chunks, vec, evict_first,
+                                          stream);
+  return contract_launch<float>(a, page_live, page_size, n_pages, col_tiles,
+                                chunks, vec, evict_first, stream);
+}
+
+// Paged-contract CTAs resident on one SM (the planner's wave), or a
+// negative CUDA error code.
+REPRO_EXPORT int paged_feature_contract_occupancy(int bf16, int vec) {
+  return bf16 ? contract_occupancy<__nv_bfloat16>(vec)
+              : contract_occupancy<float>(vec);
 }
 
 REPRO_EXPORT int paged_halfstep_launch(const void* xi, int bf16,

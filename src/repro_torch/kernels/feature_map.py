@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .backend import check_operand, sm_count
+from .backend import check_operand, l2_bytes, sm_count
 from .ref import gaussian_feature_map_ref
 
 __all__ = ["gaussian_feature_map"]
@@ -34,7 +34,6 @@ _MAX_COLS4 = 32                 # kMaxCols4: 4-column groups of a tile
 _REGISTER_DEPTHS = (4, 8, 16)   # the register kernels' d budgets
 _WIDE = len(_REGISTER_DEPTHS)   # kernel index of the shared-memory kernel
 _SMEM_BUDGET = 96 * 1024        # the wide kernel's anchors in shared memory
-_L2_BYTES = 50 * 2**20          # H100 L2: larger outputs stream past it
 
 
 # Launch options chip_smoke.py times against each other: None = the
@@ -148,7 +147,7 @@ def gaussian_feature_map(x: torch.Tensor, anchors: torch.Tensor,
         raise ValueError(f"gaussian_feature_map kernel takes 1 <= n, r < "
                          f"2**31 and d >= 1; got n={n}, r={r}, d={d}")
     out = torch.empty((n, r), dtype=torch.float32, device=dev)
-    stream_store = (4.0 * n * r > _L2_BYTES if _FORCE["stream"] is None
+    stream_store = (4.0 * n * r > l2_bytes(dev) if _FORCE["stream"] is None
                     else _FORCE["stream"])
     kernel, _, _, smem, _ = _map_shape(r, d)
     plan = _map_plan(n, r, d, sm_count(dev),

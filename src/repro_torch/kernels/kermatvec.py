@@ -12,18 +12,22 @@ One half-step ``v <- b / (Zeta (Xi^T u))`` splits into
   marginal divide fused, shape (n, B);
 * :func:`feature_matvec` — ``out = Xi t`` without the divide (the
   convergence check's column marginal, and the u-update under momentum).
+  Both run one row kernel, a persistent grid of at most one wave whose
+  warps take batches of consecutive rows in turn; on the 16-byte path t
+  sits in registers and a warp reduces the rows of a batch at once;
+  :func:`_rows_plan` is its geometry, in plain Python.
 
 ``xi`` is stored as float32 or bfloat16 (``precision="bf16"``); the kernels
 widen it on load and accumulate in float32, as the plain versions do. Any
-B >= 1 runs; the row kernels keep ``t`` (r x B float32) in shared memory,
-so ``r * B * 4`` bytes must fit one CTA. Counterpart of
-``repro.kernels.kermatvec``.
+B >= 1 runs; off the register path the row kernel keeps ``t`` (r x B
+float32) in shared memory, so ``r * B * 4`` bytes must fit one CTA.
+Counterpart of ``repro.kernels.kermatvec``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -38,7 +42,9 @@ from .ref import (
 
 __all__ = ["feature_contract", "sinkhorn_halfstep", "feature_matvec"]
 
-_ROW_WARPS = 8                  # rows per row-kernel CTA (one per warp)
+_ROW_WARPS = 8                  # kRowWarps: warps of a row-kernel CTA
+_ROW_VECTORS = 8                # kRowVectors: 16-byte loads in flight a lane
+_MAX_T_VECTORS = 4              # vectors of t a lane holds: R >= 2 rows
 _MAX_SMEM = 227 * 1024          # dynamic shared memory of one CTA (t)
 _FLAT_THREADS = 256             # kFlatThreads: threads of a contract CTA
 _MIN_SLAB_ROWS = 16             # rows of the smallest contract slab
@@ -99,6 +105,69 @@ def _flat_vectorized(xi: torch.Tensor, B: int) -> bool:
     return _vectorized(xi, B)
 
 
+class RowsPlan(NamedTuple):
+    nv: int                 # 16-byte vectors of t a lane holds (0: t in smem)
+    rows: int               # R: rows a warp reduces at once
+    smem: int               # dynamic shared memory of a CTA (t), bytes
+    grid: int               # CTAs of _ROW_WARPS warps
+
+    def warp_rows(self, warp: int, n: int) -> List[int]:
+        """The rows ``warp`` computes, in its order (as feature_rows_kernel
+        deals them): of the b batches of R rows, warp w of W takes w, w + W,
+        ..."""
+        mine = range(warp, -(-n // self.rows), self.grid * _ROW_WARPS)
+        return [j for b in mine
+                for j in range(b * self.rows, min(n, (b + 1) * self.rows))]
+
+
+def _rows_kernel(r: int, B: int, vec: bool,
+                 element_size: int) -> Tuple[int, int, int]:
+    """(nv, rows, smem) of the row kernel for rows of r elements of
+    ``element_size`` bytes and B columns of t: on the 16-byte path
+    (``vec``: B = 1, 16-byte rows), t in registers, nv vectors a lane (the
+    power of two covering r / V / 32), and R = 8 / nv rows a batch, so a
+    lane keeps 8 loads in flight, where nv is at most ``_MAX_T_VECTORS``
+    (float r <= 512, bf16 r <= 1024); otherwise t in shared memory and a
+    row a warp. At one row a batch (float r = 1024, nv = 8) t in registers
+    read 1-2% slower than t in shared memory on an H100: it costs
+    registers, so CTAs an SM, and leaves a warp one row in flight."""
+    width = 16 // element_size
+    if vec and (B != 1 or r % width):
+        raise ValueError(f"the 16-byte path takes B = 1 and rows of a "
+                         f"multiple of 16 bytes; got r={r}, B={B}")
+    if vec:
+        slots = -(-(r // width) // 32)
+        nv = 1 << (slots - 1).bit_length()
+        if nv <= _MAX_T_VECTORS:
+            return nv, _ROW_VECTORS // nv, 0
+    return 0, 1, 4 * r * B
+
+
+def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
+               sms: int, blocks_per_sm: int) -> RowsPlan:
+    """The row kernel's geometry on a card of ``sms`` SMs where
+    ``blocks_per_sm`` CTAs of the chosen kernel (``_rows_kernel``) are
+    resident: at most one wave, and never more CTAs than batches of R rows
+    fill. The W warps take the batches in turn, so the kernel runs
+    ceil(batches / W) rounds; of the CTAs an SM that fit, the plan takes
+    the one that leaves the fewest warp-batch slots of those rounds idle
+    (the most CTAs among equals): at n = 16384, bf16 r = 1024, three an SM
+    would run 3 rounds, the last 59% full, two an SM 4 rounds 97% full."""
+    nv, rows, smem = _rows_kernel(r, B, vec, element_size)
+    batches = -(-n // rows)
+
+    def grid_of(per_sm):
+        return max(1, min(sms * per_sm, -(-batches // _ROW_WARPS)))
+
+    def slots(per_sm):
+        warps = grid_of(per_sm) * _ROW_WARPS
+        return -(-batches // warps) * warps
+
+    per_sm = min(range(1, max(1, blocks_per_sm) + 1),
+                 key=lambda b: (slots(b), -b))
+    return RowsPlan(nv, rows, smem, grid_of(per_sm))
+
+
 @functools.cache
 def _lib():
     lib = build.load("kermatvec")
@@ -111,12 +180,15 @@ def _lib():
     o.restype = ctypes.c_int
     h = lib.sinkhorn_halfstep_launch
     h.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     h.restype = ctypes.c_int
     v = lib.feature_matvec_launch
     v.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     v.restype = ctypes.c_int
+    ro = lib.feature_rows_occupancy
+    ro.argtypes = [ctypes.c_int] * 4
+    ro.restype = ctypes.c_int
     return lib
 
 
@@ -129,10 +201,25 @@ def _blocks_per_sm(device_index: int, bf16: bool, vec: bool) -> int:
     return blocks
 
 
-# A launch option chip_smoke.py times: ``combine=False`` stops after the
-# slabs' partials, so t is NOT formed (it times the slabs apart from the
-# grid barrier and the combine).
-_FORCE = {"combine": True}
+@functools.cache
+def _rows_blocks_per_sm(device_index: int, bf16: bool, divide: bool, nv: int,
+                        smem: int) -> int:
+    with torch.cuda.device(device_index):
+        blocks = _lib().feature_rows_occupancy(int(bf16), int(divide), nv,
+                                               smem)
+    if blocks <= 0:
+        build.check_launch(_lib(), -blocks or 1, "feature_rows")
+    return blocks
+
+
+# Launch options chip_smoke.py times: ``combine=False`` stops the contract
+# after the slabs' partials, so t is NOT formed (it times the slabs apart
+# from the grid barrier and the combine); ``stream=True`` reads the row
+# kernels' factor with evict-first loads. The wrappers never do: a solve
+# contracts the same factor right after its row kernel, and an iteration
+# in that order read 5% slower with them at float32 r = 1024 and 18% at
+# bf16 r = 1024 on an H100, where the L2 drops those lines first.
+_FORCE = {"combine": True, "stream": False}
 
 
 def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -178,7 +265,35 @@ def _check_rows(xi, t, what):
     if min(n, r, B) < 1 or r * B * 4 > _MAX_SMEM:
         raise ValueError(f"{what} kernel takes n, r, B >= 1 and r * B * 4 "
                          f"<= {_MAX_SMEM} bytes of t; got n={n}, r={r}, B={B}")
-    return min(-(-n // _ROW_WARPS), 4 * sm_count(xi.device))
+
+
+def _launch_rows(xi, t, marg, what):
+    """Plan and launch the row kernel (the half-step where ``marg`` is
+    given, else the matvec); returns out (n, B)."""
+    _check_rows(xi, t, what)
+    dev = xi.device
+    n, r = xi.shape
+    B = t.shape[1]
+    bf16 = xi.dtype == torch.bfloat16
+    vec = _vectorized(xi, B)
+    nv, _, smem = _rows_kernel(r, B, vec, xi.element_size())
+    plan = _rows_plan(n, r, B, vec, xi.element_size(), sm_count(dev),
+                      _rows_blocks_per_sm(dev.index, bf16, marg is not None,
+                                          nv, smem))
+    out = torch.empty((n, B), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        shape = (n, r, B, int(vec), plan.nv, plan.grid,
+                 int(_FORCE["stream"]), stream)
+        if marg is None:
+            code = _lib().feature_matvec_launch(
+                xi.data_ptr(), int(bf16), t.data_ptr(), out.data_ptr(), *shape)
+        else:
+            code = _lib().sinkhorn_halfstep_launch(
+                xi.data_ptr(), int(bf16), t.data_ptr(), marg.data_ptr(),
+                out.data_ptr(), *shape)
+    build.check_launch(_lib(), code, what)
+    return out
 
 
 def sinkhorn_halfstep(xi: torch.Tensor, t: torch.Tensor,
@@ -198,15 +313,7 @@ def sinkhorn_halfstep(xi: torch.Tensor, t: torch.Tensor,
                          f"{tuple(t.shape)}, marg {tuple(marg.shape)}")
     if dev.type == "cpu":
         return sinkhorn_halfstep_ref(xi, t, marg)
-    grid = _check_rows(xi, t, "sinkhorn_halfstep")
-    out = torch.empty((n, B), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _lib().sinkhorn_halfstep_launch(
-            xi.data_ptr(), int(xi.dtype == torch.bfloat16), t.data_ptr(),
-            marg.data_ptr(), out.data_ptr(), n, r, B,
-            int(_vectorized(xi, B)), grid, stream)
-    build.check_launch(_lib(), code, "sinkhorn_halfstep")
+    out = _launch_rows(xi, t, marg, "sinkhorn_halfstep")
     sinkhorn_halfstep.launches += 1
     return out
 
@@ -226,14 +333,7 @@ def feature_matvec(xi: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                          f"{tuple(t.shape)}")
     if dev.type == "cpu":
         return feature_matvec_ref(xi, t)
-    grid = _check_rows(xi, t, "feature_matvec")
-    out = torch.empty((n, B), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _lib().feature_matvec_launch(
-            xi.data_ptr(), int(xi.dtype == torch.bfloat16), t.data_ptr(),
-            out.data_ptr(), n, r, B, int(_vectorized(xi, B)), grid, stream)
-    build.check_launch(_lib(), code, "feature_matvec")
+    out = _launch_rows(xi, t, None, "feature_matvec")
     feature_matvec.launches += 1
     return out
 

@@ -227,19 +227,28 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
                  "feature_matvec_launch", "__nv_bfloat16"):
         assert name in km
     assert "feature_contract_combine_kernel" not in km     # one launch
+    # the row kernel is a persistent grid sized by an occupancy query
+    assert "feature_rows_occupancy" in km
+    assert km.count("cudaOccupancyMaxActiveBlocksPerMultiprocessor") >= 2
+    for name in ("ContractArgs", "flat_accumulate", "grid_combine",
+                 "contract_partial"):
+        assert name in ops                 # shared by the two contracts
     for name in ("__global__", "log_sinkhorn_block_kernel",
                  "log_sinkhorn_block_launch", "sinkhorn_block_kernel",
                  "sinkhorn_block_launch", "__nv_bfloat16",
                  "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert name in fl
     pg = (csrc / "paged.cu").read_text()
-    for name in ("paged_contract_partial_kernel",
-                 "paged_contract_partial_vec_kernel",
-                 "paged_contract_combine_kernel", "paged_rows_kernel",
-                 "paged_feature_contract_launch", "paged_halfstep_launch",
-                 "paged_feature_matvec_launch", "page_live",
+    for name in ("paged_contract_kernel", "paged_rows_kernel",
+                 "paged_feature_contract_launch",
+                 "paged_feature_contract_occupancy", "paged_halfstep_launch",
+                 "paged_feature_matvec_launch", "page_live", "grid_combine",
                  '#include "feature_ops.cuh"', "__nv_bfloat16"):
         assert name in pg
+    # the paged contract is one cooperative launch: its partials meet at a
+    # grid barrier, no second (combine) kernel
+    assert "paged_contract_combine_kernel" not in pg
+    assert "cudaLaunchCooperativeKernel" in pg and "this_grid().sync()" in pg
     for name in ("log_matvec_kernel", "log_matvec_launch"):
         assert name in lm
     assert lm.count("__global__") == 5          # 3 contract, half-step, row LSE
