@@ -13,10 +13,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
    parallel);
 2. each kernel against its plain PyTorch version on the card: at the main
    paths' shapes, at ragged shapes, and on inputs with ``-inf`` rows,
-   columns and constants; the LSE kernels on float32 and bf16 factors; the
-   log megakernel in bf16 and float32, at momentum 1.0 and 1.3, with dead
-   atoms and a dead anchor, and its refusal of shapes the plan does not
-   admit; the scaling contract, half-step (with a zero-weight atom and an
+   columns and constants; the LSE kernels on float32 and bf16 factors, the
+   one-launch log contract also at B = 1, 3 and 8, n = 1, 7, 2048 and
+   16384, with an all -inf column, run twice (bit-identical reruns); the
+   log megakernel (one thread block cluster) in bf16 and float32, at
+   momentum 1.0 and 1.3, with dead atoms and a dead anchor, with every row
+   of one rank's slices dead, at n < C and m < C, at the largest admitted
+   bf16 and float32 shapes, its plan's shared memory equal to the
+   library's, and its refusal of shapes the plan does not admit (at the
+   admission edge too); the scaling contract, half-step (with a zero-weight atom and an
    all-zero row) and matvec on float32 and bf16 factors, the contract run
    twice a shape (bit-identical reruns) on its 16-byte path with row groups
    and forced onto its scalar path, also at float32 r = 4, 12, 128, 256 and
@@ -41,8 +46,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    1e-4 relative + 1e-6, and a second launch bit-identical; the paged
    kernels within 1e-5 of max |value|, dead pages exactly 0, a second
    contract launch bit-identical; log_matvec as the LSE kernels;
-3. the device kernels one call of the feature map and of the flat and
-   paged contracts launches (profiler), then times (CUDA events, median of 21 batches of
+3. the device kernels one call of the feature map, of the flat and
+   paged contracts and of the log contract launches (profiler), then times (CUDA events, median of 21 batches of
    10 launches, queued behind a device spin so that host overhead is not
    timed) of each kernel, its plain
    version and one PyTorch library call computing the same function where
@@ -51,7 +56,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    at the solve path's shape, the feature map in both epilogues there and
    at the trainer's shapes (beside ``fill_`` of its output, evict-first
    stores on and off), the LSE kernels at batch 2048, r = 128 in
-   bf16, and the log megakernel at the OT-GAN shape; the scaling kernels
+   bf16 and float32 (the log contract also with its 16-byte and scalar
+   paths forced and slabs of 8 and 32 KiB), and the log megakernel at the
+   OT-GAN shape (its cluster size, inner_steps = 1, the same 8 iterations
+   through the per-iteration log kernels as its yardstick, and other
+   cluster sizes, row groups and lanes forced); the scaling kernels
    at n = 16384, r = 1024 and 256, float32 and bf16 (the contract also
    its slabs alone and its scalar path; the row kernel also with
    evict-first loads, and with t in shared memory where the planner
@@ -345,6 +354,7 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
             record("log_halfstep",
                    f"m={m} r={r} B={B} scale={scale} -inf={neg_inf}", err, ok)
     check_bf16_lse(torch, np, device, bf16_shapes, record)
+    check_log_contract(torch, device, record)
     check_block(torch, np, device, block_shapes, record)
     check_scaling(torch, np, device, scaling_shapes, record)
     check_scaling_block(torch, device, scaling_block_shapes, record)
@@ -393,9 +403,10 @@ def check_bf16_lse(torch, np, device, shapes, record):
 def block_inputs(torch, np, n, m, r, d, eps, dtype, dead, seed, device):
     """A megakernel block's inputs as the log plan builds them: Gaussian
     log-features of two clouds stored at ``dtype``, uniform weights with
-    ``dead`` zero-weight atoms on each side (potentials -inf), the carry
-    (f0 = g0 = 0, t0 = LSE_i(log_xi + f0/eps)) and, with ``dead``, one
-    anchor whose constant is -inf (an all -inf factor column)."""
+    ``dead`` zero-weight atoms on each side (potentials -inf; a pair of
+    row ranges kills those rows of each side), the carry (f0 = g0 = 0, t0
+    = LSE_i(log_xi + f0/eps)) and, with ``dead``, one anchor whose
+    constant is -inf (an all -inf factor column)."""
     from repro_torch.kernels import ref
     x, u, c = feature_inputs(torch, np, n, r, d, eps, seed, device)
     rng = np.random.default_rng(seed + 1)
@@ -409,7 +420,11 @@ def block_inputs(torch, np, n, m, r, d, eps, dtype, dead, seed, device):
                                        log_space=True).to(dtype)
     a = torch.ones(n, device=device)
     b = torch.ones(m, device=device)
-    if dead:
+    if isinstance(dead, tuple):         # whole row ranges of each side
+        (i0, i1), (j0, j1) = dead
+        a[i0:i1] = 0.0
+        b[j0:j1] = 0.0
+    elif dead:
         a[n // 3::max(n // dead, 1)][:dead] = 0.0
         b[m // 4::max(m // dead, 1)][:dead] = 0.0
     a, b = a / a.sum(), b / b.sum()
@@ -431,7 +446,7 @@ def check_block(torch, np, device, shapes, record):
     block-end error within 1e-4 relative + 1e-6; a second launch must be
     bit-identical (no atomics). Shapes the plan does not admit are refused
     by block_plan_fits and by the kernel's wrapper (ValueError)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_loop, ref
     from repro_torch.kernels.fused_loop import (
         block_plan_fits,
         log_sinkhorn_block,
@@ -439,10 +454,25 @@ def check_block(torch, np, device, shapes, record):
 
     for (n, m, r, dtype, mom, dead, steps) in shapes:
         eps = 0.5
+        plan = (fused_loop._block_plan(n, m, r, dtype)
+                if hasattr(fused_loop, "_block_plan") else None)
+        if dead == "rank":     # every row of rank 1's slices dead
+            dead = ((plan.slice(1, n), plan.slice(1, m)) if plan else
+                    ((n // 8, n // 4), (m // 8, m // 4)))
         args = block_inputs(torch, np, n, m, r, D, eps, dtype, dead,
                             n + m + r, device)
         case = (f"n={n} m={m} r={r} {str(dtype)[6:]} momentum={mom} "
                 f"dead={dead} steps={steps}")
+        if plan is not None:
+            lib_smem = fused_loop._lib().log_sinkhorn_block_smem_bytes(
+                n, m, r, int(dtype == torch.bfloat16), plan.cluster,
+                plan.threads, plan.groups, plan.lanes, plan.ldw)
+            case += (f" C={plan.cluster} threads={plan.threads} "
+                     f"G={plan.groups} L={plan.lanes} smem={plan.smem}")
+            if lib_smem != plan.smem:
+                record("log_sinkhorn_block", case + f" (library smem "
+                       f"{lib_smem} != plan)", float("inf"), False)
+                continue
         if not block_plan_fits(n, m, r, 1, dtype):
             try:
                 log_sinkhorn_block(*args, inner_steps=steps, eps=eps,
@@ -470,6 +500,39 @@ def check_block(torch, np, device, shapes, record):
         record("log_sinkhorn_block",
                f"{case} err={e_got:.4e}/{e_want:.4e} repeat_identical={same}",
                worst, all_ok and e_ok and same)
+
+
+def check_log_contract(torch, device, record):
+    """The one-launch log contract against its plain version at B = 1, 3
+    and 8, n = 1, 7, 2048 and 16384 (r = 128, and r = 1024 at n = 16384),
+    float32 and bf16 factors with -inf rows, a dead anchor column (an all
+    -inf output column) and, at B > 1, an all -inf column of s: atol
+    LSE_ATOL + rtol LSE_RTOL, and a second launch bit-identical."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.logmatvec import log_feature_contract
+
+    cases = [(n, 128, B) for n in (1, 7, GAN_BIG_BATCH, N) for B in (1, 3, 8)]
+    cases += [(N, R_ANCHORS, B) for B in (1, 3)]
+    for n, r, B in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=device).manual_seed(n * 17 + r + B)
+            lw = (30.0 * torch.randn((n, r), generator=g, device=device)
+                  - 50.0).to(dtype)
+            s = 10.0 * torch.randn((n, B), generator=g, device=device)
+            lw[:, r // 2] = -math.inf           # an all -inf output column
+            lw[n // 3, :] = -math.inf
+            s[n // 5, :] = -math.inf
+            if B > 1:
+                s[:, B - 1] = -math.inf         # an all -inf column of s
+            got = log_feature_contract(lw, s)
+            again = log_feature_contract(lw, s)
+            want = ref.log_feature_contract_ref(lw, s)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, want, atol=LSE_ATOL, rtol=LSE_RTOL)
+            same = torch.equal(got, again)
+            record("log_feature_contract",
+                   f"{str(dtype)[6:]} n={n} r={r} B={B} -inf column "
+                   f"repeat_identical={same}", err, ok and same)
 
 
 def explicit_features(np, n, r, seed):
@@ -880,12 +943,17 @@ def launches_per_call(torch, np, device):
     (float32, every other page live)."""
     from repro_torch.kernels.feature_map import gaussian_feature_map
     from repro_torch.kernels.kermatvec import feature_contract
+    from repro_torch.kernels.logmatvec import log_feature_contract
     from repro_torch.kernels.paged import paged_feature_contract
 
     x, u, c = feature_inputs(torch, np, N, R_ANCHORS, D, EPS, 0, device)
     xi = torch.rand((N, R_ANCHORS), device=device)
     xi16 = xi.to(torch.bfloat16)
     w = torch.rand((N, 1), device=device)
+    # the trainer's batch-2048 factor and weights, built outside the
+    # profiled call so that only the wrapper's launches are counted
+    xi16_gan = xi16[:GAN_BIG_BATCH, :128].contiguous()
+    w_gan = w[:GAN_BIG_BATCH]
     live = torch.full((N // STREAM_PAGE,), STREAM_PAGE, dtype=torch.int32,
                       device=device)
     live[::2] = 0
@@ -894,6 +962,10 @@ def launches_per_call(torch, np, device):
                 x, u, c, inv_eps=1 / EPS, log_space=True)),
             ("feature_contract f32", lambda: feature_contract(xi, w)),
             ("feature_contract bf16", lambda: feature_contract(xi16, w)),
+            ("log_feature_contract f32",
+             lambda: log_feature_contract(xi, w)),
+            ("log_feature_contract bf16 2048x128",
+             lambda: log_feature_contract(xi16_gan, w_gan)),
             ("paged_feature_contract", lambda: paged_feature_contract(
                 xi, w, live, page_size=STREAM_PAGE))):
         count, names = kernels_per_call(torch, fn)
@@ -991,7 +1063,7 @@ def time_training_kernels(torch, np, device):
     them), and the megakernel at the OT-GAN shape n = m = 256, r = 128,
     bf16, inner_steps = 8. No PyTorch call computes eight Sinkhorn
     iterations, so the megakernel has no library time."""
-    from repro_torch.kernels import logmatvec, ref
+    from repro_torch.kernels import fused_loop, logmatvec, ref
     from repro_torch.kernels.fused_loop import log_sinkhorn_block
     from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
 
@@ -1031,17 +1103,16 @@ def time_training_kernels(torch, np, device):
             log(f"  {name:22s} {tag} n={n} r={r}: kernel {ms:.4f} ms  plain "
                 f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  bound "
                 f"{b_ms:.5f} ms ({b_by})  kernel/bound {ms / b_ms:.2f}")
-        # At r = 128 the contract takes its scalar path; the vector path,
-        # which leaves most of each CTA idle here, is timed beside it.
-        chosen = logmatvec._contract_vectorized
-        logmatvec._contract_vectorized = logmatvec._vectorized
-        try:
-            vec_ms = time_ms(torch, lambda: log_feature_contract(log_w, s))
-        finally:
-            logmatvec._contract_vectorized = chosen
-        log(f"  log_feature_contract   {tag} n={n} r={r}: 16-byte vector path "
-            f"forced {vec_ms:.4f} ms (the wrapper takes the "
-            f"{'vector' if chosen(log_w, B) else 'scalar'} path)")
+        # The contract's two paths forced, beside the one the wrapper takes
+        # (a checkout from before the one-launch contract took the scalar
+        # path at r = 128; the one-launch contract takes 16-byte vectors
+        # in row groups).
+        parts = []
+        for vec in (True, False):
+            with log_contract_path(logmatvec, vec):
+                parts.append(f"{'16-byte vector' if vec else 'scalar'} path "
+                             f"forced {time_ms(torch, lambda: log_feature_contract(log_w, s)):.4f} ms")
+        log(f"  log_feature_contract   {tag} n={n} r={r}: {'; '.join(parts)}")
 
     n = m = GAN_BATCH
     steps = 8
@@ -1049,18 +1120,86 @@ def time_training_kernels(torch, np, device):
                         device)
     nbytes = 2.0 * (n + m) * 128 + 4.0 * (3 * n + 4 * m + 2 * 128 + 1)
     flops = 3.0 * 128 * (steps * 2 * (n + m) + m)
-    ms = time_ms(torch, lambda: log_sinkhorn_block(
-        *args, inner_steps=steps, eps=0.5))
+
+    def block(inner=steps):
+        return log_sinkhorn_block(*args, inner_steps=inner, eps=0.5)
+
+    ms = time_ms(torch, block)
     plain_ms = time_ms(torch, lambda: ref.log_sinkhorn_block_ref(
         *args, inner_steps=steps, eps=0.5))
     b_ms, b_by = bound(nbytes, flops)
     rows["log_sinkhorn_block"] = dict(ms=ms, plain_ms=plain_ms,
                                       library_ms=None, bound_ms=b_ms,
                                       bound_by=b_by)
-    log(f"  log_sinkhorn_block     bf16 n=m={n} r=128 inner_steps={steps}: "
-        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library none  bound "
-        f"{b_ms:.5f} ms ({b_by})  kernel/bound {ms / b_ms:.1f}")
+    plan_of = getattr(fused_loop, "_block_plan", None)
+    shape = (f"cluster of {plan_of(n, m, 128, torch.bfloat16).cluster} CTAs"
+             if plan_of else "one CTA")
+    log(f"  log_sinkhorn_block     bf16 n=m={n} r=128 inner_steps={steps} "
+        f"({shape}): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+        f"none  bound {b_ms:.5f} ms ({b_by})  kernel/bound {ms / b_ms:.1f}")
+    # a launch of one iteration splits the fixed cost (the launch, staging
+    # the factors, the block-end error) from the cost of an iteration
+    one_ms = time_ms(torch, lambda: block(1))
+    log(f"  log_sinkhorn_block     inner_steps=1: kernel {one_ms:.4f} ms; "
+        f"each further iteration {(ms - one_ms) / (steps - 1):.4f} ms")
+    # the yardstick: the same iterations through the per-iteration kernels
+    unfused = unfused_log_block(torch, args, steps, 0.5)
+    unfused_ms = time_ms(torch, unfused, per_batch=4)
+    got, want = block(), unfused()
+    diff = max(float((x - y).abs().nan_to_num(0.0).max())
+               for x, y in zip(got[:3], want[:3]))
+    log(f"  log_sinkhorn_block     the same {steps} iterations unfused (2 "
+        f"log contracts, 2 log half-steps an iteration, then the check): "
+        f"{unfused_ms:.4f} ms; megakernel/unfused {ms / unfused_ms:.2f}; "
+        f"max |d f, g, t| {diff:.2e}, err {float(got[3]):.4e} / "
+        f"{float(want[3]):.4e}")
     return rows
+
+
+def unfused_log_block(torch, args, steps, eps):
+    """``steps`` log-domain iterations at momentum 1 through the
+    per-iteration kernels, in the log plan's order (``ops._log_plan``:
+    half-step zeta, contract zeta, half-step xi, contract xi), then the
+    block-end check: the megakernel's yardstick."""
+    from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
+
+    lxi, lzt, loga, logb, b, _, _, t0 = args
+    zero = torch.zeros_like(logb)
+
+    def run():
+        t = t0
+        for _ in range(steps):
+            g = log_halfstep(lzt, t, logb, scale=eps)
+            t = log_feature_contract(lzt, g / eps)
+            f = log_halfstep(lxi, t, loga, scale=eps)
+            t = log_feature_contract(lxi, f / eps)
+        lse = log_halfstep(lzt, t, zero, scale=-1.0)
+        return f, g, t, torch.sum(torch.abs(torch.exp(lse + g / eps) - b))
+
+    return run
+
+
+def log_contract_path(logmatvec, vec):
+    """A context forcing the log contract's 16-byte path on (``vec``,
+    where the rows allow it) or off: through ``_contract_vectorized`` in a
+    checkout whose wrapper has that rule, else through ``_vectorized``."""
+    import contextlib
+
+    name = ("_contract_vectorized" if hasattr(logmatvec,
+                                              "_contract_vectorized")
+            else "_vectorized")
+    base = logmatvec._vectorized
+
+    @contextlib.contextmanager
+    def ctx():
+        old = getattr(logmatvec, name)
+        setattr(logmatvec, name, lambda w, B: vec and base(w, B))
+        try:
+            yield
+        finally:
+            setattr(logmatvec, name, old)
+
+    return ctx()
 
 
 def time_scaling_kernels(torch, np, device):
@@ -2387,8 +2526,18 @@ def main(argv=None) -> int:
             (200, 120, 100, bf, 1.3, 4, 8),
             (37, 53, 13, f32, 1.0, 2, 8),
             (37, 53, 13, bf, 1.3, 2, 5),
-            (20, 24, 1100, bf, 1.0, 1, 8),                  # r > 1024 threads
+            (20, 24, 1100, bf, 1.0, 1, 8),                  # r wider than the CTA
             (GAN_BIG_BATCH, GAN_BIG_BATCH, 128, bf, 1.0, 0, 8),  # not admitted
+            (GAN_BATCH, GAN_BATCH, 128, bf, 1.0, "rank", 8),  # a rank all dead
+            (GAN_BATCH, 200, 128, bf, 1.3, "rank", 8),
+            (3, 200, 24, f32, 1.0, 0, 8),                   # n < C
+            (200, 3, 13, bf, 1.3, 0, 8),                    # m < C, odd r
+            (1, 688, 128, bf, 1.0, 0, 8),                   # one xi row
+            (352, 352, 128, bf, 1.0, 2, 8),                 # largest bf16
+            (352, 352, 128, bf, 1.3, 0, 1),
+            (353, 353, 128, bf, 1.0, 0, 8),                 # not admitted
+            (176, 176, 128, f32, 1.3, 0, 8),                # largest f32
+            (177, 177, 128, f32, 1.0, 0, 8),                # not admitted
         ]
         scaling_shapes = [
             (shape + (dtype,)) for dtype in (f32, bf) for shape in (

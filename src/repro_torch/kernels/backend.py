@@ -20,10 +20,11 @@ __all__ = ["DEFAULT_DEVICE", "MEGAKERNEL_BUDGET", "resolve_device", "as_f32",
 DEFAULT_DEVICE = "cuda"
 
 # Working-set ceiling of the megakernels (``fused_loop.block_plan_fits``):
-# one CTA holds both factors in shared memory. It is the JAX package's
-# gpu-triton budget, so both packages admit the megakernel at the same
-# shapes; the bytes are counted on the JAX package's padded shapes, which
-# bound what the CUDA kernel really holds (``fused_loop.smem_bytes``).
+# both factors sit in shared memory (one CTA's, or spread over the log
+# kernel's cluster). It is the JAX package's gpu-triton budget, so both
+# packages admit the megakernel at the same shapes; the bytes are counted
+# on the JAX package's padded shapes, which bound what a CTA of either
+# CUDA kernel really holds (``fused_loop.smem_bytes``).
 MEGAKERNEL_BUDGET = 192 * 2**10
 
 DeviceLike = Union[str, torch.device, None]

@@ -9,11 +9,26 @@
 //   t[k, c] = LSE_i( log_w[i, k] + s[i, c] )        (n, r), (n, B) -> (r, B)
 //
 // The TPU reduces n on a sequential grid axis into a revisited output
-// block. CTAs on Hopper run in no order, so the reduction is split: each
-// CTA owns a slab of rows and a tile of r, and writes its partial LSE to a
-// (n_splits, r, B) scratch buffer; a second small launch combines the
-// partials with an exact two-pass LSE (one warp per output, a fixed lane
-// assignment and shuffle tree). No atomics, so the result is deterministic.
+// block. CTAs on Hopper run in no order, so the reduction is split, in one
+// launch of at most one wave (the SM count times the occupancy the runtime
+// reports; kernels/logmatvec.py:_contract_plan), the flat contract's
+// geometry (feature_ops.cuh) carried over to the LSE: CTA (split, column
+// tile) reduces a slab of rows, its 256 threads in row groups of `tile`
+// threads, group g taking rows g, g + groups, ... (one 16-byte vector a
+// thread a row where B = 1 and rows are 16-byte vectors, else one column
+// a thread and up to kMaxCols columns of s); each thread keeps a running
+// (max, sum) per column, each round of rows an exact two-pass LSE without
+// branches (one expf a term, IEEE float32). The
+// groups merge by a fixed pairwise tree in shared memory and the CTA
+// writes its (max, sum) partial to a (splits, r, B) buffer; after a grid
+// barrier every CTA combines a slice of the outputs over the splits with
+// an exact LSE (the joint max first, then the sums rescaled to it) in a
+// fixed order (log_grid_combine). The launch is cooperative, so the
+// runtime refuses a grid that cannot be resident at once rather than let
+// the barrier hang. At r = 128 in bf16 a row is 16 vectors, so a CTA takes
+// 16 rows at a time; a small factor is cut into few slabs (at least 16
+// KiB each), so few CTAs meet at the barrier. No atomics, so a rerun is
+// bit-identical.
 //
 // log_halfstep replaces _log_halfstep_kernel (launched by
 // _log_halfstep_impl):
@@ -44,168 +59,296 @@
 // three are bound by bytes. Loads are coalesced along r and many are kept
 // in flight per thread: on the solver's path (B = 1, rows a multiple of 16
 // bytes, 16-byte aligned) the kernels read 16-byte vectors (4 floats or 8
-// bf16), eight per thread at a time; other shapes take a scalar path with
-// the same arithmetic per entry. The contract's wrapper also takes the
-// scalar path where r is too small for the vectors of a row to fill a CTA
-// (r < 1024 in bf16, as at the training batches' r = 128).
-#include "common.cuh"
+// bf16), eight per thread at a time (the contract: 256 bytes a thread);
+// other shapes take a scalar path with the same arithmetic per entry.
+#include <cooperative_groups.h>
+
+#include "feature_ops.cuh"
 
 namespace {
 
-constexpr int kContractThreads = 128;
-constexpr int kContractChunk = 64;     // rows of s staged per pass
-constexpr int kCombineWarps = 8;
+namespace fo = feature_ops;
+
 constexpr int kHalfstepWarps = 8;
 constexpr int kUnroll = 8;             // loads in flight per thread
 
-// Scalar path: thread k owns column k of log_w, any B <= kMaxCols.
-template <typename T>
-__global__ void __launch_bounds__(kContractThreads)
-log_contract_partial_kernel(const T* __restrict__ log_w,
-                            const float* __restrict__ s,
-                            float* __restrict__ partial, int n, int r, int B,
-                            int rows_per_split) {
-  __shared__ float s_sh[kContractChunk * kMaxCols];
-  const int k = blockIdx.x * kContractThreads + threadIdx.x;
-  const int split = blockIdx.y;
-  const int i_begin = split * rows_per_split;
-  const int i_end = min(n, i_begin + rows_per_split);
-
-  float mx[kMaxCols], acc[kMaxCols];
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    mx[c] = -INFINITY;
-    acc[c] = 0.0f;
-  }
-
-  for (int base = i_begin; base < i_end; base += kContractChunk) {
-    const int rows = min(kContractChunk, i_end - base);
-    for (int e = threadIdx.x; e < rows * B; e += kContractThreads)
-      s_sh[e] = s[(size_t)base * B + e];
-    __syncthreads();
-    if (k < r) {
-      const T* col = log_w + (size_t)base * r + k;
-      int i = 0;
-      for (; i + kUnroll <= rows; i += kUnroll) {
-        float w[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          w[u] = load_factor(col + (size_t)(i + u) * r);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-          for (int c = 0; c < kMaxCols; ++c)
-            if (c < B) lse_push(mx[c], acc[c], w[u] + s_sh[(i + u) * B + c]);
-        }
-      }
-      for (; i < rows; ++i) {
-        const float w = load_factor(col + (size_t)i * r);
-#pragma unroll
-        for (int c = 0; c < kMaxCols; ++c)
-          if (c < B) lse_push(mx[c], acc[c], w + s_sh[i * B + c]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (k >= r) return;
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c)
-    if (c < B) partial[((size_t)split * r + k) * B + c] = lse_value(mx[c], acc[c]);
+// The thread's running (max, sum) of every column it owns over the rows
+// [i0, i1) of its slot, its group taking rows i0 + g, i0 + g + groups,
+// ... U rows of the group a round, all U loads issued before any
+// arithmetic; the last round is masked (as fo::flat_accumulate). Each
+// round is an exact two-pass LSE over its terms without branches: the
+// round's max joins the running max m, the running sum is rescaled by
+// exp(old max - m) once a column, then every term adds exp(x - m) (one
+// expf a term, IEEE float32; with m = -inf the shift is 0 and nothing is
+// added). A NaN term poisons the sum.
+__device__ __forceinline__ float round_shift(float& mx, float& acc, float rm) {
+  const float m = fmaxf(mx, rm);
+  const float shift = m == -INFINITY ? 0.0f : m;
+  acc *= expf(mx - shift);
+  mx = m;
+  return shift;
 }
 
-// Vector path (B == 1, rows of a multiple of 16 bytes, aligned): thread q
-// owns the V = kVec<T> columns V*q .. V*q + V-1 and reads them as one
-// 16-byte vector per row.
-template <typename T>
-__global__ void __launch_bounds__(kContractThreads)
-log_contract_partial_vec_kernel(const T* __restrict__ log_w,
-                                const float* __restrict__ s,
-                                float* __restrict__ partial, int n, int r,
-                                int rows_per_split) {
-  constexpr int V = kVec<T>;
-  __shared__ float s_sh[kContractChunk];
-  const int q = blockIdx.x * kContractThreads + threadIdx.x;
-  const int rv = r / V;
-  const int split = blockIdx.y;
-  const int i_begin = split * rows_per_split;
-  const int i_end = min(n, i_begin + rows_per_split);
-  const uint4* wv = reinterpret_cast<const uint4*>(log_w);
-
-  float mx[V], acc[V];
+template <typename T, bool kVecPath>
+__device__ __forceinline__ void log_accumulate(const fo::ContractArgs& a,
+                                               const T* __restrict__ w,
+                                               float (&mx)[8], float (&acc)[8],
+                                               int q, int g, int nc, int i0,
+                                               int i1) {
+  const int G = a.groups;
+  const float* __restrict__ s = a.u;
+  if constexpr (kVecPath) {
+    constexpr int V = kVec<T>;
+    constexpr int U = 64 / V;                 // 256 bytes in flight a thread
+    const int rv = a.r / V;
+    const uint4* col = reinterpret_cast<const uint4*>(w) + q;
+    for (int i = i0 + g; i < i1; i += G * U) {
+      uint4 raw[U];
+      float sv[U];
 #pragma unroll
-  for (int e = 0; e < V; ++e) {
+      for (int p = 0; p < U; ++p) {
+        const int row = i + p * G;
+        raw[p] = row < i1 ? __ldg(col + (size_t)row * rv) : make_uint4(0, 0, 0, 0);
+        sv[p] = row < i1 ? __ldg(s + row) : -INFINITY;
+      }
+      float rm[V], shift[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) rm[e] = -INFINITY;
+#pragma unroll
+      for (int p = 0; p < U; ++p) {
+        float v[V];
+        unpack16(raw[p], v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) rm[e] = fmaxf(rm[e], v[e] + sv[p]);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) shift[e] = round_shift(mx[e], acc[e], rm[e]);
+#pragma unroll
+      for (int p = 0; p < U; ++p) {
+        if (i + p * G >= i1) break;
+        float v[V];
+        unpack16(raw[p], v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] += expf(v[e] + sv[p] - shift[e]);
+      }
+    }
+  } else {
+    constexpr int U = 8;
+    const T* col = w + q;
+    const int B = a.B;
+    for (int i = i0 + g; i < i1; i += G * U) {
+      float v[U];
+#pragma unroll
+      for (int p = 0; p < U; ++p) {
+        const int row = i + p * G;
+        v[p] = row < i1 ? load_factor(col + (size_t)row * a.r) : -INFINITY;
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c) {
+        if (c >= nc) break;
+        float x[U], rm = -INFINITY;
+#pragma unroll
+        for (int p = 0; p < U; ++p) {
+          const int row = i + p * G;
+          x[p] = row < i1 ? v[p] + __ldg(s + (size_t)row * B + c) : -INFINITY;
+          rm = fmaxf(rm, x[p]);
+        }
+        const float shift = round_shift(mx[c], acc[c], rm);
+#pragma unroll
+        for (int p = 0; p < U; ++p)
+          if (i + p * G < i1) acc[c] += expf(x[p] - shift);
+      }
+    }
+  }
+}
+
+// The CTA's partial: the row groups' (max, sum) states merged by a fixed
+// pairwise tree in shared memory (stride = the largest power of two below
+// the count, as fo::contract_partial adds sums), written as (max, sum) to
+// the split's slice of the partials, or as the LSE to t itself when there
+// is one split. Every thread of the CTA calls it.
+template <typename T, bool kVecPath>
+__device__ __forceinline__ void log_contract_partial(
+    const fo::ContractArgs& a, const fo::ContractThread& th,
+    const float (&mx)[8], const float (&acc)[8], float2* red) {
+  constexpr int V = kVecPath ? kVec<T> : 1;
+  const int tid = threadIdx.x;
+  if (th.g < a.groups) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < th.wd) red[tid * th.wd + e] = make_float2(mx[e], acc[e]);
+  }
+  __syncthreads();
+  const int elems = a.tile * th.wd;
+  for (int count = a.groups; count > 1;) {
+    const int half = 1 << (31 - __clz(count - 1));
+    for (int e = tid; e < (count - half) * elems; e += fo::kFlatThreads) {
+      float2 x = red[e];
+      const float2 y = red[e + half * elems];
+      lse_merge(x.x, x.y, y.x, y.y);
+      red[e] = x;
+    }
+    count = half;
+    __syncthreads();
+  }
+  const size_t O = (size_t)a.r * a.B;
+  float2* partial = reinterpret_cast<float2*>(a.partial) + blockIdx.x * O;
+  for (int j = tid; j < elems; j += fo::kFlatThreads) {
+    const int o = fo::flat_out_index<kVecPath, V>(a, j, th.nc);
+    if (o < 0) continue;
+    if (a.splits == 1) {
+      a.t[o] = lse_value(red[j].x, red[j].y);
+    } else {
+      partial[o] = red[j];
+    }
+  }
+}
+
+// The LSE shift: the max, or 0 where it is -inf (an all -inf column).
+__device__ __forceinline__ float lse_shift(float mx) {
+  return mx == -INFINITY ? 0.0f : mx;
+}
+
+// The exact LSE of the count (max, sum) partials p[0], p[stride], ... in
+// split order: their joint max m (returned through mx), then the sum of
+// each sum rescaled to m's shift (0 where m is -inf); a partial whose max
+// is -inf drops out. Read from L2 (written by other CTAs of this launch)
+// kChunk at a time, once where count <= kChunk.
+__device__ __forceinline__ float ordered_lse_sum(const float2* p, int count,
+                                                 size_t stride, float shift) {
+  constexpr int kChunk = 16;
+  float s = 0.0f;
+  for (int base = 0; base < count; base += kChunk) {
+    float2 v[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      v[e] = base + e < count ? __ldcg(p + (base + e) * stride)
+                              : make_float2(-INFINITY, 0.0f);
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      if (v[e].x != -INFINITY)
+        s = __fadd_rn(s, __fmul_rn(v[e].y, expf(v[e].x - shift)));
+  }
+  return s;
+}
+
+__device__ __forceinline__ float ordered_max(const float2* p, int count,
+                                             size_t stride) {
+  constexpr int kChunk = 16;
+  float m = -INFINITY;
+  for (int base = 0; base < count; base += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      v[e] = base + e < count ? __ldcg(&p[(base + e) * stride].x) : -INFINITY;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) m = fmaxf(m, v[e]);
+  }
+  return m;
+}
+
+// A run of at most 16 partials, read once into registers.
+struct Run {
+  float2 v[16];
+  __device__ __forceinline__ void load(const float2* p, int count,
+                                       size_t stride) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      v[e] = e < count ? __ldcg(p + e * stride) : make_float2(-INFINITY, 0.0f);
+  }
+  __device__ __forceinline__ float max() const {
+    float m = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) m = fmaxf(m, v[e].x);
+    return m;
+  }
+  __device__ __forceinline__ float sum(float shift) const {
+    float s = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (v[e].x != -INFINITY)
+        s = __fadd_rn(s, __fmul_rn(v[e].y, expf(v[e].x - shift)));
+    return s;
+  }
+};
+
+// After the grid barrier: t = the exact LSE over splits of the (max, sum)
+// partials, every CTA taking a slice of the r * B outputs (the slices of
+// fo::grid_combine). A slice of w outputs is split over parts runs of
+// consecutive splits; the runs' maxima meet by a fixed tree in shared
+// memory, then each run adds its sums rescaled to the joint max in split
+// order and the runs' sums meet by a fixed pairwise tree: the same order
+// on every launch. A column whose partials are all -inf gives -inf.
+__device__ __forceinline__ void log_grid_combine(const fo::ContractArgs& a,
+                                                 float2* red) {
+  constexpr int kT = fo::kFlatThreads;
+  const int O = a.r * a.B;
+  const int nblocks = gridDim.x * gridDim.y * gridDim.z;
+  const int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int w = (O + nblocks - 1) / nblocks;
+  const int o0 = b * w;
+  if (o0 >= O) return;
+  const int wb = min(w, O - o0);
+  const float2* P = reinterpret_cast<const float2*>(a.partial);
+  if (w > kT / 2) {            // wide slices: a thread an output, all splits
+    for (int j = threadIdx.x; j < wb; j += kT) {
+      const float2* p = P + o0 + j;
+      const float shift = lse_shift(ordered_max(p, a.splits, O));
+      a.t[o0 + j] = shift + logf(ordered_lse_sum(p, a.splits, O, shift));
+    }
+    return;
+  }
+  int parts = 1;
+  while (parts * 2 * w <= kT && parts < a.splits) parts *= 2;
+  const int len = (a.splits + parts - 1) / parts;
+  const int j = threadIdx.x % w, p = threadIdx.x / w;
+  const int first = p * len;
+  const bool mine = p < parts && j < wb && first < a.splits;
+  const int count = mine ? min(len, a.splits - first) : 0;
+  const float2* src = P + (size_t)first * O + o0 + j;
+  const bool held = len <= 16;       // the run stays in registers
+  Run run;
+  if (held) run.load(src, count, O);
+  if (p < parts) red[p * w + j].x = held ? run.max() : ordered_max(src, count, O);
+  __syncthreads();
+  for (int h = parts / 2; h > 0; h >>= 1) {
+    if (p < h) red[p * w + j].x = fmaxf(red[p * w + j].x, red[(p + h) * w + j].x);
+    __syncthreads();
+  }
+  const float shift = lse_shift(red[j].x);
+  if (p < parts)
+    red[p * w + j].y = held ? run.sum(shift) : ordered_lse_sum(src, count, O, shift);
+  __syncthreads();
+  for (int h = parts / 2; h > 0; h >>= 1) {
+    if (p < h) red[p * w + j].y = __fadd_rn(red[p * w + j].y, red[(p + h) * w + j].y);
+    __syncthreads();
+  }
+  if (p == 0 && j < wb) a.t[o0 + j] = shift + logf(red[j].y);
+}
+
+// One launch: CTA (split, column tile, column chunk) reduces its slab in
+// row groups; with more than one split the grid meets at a grid barrier
+// and combines the partials (the launch is then cooperative).
+template <typename T, bool kVecPath>
+__global__ void __launch_bounds__(fo::kFlatThreads, 2)
+log_contract_kernel(const fo::ContractArgs a) {
+  __shared__ __align__(16) float2 red[fo::kFlatThreads * 8];
+  const fo::ContractThread th = fo::contract_thread<T, kVecPath>(a);
+  const int i0 = blockIdx.x * a.rows_per_split;
+  const int i1 = min(a.n, i0 + a.rows_per_split);
+  float mx[8], acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
     mx[e] = -INFINITY;
     acc[e] = 0.0f;
   }
-
-  for (int base = i_begin; base < i_end; base += kContractChunk) {
-    const int rows = min(kContractChunk, i_end - base);
-    for (int e = threadIdx.x; e < rows; e += kContractThreads)
-      s_sh[e] = s[base + e];
-    __syncthreads();
-    if (q < rv) {
-      const uint4* col = wv + (size_t)base * rv + q;
-      int i = 0;
-      for (; i + kUnroll <= rows; i += kUnroll) {
-        uint4 raw[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(col + (size_t)(i + u) * rv);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float w[V];
-          unpack16(raw[u], w);
-          const float sv = s_sh[i + u];
-#pragma unroll
-          for (int e = 0; e < V; ++e) lse_push(mx[e], acc[e], w[e] + sv);
-        }
-      }
-      for (; i < rows; ++i) {
-        float w[V];
-        unpack16(__ldg(col + (size_t)i * rv), w);
-        const float sv = s_sh[i];
-#pragma unroll
-        for (int e = 0; e < V; ++e) lse_push(mx[e], acc[e], w[e] + sv);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (q >= rv) return;
-  float* out = partial + (size_t)split * r + (size_t)V * q;
-#pragma unroll
-  for (int e = 0; e < V; e += 4)
-    *reinterpret_cast<float4*>(out + e) =
-        make_float4(lse_value(mx[e], acc[e]), lse_value(mx[e + 1], acc[e + 1]),
-                    lse_value(mx[e + 2], acc[e + 2]),
-                    lse_value(mx[e + 3], acc[e + 3]));
-}
-
-// Exact LSE over the split axis of the partials, one warp per output: the
-// joint max first, then the shifted sum, each over a fixed lane assignment
-// and shuffle tree. A split whose partial is -inf drops out; if every
-// partial is -inf the result is -inf.
-__global__ void __launch_bounds__(kCombineWarps * 32)
-log_contract_combine_kernel(const float* __restrict__ partial,
-                            float* __restrict__ t, int n_splits, int size) {
-  const int e = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (e >= size) return;
-  float mx = -INFINITY;
-  for (int p = lane; p < n_splits; p += 32)
-    mx = fmaxf(mx, partial[(size_t)p * size + e]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  float acc = 0.0f;
-  for (int p = lane; p < n_splits; p += 32) {
-    const float v = partial[(size_t)p * size + e];
-    if (v != -INFINITY) acc += expf(v - mx);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) t[e] = lse_value(mx, acc);
+  if (th.active)
+    log_accumulate<T, kVecPath>(a, static_cast<const T*>(a.xi), mx, acc,
+                                th.q, th.g, th.nc, i0, i1);
+  log_contract_partial<T, kVecPath>(a, th, mx, acc, red);
+  if (a.splits == 1) return;                 // the same on every CTA
+  cooperative_groups::this_grid().sync();
+  log_grid_combine(a, red);
 }
 
 __device__ __forceinline__ void warp_lse_merge(float& mx, float& acc) {
@@ -388,28 +531,43 @@ int log_matvec_launch_t(const T* log_m, const float* t, float* out, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int contract_launch(const T* log_w, const float* s, float* partial, float* t,
-                    int n, int r, int B, int n_splits, int rows_per_split,
-                    int vec, cudaStream_t stream) {
-  constexpr int V = kVec<T>;
-  if (vec && (B != 1 || r % V != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = vec ? V * kContractThreads : kContractThreads;
-  const dim3 grid((r + cols - 1) / cols, n_splits);
-  if (vec) {
-    log_contract_partial_vec_kernel<T><<<grid, kContractThreads, 0, stream>>>(
-        log_w, s, partial, n, r, rows_per_split);
-  } else {
-    log_contract_partial_kernel<T><<<grid, kContractThreads, 0, stream>>>(
-        log_w, s, partial, n, r, B, rows_per_split);
+// With one split the CTAs write t and launch as usual; with more they
+// meet at the grid barrier, so the launch is cooperative: the runtime
+// refuses (and the wrapper raises) rather than start more CTAs than can be
+// resident at once.
+template <typename T, bool kVecPath>
+int log_contract_launch_t(const fo::ContractArgs& a, int col_tiles,
+                          int chunks, cudaStream_t stream) {
+  const dim3 grid(a.splits, col_tiles, chunks);
+  auto kernel = log_contract_kernel<T, kVecPath>;
+  if (a.splits == 1) {
+    kernel<<<grid, fo::kFlatThreads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int size = r * B;
-  log_contract_combine_kernel<<<(size + kCombineWarps - 1) / kCombineWarps,
-                                kCombineWarps * 32, 0, stream>>>(
-      partial, t, n_splits, size);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {const_cast<fo::ContractArgs*>(&a)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), grid, dim3(fo::kFlatThreads),
+      args, 0, stream));
+}
+
+template <typename T>
+int contract_launch(const fo::ContractArgs& a, int col_tiles, int chunks,
+                    int vec, cudaStream_t stream) {
+  if (fo::contract_plan_invalid<T>(a, col_tiles, chunks, vec) ||
+      a.B > kMaxCols || chunks != 1 ||
+      (long long)a.splits * a.rows_per_split < a.n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vec ? log_contract_launch_t<T, true>(a, col_tiles, chunks, stream)
+             : log_contract_launch_t<T, false>(a, col_tiles, chunks, stream);
+}
+
+template <typename T>
+int contract_occupancy(int vec) {
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, vec ? log_contract_kernel<T, true> : log_contract_kernel<T, false>,
+      fo::kFlatThreads, 0);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 template <typename T>
@@ -432,21 +590,27 @@ int halfstep_launch(const T* log_w, const float* t, const float* lmarg,
 }  // namespace
 
 // log_w is float (bf16 == 0) or bfloat16 (bf16 != 0). vec != 0 selects the
-// 16-byte vector path; the caller passes it only for B == 1, rows of a
-// multiple of 16 bytes and a 16-byte aligned log_w. Columns per CTA:
-// 128 * (16 / element size) on the vector path, 128 on the scalar path.
-REPRO_EXPORT int log_feature_contract_launch(const void* log_w, int bf16,
-                                             const float* s, float* partial,
-                                             float* t, int n, int r, int B,
-                                             int n_splits,
-                                             int rows_per_split, int vec,
-                                             cudaStream_t stream) {
+// 16-byte path; the caller passes it only for B == 1, rows of a multiple
+// of 16 bytes and a 16-byte aligned log_w. The grid (splits, col_tiles,
+// chunks = 1) and the row groups come from
+// kernels/logmatvec.py:_contract_plan; partial holds splits * r * B
+// (max, sum) pairs (unused with one split).
+REPRO_EXPORT int log_feature_contract_launch(
+    const void* log_w, int bf16, const float* s, float* partial, float* t,
+    int n, int r, int B, int splits, int rows_per_split, int tile, int groups,
+    int col_tiles, int chunks, int vec, cudaStream_t stream) {
+  const fo::ContractArgs a{log_w, s, partial, t, n, r, B, splits,
+                           rows_per_split, tile, groups, 1};
   if (bf16)
-    return contract_launch(static_cast<const __nv_bfloat16*>(log_w), s,
-                           partial, t, n, r, B, n_splits, rows_per_split, vec,
-                           stream);
-  return contract_launch(static_cast<const float*>(log_w), s, partial, t, n,
-                         r, B, n_splits, rows_per_split, vec, stream);
+    return contract_launch<__nv_bfloat16>(a, col_tiles, chunks, vec, stream);
+  return contract_launch<float>(a, col_tiles, chunks, vec, stream);
+}
+
+// Log-contract CTAs resident on one SM (the planner's wave), or a negative
+// CUDA error code.
+REPRO_EXPORT int log_feature_contract_occupancy(int bf16, int vec) {
+  return bf16 ? contract_occupancy<__nv_bfloat16>(vec)
+              : contract_occupancy<float>(vec);
 }
 
 REPRO_EXPORT int log_halfstep_launch(const void* log_w, int bf16,

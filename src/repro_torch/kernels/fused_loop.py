@@ -4,18 +4,21 @@
 ``(u, v, s = Zeta (Xi^T u))`` and :func:`log_sinkhorn_block` the log
 plan's carry ``(f, g, t = LSE_i(log_xi + f/eps))`` by ``inner_steps`` full
 iterations in one launch; each returns the marginal error at the block
-end, the only scalar a block hands back. Each CUDA kernel is one CTA that
-holds both factors in shared memory for the whole block, so the plans take
-them only where :func:`block_plan_fits` admits the shape, under the JAX
-package's 192 KiB GPU budget; larger shapes run the streaming
-per-iteration plan. A shape the budget admits but whose shared-memory
-layout does not fit one CTA raises. Counterpart of
+end, the only scalar a block hands back. The log kernel runs as one thread
+block cluster whose C CTAs each hold a slice of both factors' rows in
+shared memory and meet over distributed shared memory at each column pass
+(:func:`_block_plan`, plain Python, is its geometry); the scaling kernel
+is one CTA that holds both factors. The plans take either only where
+:func:`block_plan_fits` admits the shape, under the JAX package's 192 KiB
+GPU budget; larger shapes run the streaming per-iteration plan. A shape
+the budget admits but whose plan does not fit raises. Counterpart of
 ``repro.kernels.fused_loop``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,6 +37,10 @@ __all__ = [
 _SUBLANE_ANY = 16               # the JAX package's row quantum (f32 and bf16)
 _LANE = 128                     # its feature (minor) axis quantum
 _MAX_SMEM = 232448              # dynamic shared memory of one H100 CTA
+_MAX_CLUSTER = 8                # kMaxCluster: the portable cluster size
+_CLUSTER_ROWS = 16              # least rows of the larger factor a CTA takes
+_GROUP_ROWS = 8                 # kGroupRows: rows a lane keeps in registers
+_MAX_WARPS = 16                 # kMaxBlockThreads / 32 (128 registers each)
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -60,27 +67,100 @@ def block_plan_fits(n: int, m: int, r: int, B: int = 1,
     return block_vmem_bytes(n, m, r, B, feature_dtype) <= MEGAKERNEL_BUDGET
 
 
+class BlockPlan(NamedTuple):
+    cluster: int            # C: CTAs of the cluster, the whole grid
+    threads: int            # of a CTA
+    groups: int             # G: row groups of a column pass
+    lanes: int              # L: lanes a row in a row pass
+    ldw: int                # 32-bit words between two staged rows
+    words: int              # 32-bit words of a row (4 / element size columns
+                            # each)
+    rows_x: int             # most rows of log_xi a CTA holds
+    rows_z: int             # most rows of log_zeta a CTA holds
+    smem: int               # dynamic shared memory of one CTA, bytes
+
+    def slice(self, rank: int, rows: int) -> Tuple[int, int]:
+        """Rows [begin, end) of a factor of ``rows`` rows that CTA ``rank``
+        holds: C contiguous slices in order, sizes differing by at most
+        one (the kernel computes the same)."""
+        return rank * rows // self.cluster, (rank + 1) * rows // self.cluster
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def _log_layout(rows_x: int, rows_z: int, words: int, cols: int,
+                ldw: int) -> int:
+    """Bytes of one CTA's dynamic shared memory (``log_layout`` in
+    ``csrc/fused_loop.cu``): the staged rows, the float slices of f, loga,
+    g, logb, b and s, t and two slots of (max, sum) partials a column."""
+    def a16(x):
+        return _round_up(x, 16)
+    tc = words * cols
+    return (a16(rows_x * ldw * 4) + a16(rows_z * ldw * 4)
+            + 2 * a16(rows_x * 4) + 3 * a16(rows_z * 4)
+            + a16(max(rows_x, rows_z) * 4) + a16(tc * 4) + 16 * tc + 16)
+
+
+def _block_plan(n: int, m: int, r: int,
+                feature_dtype: torch.dtype) -> BlockPlan:
+    """The log megakernel's geometry, from the shape alone: C =
+    ceil(max(n, m) / 16) CTAs up to 8, each holding at most ceil(n / C)
+    rows of log_xi and ceil(m / C) of log_zeta; G, the least power of two
+    that leaves a lane at most 8 of the R = max of those rows in a column
+    pass; the warps the larger of the column pass's tiles of 32 / G words
+    and ceil(R / G) want, at most 16 (512 threads keep 128 registers a
+    thread; at 64 the kernel spilled); L, the lanes a row that let the
+    warps take all R rows of a row pass at once. Rows are staged ldw words
+    apart: with G > 1, ldw is an odd multiple of 32 / G, so the G row
+    groups of a column pass read different banks. At the OT-GAN shape on
+    an H100, C = 4 and 16, 4 rows a lane (512 threads) and 8 lanes a row
+    at 512 threads all read slower than this plan or within 1% of it
+    (PERF.md, Findings)."""
+    esize = 2 if feature_dtype == torch.bfloat16 else 4
+    C = min(_MAX_CLUSTER, -(-max(n, m) // _CLUSTER_ROWS))
+    rows_x, rows_z = -(-n // C), -(-m // C)
+    R = max(rows_x, rows_z, 1)
+    words = -(-r * esize // 4)
+    G = min(32, _pow2_ceil(-(-R // _GROUP_ROWS)))
+    wd = 32 // G
+    warps = min(_MAX_WARPS, max(-(-words // wd), -(-R // G)))
+    lanes = 32 // min(32, _pow2_ceil(-(-R // warps)))
+    ldw = words if G == 1 else _round_up(words, 2 * wd) + wd
+    return BlockPlan(C, 32 * warps, G, lanes, ldw, words, rows_x, rows_z,
+                     _log_layout(rows_x, rows_z, words, 4 // esize, ldw))
+
+
 def smem_bytes(n: int, m: int, r: int, feature_dtype: torch.dtype, *,
                mode: str = "log") -> int:
-    """Dynamic shared memory one CUDA launch of the ``mode`` ("scaling" or
-    "log") megakernel takes (the kernel's layout); it stays under
-    :data:`_MAX_SMEM` wherever :func:`block_plan_fits` admits the shape."""
-    fn = {"log": _lib().log_sinkhorn_block_smem_bytes,
-          "scaling": _lib().sinkhorn_block_smem_bytes}[mode]
-    return int(fn(n, m, r, int(feature_dtype == torch.bfloat16)))
+    """Dynamic shared memory of one CTA of the ``mode`` ("scaling" or
+    "log") megakernel: the log kernel's from :func:`_block_plan` (plain
+    Python), the scaling kernel's from its layout in the library. Both stay
+    under :data:`_MAX_SMEM` wherever :func:`block_plan_fits` admits the
+    shape."""
+    if mode == "log":
+        return _block_plan(n, m, r, feature_dtype).smem
+    if mode != "scaling":
+        raise ValueError(f"mode must be 'log' or 'scaling', got {mode!r}")
+    return int(_lib().sinkhorn_block_smem_bytes(
+        n, m, r, int(feature_dtype == torch.bfloat16)))
 
 
 @functools.cache
 def _lib():
     lib = build.load("fused_loop")
-    for name in ("log_sinkhorn_block_smem_bytes",
-                 "sinkhorn_block_smem_bytes"):
-        getattr(lib, name).argtypes = [ctypes.c_int] * 4
-        getattr(lib, name).restype = ctypes.c_longlong
+    lib.sinkhorn_block_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sinkhorn_block_smem_bytes.restype = ctypes.c_longlong
+    lib.log_sinkhorn_block_smem_bytes.argtypes = [ctypes.c_int] * 9
+    lib.log_sinkhorn_block_smem_bytes.restype = ctypes.c_longlong
+    lib.log_sinkhorn_block_clusters.argtypes = [ctypes.c_int] * 9
+    lib.log_sinkhorn_block_clusters.restype = ctypes.c_int
     fn = lib.log_sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
@@ -91,11 +171,53 @@ def _lib():
 
 
 def _check_block_shape(what, n, m, r, dtype, mode):
+    if min(n, m, r) < 1:
+        raise ValueError(f"{what} kernel takes n, m, r >= 1; got n={n}, "
+                         f"m={m}, r={r}")
     smem = smem_bytes(n, m, r, dtype, mode=mode)
-    if min(n, m, r) < 1 or smem > _MAX_SMEM:
+    if smem > _MAX_SMEM:
         raise ValueError(
-            f"{what} kernel takes n, m, r >= 1 within {_MAX_SMEM} bytes of "
-            f"shared memory; got n={n}, m={m}, r={r} ({dtype}), {smem} bytes")
+            f"{what} kernel takes a CTA within {_MAX_SMEM} bytes of shared "
+            f"memory; got n={n}, m={m}, r={r} ({dtype}), {smem} bytes")
+
+
+def _log_block_plan(n, m, r, dtype) -> BlockPlan:
+    """The plan the log wrapper launches, refused where
+    :func:`block_plan_fits` does not admit the shape (the cluster's
+    shared memory would hold more, but the plans' admission stays the JAX
+    package's) or the kernel cannot run it."""
+    _check_block_shape("log_sinkhorn_block", n, m, r, dtype, "log")
+    if not block_plan_fits(n, m, r, 1, dtype):
+        raise ValueError(f"log_sinkhorn_block kernel takes the shapes "
+                         f"block_plan_fits admits; got n={n}, m={m}, r={r} "
+                         f"({dtype})")
+    plan = _block_plan(n, m, r, dtype)
+    R = max(plan.rows_x, plan.rows_z)
+    if (not 1 <= plan.cluster <= _MAX_CLUSTER
+            or -(-R // plan.groups) > _GROUP_ROWS
+            or plan.threads > 32 * _MAX_WARPS
+            or plan.smem > _MAX_SMEM):
+        raise ValueError(f"log_sinkhorn_block kernel cannot run the plan "
+                         f"{plan} for n={n}, m={m}, r={r} ({dtype})")
+    return plan
+
+
+@functools.cache
+def _clusters(device_index: int, n: int, m: int, r: int, bf16: bool,
+              plan: BlockPlan) -> int:
+    """Clusters of ``plan`` the card places at once; raises where it can
+    place none (the launch would be refused)."""
+    with torch.cuda.device(device_index):
+        got = _lib().log_sinkhorn_block_clusters(
+            n, m, r, int(bf16), plan.cluster, plan.threads, plan.groups,
+            plan.lanes, plan.ldw)
+    if got < 0:
+        build.check_launch(_lib(), -got, "log_sinkhorn_block")
+    if got == 0:
+        raise RuntimeError(f"log_sinkhorn_block: the card cannot place a "
+                           f"cluster of {plan.cluster} CTAs of "
+                           f"{plan.threads} threads and {plan.smem} bytes")
+    return got
 
 
 def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
@@ -193,7 +315,9 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     if B != 1:
         raise ValueError(f"log_sinkhorn_block kernel takes B = 1 column, "
                          f"got {B}")
-    _check_block_shape("log_sinkhorn_block", n, m, r, log_xi.dtype, "log")
+    plan = _log_block_plan(n, m, r, log_xi.dtype)
+    bf16 = log_xi.dtype == torch.bfloat16
+    _clusters(dev.index, n, m, r, bf16, plan)
     f = torch.empty((n, 1), dtype=torch.float32, device=dev)
     g = torch.empty((m, 1), dtype=torch.float32, device=dev)
     t = torch.empty((r, 1), dtype=torch.float32, device=dev)
@@ -202,12 +326,12 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().log_sinkhorn_block_launch(
-            log_xi.data_ptr(), log_zeta.data_ptr(),
-            int(log_xi.dtype == torch.bfloat16), loga.data_ptr(),
-            logb.data_ptr(), b.data_ptr(), f0.data_ptr(), g0.data_ptr(),
-            t0.data_ptr(), f.data_ptr(), g.data_ptr(), t.data_ptr(),
-            err.data_ptr(), n, m, r, int(inner_steps), float(eps), mom,
-            1.0 - mom, int(mom != 1.0), stream)
+            log_xi.data_ptr(), log_zeta.data_ptr(), int(bf16),
+            loga.data_ptr(), logb.data_ptr(), b.data_ptr(), f0.data_ptr(),
+            g0.data_ptr(), t0.data_ptr(), f.data_ptr(), g.data_ptr(),
+            t.data_ptr(), err.data_ptr(), n, m, r, int(inner_steps),
+            float(eps), mom, 1.0 - mom, int(mom != 1.0), plan.cluster,
+            plan.threads, plan.groups, plan.lanes, plan.ldw, stream)
     build.check_launch(_lib(), code, "log_sinkhorn_block")
     log_sinkhorn_block.launches += 1
     return f, g, t, err[0]

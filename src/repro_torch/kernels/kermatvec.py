@@ -71,14 +71,16 @@ class ContractPlan(NamedTuple):
 
 
 def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
-                   sms: int, blocks_per_sm: int) -> ContractPlan:
+                   sms: int, blocks_per_sm: int, *,
+                   max_splits: int = 0) -> ContractPlan:
     """The flat contract's geometry for an (n, r) factor of
     ``element_size`` bytes and B columns of u, on a card of ``sms`` SMs
     with ``blocks_per_sm`` contract CTAs resident on each: two slabs an
     SM (one, four measured slower at n = 16384), fewer where a slab would
-    be under 16 rows, every slab non-empty, never more CTAs than one wave
-    (with more than one split the grid meets at a grid barrier, so it must
-    be resident at once)."""
+    be under 16 rows (or where ``max_splits`` caps them), every slab
+    non-empty, never more CTAs than one wave (with more than one split the
+    grid meets at a grid barrier, so it must be resident at once). The log
+    contract (``logmatvec._contract_plan``) shares it."""
     width = 16 // element_size if vec else 1
     if vec and (B != 1 or r % width):
         raise ValueError(f"the 16-byte path takes B = 1 and rows of a "
@@ -89,7 +91,8 @@ def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     groups = _FLAT_THREADS // tile
     chunks = 1 if vec else -(-B // MAX_COLS)
     per_tile = max(1, (sms * blocks_per_sm) // (col_tiles * chunks))
-    splits = max(1, min(per_tile, _SLABS_PER_SM * sms, n // _MIN_SLAB_ROWS))
+    splits = max(1, min(per_tile, _SLABS_PER_SM * sms, n // _MIN_SLAB_ROWS,
+                        max_splits or n))
     rows = -(-n // splits)
     splits = -(-n // rows)
     return ContractPlan(vec, width, tile, groups, col_tiles, chunks, splits,
@@ -99,9 +102,8 @@ def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
 def _flat_vectorized(xi: torch.Tensor, B: int) -> bool:
     """Whether the contract takes its 16-byte path: one column (the
     solvers' B = 1), rows of a multiple of 16 bytes and a 16-byte aligned
-    factor. Row groups fill the CTA at any r, so unlike the log contract's
-    rule (``logmatvec._contract_vectorized``) no r is left to the scalar
-    path."""
+    factor. Row groups fill the CTA at any r, so no r is left to the
+    scalar path."""
     return _vectorized(xi, B)
 
 

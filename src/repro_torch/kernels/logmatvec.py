@@ -2,8 +2,12 @@
 
 * :func:`log_feature_contract` — stage 1 of the exact two-stage LSE,
   ``t[k, c] = LSE_i(log_w[i, k] + s[i, c])``, (n, r), (n, B) -> (r, B).
-  On the card: split-n partial LSEs into a ``(n_splits, r, B)`` scratch
-  buffer, then a deterministic exact-LSE combine (no atomics).
+  On the card: one cooperative launch of at most one wave, the flat
+  contract's row groups carried over to the LSE, each CTA's (max, sum)
+  partials into a ``(splits, r, B, 2)`` scratch buffer that the grid
+  combines after a grid barrier in a fixed order (no atomics, so reruns
+  are bit-identical); :func:`_contract_plan` is its geometry, in plain
+  Python.
 * :func:`log_halfstep` — stage 2 with the log half-step fused,
   ``out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :]))``, shape (m, B).
   ``scale=eps`` is the potential update, ``scale=-1, lmarg=0`` the raw LSE.
@@ -33,8 +37,7 @@ from .ref import log_feature_contract_ref, log_halfstep_ref, log_matvec_ref
 __all__ = ["MAX_COLS", "log_feature_contract", "log_halfstep", "log_matvec"]
 
 MAX_COLS = 8                    # kMaxCols in csrc/common.cuh
-_CONTRACT_THREADS = 128         # kContractThreads: one column each, or four
-_MIN_ROWS_PER_SPLIT = 32
+_MIN_SLAB_BYTES = 16 * 2**10    # least factor bytes of a contract slab
 _HALFSTEP_ROWS = 8              # rows per half-step CTA (one per warp)
 _MAX_SMEM = 227 * 1024          # dynamic shared memory of one CTA (t)
 
@@ -44,8 +47,11 @@ def _lib():
     lib = build.load("logmatvec")
     c = lib.log_feature_contract_launch
     c.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     c.restype = ctypes.c_int
+    o = lib.log_feature_contract_occupancy
+    o.argtypes = [ctypes.c_int] * 2
+    o.restype = ctypes.c_int
     h = lib.log_halfstep_launch
     h.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                   + [ctypes.c_int] * 3
@@ -78,24 +84,30 @@ def _vectorized(log_w: torch.Tensor, B: int) -> bool:
             and log_w.data_ptr() % 16 == 0)
 
 
-def _contract_vectorized(log_w: torch.Tensor, B: int) -> bool:
-    """Whether the contract takes its vector path: as :func:`_vectorized`,
-    and only where the ``r / V`` vectors of a row fill a CTA. Below that
-    (r < 1024 in bfloat16, r < 512 in float32) most threads of a vector CTA
-    would idle while the rest reduce V columns each, so the scalar path,
-    one column a thread, finishes sooner."""
-    return (_vectorized(log_w, B)
-            and log_w.shape[1] // _vec_width(log_w) >= _CONTRACT_THREADS)
+def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
+                   sms: int, blocks_per_sm: int):
+    """The log contract's geometry: the flat contract's
+    (``kermatvec._contract_plan``: row groups that fill a 256-thread CTA
+    at any r, at most one wave, two slabs an SM, none under 16 rows), with
+    every slab holding at least 16 KiB of the factor (``_MIN_SLAB_BYTES``).
+    So a small factor is cut into few slabs and few CTAs meet at the grid
+    barrier: n = 2048, r = 128 takes 32 slabs of 64 rows in bf16, 64 of
+    32 in float32 (on an H100 as fast as 8 KiB slabs and 4-5% faster
+    than 32 KiB ones, PERF.md); the solve shape's 64
+    MiB factor is cut by the wave, as the flat contract's."""
+    from .kermatvec import _contract_plan as flat_plan
+    slabs = max(1, n * r * element_size // _MIN_SLAB_BYTES)
+    return flat_plan(n, r, B, vec, element_size, sms, blocks_per_sm,
+                     max_splits=slabs)
 
 
-def _split_rows(n: int, r: int, vec: int, device: torch.device):
-    """(n_splits, rows_per_split): about 8 contract CTAs per SM. ``vec`` is
-    the vector width in elements, 0 on the scalar path."""
-    cols = _CONTRACT_THREADS * max(vec, 1)
-    r_tiles = -(-r // cols)
-    want = max(1, (8 * sm_count(device)) // r_tiles)
-    rows = max(_MIN_ROWS_PER_SPLIT, -(-n // want))
-    return -(-n // rows), rows
+@functools.cache
+def _blocks_per_sm(device_index: int, bf16: bool, vec: bool) -> int:
+    with torch.cuda.device(device_index):
+        blocks = _lib().log_feature_contract_occupancy(int(bf16), int(vec))
+    if blocks <= 0:
+        build.check_launch(_lib(), -blocks or 1, "log_feature_contract")
+    return blocks
 
 
 def log_feature_contract(log_w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -117,16 +129,20 @@ def log_feature_contract(log_w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if n < 1 or r < 1:
         raise ValueError(f"log_feature_contract kernel takes n, r >= 1, got "
                          f"n={n}, r={r}")
-    vec = _contract_vectorized(log_w, B)
-    n_splits, rows = _split_rows(n, r, _vec_width(log_w) if vec else 0, dev)
-    partial = torch.empty((n_splits, r, B), dtype=torch.float32, device=dev)
+    bf16 = log_w.dtype == torch.bfloat16
+    vec = _vectorized(log_w, B)
+    plan = _contract_plan(n, r, B, vec, log_w.element_size(), sm_count(dev),
+                          _blocks_per_sm(dev.index, bf16, vec))
     t = torch.empty((r, B), dtype=torch.float32, device=dev)
+    partial = (torch.empty((plan.splits, r, B, 2), dtype=torch.float32,
+                           device=dev) if plan.splits > 1 else t)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().log_feature_contract_launch(
-            log_w.data_ptr(), int(log_w.dtype == torch.bfloat16),
-            s.data_ptr(), partial.data_ptr(), t.data_ptr(),
-            n, r, B, n_splits, rows, int(vec), stream)
+            log_w.data_ptr(), int(bf16), s.data_ptr(), partial.data_ptr(),
+            t.data_ptr(), n, r, B, plan.splits, plan.rows_per_split,
+            plan.tile, plan.groups, plan.col_tiles, plan.chunks, int(vec),
+            stream)
     build.check_launch(_lib(), code, "log_feature_contract")
     log_feature_contract.launches += 1
     return t

@@ -260,17 +260,3 @@ def test_scaling_wrappers_check_operands_and_launch_nothing_on_cpu():
         sinkhorn_halfstep(xi, t, torch.ones((8, 2)))
     with pytest.raises(ValueError):
         feature_matvec(torch.ones((4, 8)).T, torch.ones((4, 1)))
-
-
-@pytest.mark.parametrize("dtype,r,B,want", [
-    (torch.bfloat16, 128, 1, False),   # 16 vectors a row: most of a CTA idle
-    (torch.float32, 128, 1, False),
-    (torch.bfloat16, 1024, 1, True),   # 128 vectors fill the CTA
-    (torch.float32, 512, 1, True),
-    (torch.bfloat16, 1028, 1, False),  # rows not on 16-byte boundaries
-    (torch.float32, 1024, 2, False),   # the vector path takes B = 1 only
-])
-def test_contract_takes_vector_path_only_where_it_fills_a_cta(dtype, r, B,
-                                                              want):
-    from repro_torch.kernels.logmatvec import _contract_vectorized
-    assert _contract_vectorized(torch.empty((64, r), dtype=dtype), B) is want

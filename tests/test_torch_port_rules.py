@@ -216,10 +216,16 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     for name in ("cp.async", "__stcs", "gaussian_feature_map_occupancy",
                  "cudaOccupancyMaxActiveBlocksPerMultiprocessor"):
         assert name in fm
-    for name in ("log_contract_partial_kernel", "log_contract_combine_kernel",
-                 "log_halfstep_kernel", "log_feature_contract_launch",
-                 "log_halfstep_launch", "__nv_bfloat16"):
+    for name in ("log_contract_kernel", "log_grid_combine",
+                 "log_feature_contract_occupancy", "log_halfstep_kernel",
+                 "log_feature_contract_launch", "log_halfstep_launch",
+                 "__nv_bfloat16", '#include "feature_ops.cuh"'):
         assert name in lm
+    # the log contract is one cooperative launch: its (max, sum) partials
+    # meet at a grid barrier, no second (combine) kernel
+    assert "log_contract_combine_kernel" not in lm
+    assert "log_contract_partial_kernel" not in lm
+    assert "cudaLaunchCooperativeKernel" in lm and "this_grid().sync()" in lm
     for name in ("flat_contract_kernel", "grid_combine",
                  "feature_contract_occupancy",
                  "feature_rows_kernel",
@@ -238,6 +244,13 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
                  "sinkhorn_block_launch", "__nv_bfloat16",
                  "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert name in fl
+    # the log megakernel is one thread block cluster whose CTAs meet over
+    # distributed shared memory, placed only where the card can place it
+    for name in ("cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
+                 "map_shared_rank", "cluster.sync()",
+                 "cudaOccupancyMaxActiveClusters",
+                 "log_sinkhorn_block_clusters"):
+        assert name in fl
     pg = (csrc / "paged.cu").read_text()
     for name in ("paged_contract_kernel", "paged_rows_kernel",
                  "paged_feature_contract_launch",
@@ -251,7 +264,7 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
     assert "cudaLaunchCooperativeKernel" in pg and "this_grid().sync()" in pg
     for name in ("log_matvec_kernel", "log_matvec_launch"):
         assert name in lm
-    assert lm.count("__global__") == 5          # 3 contract, half-step, row LSE
+    assert lm.count("__global__") == 3          # contract, half-step, row LSE
     assert set(build.SOURCES) == {"feature_map", "logmatvec", "kermatvec",
                                   "fused_loop", "paged"}
     # the flat contract's partials meet at a grid barrier of a cooperative

@@ -3,18 +3,21 @@
 The persistent feature map (``feature_map._map_plan``), the one-launch
 flat and paged contracts (``kermatvec._contract_plan``,
 ``paged._paged_plan``) and the persistent row kernel of the half-step and
-matvec (``kermatvec._rows_plan``) are planned in plain Python; the CUDA
+matvec (``kermatvec._rows_plan``), the one-launch log contract
+(``logmatvec._contract_plan``) and the log megakernel's thread block
+cluster (``fused_loop._block_plan``) are planned in plain Python; the CUDA
 kernels trust the plan. These tests hold the plans to what the kernels
 need: every grid dimension within CUDA's limits, every row covered exactly
 once and in order, no more CTAs than one wave or the work, the 16-byte
-path with row groups wherever B = 1 rows are 16-byte vectors, and t in
-registers only where the row kernel's cap allows.
+path with row groups wherever B = 1 rows are 16-byte vectors, t in
+registers only where the row kernel's cap allows, and a cluster within
+its size limit and every CTA within its shared memory.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import feature_map, kermatvec, paged
+from repro_torch.kernels import feature_map, fused_loop, kermatvec, logmatvec, paged
 from repro_torch.kernels.feature_map import _map_plan
 from repro_torch.kernels.kermatvec import (
     _check_rows,
@@ -24,6 +27,7 @@ from repro_torch.kernels.kermatvec import (
     _rows_plan,
     _vectorized,
 )
+from repro_torch.kernels.fused_loop import _block_plan, block_plan_fits
 from repro_torch.kernels.paged import _paged_plan
 
 MAX_GRID_X = 2**31 - 1
@@ -306,3 +310,160 @@ def test_paged_plan_fills_a_cta_with_row_groups_at_r_256():
     assert p.groups * p.tile == kermatvec._FLAT_THREADS
     assert p.splits == 263 and p.grid <= 2 * SMS            # one wave
     assert not hasattr(paged, "_split_pages")
+
+
+# ---------------------------------------------------------------------------
+# The log contract: the flat contract's geometry, slabs of at least 16 KiB
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("r,B,vec,esize", [
+    (1024, 1, True, 4), (128, 1, True, 2), (128, 1, True, 4),
+    (1024, 1, True, 2), (8, 1, True, 2), (4, 1, True, 4),
+    (3, 1, False, 4), (1000, 3, False, 4), (129, 8, False, 2),
+    (1028, 1, False, 2), (40, 5, False, 4),
+])
+def test_log_contract_plan_covers_rows_in_order_within_one_wave(r, B, vec,
+                                                                esize):
+    blocks = 3
+    for n in _ns(10**6):
+        p = logmatvec._contract_plan(n, r, B, vec, esize, SMS, blocks)
+        slabs = _slabs(p, n)
+        assert slabs[0][0] == 0 and slabs[-1][1] == n
+        assert all(b < e for b, e in slabs)                 # none empty
+        assert all(slabs[k][1] == slabs[k + 1][0]
+                   for k in range(len(slabs) - 1))          # in order
+        assert p.splits == 1 or p.grid <= SMS * blocks      # co-resident
+        assert p.splits <= 2 * SMS and p.chunks == 1        # B <= 8
+        assert p.splits == 1 or p.rows_per_split >= 16
+        # a slab holds at least 16 KiB of the factor: few CTAs at a barrier
+        assert p.splits <= max(1, n * r * esize // logmatvec._MIN_SLAB_BYTES)
+        assert p.groups * p.tile <= 256 and p.col_tiles * p.tile * p.width >= r
+        assert p.col_tiles < 65536 and p.grid <= MAX_GRID_X
+
+
+@pytest.mark.parametrize("dtype,r,B,vec", [
+    (torch.bfloat16, 128, 1, True),    # 16 vectors a row: 16 row groups
+    (torch.float32, 128, 1, True),     # 32 vectors a row: 8 row groups
+    (torch.bfloat16, 1024, 1, True),
+    (torch.float32, 512, 1, True),
+    (torch.bfloat16, 8, 1, True),      # one vector a row: 256 row groups
+    (torch.bfloat16, 1028, 1, False),  # rows not on 16-byte boundaries
+    (torch.float32, 1024, 2, False),   # the 16-byte path takes B = 1 only
+    (torch.float32, 3, 1, False),
+])
+def test_log_contract_takes_16_byte_path_with_row_groups_that_fill_a_cta(
+        dtype, r, B, vec):
+    w = torch.empty((64, r), dtype=dtype)
+    assert logmatvec._vectorized(w, B) is vec
+    p = logmatvec._contract_plan(16384, r, B, vec, w.element_size(), SMS, 2)
+    slots = r // p.width
+    assert p.vec is vec and p.col_tiles == -(-slots // 256)
+    assert p.tile == -(-slots // p.col_tiles)
+    # no room for another row group: the CTA is full at any r
+    assert 256 - p.tile < p.groups * p.tile <= 256
+
+
+def test_log_contract_plan_at_trainer_and_solve_shapes():
+    p = logmatvec._contract_plan(2048, 128, 1, True, 2, SMS, 2)
+    assert (p.tile, p.groups) == (16, 16)          # 16 rows at a time
+    assert p.splits == 32 and p.rows_per_split == 64    # 16 KiB slabs
+    p = logmatvec._contract_plan(2048, 128, 1, True, 4, SMS, 2)
+    assert (p.tile, p.groups, p.splits) == (32, 8, 64)
+    p = logmatvec._contract_plan(16384, 1024, 1, True, 4, SMS, 2)
+    flat = _contract_plan(16384, 1024, 1, True, 4, SMS, 2)
+    assert p == flat and p.splits == 261           # the bytes do not bind
+    assert logmatvec._contract_plan(7, 128, 3, False, 4, SMS, 2).splits == 1
+    for gone in ("_split_rows", "_contract_vectorized", "_CONTRACT_THREADS"):
+        assert not hasattr(logmatvec, gone)
+
+
+# ---------------------------------------------------------------------------
+# The log megakernel: one thread block cluster
+# ---------------------------------------------------------------------------
+
+_BLOCK_NS = [1, 2, 3, 5, 7, 8, 9, 15, 16, 17, 31, 33, 64, 100, 127, 128, 129,
+             176, 177, 200, 255, 256, 257, 300, 352, 353, 400, 512, 688, 700]
+
+
+def _check_block_plan(p, n, m):
+    assert 1 <= p.cluster <= fused_loop._MAX_CLUSTER
+    assert p.threads % 32 == 0 and 32 <= p.threads <= 512    # 128 registers
+    assert p.smem <= 232448
+    G = p.groups
+    assert G & (G - 1) == 0 and 1 <= G <= 32
+    R = max(p.rows_x, p.rows_z)
+    assert -(-R // G) <= fused_loop._GROUP_ROWS     # rows kept in registers
+    L = p.lanes
+    assert L & (L - 1) == 0 and 1 <= L <= 32
+    assert (p.threads // 32) * (32 // L) >= R        # a row pass in one step
+    assert p.ldw >= p.words
+    if G > 1:        # the G row groups (and rows) fall in different banks
+        wd = 32 // G
+        assert p.ldw % wd == 0 and (p.ldw // wd) % 2 == 1
+        assert len({(g * p.ldw) % 32 for g in range(G)}) == G
+    for rows, most in ((n, p.rows_x), (m, p.rows_z)):
+        got = [p.slice(q, rows) for q in range(p.cluster)]
+        assert got[0][0] == 0 and got[-1][1] == rows
+        assert all(got[q][1] == got[q + 1][0] for q in range(p.cluster - 1))
+        assert all(0 <= e - b <= most for b, e in got)
+        assert most == -(-rows // p.cluster)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 13, 100, 128, 129, 1024, 1100, 1400])
+def test_block_plan_covers_rows_once_within_a_cluster_at_every_admitted_shape(
+        dtype, r):
+    admitted = 0
+    for n in _BLOCK_NS:
+        for m in _BLOCK_NS:
+            if not block_plan_fits(n, m, r, 1, dtype):
+                continue
+            admitted += 1
+            p = _block_plan(n, m, r, dtype)
+            _check_block_plan(p, n, m)
+            assert p == _block_plan(n, m, r, dtype)     # the shape alone
+            assert p.smem == fused_loop.smem_bytes(n, m, r, dtype)
+    assert admitted > 0
+
+
+def test_block_plan_at_the_ot_gan_shape_is_a_cluster_of_eight():
+    p = _block_plan(256, 256, 128, torch.bfloat16)
+    assert (p.cluster, p.threads, p.groups) == (8, 256, 4)
+    assert p.rows_x == p.rows_z == 32 and p.words == 64 and p.ldw == 72
+    assert p.smem < 24 * 1024
+    assert fused_loop._log_block_plan(256, 256, 128, torch.bfloat16) == p
+    # larger admitted shapes keep the portable cluster size
+    edge = _block_plan(352, 352, 128, torch.bfloat16)
+    assert edge.cluster == fused_loop._MAX_CLUSTER == 8
+    assert edge.rows_x == 44 and edge.groups == 8
+
+
+@pytest.mark.parametrize("n,m,r,dtype", [
+    (3, 200, 24, torch.float32),       # n < C: five ranks hold no xi row
+    (1, 688, 128, torch.bfloat16),     # one xi row, 86 zeta rows a CTA
+    (200, 3, 13, torch.bfloat16),      # odd r: a padding column a row
+    (20, 24, 1100, torch.bfloat16),    # r wider than the 512 threads
+])
+def test_block_plan_holds_ranks_without_rows_and_unequal_factors(n, m, r,
+                                                                 dtype):
+    assert block_plan_fits(n, m, r, 1, dtype)
+    p = _block_plan(n, m, r, dtype)
+    _check_block_plan(p, n, m)
+    for rows in (n, m):
+        empty = [q for q in range(p.cluster)
+                 if p.slice(q, rows)[0] == p.slice(q, rows)[1]]
+        assert len(empty) == max(0, p.cluster - rows)
+    assert p.cluster > 1
+
+
+def test_block_plan_refuses_at_the_admission_edge():
+    for dtype, edge in ((torch.bfloat16, 352), (torch.float32, 176)):
+        assert block_plan_fits(edge, edge, 128, 1, dtype)
+        assert not block_plan_fits(edge + 1, edge + 1, 128, 1, dtype)
+        p = fused_loop._log_block_plan(edge, edge, 128, dtype)
+        _check_block_plan(p, edge, edge)
+        with pytest.raises(ValueError):
+            fused_loop._log_block_plan(edge + 1, edge + 1, 128, dtype)
+    with pytest.raises(ValueError):
+        fused_loop._log_block_plan(0, 5, 128, torch.float32)
