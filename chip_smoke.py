@@ -16,6 +16,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    columns and constants; the LSE kernels on float32 and bf16 factors, the
    one-launch log contract also at B = 1, 3 and 8, n = 1, 7, 2048 and
    16384, with an all -inf column, run twice (bit-identical reruns); the
+   log half-step on every branch of its plan (t in registers, on fewer
+   lanes than a warp where a row has fewer than 32 vectors, and in shared
+   memory, one round and several; B = 3 on the scalar path; unaligned
+   rows; m = 1003, 16 and 1; m = 16383 and 3001, where groups take 2 to 8
+   rows a batch), with an all -inf row (exactly -inf out), a
+   row half -inf and a -inf entry of t, run twice (bit-identical); the
    log megakernel (one thread block cluster) in bf16 and float32, at
    momentum 1.0 and 1.3, with dead atoms and a dead anchor, with every row
    of one rank's slices dead, at n < C and m < C, at the largest admitted
@@ -27,7 +33,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and forced onto its scalar path, also at float32 r = 4, 12, 128, 256 and
    bf16 r = 8, 128, 256 (n = 1001 and 16384); the feature map also at the
    trainer's shape, at d = 64 and 130, r = 70 and 1001, a ragged row tile
-   and n = 2,200,000; the scaling megakernel as the log one; the row
+   and n = 2,200,000; the scaling megakernel (the log one's cluster) as
+   the log one, its plan's shared memory equal to the library's; the row
    kernel (half-step and matvec) also at r = 40, 256, 512, 1024 and 4096,
    B = 1 and 3, n = 1003 and 16 (n not a multiple of the rows a warp
    reduces at once), and n = 2 and 7;
@@ -71,9 +78,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the flat
    contract's output at fixed seeds (equal between two checkouts whose
    flat contract sums in the same order), and the scaling megakernel at the
-   OT-GAN shape; the paged kernels at C = 32768, r = 1024 and 256,
-   float32 and bf16, 100%, 50% and 25% of pages live, each beside the
-   flat kernel on the same buffer and a read floor of the live pages (the
+   OT-GAN shape (its cluster size, inner_steps = 1, and the same 8
+   iterations through the per-iteration scaling kernels as its
+   yardstick); the log half-step also at the row kernel's four cold
+   shapes (n = 16384, r = 1024 and 256, float32 and bf16), and one log
+   iteration in the plan's order at the solve shape; the paged kernels at
+   C = 32768, r = 1024 and 256, float32 and bf16, 100%, 50% and 25% of
+   pages live, each beside the flat kernel on the same buffer and a read floor of the live pages (the
    contract also its slabs alone and evict-first loads on and off, and
    one iteration of the paged plan in its order on two buffers at 50%
    live, evict-first loads on, off and as planned);
@@ -355,6 +366,7 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
                    f"m={m} r={r} B={B} scale={scale} -inf={neg_inf}", err, ok)
     check_bf16_lse(torch, np, device, bf16_shapes, record)
     check_log_contract(torch, device, record)
+    check_halfstep(torch, device, record)
     check_block(torch, np, device, block_shapes, record)
     check_scaling(torch, np, device, scaling_shapes, record)
     check_scaling_block(torch, device, scaling_block_shapes, record)
@@ -535,6 +547,71 @@ def check_log_contract(torch, device, record):
                    f"repeat_identical={same}", err, ok and same)
 
 
+def check_halfstep(torch, device, record):
+    """The log half-step against its plain version on every branch of its
+    plan: t in registers (float32 r = 4, 40, 128, 256, 512; bf16 r = 8,
+    128, 256, 1024: a row of fewer than 32 vectors on fewer lanes) and in
+    shared memory (float32 r = 1024, 4096; bf16 r = 2048, 4096: rows of
+    more than 8 vectors a lane, taken in rounds), B = 3 on the scalar path,
+    unaligned rows (float32 r = 1001, bf16 r = 1028), m = 1003, 16 and 1
+    (not a multiple of the rows a warp reduces at once), m = 16383 and
+    3001 (groups taking 2, 4 and 8 rows a batch: every kernel of the
+    register path), the trainer's batch 2048 at r = 128 and the solve's
+    16384 at r = 1024; each with an all -inf row (which must give -inf
+    exactly), a row half -inf, and a -inf entry of t, at both scales: atol
+    LSE_ATOL + rtol LSE_RTOL, and a second launch bit-identical."""
+    from repro_torch.kernels import logmatvec, ref
+    from repro_torch.kernels.backend import sm_count
+    from repro_torch.kernels.logmatvec import log_halfstep
+
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [(m, r, 1, dtype) for dtype, rs in (
+        (f32, (4, 40, 128, 256, 512, 1024, 4096)),
+        (bf, (8, 128, 256, 1024, 2048, 4096))) for r in rs
+        for m in (1003, 16)]
+    cases += [(16383, r, 1, dtype) for dtype, rs in (
+        (f32, (40, 128, 256, 512)), (bf, (128, 256, 1024))) for r in rs]
+    cases += [(m, 512, 1, bf) for m in (16383, 3001, 1003)]
+    cases += [(3001, r, 1, dtype) for dtype in (f32, bf) for r in (128, 256)]
+    cases += [(1003, r, 3, dtype) for dtype in (f32, bf) for r in (128, 1000)]
+    cases += [(1003, 1001, 1, f32), (1003, 1028, 1, bf), (1, 128, 1, bf),
+              (1, 1024, 1, f32), (GAN_BIG_BATCH, 128, 1, bf),
+              (GAN_BIG_BATCH, 128, 1, f32), (N, R_ANCHORS, 1, f32)]
+    planner = getattr(logmatvec, "_halfstep_kernel", None)
+    for m, r, B, dtype in cases:
+        g = torch.Generator(device=device).manual_seed(m * 5 + r + B)
+        lw = (30.0 * torch.randn((m, r), generator=g, device=device)
+              - 50.0).to(dtype)
+        t = 10.0 * torch.randn((r, B), generator=g, device=device)
+        lmarg = torch.full((m, B), -math.log(m), device=device)
+        lw[m // 3] = -math.inf                  # an all -inf row
+        lw[m // 2, ::2] = -math.inf             # a row half -inf
+        t[r // 3] = -math.inf
+        tag = f"{str(dtype)[6:]} m={m} r={r} B={B}"
+        if planner is not None:
+            vec = logmatvec._vectorized(lw, B)
+            es, sms = lw.element_size(), sm_count(lw.device)
+            nv, _, q, smem = planner(m, r, B, vec, es, sms)
+            p = logmatvec._halfstep_plan(
+                m, r, B, vec, es, sms, logmatvec._halfstep_blocks_per_sm(
+                    lw.device.index, dtype == bf, nv, q, smem))
+            tag += (f" (t in registers, {p.nv} vectors, {p.lanes} lanes a "
+                    f"row, {p.rows} rows a batch, grid {p.grid})" if p.nv
+                    else f" (t in shared memory, grid {p.grid})")
+        for scale, lm in ((EPS, lmarg), (-1.0, torch.zeros_like(lmarg))):
+            got = log_halfstep(lw, t, lm, scale=scale)
+            again = log_halfstep(lw, t, lm, scale=scale)
+            want = ref.log_halfstep_ref(lw, t, lm, scale=scale)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, want, atol=LSE_ATOL, rtol=LSE_RTOL)
+            same = torch.equal(got, again)
+            dead = bool(torch.isinf(got[m // 3]).all())
+            record("log_halfstep",
+                   f"{tag} scale={scale} -inf row {'inf' if dead else 'FINITE'}"
+                   f" rerun {'bit-identical' if same else 'DIFFERS'}", err,
+                   ok and same and dead)
+
+
 def explicit_features(np, n, r, seed):
     """Features U(0, 1) + 0.05 from a numpy seed (benchmarks/run.py's
     bench_solver_iteration draws them so)."""
@@ -628,7 +705,11 @@ def scaling_block_inputs(torch, n, m, r, dtype, dead, seed, device):
                                       device=device))).to(dtype)
     a = torch.ones((n, 1), device=device)
     b = torch.ones((m, 1), device=device)
-    if dead:
+    if isinstance(dead, tuple):         # whole row ranges of each side
+        (i0, i1), (j0, j1) = dead
+        a[i0:i1] = 0.0
+        b[j0:j1] = 0.0
+    elif dead:
         a[n // 3::max(n // dead, 1)][:dead] = 0.0
         b[m // 4::max(m // dead, 1)][:dead] = 0.0
     a, b = a / a.sum(), b / b.sum()
@@ -644,14 +725,29 @@ def check_scaling_block(torch, device, shapes, record):
     inputs: u, v, s within 1e-5 of max |value|, the block-end error within
     1e-4 relative + 1e-6, a second launch bit-identical; shapes the plan
     does not admit are refused by block_plan_fits and by the wrapper."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_loop, ref
     from repro_torch.kernels.fused_loop import block_plan_fits, sinkhorn_block
 
     for (n, m, r, dtype, mom, dead, steps) in shapes:
+        plan = (fused_loop._block_plan(n, m, r, dtype, "scaling")
+                if hasattr(fused_loop, "_scaling_block_plan") else None)
+        if dead == "rank":     # every row of rank 1's slices dead
+            dead = ((plan.slice(1, n), plan.slice(1, m)) if plan else
+                    ((n // 8, n // 4), (m // 8, m // 4)))
         args = scaling_block_inputs(torch, n, m, r, dtype, dead, n + m + r,
                                     device)
         case = (f"n={n} m={m} r={r} {str(dtype)[6:]} momentum={mom} "
                 f"dead={dead} steps={steps}")
+        if plan is not None:
+            lib_smem = fused_loop._lib().sinkhorn_block_smem_bytes(
+                n, m, r, int(dtype == torch.bfloat16), plan.cluster,
+                plan.threads, plan.groups, plan.lanes, plan.ldw)
+            case += (f" C={plan.cluster} threads={plan.threads} "
+                     f"G={plan.groups} L={plan.lanes} smem={plan.smem}")
+            if lib_smem != plan.smem:
+                record("sinkhorn_block", case + f" (library smem "
+                       f"{lib_smem} != plan)", float("inf"), False)
+                continue
         if not block_plan_fits(n, m, r, 1, dtype):
             try:
                 sinkhorn_block(*args, inner_steps=steps, momentum=mom)
@@ -1054,7 +1150,60 @@ def time_kernels(torch, np, device):
         lambda: ref.log_halfstep_ref(log_w, t, lmarg, scale=EPS),
         lambda: torch.logsumexp(log_w[:, :, None] + t[None, :, :], dim=1),
         4.0 * (M * r + r * B + 2 * M * B), 3.0 * M * r * B)
+    # one log iteration in the plan's order on two factors of 64 MiB
+    y = 0.3 * torch.randn((M, d), generator=g, device=device)
+    log_z = gaussian_feature_map(y, u, c, inv_eps=inv, log_space=True)
+    lmarg_n = torch.full((n, 1), -math.log(n), device=device)
+    zero = torch.zeros_like(lmarg)
+
+    def iteration():
+        gz = log_halfstep(log_z, t, lmarg, scale=EPS)
+        t2 = log_feature_contract(log_z, gz)
+        f = log_halfstep(log_w, t2, lmarg_n, scale=EPS)
+        t3 = log_feature_contract(log_w, f)
+        log_halfstep(log_z, t3, zero, scale=-1.0)
+
+    time_plan_iteration(torch, iteration, f"log f32 n={n} r={r}, two "
+                        "factors of 64 MiB", order="half-step, contract, "
+                        "half-step, contract, raw LSE")
     return rows
+
+
+def time_halfstep_cold(torch, np, device):
+    """The log half-step at the row kernel's four cold shapes (n = 16384,
+    r = 1024 and 256, float32 and bf16, B = 1), on log-features log(U(0, 1)
+    + 0.05), cycling through copies past 100 MB (the bound counts
+    device-memory bytes), and warm on one copy; beside its plain version
+    and ``torch.logsumexp`` on the same copies."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.logmatvec import log_halfstep
+
+    n, B = N, 1
+    g = torch.Generator(device=device).manual_seed(13)
+    lmarg = torch.full((n, B), -math.log(n), device=device)
+    for r in (R_ANCHORS, 256):
+        lw32 = torch.log(torch.as_tensor(explicit_features(np, n, r, r + 1),
+                                         device=device))
+        t = torch.randn((r, B), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            fb = torch.finfo(dtype).bits // 8
+            copies = [lw32.to(dtype, copy=True) for _ in
+                      range(max(1, math.ceil(100e6 / (fb * n * r))))]
+            cold = [time_ms(torch, cycling(fn, copies)) for fn in (
+                lambda w: log_halfstep(w, t, lmarg, scale=EPS),
+                lambda w: ref.log_halfstep_ref(w, t, lmarg, scale=EPS),
+                lambda w: torch.logsumexp(w.float()[:, :, None]
+                                          + t[None, :, :], dim=1))]
+            warm = time_ms(torch, lambda: log_halfstep(copies[0], t, lmarg,
+                                                       scale=EPS))
+            b_ms, b_by = bound(fb * n * r + 4.0 * (r * B + 2 * n * B),
+                               3.0 * n * r * B)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            log(f"  log_halfstep           {tag} n={n} r={r} cold: kernel "
+                f"{cold[0]:.4f} ms (L2-warm {warm:.4f})  plain {cold[1]:.4f} "
+                f"ms  library {cold[2]:.4f} ms  bound {b_ms:.5f} ms ({b_by})"
+                f"  kernel/bound {cold[0] / b_ms:.2f}")
+            del copies
 
 
 def time_training_kernels(torch, np, device):
@@ -1215,7 +1364,7 @@ def time_scaling_kernels(torch, np, device):
     on one copy (what a solve whose two factors fit the L2 finds). The
     JSON line takes the cold float32 r = 1024 rows, the shape of the
     scaling path's first request."""
-    from repro_torch.kernels import kermatvec, ref
+    from repro_torch.kernels import fused_loop, kermatvec, ref
     from repro_torch.kernels.fused_loop import sinkhorn_block
     from repro_torch.kernels.kermatvec import (
         feature_contract,
@@ -1337,25 +1486,67 @@ def time_scaling_kernels(torch, np, device):
     b_ms, b_by = bound(nbytes, flops)
     rows["sinkhorn_block"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                   bound_ms=b_ms, bound_by=b_by)
-    log(f"  sinkhorn_block         bf16 n=m={n} r={r} inner_steps={steps}: "
-        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library none  bound "
-        f"{b_ms:.6f} ms ({b_by})  kernel/bound {ms / b_ms:.1f}")
+    plan_of = getattr(fused_loop, "_scaling_block_plan", None)
+    shape = (f"cluster of {plan_of(n, m, r, torch.bfloat16).cluster} CTAs"
+             if plan_of else "one CTA")
+    log(f"  sinkhorn_block         bf16 n=m={n} r={r} inner_steps={steps} "
+        f"({shape}): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+        f"none  bound {b_ms:.6f} ms ({b_by})  kernel/bound {ms / b_ms:.1f}")
     # a launch of one iteration splits the fixed cost (staging the factors,
     # the block-end error) from the cost of an iteration
     one_ms = time_ms(torch, lambda: sinkhorn_block(*args, inner_steps=1))
     log(f"  sinkhorn_block         inner_steps=1: kernel {one_ms:.4f} ms; "
         f"each further iteration {(ms - one_ms) / (steps - 1):.4f} ms")
+    # the yardstick: the same iterations through the per-iteration kernels
+    unfused = unfused_scaling_block(torch, args, steps)
+    unfused_ms = time_ms(torch, unfused, per_batch=4)
+    got, want = sinkhorn_block(*args, inner_steps=steps), unfused()
+    diff = max(float((x - y).abs().max()) for x, y in zip(got[:3], want[:3]))
+    log(f"  sinkhorn_block         the same {steps} iterations unfused (2 "
+        f"contracts, a half-step and a matvec an iteration, then the "
+        f"check): {unfused_ms:.4f} ms; megakernel/unfused "
+        f"{ms / unfused_ms:.2f}; max |d u, v, s| {diff:.2e}, err "
+        f"{float(got[3]):.4e} / {float(want[3]):.4e}")
     return rows
 
 
-def time_plan_iteration(torch, iteration, what, module=None):
+def unfused_scaling_block(torch, args, steps):
+    """``steps`` scaling-space iterations at momentum 1 through the
+    per-iteration kernels, in the scaling plan's order
+    (``ops._scaling_plan``: v = b / s, contract zeta, half-step xi,
+    contract xi, matvec zeta), then the block-end error: the scaling
+    megakernel's yardstick."""
+    from repro_torch.kernels.kermatvec import (
+        feature_contract,
+        feature_matvec,
+        sinkhorn_halfstep,
+    )
+
+    xi, zeta, a, b, u0, v0, s0 = args
+
+    def run():
+        u, v, s = u0, v0, s0
+        for _ in range(steps):
+            v = b / s
+            t = feature_contract(zeta, v)
+            u = sinkhorn_halfstep(xi, t, a)
+            s = feature_matvec(zeta, feature_contract(xi, u))
+        return u, v, s, torch.sum(torch.abs(v * s - b))
+
+    return run
+
+
+def time_plan_iteration(torch, iteration, what, module=None,
+                        order="contract, half-step, contract, matvec"):
     """One Sinkhorn iteration in the plan's order (``ops._scaling_plan``'s
     and ``_paged_scaling_plan``'s step: contract zeta, half-step xi,
-    contract xi, matvec zeta), run back to back on two factors as a solve
-    runs it: each row kernel is followed by the contract of its own
-    factor, which finds it in the L2 where the row kernel left it there,
-    and each contract by a row kernel of the other factor. With
-    ``module``, also with its evict-first loads forced on and off."""
+    contract xi, matvec zeta; ``ops._log_plan``'s: half-step zeta,
+    contract zeta, half-step xi, contract xi, raw LSE of zeta), run back
+    to back on two factors as a solve runs it: each row kernel is followed
+    by the contract of its own factor, which finds it in the L2 where the
+    row kernel left it there, and each contract by a row kernel of the
+    other factor. With ``module``, also with its evict-first loads forced
+    on and off."""
     parts = []
     for label, value in (("evict-first on", True),
                          ("evict-first off", False)):
@@ -1363,8 +1554,7 @@ def time_plan_iteration(torch, iteration, what, module=None):
             if ok:
                 parts.append(f"{label} {time_ms(torch, iteration):.4f} ms")
     parts.append(f"as planned {time_ms(torch, iteration):.4f} ms")
-    log(f"  plan iteration         {what} (contract, half-step, contract, "
-        f"matvec): {'; '.join(parts)}")
+    log(f"  plan iteration         {what} ({order}): {'; '.join(parts)}")
 
 
 def flat_contract_digest(torch, device):
@@ -2561,9 +2751,21 @@ def main(argv=None) -> int:
             for mom in (1.0, 1.3) for dead in (0, 3)] + [
             (37, 53, 13, f32, mom, dead, 8)
             for mom in (1.0, 1.3) for dead in (0, 2)] + [
-            (20, 24, 1100, bf, 1.3, 1, 8),                  # r > 1024 threads
+            (20, 24, 1100, bf, 1.3, 1, 8),                  # r > 512 threads
             (GAN_BATCH, GAN_BATCH, 128, f32, 1.0, 0, 8),    # not admitted
             (GAN_BIG_BATCH, GAN_BIG_BATCH, 128, bf, 1.0, 0, 8),  # not admitted
+            (GAN_BATCH, 200, 128, bf, 1.3, 5, 8),           # n != m
+            (GAN_BATCH, GAN_BATCH, 128, bf, 1.0, "rank", 8),  # a rank all dead
+            (GAN_BATCH, 200, 128, bf, 1.3, "rank", 8),
+            (3, 200, 24, f32, 1.0, 0, 8),                   # n < C
+            (200, 3, 13, bf, 1.3, 2, 8),                    # m < C, odd r
+            (1, 688, 128, bf, 1.0, 0, 8),                   # one xi row
+            (37, 53, 13, bf, 1.3, 2, 5),
+            (352, 352, 128, bf, 1.3, 2, 8),                 # largest bf16
+            (352, 352, 128, bf, 1.0, 0, 1),
+            (353, 353, 128, bf, 1.0, 0, 8),                 # not admitted
+            (176, 176, 128, f32, 1.3, 3, 1),                # largest f32
+            (177, 177, 128, f32, 1.0, 0, 8),                # not admitted
         ]
         errs, failures = check_kernels(torch, np, device, shapes, lse_shapes,
                                        bf16_shapes, block_shapes,
@@ -2583,6 +2785,7 @@ def main(argv=None) -> int:
         time_feature_map(torch, np, device)
         times.update(time_training_kernels(torch, np, device))
         times.update(time_scaling_kernels(torch, np, device))
+        time_halfstep_cold(torch, np, device)
         flat_contract_digest(torch, device)
         times.update(time_paged_kernels(torch, np, device))
 

@@ -18,20 +18,10 @@
 // solvers run B = 1; the per-column running state lives in registers.
 constexpr int kMaxCols = 8;
 
-// Online log-sum-exp state: the sum is  acc * exp(mx).  An empty state is
-// (mx = -inf, acc = 0). -inf entries are the LSE identity and are skipped,
-// so an all -inf row or column stays empty and reads back as exactly -inf
+// A partial log-sum-exp as a (max, sum) state: the sum is  acc * exp(mx).
+// An empty state is (mx = -inf, acc = 0) and reads back as exactly -inf
 // (the _finite_or_zero pin of the TPU kernels); NaN entries poison acc.
-__device__ __forceinline__ void lse_push(float& mx, float& acc, float x) {
-  if (x > mx) {
-    acc = acc * expf(mx - x) + 1.0f;
-    mx = x;
-  } else if (x != -INFINITY) {
-    acc += expf(x - mx);
-  }
-}
-
-// Merge two online states (the butterfly step of a warp reduction).
+// lse_merge merges two states (the log contract's tree over row groups).
 __device__ __forceinline__ void lse_merge(float& mx, float& acc, float mx2,
                                           float acc2) {
   const float m = fmaxf(mx, mx2);

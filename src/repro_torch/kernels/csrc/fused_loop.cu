@@ -71,15 +71,26 @@
 // st.async against mbarriers instead, which needs no such barrier, read
 // no faster on an H100. No atomics: a rerun is bit-identical.
 //
-// The scaling kernel sinkhorn_block is, as the JAX package's pallas_call,
-// one CTA that holds the whole working set: both factors are copied once
-// into dynamic shared memory at their storage width, the carries and the
-// weights stay there as float for all inner_steps iterations, and only the
-// carries and err are written back. Row passes give each warp a row,
-// lanes across k, reduced by a fixed shuffle tree; column passes give each
-// thread a column k and a share of the rows, combined in shared memory in
-// a fixed order. The sums are plain float FMAs (no tensor cores: the
-// reference accumulates in true float32).
+// The scaling kernel sinkhorn_block runs as the same kind of cluster, on
+// the same plan (_block_plan: the same C, slices, threads, G, L and ldw):
+// rank q stages its slices of xi and zeta at storage width (a bf16 row of
+// odd r padded with a zero column), its slices of u, a, v, b and s, and a
+// full copy of t. The update of v is elementwise and the row passes (u
+// from xi, s from zeta) are local: L lanes a row, four FMA chains a lane,
+// a fixed xor tree, the divide IEEE (__fdiv_rn). A column pass (t =
+// Zeta^T v, then t = Xi^T u) leaves in each CTA a partial sum of every
+// column over its rows (the column pass of the log kernel with products
+// and a pairwise sum in place of its two-pass LSE); after one cluster
+// barrier every CTA adds the C partials of each column in rank order 0 ..
+// C-1 through distributed shared memory, so every CTA holds the same t
+// bit for bit. Two partial slots alternate, as in the log kernel, and the
+// block-end error is summed per CTA and added by rank 0 in rank order
+// before a last cluster barrier. The JAX package's kernel is one gridless
+// CTA, which on a GPU runs each pass as a long serial chain on one SM: at
+// the OT-GAN shape on an H100 one CTA of 1024 threads takes 0.117 ms for
+// 8 iterations, the cluster of 8 CTAs 0.037 (chip_smoke.py phase 3). The
+// sums are plain float FMAs (no tensor cores: the reference accumulates in
+// true float32), no atomics: a rerun is bit-identical.
 //
 // Both plans admit a kernel only where the JAX package's 192 KiB GPU
 // budget admits its own (fused_loop.block_plan_fits), which keeps every
@@ -99,22 +110,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 1024;      // the scaling kernel's CTA
-constexpr int kWarps = kThreads / 32;
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
-
-template <typename T>
-__device__ void stage(T* dst, const T* src, size_t count) {
-  const size_t bytes = count * sizeof(T);
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (size_t e = threadIdx.x; e < bytes / 16; e += kThreads) d4[e] = __ldg(s4 + e);
-  } else {
-    for (size_t e = threadIdx.x; e < count; e += kThreads) dst[e] = src[e];
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -190,9 +187,10 @@ __device__ __forceinline__ void unpack_word(uint32_t w, float (&v)[2]) {
   v[1] = __uint_as_float(w & 0xffff0000u);
 }
 
-__device__ __forceinline__ float neg_inf_of(float) { return -INFINITY; }
-__device__ __forceinline__ __nv_bfloat16 neg_inf_of(__nv_bfloat16) {
-  return __float2bfloat16(-INFINITY);
+// x at the storage width T.
+__device__ __forceinline__ float as_storage(float x, float) { return x; }
+__device__ __forceinline__ __nv_bfloat16 as_storage(float x, __nv_bfloat16) {
+  return __float2bfloat16(x);
 }
 
 // The LSE shift: the max, or 0 where the max is not finite, so an all
@@ -202,10 +200,10 @@ __device__ __forceinline__ float lse_shift(float mx) { return isfinite(mx) ? mx 
 // Rows [i0, i0 + rows) of an (., r) factor into shared memory, ldw words
 // apart: 16-byte copies where rows and the padded stride allow, else one
 // element at a time with the padding column of a bf16 row of odd r set to
-// -inf (the LSE identity).
+// `pad`: -inf (the LSE identity) in the log kernel, 0 in the scaling one.
 template <typename T>
 __device__ void stage_rows(uint32_t* dst, const T* src, int i0, int rows,
-                           int r, int words, int ldw) {
+                           int r, int words, int ldw, float pad) {
   const T* base = src + (size_t)i0 * r;
   if (((size_t)r * sizeof(T)) % 16 == 0 && ldw % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
@@ -221,7 +219,7 @@ __device__ void stage_rows(uint32_t* dst, const T* src, int i0, int rows,
   for (int e = threadIdx.x; e < rows * wide; e += blockDim.x) {
     const int j = e / wide, k = e - j * wide;
     reinterpret_cast<T*>(dst + (size_t)j * ldw)[k] =
-        k < r ? base[(size_t)j * r + k] : neg_inf_of(T());
+        k < r ? base[(size_t)j * r + k] : as_storage(pad, T());
   }
 }
 
@@ -423,8 +421,10 @@ log_sinkhorn_block_kernel(const BlockArgs a) {
   const int nx = static_cast<int>((long long)(q + 1) * a.n / C) - i0;
   const int j0 = static_cast<int>((long long)q * a.m / C);
   const int nz = static_cast<int>((long long)(q + 1) * a.m / C) - j0;
-  stage_rows(lxi, static_cast<const T*>(a.log_xi), i0, nx, a.r, words, a.ldw);
-  stage_rows(lzt, static_cast<const T*>(a.log_zeta), j0, nz, a.r, words, a.ldw);
+  stage_rows(lxi, static_cast<const T*>(a.log_xi), i0, nx, a.r, words, a.ldw,
+             -INFINITY);
+  stage_rows(lzt, static_cast<const T*>(a.log_zeta), j0, nz, a.r, words, a.ldw,
+             -INFINITY);
   for (int i = threadIdx.x; i < nx; i += blockDim.x) {
     f[i] = a.f0[i0 + i];
     la[i] = a.loga[i0 + i];
@@ -488,29 +488,304 @@ log_sinkhorn_block_kernel(const BlockArgs a) {
   cluster.sync();      // no CTA leaves while rank 0 reads its shared memory
 }
 
+// ---------------------------------------------------------------------------
+// Scaling space: one thread block cluster
+// ---------------------------------------------------------------------------
+
+struct ScalingArgs {
+  const void* xi;          // (n, r), T
+  const void* zeta;        // (m, r), T
+  const float* a;          // (n,)
+  const float* b;          // (m,)
+  const float* u0;         // (n,)
+  const float* v0;         // (m,)
+  const float* s0;         // (m,)
+  float* u_out;
+  float* v_out;
+  float* s_out;
+  float* err_out;
+  int n, m, r, inner_steps;
+  float mom, one_minus_mom;
+  int relax;
+  int groups;              // G: row groups of a column pass (a power of 2)
+  int lanes;               // L: lanes a row in a row pass (a power of 2)
+  int ldw;                 // 32-bit words between two staged rows
+};
+
+struct ScalingLayout {   // byte offsets into one CTA's dynamic shared memory
+  size_t zeta, u, a, v, b, s, t, part, err, total;
+};
+
+// rx, rz: most rows of xi, zeta a CTA holds; t and each partial slot hold
+// words * cols columns (a bf16 row of odd r ends in a zero padding column).
+__host__ __device__ inline ScalingLayout scaling_layout(int rx, int rz,
+                                                        int words, int cols,
+                                                        int ldw) {
+  ScalingLayout L;
+  const size_t tc = (size_t)words * cols;
+  size_t o = align16((size_t)rx * ldw * 4);
+  L.zeta = o; o += align16((size_t)rz * ldw * 4);
+  L.u = o;    o += align16((size_t)rx * 4);
+  L.a = o;    o += align16((size_t)rx * 4);
+  L.v = o;    o += align16((size_t)rz * 4);
+  L.b = o;    o += align16((size_t)rz * 4);
+  L.s = o;    o += align16((size_t)rz * 4);
+  L.t = o;    o += align16(tc * 4);
+  L.part = o; o += align16(2 * tc * 4);   // two slots of sums a column
+  L.err = o;  o += 16;
+  L.total = o;
+  return L;
+}
+
+// relax_scaling: old^(1-w) * new^w, or new verbatim where old or new is 0
+// (or where the momentum is 1).
+__device__ __forceinline__ float relax_scale(float nw, float old, float mom,
+                                             float one_minus_mom, bool relax) {
+  if (relax && old > 0.0f && nw > 0.0f)
+    return __fmul_rn(powf(old, one_minus_mom), powf(nw, mom));
+  return nw;
+}
+
+// out[j] <- relax(marg[j] / (w t)_j, out[j]) (kDivide) or out[j] = (w t)_j
+// over the CTA's `rows` rows: L lanes a row, 32 / L rows a warp at a time.
+// Lane l takes words l, l + L, ... of the row into four FMA chains (words
+// in turn), added in a fixed order; the row's L lanes meet in a fixed xor
+// tree. The divide is IEEE float32.
+template <typename T, bool kDivide>
+__device__ void dot_row_pass(const uint32_t* w, const float* t,
+                             const float* marg, float* out, int rows,
+                             int words, int ldw, int L, float mom,
+                             float one_minus_mom, bool relax) {
+  constexpr int K = kCols<T>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Gr = 32 / L, rl = lane / L, l = lane - rl * L;
+  for (int base = warp * Gr; base < rows; base += (blockDim.x >> 5) * Gr) {
+    const int j = base + rl;
+    const bool on = j < rows;
+    const uint32_t* w_row = w + (size_t)(on ? j : 0) * ldw;
+    const int nw = on ? words : 0;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int c = l;
+    for (; c + 3 * L < nw; c += 4 * L) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float v[K], tv[K];
+        unpack_word(w_row[c + u * L], v);
+        load_t(t, c + u * L, tv);
+#pragma unroll
+        for (int e = 0; e < K; ++e) acc[u] = fmaf(v[e], tv[e], acc[u]);
+      }
+    }
+    for (; c < nw; c += L) {
+      float v[K], tv[K];
+      unpack_word(w_row[c], v);
+      load_t(t, c, tv);
+#pragma unroll
+      for (int e = 0; e < K; ++e) acc[0] = fmaf(v[e], tv[e], acc[0]);
+    }
+    float d = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    for (int off = L / 2; off > 0; off >>= 1) d += __shfl_xor_sync(kFull, d, off);
+    if (on && l == 0) {
+      if constexpr (kDivide) {
+        out[j] = relax_scale(__fdiv_rn(marg[j], d), out[j], mom, one_minus_mom,
+                             relax);
+      } else {
+        out[j] = d;
+      }
+    }
+  }
+}
+
+// The CTA's partial of every column k over its `rows` rows of w: the sum
+// of w[j, k] * x[j] into part[k]. Lane (g, c) takes word c of a tile of
+// 32 / G words and rows g, g + G, ... (at most kGroupRows), added by a
+// pairwise tree; the G groups of a word meet in a fixed xor tree, and
+// warps take the tiles in turn.
+template <typename T>
+__device__ void sum_column_partial(const uint32_t* w, const float* x,
+                                   int rows, int words, int ldw, int G,
+                                   float* part) {
+  constexpr int K = kCols<T>;
+  const int lane = threadIdx.x & 31;
+  const int Wd = 32 / G, g = lane / Wd, c = lane - g * Wd;
+  const int tiles = (words + Wd - 1) / Wd;
+  for (int tile = threadIdx.x >> 5; tile < tiles; tile += blockDim.x >> 5) {
+    const int word = tile * Wd + c;
+    const bool on = word < words;
+    float y[K][kGroupRows];
+#pragma unroll
+    for (int i = 0; i < kGroupRows; ++i) {
+      const int j = g + i * G;
+      float v[K];
+      const bool live = on && j < rows;
+      if (live) unpack_word(w[(size_t)j * ldw + word], v);
+      const float xj = live ? x[j] : 0.0f;
+#pragma unroll
+      for (int e = 0; e < K; ++e) y[e][i] = live ? v[e] * xj : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < K; ++e) {
+      float acc = tree_sum(y[e]);
+      for (int off = Wd; off < 32; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+      if (g == 0 && on) part[word * K + e] = acc;
+    }
+  }
+}
+
+// t[k] = the sum over the cluster's rows of column k: the C partials read
+// through distributed shared memory (all C loads in flight) and added in
+// rank order 0 .. C-1, so every CTA computes the same t bit for bit.
+__device__ __forceinline__ void sum_cluster_combine(cg::cluster_group& cluster,
+                                                    float* part, float* t,
+                                                    int r, int C) {
+  for (int k = threadIdx.x; k < r; k += blockDim.x) {
+    float v[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      v[q] = q < C ? cluster.map_shared_rank(part, q)[k] : 0.0f;
+    float acc = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < C) acc += v[q];
+    t[k] = acc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxBlockThreads, 1)
+sinkhorn_block_kernel(const ScalingArgs a) {
+  constexpr int K = kCols<T>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int q = static_cast<int>(cluster.block_rank());
+  const int words = (a.r * static_cast<int>(sizeof(T)) + 3) / 4;
+  const int tc = words * K;
+  const int rx = (a.n + C - 1) / C, rz = (a.m + C - 1) / C;
+  const ScalingLayout L = scaling_layout(rx, rz, words, K, a.ldw);
+  extern __shared__ uint4 smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* zs = reinterpret_cast<uint32_t*>(smem + L.zeta);
+  float* u = reinterpret_cast<float*>(smem + L.u);
+  float* av = reinterpret_cast<float*>(smem + L.a);
+  float* v = reinterpret_cast<float*>(smem + L.v);
+  float* bw = reinterpret_cast<float*>(smem + L.b);
+  float* s = reinterpret_cast<float*>(smem + L.s);
+  float* t = reinterpret_cast<float*>(smem + L.t);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* errp = reinterpret_cast<float*>(smem + L.err);
+
+  // this rank's slices: rows [i0, i0 + nx) of xi, [j0, j0 + nz) of zeta
+  // (C contiguous slices in order, sizes differing by at most 1)
+  const int i0 = static_cast<int>((long long)q * a.n / C);
+  const int nx = static_cast<int>((long long)(q + 1) * a.n / C) - i0;
+  const int j0 = static_cast<int>((long long)q * a.m / C);
+  const int nz = static_cast<int>((long long)(q + 1) * a.m / C) - j0;
+  stage_rows(xs, static_cast<const T*>(a.xi), i0, nx, a.r, words, a.ldw, 0.0f);
+  stage_rows(zs, static_cast<const T*>(a.zeta), j0, nz, a.r, words, a.ldw, 0.0f);
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+    u[i] = a.u0[i0 + i];
+    av[i] = a.a[i0 + i];
+  }
+  for (int j = threadIdx.x; j < nz; j += blockDim.x) {
+    v[j] = a.v0[j0 + j];
+    bw[j] = a.b[j0 + j];
+    s[j] = a.s0[j0 + j];
+  }
+  for (int k = threadIdx.x; k < tc; k += blockDim.x) t[k] = 0.0f;
+  __syncthreads();
+
+  const bool rel = a.relax != 0;
+  const int G = a.groups, Lr = a.lanes;
+  for (int it = 0; it < a.inner_steps; ++it) {
+    for (int j = threadIdx.x; j < nz; j += blockDim.x)
+      v[j] = relax_scale(__fdiv_rn(bw[j], s[j]), v[j], a.mom, a.one_minus_mom,
+                         rel);
+    __syncthreads();
+    sum_column_partial<T>(zs, v, nz, words, a.ldw, G, part);
+    cluster.sync();
+    sum_cluster_combine(cluster, part, t, a.r, C);
+    __syncthreads();
+    dot_row_pass<T, true>(xs, t, av, u, nx, words, a.ldw, Lr, a.mom,
+                          a.one_minus_mom, rel);
+    __syncthreads();
+    sum_column_partial<T>(xs, u, nx, words, a.ldw, G, part + tc);
+    cluster.sync();
+    sum_cluster_combine(cluster, part + tc, t, a.r, C);
+    __syncthreads();
+    dot_row_pass<T, false>(zs, t, nullptr, s, nz, words, a.ldw, Lr, a.mom,
+                           a.one_minus_mom, rel);
+    __syncthreads();
+  }
+
+  // the block-end error over this rank's rows of zeta, summed in a fixed
+  // order (lane l of warp 0 takes rows l, l + 32, ..., then a shuffle
+  // tree), then the ranks' sums by rank 0 in rank order
+  if (threadIdx.x < 32) {
+    float e = 0.0f;
+    for (int j = threadIdx.x; j < nz; j += 32)
+      e += fabsf(__fsub_rn(__fmul_rn(v[j], s[j]), bw[j]));
+    e = warp_sum(e);
+    if (threadIdx.x == 0) errp[0] = e;
+  }
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) a.u_out[i0 + i] = u[i];
+  for (int j = threadIdx.x; j < nz; j += blockDim.x) {
+    a.v_out[j0 + j] = v[j];
+    a.s_out[j0 + j] = s[j];
+  }
+  cluster.sync();
+  if (q == 0 && threadIdx.x == 0) {
+    float err = 0.0f;
+    for (int p = 0; p < C; ++p) err += *cluster.map_shared_rank(errp, p);
+    a.err_out[0] = err;
+  }
+  cluster.sync();      // no CTA leaves while rank 0 reads its shared memory
+}
+
+// ---------------------------------------------------------------------------
+// Both kernels' plans and cluster launches
+// ---------------------------------------------------------------------------
+
+// Whether a cluster of C CTAs of `threads` threads can run a plan of G row
+// groups, L lanes a row and rows staged ldw words apart on n, m, r.
+template <typename T>
+bool plan_valid(int n, int m, int r, int C, int threads, int G, int L,
+                int ldw) {
+  if (n < 1 || m < 1 || r < 1 || C < 1 || C > kMaxCluster) return false;
+  const int words = (r * static_cast<int>(sizeof(T)) + 3) / 4;
+  const int rx = (n + C - 1) / C, rz = (m + C - 1) / C;
+  const int rmax = rx > rz ? rx : rz;
+  return threads >= 32 && threads <= kMaxBlockThreads && threads % 32 == 0 &&
+         G >= 1 && G <= 32 && (G & (G - 1)) == 0 && L >= 1 && L <= 32 &&
+         (L & (L - 1)) == 0 && ldw >= words && (rmax + G - 1) / G <= kGroupRows;
+}
+
 // The dynamic shared memory of one CTA of the plan, or 0 where the plan
 // cannot run (the launcher refuses it).
 template <typename T>
-size_t block_smem(const BlockArgs& a, int C, int threads) {
-  const int words = (a.r * static_cast<int>(sizeof(T)) + 3) / 4;
-  const int rx = (a.n + C - 1) / C, rz = (a.m + C - 1) / C;
-  const int rmax = rx > rz ? rx : rz;
-  const int G = a.groups, L = a.lanes;
-  if (C < 1 || C > kMaxCluster || threads < 32 || threads > kMaxBlockThreads ||
-      threads % 32 != 0 || G < 1 || G > 32 || (G & (G - 1)) != 0 ||
-      L < 1 || L > 32 || (L & (L - 1)) != 0 ||
-      a.ldw < words || (rmax + G - 1) / G > kGroupRows || a.n < 1 ||
-      a.m < 1 || a.r < 1)
+size_t log_smem(const BlockArgs& a, int C, int threads) {
+  if (!plan_valid<T>(a.n, a.m, a.r, C, threads, a.groups, a.lanes, a.ldw))
     return 0;
-  return log_layout(rx, rz, words, kCols<T>, a.ldw).total;
+  const int words = (a.r * static_cast<int>(sizeof(T)) + 3) / 4;
+  return log_layout((a.n + C - 1) / C, (a.m + C - 1) / C, words, kCols<T>,
+                    a.ldw).total;
 }
 
-// The launch of one cluster of C CTAs (the whole grid).
 template <typename T>
-cudaError_t block_config(int C, int threads, size_t smem,
-                         cudaStream_t stream, cudaLaunchConfig_t& cfg,
-                         cudaLaunchAttribute& attr) {
-  auto kernel = log_sinkhorn_block_kernel<T>;
+size_t scaling_smem(const ScalingArgs& a, int C, int threads) {
+  if (!plan_valid<T>(a.n, a.m, a.r, C, threads, a.groups, a.lanes, a.ldw))
+    return 0;
+  const int words = (a.r * static_cast<int>(sizeof(T)) + 3) / 4;
+  return scaling_layout((a.n + C - 1) / C, (a.m + C - 1) / C, words,
+                        kCols<T>, a.ldw).total;
+}
+
+// The launch of one cluster of C CTAs (the whole grid) of `kernel`.
+template <typename Args>
+cudaError_t cluster_config(void (*kernel)(Args), int C, int threads,
+                           size_t smem, cudaStream_t stream,
+                           cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -529,215 +804,49 @@ cudaError_t block_config(int C, int threads, size_t smem,
   return cudaSuccess;
 }
 
-template <typename T>
-int block_launch(const BlockArgs& a, int C, int threads, cudaStream_t stream) {
-  const size_t smem = block_smem<T>(a, C, threads);
+template <typename Args>
+int cluster_launch(void (*kernel)(Args), const Args& a, size_t smem, int C,
+                   int threads, cudaStream_t stream) {
   if (smem == 0 || a.inner_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = block_config<T>(C, threads, smem, stream, cfg, attr);
+  cudaError_t err = cluster_config(kernel, C, threads, smem, stream, cfg, attr);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, log_sinkhorn_block_kernel<T>, a);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Clusters of the plan the card can place at once (0: none), or a
 // negative CUDA error code.
-template <typename T>
-int block_clusters(const BlockArgs& a, int C, int threads) {
-  const size_t smem = block_smem<T>(a, C, threads);
+template <typename Args>
+int cluster_count(void (*kernel)(Args), size_t smem, int C, int threads) {
   if (smem == 0) return -static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = block_config<T>(C, threads, smem, 0, cfg, attr);
+  cudaError_t err = cluster_config(kernel, C, threads, smem, 0, cfg, attr);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, log_sinkhorn_block_kernel<T>,
-                                       &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
-// ---------------------------------------------------------------------------
-// Scaling space
-// ---------------------------------------------------------------------------
-
-struct ScalingLayout {   // byte offsets into dynamic shared memory
-  size_t zeta, u, a, v, b, s, t, part, warp_err, total;
-};
-
-__host__ __device__ inline ScalingLayout scaling_layout(int n, int m, int r,
-                                                        int elem) {
-  ScalingLayout L;
-  size_t o = align16((size_t)n * r * elem);
-  L.zeta = o;     o += align16((size_t)m * r * elem);
-  L.u = o;        o += align16((size_t)n * 4);
-  L.a = o;        o += align16((size_t)n * 4);
-  L.v = o;        o += align16((size_t)m * 4);
-  L.b = o;        o += align16((size_t)m * 4);
-  L.s = o;        o += align16((size_t)m * 4);
-  L.t = o;        o += align16((size_t)r * 4);
-  L.part = o;     o += (size_t)kThreads * 4;
-  L.warp_err = o; o += (size_t)kWarps * 4;
-  L.total = o;
-  return L;
-}
-
-// relax_scaling: old^(1-w) * new^w, or new verbatim where old or new is 0
-// (or where the momentum is 1).
-__device__ __forceinline__ float relax_scale(float nw, float old, float mom,
-                                             float one_minus_mom, bool relax) {
-  if (relax && old > 0.0f && nw > 0.0f)
-    return __fmul_rn(powf(old, one_minus_mom), powf(nw, mom));
-  return nw;
-}
-
-// out[j] <- relax(marg[j] / (w t)_j, out[j]) with a marginal, or
-// out[j] = (w t)_j without one; one warp a row, a fixed shuffle tree.
 template <typename T>
-__device__ void dot_row_pass(const T* w, const float* t, const float* marg,
-                             float* out, int rows, int r, float mom,
-                             float one_minus_mom, bool relax) {
-  const int lane = threadIdx.x & 31;
-  for (int j = threadIdx.x >> 5; j < rows; j += kWarps) {
-    const T* w_row = w + (size_t)j * r;
-    float acc = 0.0f;
-    for (int k = lane; k < r; k += 32) acc = fmaf(widen(w_row[k]), t[k], acc);
-    acc = warp_sum(acc);
-    if (lane == 0)
-      out[j] = marg ? relax_scale(__fdiv_rn(marg[j], acc), out[j], mom,
-                                  one_minus_mom, relax)
-                    : acc;
-  }
-  __syncthreads();
-}
-
-// t[k] = sum_i w[i, k] * x[i] over the `rows` rows of w. With r < kThreads
-// each column gets P = kThreads / r threads, thread p taking rows p,
-// p + P, ...; the P partial sums are added in shared memory in the order
-// p = 0 .. P-1.
-template <typename T>
-__device__ void sum_column_pass(const T* w, const float* x, int rows, int r,
-                                float* t, float* part) {
-  if (r >= kThreads) {
-    for (int k = threadIdx.x; k < r; k += kThreads) {
-      float acc = 0.0f;
-      for (int i = 0; i < rows; ++i) acc = fmaf(widen(w[(size_t)i * r + k]), x[i], acc);
-      t[k] = acc;
-    }
-    __syncthreads();
-    return;
-  }
-  const int P = kThreads / r;
-  const int p = threadIdx.x / r;
-  const int k = threadIdx.x - p * r;
-  if (p < P) {
-    float acc = 0.0f;
-    for (int i = p; i < rows; i += P) acc = fmaf(widen(w[(size_t)i * r + k]), x[i], acc);
-    part[threadIdx.x] = acc;
-  }
-  __syncthreads();
-  if (threadIdx.x < r) {
-    float acc = part[threadIdx.x];
-    for (int q = 1; q < P; ++q) acc += part[q * r + threadIdx.x];
-    t[threadIdx.x] = acc;
-  }
-  __syncthreads();
+int log_launch(const BlockArgs& a, int C, int threads, cudaStream_t stream) {
+  return cluster_launch(log_sinkhorn_block_kernel<T>, a,
+                        log_smem<T>(a, C, threads), C, threads, stream);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-sinkhorn_block_kernel(const T* __restrict__ xi, const T* __restrict__ zeta,
-                      const float* __restrict__ a_in,
-                      const float* __restrict__ b_in,
-                      const float* __restrict__ u0,
-                      const float* __restrict__ v0,
-                      const float* __restrict__ s0, float* __restrict__ u_out,
-                      float* __restrict__ v_out, float* __restrict__ s_out,
-                      float* __restrict__ err_out, int n, int m, int r,
-                      int inner_steps, float mom, float one_minus_mom,
-                      int relax) {
-  extern __shared__ uint4 smem_raw[];
-  char* smem = reinterpret_cast<char*>(smem_raw);
-  const ScalingLayout L = scaling_layout(n, m, r, sizeof(T));
-  T* xs = reinterpret_cast<T*>(smem);
-  T* zs = reinterpret_cast<T*>(smem + L.zeta);
-  float* u = reinterpret_cast<float*>(smem + L.u);
-  float* a = reinterpret_cast<float*>(smem + L.a);
-  float* v = reinterpret_cast<float*>(smem + L.v);
-  float* b = reinterpret_cast<float*>(smem + L.b);
-  float* s = reinterpret_cast<float*>(smem + L.s);
-  float* t = reinterpret_cast<float*>(smem + L.t);
-  float* part = reinterpret_cast<float*>(smem + L.part);
-  float* warp_err = reinterpret_cast<float*>(smem + L.warp_err);
-
-  stage(xs, xi, (size_t)n * r);
-  stage(zs, zeta, (size_t)m * r);
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    u[i] = u0[i];
-    a[i] = a_in[i];
-  }
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    v[j] = v0[j];
-    b[j] = b_in[j];
-    s[j] = s0[j];
-  }
-  __syncthreads();
-
-  const bool rel = relax != 0;
-  for (int it = 0; it < inner_steps; ++it) {
-    for (int j = threadIdx.x; j < m; j += kThreads)
-      v[j] = relax_scale(__fdiv_rn(b[j], s[j]), v[j], mom, one_minus_mom, rel);
-    __syncthreads();
-    sum_column_pass(zs, v, m, r, t, part);
-    dot_row_pass(xs, t, a, u, n, r, mom, one_minus_mom, rel);
-    sum_column_pass(xs, u, n, r, t, part);
-    dot_row_pass(zs, t, static_cast<const float*>(nullptr), s, m, r, mom,
-                 one_minus_mom, rel);
-  }
-
-  // the marginal error at the block boundary, summed in a fixed order:
-  // rows j = tid, tid + kThreads, ... by each thread, a fixed shuffle tree
-  // in each warp, then the warps in order
-  float e = 0.0f;
-  for (int j = threadIdx.x; j < m; j += kThreads)
-    e += fabsf(__fsub_rn(__fmul_rn(v[j], s[j]), b[j]));
-  e = warp_sum(e);
-  if ((threadIdx.x & 31) == 0) warp_err[threadIdx.x >> 5] = e;
-  for (int i = threadIdx.x; i < n; i += kThreads) u_out[i] = u[i];
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    v_out[j] = v[j];
-    s_out[j] = s[j];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float err = 0.0f;
-    for (int w = 0; w < kWarps; ++w) err += warp_err[w];
-    err_out[0] = err;
-  }
-}
-
-template <typename T>
-int scaling_block_launch(const T* xi, const T* zeta, const float* a,
-                         const float* b, const float* u0, const float* v0,
-                         const float* s0, float* u_out, float* v_out,
-                         float* s_out, float* err_out, int n, int m, int r,
-                         int inner_steps, float mom, float one_minus_mom,
-                         int relax, cudaStream_t stream) {
-  const size_t smem = scaling_layout(n, m, r, sizeof(T)).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      sinkhorn_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sinkhorn_block_kernel<T><<<1, kThreads, smem, stream>>>(
-      xi, zeta, a, b, u0, v0, s0, u_out, v_out, s_out, err_out, n, m, r,
-      inner_steps, mom, one_minus_mom, relax);
-  return static_cast<int>(cudaGetLastError());
+int scaling_launch(const ScalingArgs& a, int C, int threads,
+                   cudaStream_t stream) {
+  return cluster_launch(sinkhorn_block_kernel<T>, a,
+                        scaling_smem<T>(a, C, threads), C, threads, stream);
 }
 
 }  // namespace
 
-// The plan's arguments: C CTAs of `threads` threads, G row groups of a
+// The log plan's arguments: C CTAs of `threads` threads, G row groups of a
 // column pass, L lanes a row in a row pass, rows staged ldw 32-bit words
 // apart (kernels/fused_loop.py:_block_plan).
 static BlockArgs block_args(const void* log_xi, const void* log_zeta,
@@ -753,6 +862,20 @@ static BlockArgs block_args(const void* log_xi, const void* log_zeta,
                    one_minus_mom, relax, groups, lanes, ldw};
 }
 
+static BlockArgs log_shape(int n, int m, int r, int groups, int lanes,
+                           int ldw) {
+  return block_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, n,
+                    m, r, 1, 1.0f, 1.0f, 0.0f, 0, groups, lanes, ldw);
+}
+
+static ScalingArgs scaling_shape(int n, int m, int r, int groups, int lanes,
+                                 int ldw) {
+  return ScalingArgs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, n, m, r, 1,
+                     1.0f, 0.0f, 0, groups, lanes, ldw};
+}
+
 // Dynamic shared memory of one CTA of the plan, in bytes, or 0 where the
 // plan cannot run (the wrapper refuses a shape above the 227 KB a CTA may
 // hold).
@@ -760,13 +883,10 @@ REPRO_EXPORT long long log_sinkhorn_block_smem_bytes(int n, int m, int r,
                                                      int bf16, int cluster,
                                                      int threads, int groups,
                                                      int lanes, int ldw) {
-  const BlockArgs a = block_args(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, n, m, r, 1, 1.0f, 1.0f,
-                                 0.0f, 0, groups, lanes, ldw);
+  const BlockArgs a = log_shape(n, m, r, groups, lanes, ldw);
   return static_cast<long long>(
-      bf16 ? block_smem<__nv_bfloat16>(a, cluster, threads)
-           : block_smem<float>(a, cluster, threads));
+      bf16 ? log_smem<__nv_bfloat16>(a, cluster, threads)
+           : log_smem<float>(a, cluster, threads));
 }
 
 // Clusters of the plan the card can place at once (0: none, and the
@@ -774,12 +894,13 @@ REPRO_EXPORT long long log_sinkhorn_block_smem_bytes(int n, int m, int r,
 REPRO_EXPORT int log_sinkhorn_block_clusters(int n, int m, int r, int bf16,
                                              int cluster, int threads,
                                              int groups, int lanes, int ldw) {
-  const BlockArgs a = block_args(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, n, m, r, 1, 1.0f, 1.0f,
-                                 0.0f, 0, groups, lanes, ldw);
-  return bf16 ? block_clusters<__nv_bfloat16>(a, cluster, threads)
-              : block_clusters<float>(a, cluster, threads);
+  const BlockArgs a = log_shape(n, m, r, groups, lanes, ldw);
+  return bf16 ? cluster_count(log_sinkhorn_block_kernel<__nv_bfloat16>,
+                              log_smem<__nv_bfloat16>(a, cluster, threads),
+                              cluster, threads)
+              : cluster_count(log_sinkhorn_block_kernel<float>,
+                              log_smem<float>(a, cluster, threads), cluster,
+                              threads);
 }
 
 // Factors are float (bf16 == 0) or bfloat16; all vectors float, B = 1.
@@ -796,33 +917,49 @@ REPRO_EXPORT int log_sinkhorn_block_launch(
                                  f_out, g_out, t_out, err_out, n, m, r,
                                  inner_steps, eps, mom, one_minus_mom, relax,
                                  groups, lanes, ldw);
-  return bf16 ? block_launch<__nv_bfloat16>(a, cluster, threads, stream)
-              : block_launch<float>(a, cluster, threads, stream);
+  return bf16 ? log_launch<__nv_bfloat16>(a, cluster, threads, stream)
+              : log_launch<float>(a, cluster, threads, stream);
 }
 
-// Dynamic shared memory of one scaling launch, in bytes (the wrapper
-// refuses a shape above the 227 KB a CTA may hold).
+// The scaling kernel's plan (the log kernel's geometry): dynamic shared
+// memory of one CTA, in bytes, or 0 where the plan cannot run.
 REPRO_EXPORT long long sinkhorn_block_smem_bytes(int n, int m, int r,
-                                                 int bf16) {
-  return static_cast<long long>(scaling_layout(n, m, r, bf16 ? 2 : 4).total);
+                                                 int bf16, int cluster,
+                                                 int threads, int groups,
+                                                 int lanes, int ldw) {
+  const ScalingArgs a = scaling_shape(n, m, r, groups, lanes, ldw);
+  return static_cast<long long>(
+      bf16 ? scaling_smem<__nv_bfloat16>(a, cluster, threads)
+           : scaling_smem<float>(a, cluster, threads));
+}
+
+// Clusters of the scaling plan the card can place at once (0: none, and
+// the wrapper raises), or a negative CUDA error code.
+REPRO_EXPORT int sinkhorn_block_clusters(int n, int m, int r, int bf16,
+                                         int cluster, int threads, int groups,
+                                         int lanes, int ldw) {
+  const ScalingArgs a = scaling_shape(n, m, r, groups, lanes, ldw);
+  return bf16 ? cluster_count(sinkhorn_block_kernel<__nv_bfloat16>,
+                              scaling_smem<__nv_bfloat16>(a, cluster, threads),
+                              cluster, threads)
+              : cluster_count(sinkhorn_block_kernel<float>,
+                              scaling_smem<float>(a, cluster, threads),
+                              cluster, threads);
 }
 
 // Factors are float (bf16 == 0) or bfloat16; all vectors float, B = 1.
-// relax == 0 means momentum 1 (no over-relaxation).
+// relax == 0 means momentum 1 (no over-relaxation). One cluster of
+// `cluster` CTAs, launched with cudaLaunchKernelEx.
 REPRO_EXPORT int sinkhorn_block_launch(
     const void* xi, const void* zeta, int bf16, const float* a,
     const float* b, const float* u0, const float* v0, const float* s0,
     float* u_out, float* v_out, float* s_out, float* err_out, int n, int m,
     int r, int inner_steps, float mom, float one_minus_mom, int relax,
+    int cluster, int threads, int groups, int lanes, int ldw,
     cudaStream_t stream) {
-  if (bf16)
-    return scaling_block_launch(static_cast<const __nv_bfloat16*>(xi),
-                                static_cast<const __nv_bfloat16*>(zeta), a, b,
-                                u0, v0, s0, u_out, v_out, s_out, err_out, n,
-                                m, r, inner_steps, mom, one_minus_mom, relax,
-                                stream);
-  return scaling_block_launch(static_cast<const float*>(xi),
-                              static_cast<const float*>(zeta), a, b, u0, v0,
-                              s0, u_out, v_out, s_out, err_out, n, m, r,
-                              inner_steps, mom, one_minus_mom, relax, stream);
+  const ScalingArgs args{xi, zeta, a, b, u0, v0, s0, u_out, v_out, s_out,
+                         err_out, n, m, r, inner_steps, mom, one_minus_mom,
+                         relax, groups, lanes, ldw};
+  return bf16 ? scaling_launch<__nv_bfloat16>(args, cluster, threads, stream)
+              : scaling_launch<float>(args, cluster, threads, stream);
 }

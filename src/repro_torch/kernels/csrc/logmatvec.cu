@@ -35,8 +35,26 @@
 //
 //   out[j, c] = scale * ( lmarg[j, c] - LSE_k( log_w[j, k] + t[k, c] ) )
 //
-// one warp per output row; scale = eps gives the potential update and
-// scale = -1 with lmarg = 0 the raw LSE of the convergence check.
+// scale = eps gives the potential update and scale = -1 with lmarg = 0
+// the raw LSE of the convergence check. It runs as the scaling row
+// kernel's persistent grid (kermatvec.cu: feature_rows_kernel) of at most
+// one wave, sized by an occupancy query (kernels/logmatvec.py:
+// _halfstep_plan): warps take batches of R rows in turn, in order. On the
+// 16-byte path (B = 1, 16-byte rows) t sits in registers where a lane
+// holds at most 4 vectors of it (float r <= 512, bf16 r <= 1024); a row
+// of fewer than 32 vectors is read by L < 32 lanes (bf16 r = 128: 16
+// lanes a row, two rows a load), so no lane idles, and a lane keeps up to
+// 8 loads in flight. Wider rows, B > 1 and unaligned rows stage t in
+// shared memory and take a row a warp. Each row's LSE is the reference's
+// (_log_halfstep_kernel) without branches: the exact joint row max by a
+// fixed xor-shuffle tree, pinned to 0 where it is not finite
+// (_finite_or_zero: an all -inf row gives -inf, never NaN), then the sum
+// of expf(x - max), one IEEE expf a term, by the same tree. A row too
+// wide for a lane to keep its terms between the two passes (more than 8
+// vectors a lane) is taken in rounds, each with its exact joint max, the
+// running sum rescaled once a round. A NaN term poisons its row. The rows
+// are read with plain loads, never evict-first: a solve contracts the
+// same factor next, and finds it in the L2.
 //
 // log_matvec replaces _log_matvec_kernel (launched by _log_matvec_impl):
 //
@@ -351,98 +369,249 @@ log_contract_kernel(const fo::ContractArgs a) {
   log_grid_combine(a, red);
 }
 
-__device__ __forceinline__ void warp_lse_merge(float& mx, float& acc) {
+// ---------------------------------------------------------------------------
+// The log half-step: the row kernel's persistent grid
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+
+struct HalfstepArgs {
+  const void* log_w;       // (m, r), T
+  const float* t;          // (r, B)
+  const float* lmarg;      // (m, B)
+  float* out;              // (m, B)
+  int m, r, B;
+  float scale;
+  int vec;                 // 16-byte rows, B = 1
+  int lanes;               // L: lanes of a row (the register path)
+};
+
+// The LSE shift of a row: its max, or 0 where the max is not finite
+// (_finite_or_zero), so an all -inf row sums exp(-inf) = 0 and reads back
+// -inf, never NaN.
+__device__ __forceinline__ float finite_or_zero(float mx) {
+  return isfinite(mx) ? mx : 0.0f;
+}
+
+// The max of x over the warp (a fixed xor tree, as fo::warp_sum adds);
+// every lane gets it.
+__device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float mx2 = __shfl_xor_sync(0xffffffffu, mx, off);
-    const float acc2 = __shfl_xor_sync(0xffffffffu, acc, off);
-    lse_merge(mx, acc, mx2, acc2);
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// A round of a row's terms joins the row's running (mx, acc), the sum
+// shifted by finite_or_zero(mx): rm, the lane's max of the round, becomes
+// the warp's (the row's) joint max of the round; the running max moves to
+// max(mx, rm) and the running sum is rescaled to its shift once (0 where
+// the old max is -inf). Returns the shift the round's terms are taken
+// against. With one round this is the reference's exact two-pass LSE.
+__device__ __forceinline__ float round_join(float& mx, float& acc, float rm) {
+  const float m = fmaxf(mx, warp_max(rm));
+  const float shift = finite_or_zero(m);
+  acc *= expf(mx - shift);
+  mx = m;
+  return shift;
+}
+
+// The batches b0, b0 + step, ... (< b1) of a warp on the 16-byte path with
+// t in registers: kNV vectors of t a lane, loaded once. A row is read by
+// L lanes (lane l of group g = lane / L takes vectors l, l + L, ...), so a
+// warp holds P = 32 / L rows a load; group g takes rows j + g, j + g + P,
+// ..., kQ of them, of the batch of R = P kQ rows at j. All kQ * kNV row
+// loads of a lane, and the marginals of the rows it stores, are issued
+// before any arithmetic (each its own branch). Each row is the
+// reference's exact LSE: its terms x = w + t stay in registers, the joint
+// row max comes by the group's xor tree, pinned by finite_or_zero, then
+// the sum of expf(x - max) (IEEE float32) by the same tree. Lane l of the
+// group stores the rows i with i = l mod L, so the R results leave the
+// warp together.
+template <typename T, int kNV, int kQ>
+__device__ __forceinline__ void halfstep_in_registers(const HalfstepArgs& a,
+                                                      int lane, int b0, int b1,
+                                                      int step) {
+  constexpr int V = kVec<T>;
+  const int L = a.lanes, P = 32 / L;
+  const int g = lane / L, l = lane & (L - 1);
+  const int rv = a.r / V;
+  float tr[kNV][V];
+#pragma unroll
+  for (int p = 0; p < kNV; ++p) {
+    const int k = l + L * p;
+#pragma unroll
+    for (int e = 0; e < V; ++e) tr[p][e] = k < rv ? __ldg(a.t + V * k + e) : -INFINITY;
+  }
+  const uint4* wv = static_cast<const uint4*>(a.log_w);
+  for (int b = b0; b < b1; b += step) {
+    const int j = b * P * kQ + g;         // the group's row i: j + i P
+    uint4 raw[kQ][kNV];
+    float lm[kQ];                         // lmarg of the rows the lane stores
+#pragma unroll
+    for (int i = 0; i < kQ; ++i)
+#pragma unroll
+      for (int p = 0; p < kNV; ++p) {
+        const int row = j + i * P, k = l + L * p;
+        raw[i][p] = row < a.m && k < rv ? __ldg(wv + (size_t)row * rv + k)
+                                        : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      const int row = j + i * P;
+      lm[i] = (i & (L - 1)) == l && row < a.m ? __ldg(a.lmarg + row) : 0.0f;
+    }
+    float x[kQ][kNV][V], mx[kQ], acc[kQ];
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int p = 0; p < kNV; ++p) {
+        float w[V];
+        unpack16(raw[i][p], w);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          x[i][p][e] = w[e] + tr[p][e];
+          mx[i] = fmaxf(mx[i], x[i][p][e]);
+        }
+      }
+    }
+    for (int off = L >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < kQ; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      mx[i] = finite_or_zero(mx[i]);
+      acc[i] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kNV; ++p)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[i] += expf(x[i][p][e] - mx[i]);
+    }
+    for (int off = L >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < kQ; ++i)
+        acc[i] += __shfl_xor_sync(kFull, acc[i], off);
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      const int row = j + i * P;
+      if ((i & (L - 1)) == l && row < a.m)
+        a.out[row] = a.scale * (lm[i] - (mx[i] + logf(acc[i])));
+    }
   }
 }
 
-// One warp per output row. Vector path when B == 1 and rows are 16-byte
-// vectors (vec != 0): lane l reads vectors l, l + 32, ... of the row.
+// Row j, by the whole warp, against t in shared memory, in rounds of
+// kUnroll loads a lane (all issued before any arithmetic), each round
+// joined to the row's running LSE by round_join. 16-byte path (vec, B =
+// 1): lane l takes vectors l, l + 32, ...; a round's terms stay in
+// registers between its max and its sum, and a row of at most 32 *
+// kUnroll vectors (float r <= 1024, bf16 r <= 2048) is one round. Scalar
+// path: elements l, l + 32, ... of the row for each of the B columns.
 template <typename T>
-__global__ void __launch_bounds__(kHalfstepWarps * 32)
-log_halfstep_kernel(const T* __restrict__ log_w,
-                    const float* __restrict__ t,
-                    const float* __restrict__ lmarg, float* __restrict__ out,
-                    int m, int r, int B, float scale, int vec) {
+__device__ __forceinline__ void halfstep_row(const HalfstepArgs& a,
+                                             const float* t_sh, int j,
+                                             int lane) {
   constexpr int V = kVec<T>;
-  extern __shared__ float4 t_sh4[];  // (r, B), the layout of t
-  float* t_sh = reinterpret_cast<float*>(t_sh4);
-  for (int e = threadIdx.x; e < r * B; e += kHalfstepWarps * 32) t_sh[e] = t[e];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int j = blockIdx.x * kHalfstepWarps + warp; j < m;
-       j += gridDim.x * kHalfstepWarps) {
-    if (vec) {
-      const int rv = r / V;
-      const uint4* row = reinterpret_cast<const uint4*>(log_w) + (size_t)j * rv;
-      float mx = -INFINITY, acc = 0.0f;
-      int k = lane;
-      for (; k + 32 * (kUnroll - 1) < rv; k += 32 * kUnroll) {
-        uint4 raw[kUnroll];
+  if (a.vec) {
+    const int rv = a.r / V;
+    const uint4* row = static_cast<const uint4*>(a.log_w) + (size_t)j * rv;
+    float mx = -INFINITY, acc = 0.0f, lm = 0.0f;
+    for (int k0 = lane; k0 - lane < rv; k0 += 32 * kUnroll) {
+      uint4 raw[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(row + k + 32 * u);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float w[V], tv[V];
-          unpack16(raw[u], w);
-          load_floats(t_sh + (size_t)V * (k + 32 * u), tv);
-#pragma unroll
-          for (int e = 0; e < V; ++e) lse_push(mx, acc, w[e] + tv[e]);
-        }
-      }
-      for (; k < rv; k += 32) {
-        float w[V], tv[V];
-        unpack16(__ldg(row + k), w);
-        load_floats(t_sh + (size_t)V * k, tv);
-#pragma unroll
-        for (int e = 0; e < V; ++e) lse_push(mx, acc, w[e] + tv[e]);
-      }
-      warp_lse_merge(mx, acc);
-      if (lane == 0) out[j] = scale * (lmarg[j] - lse_value(mx, acc));
-      continue;
-    }
-    const T* row = log_w + (size_t)j * r;
-    float mx[kMaxCols], acc[kMaxCols];
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      mx[c] = -INFINITY;
-      acc[c] = 0.0f;
-    }
-    int k = lane;
-    for (; k + 32 * (kUnroll - 1) < r; k += 32 * kUnroll) {
-      float w[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) w[u] = load_factor(row + k + 32 * u);
+      for (int u = 0; u < kUnroll; ++u)
+        raw[u] = k0 + 32 * u < rv ? __ldg(row + k0 + 32 * u) : make_uint4(0, 0, 0, 0);
+      if (k0 == 0) lm = __ldg(a.lmarg + j);      // lane 0, with the first loads
+      float x[kUnroll][V], rm = -INFINITY;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + 32 * u;
+        float w[V], tv[V];
+        unpack16(raw[u], w);
+        if (k < rv) {
+          load_floats(t_sh + (size_t)V * k, tv);
+        } else {
 #pragma unroll
-        for (int c = 0; c < kMaxCols; ++c)
-          if (c < B) lse_push(mx[c], acc[c], w[u] + t_sh[(k + 32 * u) * B + c]);
+          for (int e = 0; e < V; ++e) tv[e] = -INFINITY;
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          x[u][e] = w[e] + tv[e];
+          rm = fmaxf(rm, x[u][e]);
+        }
       }
-    }
-    for (; k < r; k += 32) {
-      const float w = load_factor(row + k);
+      const float shift = round_join(mx, acc, rm);
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c)
-        if (c < B) lse_push(mx[c], acc[c], w + t_sh[k * B + c]);
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc += expf(x[u][e] - shift);
     }
+    acc = fo::warp_sum(acc);
+    if (lane == 0) a.out[j] = a.scale * (lm - (finite_or_zero(mx) + logf(acc)));
+    return;
+  }
+  const T* row = static_cast<const T*>(a.log_w) + (size_t)j * a.r;
+  const int B = a.B;
+  float mx[kMaxCols], acc[kMaxCols];
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    mx[c] = -INFINITY;
+    acc[c] = 0.0f;
+  }
+  for (int k0 = lane; k0 - lane < a.r; k0 += 32 * kUnroll) {
+    float w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      w[u] = k0 + 32 * u < a.r ? load_factor(row + k0 + 32 * u) : 0.0f;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (c >= B) break;
+      float x[kUnroll], rm = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + 32 * u;
+        x[u] = k < a.r ? w[u] + t_sh[k * B + c] : -INFINITY;
+        rm = fmaxf(rm, x[u]);
+      }
+      const float shift = round_join(mx[c], acc[c], rm);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) acc[c] += expf(x[u] - shift);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c)
+    if (c < B) acc[c] = fo::warp_sum(acc[c]);
+  if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c)
-      if (c < B) warp_lse_merge(mx[c], acc[c]);
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < kMaxCols; ++c)
-        if (c < B) {
-          const size_t o = (size_t)j * B + c;
-          out[o] = scale * (lmarg[o] - lse_value(mx[c], acc[c]));
-        }
-    }
+      if (c < B) {
+        const size_t o = (size_t)j * B + c;
+        a.out[o] = a.scale * (a.lmarg[o] - (finite_or_zero(mx[c]) + logf(acc[c])));
+      }
+  }
+}
+
+// kNV > 0: the 16-byte path with t in registers, batches of R = (32 / L)
+// kQ rows; kNV = 0: t in shared memory, a row a warp (any B <= kMaxCols,
+// any r whose t fits the CTA). Warp w of W takes the batches w, w + W, ...
+// (kernels/logmatvec.py:_halfstep_plan).
+template <typename T, int kNV, int kQ>
+__global__ void __launch_bounds__(fo::kRowWarps * 32)
+log_halfstep_kernel(const HalfstepArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * fo::kRowWarps;
+  const int warp = blockIdx.x * fo::kRowWarps + (threadIdx.x >> 5);
+  if constexpr (kNV > 0) {
+    const int R = 32 / a.lanes * kQ;
+    halfstep_in_registers<T, kNV, kQ>(a, lane, warp, (a.m + R - 1) / R,
+                                      warps);
+  } else {
+    extern __shared__ float4 t_sh4[];  // (r, B), the layout of t
+    float* t_sh = reinterpret_cast<float*>(t_sh4);
+    fo::stage_t(a.t, t_sh, a.r * a.B);
+    for (int j = warp; j < a.m; j += warps) halfstep_row<T>(a, t_sh, j, lane);
   }
 }
 
@@ -570,21 +739,56 @@ int contract_occupancy(int vec) {
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
+// The half-step kernel holding nv vectors of t a lane (1, 2 or 4) and
+// taking q rows a group a batch (q nv <= kUnroll), or t in shared memory
+// (nv = 0, q = 1); nullptr where there is none.
+using HalfstepKernel = void (*)(HalfstepArgs);
+
 template <typename T>
-int halfstep_launch(const T* log_w, const float* t, const float* lmarg,
-                    float* out, int m, int r, int B, float scale, int vec,
-                    int grid, cudaStream_t stream) {
-  if (vec && (B != 1 || r % kVec<T> != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)r * B * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        log_halfstep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+HalfstepKernel halfstep_kernel(int nv, int q) {
+  switch (nv * 16 + q) {
+    case 0 * 16 + 1: return log_halfstep_kernel<T, 0, 1>;
+    case 1 * 16 + 1: return log_halfstep_kernel<T, 1, 1>;
+    case 1 * 16 + 2: return log_halfstep_kernel<T, 1, 2>;
+    case 1 * 16 + 4: return log_halfstep_kernel<T, 1, 4>;
+    case 1 * 16 + 8: return log_halfstep_kernel<T, 1, 8>;
+    case 2 * 16 + 1: return log_halfstep_kernel<T, 2, 1>;
+    case 2 * 16 + 2: return log_halfstep_kernel<T, 2, 2>;
+    case 2 * 16 + 4: return log_halfstep_kernel<T, 2, 4>;
+    case 4 * 16 + 1: return log_halfstep_kernel<T, 4, 1>;
+    case 4 * 16 + 2: return log_halfstep_kernel<T, 4, 2>;
+    default: return nullptr;
   }
-  log_halfstep_kernel<T><<<grid, kHalfstepWarps * 32, smem, stream>>>(
-      log_w, t, lmarg, out, m, r, B, scale, vec);
+}
+
+template <typename T>
+int halfstep_launch(const HalfstepArgs& a, int nv, int q, int grid,
+                    cudaStream_t stream) {
+  constexpr int V = kVec<T>;
+  auto kernel = halfstep_kernel<T>(nv, q);
+  const int L = a.lanes;
+  if (kernel == nullptr || grid < 1 || a.m < 1 || a.r < 1 || a.B < 1 ||
+      a.B > kMaxCols || (a.vec && (a.B != 1 || a.r % V != 0)) || L < 1 ||
+      L > 32 || (L & (L - 1)) != 0 || (nv == 0 && L != 32) ||
+      (nv > 0 && (!a.vec || L * nv < a.r / V)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = nv ? 0 : (size_t)a.r * a.B * sizeof(float);
+  const int err = fo::reserve_t_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<grid, fo::kRowWarps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int halfstep_occupancy(int nv, int q, int smem) {
+  auto kernel = halfstep_kernel<T>(nv, q);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  const int err = fo::reserve_t_smem(kernel, smem);
+  if (err != 0) return -err;
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, fo::kRowWarps * 32, smem);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -613,16 +817,25 @@ REPRO_EXPORT int log_feature_contract_occupancy(int bf16, int vec) {
               : contract_occupancy<float>(vec);
 }
 
+// The half-step: nv vectors of t a lane in registers (1, 2 or 4; needs
+// vec, B = 1), L lanes a row and q rows a group of L lanes a batch, or nv
+// = 0 (t in shared memory, a row a warp: L = 32, q = 1), on `grid` CTAs of
+// kRowWarps warps (kernels/logmatvec.py:_halfstep_plan).
 REPRO_EXPORT int log_halfstep_launch(const void* log_w, int bf16,
                                      const float* t, const float* lmarg,
                                      float* out, int m, int r, int B,
-                                     float scale, int vec, int grid,
-                                     cudaStream_t stream) {
-  if (bf16)
-    return halfstep_launch(static_cast<const __nv_bfloat16*>(log_w), t, lmarg,
-                           out, m, r, B, scale, vec, grid, stream);
-  return halfstep_launch(static_cast<const float*>(log_w), t, lmarg, out, m,
-                         r, B, scale, vec, grid, stream);
+                                     float scale, int vec, int nv, int lanes,
+                                     int q, int grid, cudaStream_t stream) {
+  const HalfstepArgs a{log_w, t, lmarg, out, m, r, B, scale, vec, lanes};
+  return bf16 ? halfstep_launch<__nv_bfloat16>(a, nv, q, grid, stream)
+              : halfstep_launch<float>(a, nv, q, grid, stream);
+}
+
+// Half-step CTAs resident on one SM with smem bytes of t (the planner's
+// wave), or a negative CUDA error code.
+REPRO_EXPORT int log_halfstep_occupancy(int bf16, int nv, int q, int smem) {
+  return bf16 ? halfstep_occupancy<__nv_bfloat16>(nv, q, smem)
+              : halfstep_occupancy<float>(nv, q, smem);
 }
 
 // log_m is float (bf16 == 0) or bfloat16 (bf16 != 0); vec != 0 selects the

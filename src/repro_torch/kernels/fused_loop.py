@@ -4,15 +4,15 @@
 ``(u, v, s = Zeta (Xi^T u))`` and :func:`log_sinkhorn_block` the log
 plan's carry ``(f, g, t = LSE_i(log_xi + f/eps))`` by ``inner_steps`` full
 iterations in one launch; each returns the marginal error at the block
-end, the only scalar a block hands back. The log kernel runs as one thread
+end, the only scalar a block hands back. Each kernel runs as one thread
 block cluster whose C CTAs each hold a slice of both factors' rows in
-shared memory and meet over distributed shared memory at each column pass
-(:func:`_block_plan`, plain Python, is its geometry); the scaling kernel
-is one CTA that holds both factors. The plans take either only where
+shared memory and meet over distributed shared memory at each column pass,
+adding the partials in rank order (:func:`_block_plan`, plain Python, is
+the geometry both share). The plans take either only where
 :func:`block_plan_fits` admits the shape, under the JAX package's 192 KiB
 GPU budget; larger shapes run the streaming per-iteration plan. A shape
-the budget admits but whose plan does not fit raises. Counterpart of
-``repro.kernels.fused_loop``.
+the budget admits but whose plan does not fit raises, as does a cluster
+the card cannot place. Counterpart of ``repro.kernels.fused_loop``.
 """
 from __future__ import annotations
 
@@ -103,20 +103,38 @@ def _log_layout(rows_x: int, rows_z: int, words: int, cols: int,
             + a16(max(rows_x, rows_z) * 4) + a16(tc * 4) + 16 * tc + 16)
 
 
-def _block_plan(n: int, m: int, r: int,
-                feature_dtype: torch.dtype) -> BlockPlan:
-    """The log megakernel's geometry, from the shape alone: C =
-    ceil(max(n, m) / 16) CTAs up to 8, each holding at most ceil(n / C)
-    rows of log_xi and ceil(m / C) of log_zeta; G, the least power of two
-    that leaves a lane at most 8 of the R = max of those rows in a column
-    pass; the warps the larger of the column pass's tiles of 32 / G words
-    and ceil(R / G) want, at most 16 (512 threads keep 128 registers a
-    thread; at 64 the kernel spilled); L, the lanes a row that let the
-    warps take all R rows of a row pass at once. Rows are staged ldw words
-    apart: with G > 1, ldw is an odd multiple of 32 / G, so the G row
-    groups of a column pass read different banks. At the OT-GAN shape on
-    an H100, C = 4 and 16, 4 rows a lane (512 threads) and 8 lanes a row
-    at 512 threads all read slower than this plan or within 1% of it
+def _scaling_layout(rows_x: int, rows_z: int, words: int, cols: int,
+                    ldw: int) -> int:
+    """Bytes of one CTA's dynamic shared memory of the scaling kernel
+    (``scaling_layout`` in ``csrc/fused_loop.cu``): the staged rows, the
+    float slices of u, a, v, b and s, t and two slots of partial sums a
+    column."""
+    def a16(x):
+        return _round_up(x, 16)
+    tc = words * cols
+    return (a16(rows_x * ldw * 4) + a16(rows_z * ldw * 4)
+            + 2 * a16(rows_x * 4) + 3 * a16(rows_z * 4) + a16(tc * 4)
+            + a16(8 * tc) + 16)
+
+
+_LAYOUTS = {"log": _log_layout, "scaling": _scaling_layout}
+
+
+def _block_plan(n: int, m: int, r: int, feature_dtype: torch.dtype,
+                mode: str = "log") -> BlockPlan:
+    """The megakernels' geometry, from the shape alone (the ``mode``, "log"
+    or "scaling", sets only the shared memory's layout): C = ceil(max(n, m)
+    / 16) CTAs up to 8, each holding at most ceil(n / C) rows of the first
+    factor and ceil(m / C) of the second; G, the least power of two that
+    leaves a lane at most 8 of the R = max of those rows in a column pass;
+    the warps the larger of the column pass's tiles of 32 / G words and
+    ceil(R / G) want, at most 16 (512 threads keep 128 registers a thread;
+    at 64 the kernel spilled); L, the lanes a row that let the warps take
+    all R rows of a row pass at once. Rows are staged ldw words apart: with
+    G > 1, ldw is an odd multiple of 32 / G, so the G row groups of a
+    column pass read different banks. At the OT-GAN shape on an H100, C = 4
+    and 16, 4 rows a lane (512 threads) and 8 lanes a row at 512 threads
+    all read the log kernel slower than this plan or within 1% of it
     (PERF.md, Findings)."""
     esize = 2 if feature_dtype == torch.bfloat16 else 4
     C = min(_MAX_CLUSTER, -(-max(n, m) // _CLUSTER_ROWS))
@@ -129,33 +147,30 @@ def _block_plan(n: int, m: int, r: int,
     lanes = 32 // min(32, _pow2_ceil(-(-R // warps)))
     ldw = words if G == 1 else _round_up(words, 2 * wd) + wd
     return BlockPlan(C, 32 * warps, G, lanes, ldw, words, rows_x, rows_z,
-                     _log_layout(rows_x, rows_z, words, 4 // esize, ldw))
+                     _LAYOUTS[mode](rows_x, rows_z, words, 4 // esize, ldw))
 
 
 def smem_bytes(n: int, m: int, r: int, feature_dtype: torch.dtype, *,
                mode: str = "log") -> int:
     """Dynamic shared memory of one CTA of the ``mode`` ("scaling" or
-    "log") megakernel: the log kernel's from :func:`_block_plan` (plain
-    Python), the scaling kernel's from its layout in the library. Both stay
+    "log") megakernel, from :func:`_block_plan` (plain Python). Both stay
     under :data:`_MAX_SMEM` wherever :func:`block_plan_fits` admits the
     shape."""
-    if mode == "log":
-        return _block_plan(n, m, r, feature_dtype).smem
-    if mode != "scaling":
+    if mode not in _LAYOUTS:
         raise ValueError(f"mode must be 'log' or 'scaling', got {mode!r}")
-    return int(_lib().sinkhorn_block_smem_bytes(
-        n, m, r, int(feature_dtype == torch.bfloat16)))
+    return _block_plan(n, m, r, feature_dtype, mode).smem
 
 
 @functools.cache
 def _lib():
     lib = build.load("fused_loop")
-    lib.sinkhorn_block_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.sinkhorn_block_smem_bytes.restype = ctypes.c_longlong
-    lib.log_sinkhorn_block_smem_bytes.argtypes = [ctypes.c_int] * 9
-    lib.log_sinkhorn_block_smem_bytes.restype = ctypes.c_longlong
-    lib.log_sinkhorn_block_clusters.argtypes = [ctypes.c_int] * 9
-    lib.log_sinkhorn_block_clusters.restype = ctypes.c_int
+    for mode in ("log_", ""):
+        size = getattr(lib, f"{mode}sinkhorn_block_smem_bytes")
+        size.argtypes = [ctypes.c_int] * 9
+        size.restype = ctypes.c_longlong
+        place = getattr(lib, f"{mode}sinkhorn_block_clusters")
+        place.argtypes = [ctypes.c_int] * 9
+        place.restype = ctypes.c_int
     fn = lib.log_sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
@@ -165,7 +180,8 @@ def _lib():
     fn = lib.sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -181,42 +197,50 @@ def _check_block_shape(what, n, m, r, dtype, mode):
             f"memory; got n={n}, m={m}, r={r} ({dtype}), {smem} bytes")
 
 
-def _log_block_plan(n, m, r, dtype) -> BlockPlan:
-    """The plan the log wrapper launches, refused where
+def _checked_plan(what, mode, n, m, r, dtype) -> BlockPlan:
+    """The plan the ``mode`` wrapper launches, refused where
     :func:`block_plan_fits` does not admit the shape (the cluster's
     shared memory would hold more, but the plans' admission stays the JAX
     package's) or the kernel cannot run it."""
-    _check_block_shape("log_sinkhorn_block", n, m, r, dtype, "log")
+    _check_block_shape(what, n, m, r, dtype, mode)
     if not block_plan_fits(n, m, r, 1, dtype):
-        raise ValueError(f"log_sinkhorn_block kernel takes the shapes "
-                         f"block_plan_fits admits; got n={n}, m={m}, r={r} "
-                         f"({dtype})")
-    plan = _block_plan(n, m, r, dtype)
+        raise ValueError(f"{what} kernel takes the shapes block_plan_fits "
+                         f"admits; got n={n}, m={m}, r={r} ({dtype})")
+    plan = _block_plan(n, m, r, dtype, mode)
     R = max(plan.rows_x, plan.rows_z)
     if (not 1 <= plan.cluster <= _MAX_CLUSTER
             or -(-R // plan.groups) > _GROUP_ROWS
             or plan.threads > 32 * _MAX_WARPS
             or plan.smem > _MAX_SMEM):
-        raise ValueError(f"log_sinkhorn_block kernel cannot run the plan "
-                         f"{plan} for n={n}, m={m}, r={r} ({dtype})")
+        raise ValueError(f"{what} kernel cannot run the plan {plan} for "
+                         f"n={n}, m={m}, r={r} ({dtype})")
     return plan
 
 
+def _log_block_plan(n, m, r, dtype) -> BlockPlan:
+    return _checked_plan("log_sinkhorn_block", "log", n, m, r, dtype)
+
+
+def _scaling_block_plan(n, m, r, dtype) -> BlockPlan:
+    return _checked_plan("sinkhorn_block", "scaling", n, m, r, dtype)
+
+
 @functools.cache
-def _clusters(device_index: int, n: int, m: int, r: int, bf16: bool,
-              plan: BlockPlan) -> int:
-    """Clusters of ``plan`` the card places at once; raises where it can
-    place none (the launch would be refused)."""
+def _clusters(device_index: int, mode: str, n: int, m: int, r: int,
+              bf16: bool, plan: BlockPlan) -> int:
+    """Clusters of the ``mode`` kernel's ``plan`` the card places at once;
+    raises where it can place none (the launch would be refused)."""
+    what = "log_sinkhorn_block" if mode == "log" else "sinkhorn_block"
     with torch.cuda.device(device_index):
-        got = _lib().log_sinkhorn_block_clusters(
+        got = getattr(_lib(), f"{what}_clusters")(
             n, m, r, int(bf16), plan.cluster, plan.threads, plan.groups,
             plan.lanes, plan.ldw)
     if got < 0:
-        build.check_launch(_lib(), -got, "log_sinkhorn_block")
+        build.check_launch(_lib(), -got, what)
     if got == 0:
-        raise RuntimeError(f"log_sinkhorn_block: the card cannot place a "
-                           f"cluster of {plan.cluster} CTAs of "
-                           f"{plan.threads} threads and {plan.smem} bytes")
+        raise RuntimeError(f"{what}: the card cannot place a cluster of "
+                           f"{plan.cluster} CTAs of {plan.threads} threads "
+                           f"and {plan.smem} bytes")
     return got
 
 
@@ -255,7 +279,9 @@ def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
                                   inner_steps=inner_steps, momentum=momentum)
     if B != 1:
         raise ValueError(f"sinkhorn_block kernel takes B = 1 column, got {B}")
-    _check_block_shape("sinkhorn_block", n, m, r, xi.dtype, "scaling")
+    plan = _scaling_block_plan(n, m, r, xi.dtype)
+    bf16 = xi.dtype == torch.bfloat16
+    _clusters(dev.index, "scaling", n, m, r, bf16, plan)
     u = torch.empty((n, 1), dtype=torch.float32, device=dev)
     v = torch.empty((m, 1), dtype=torch.float32, device=dev)
     s = torch.empty((m, 1), dtype=torch.float32, device=dev)
@@ -264,11 +290,12 @@ def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().sinkhorn_block_launch(
-            xi.data_ptr(), zeta.data_ptr(), int(xi.dtype == torch.bfloat16),
-            a.data_ptr(), b.data_ptr(), u0.data_ptr(), v0.data_ptr(),
-            s0.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
-            err.data_ptr(), n, m, r, int(inner_steps), mom, 1.0 - mom,
-            int(mom != 1.0), stream)
+            xi.data_ptr(), zeta.data_ptr(), int(bf16), a.data_ptr(),
+            b.data_ptr(), u0.data_ptr(), v0.data_ptr(), s0.data_ptr(),
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), err.data_ptr(), n, m,
+            r, int(inner_steps), mom, 1.0 - mom, int(mom != 1.0),
+            plan.cluster, plan.threads, plan.groups, plan.lanes, plan.ldw,
+            stream)
     build.check_launch(_lib(), code, "sinkhorn_block")
     sinkhorn_block.launches += 1
     return u, v, s, err[0]
@@ -317,7 +344,7 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
                          f"got {B}")
     plan = _log_block_plan(n, m, r, log_xi.dtype)
     bf16 = log_xi.dtype == torch.bfloat16
-    _clusters(dev.index, n, m, r, bf16, plan)
+    _clusters(dev.index, "log", n, m, r, bf16, plan)
     f = torch.empty((n, 1), dtype=torch.float32, device=dev)
     g = torch.empty((m, 1), dtype=torch.float32, device=dev)
     t = torch.empty((r, 1), dtype=torch.float32, device=dev)

@@ -156,8 +156,16 @@ def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     (the most CTAs among equals): at n = 16384, bf16 r = 1024, three an SM
     would run 3 rounds, the last 59% full, two an SM 4 rounds 97% full."""
     nv, rows, smem = _rows_kernel(r, B, vec, element_size)
-    batches = -(-n // rows)
+    return RowsPlan(nv, rows, smem,
+                    _rows_grid(-(-n // rows), sms, blocks_per_sm))
 
+
+def _rows_grid(batches: int, sms: int, blocks_per_sm: int) -> int:
+    """CTAs of ``_ROW_WARPS`` warps that take ``batches`` batches in turn:
+    at most one wave (``blocks_per_sm`` an SM) and never more than the
+    batches fill; of the CTAs an SM that fit, the count that leaves the
+    fewest warp-batch slots of the last round idle (the most among
+    equals). The log half-step (``logmatvec._halfstep_plan``) shares it."""
     def grid_of(per_sm):
         return max(1, min(sms * per_sm, -(-batches // _ROW_WARPS)))
 
@@ -167,7 +175,7 @@ def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
 
     per_sm = min(range(1, max(1, blocks_per_sm) + 1),
                  key=lambda b: (slots(b), -b))
-    return RowsPlan(nv, rows, smem, grid_of(per_sm))
+    return grid_of(per_sm)
 
 
 @functools.cache

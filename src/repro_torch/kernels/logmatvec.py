@@ -11,6 +11,10 @@
 * :func:`log_halfstep` — stage 2 with the log half-step fused,
   ``out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :]))``, shape (m, B).
   ``scale=eps`` is the potential update, ``scale=-1, lmarg=0`` the raw LSE.
+  On the card: the scaling row kernel's persistent grid, whose warps take
+  batches of rows in turn (t in registers on the 16-byte path), each row
+  an exact two-pass LSE; :func:`_halfstep_plan` is its geometry, in plain
+  Python.
 * :func:`log_matvec` — the single-column row LSE with the exact row max,
   ``out[j] = LSE_k(log_m[j, k] + t[k])``, (m, r), (r,) -> (m,). No solver
   reaches it; ``kernels.ops.log_matvec`` exports it, as the JAX package
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -38,7 +43,7 @@ __all__ = ["MAX_COLS", "log_feature_contract", "log_halfstep", "log_matvec"]
 
 MAX_COLS = 8                    # kMaxCols in csrc/common.cuh
 _MIN_SLAB_BYTES = 16 * 2**10    # least factor bytes of a contract slab
-_HALFSTEP_ROWS = 8              # rows per half-step CTA (one per warp)
+_HALFSTEP_ROWS = 8              # rows per log_matvec CTA (one per warp)
 _MAX_SMEM = 227 * 1024          # dynamic shared memory of one CTA (t)
 
 
@@ -54,10 +59,12 @@ def _lib():
     o.restype = ctypes.c_int
     h = lib.log_halfstep_launch
     h.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 3
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p])
+                  + [ctypes.c_int] * 3 + [ctypes.c_float]
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     h.restype = ctypes.c_int
+    ho = lib.log_halfstep_occupancy
+    ho.argtypes = [ctypes.c_int] * 4
+    ho.restype = ctypes.c_int
     v = lib.log_matvec_launch
     v.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -107,6 +114,69 @@ def _blocks_per_sm(device_index: int, bf16: bool, vec: bool) -> int:
         blocks = _lib().log_feature_contract_occupancy(int(bf16), int(vec))
     if blocks <= 0:
         build.check_launch(_lib(), -blocks or 1, "log_feature_contract")
+    return blocks
+
+
+class HalfstepPlan(NamedTuple):
+    nv: int                 # 16-byte vectors of t a lane holds (0: t in smem)
+    lanes: int              # L: lanes of a row
+    group_rows: int         # Q: rows a group of L lanes takes a batch
+    rows: int               # R = (32 / L) Q: rows a warp reduces at once
+    smem: int               # dynamic shared memory of a CTA (t), bytes
+    grid: int               # CTAs of _ROW_WARPS warps
+
+    def warp_rows(self, warp: int, m: int) -> List[int]:
+        """The rows ``warp`` computes, in its order, dealt as the row
+        kernel deals them (``kermatvec.RowsPlan.warp_rows``)."""
+        from .kermatvec import RowsPlan
+        return RowsPlan(self.nv, self.rows, self.smem,
+                        self.grid).warp_rows(warp, m)
+
+
+def _halfstep_kernel(m: int, r: int, B: int, vec: bool, element_size: int,
+                     sms: int) -> Tuple[int, int, int, int]:
+    """(nv, lanes, group_rows, smem) of the log half-step's kernel: the row
+    kernel's t in registers, nv vectors a lane, where
+    ``kermatvec._rows_kernel`` puts it there (16-byte path, nv <= 4), else
+    t in shared memory and a row a warp (lanes 32, group_rows 1). On the
+    register path a row of fewer than 32 vectors takes L lanes, its vector
+    count rounded up to a power of two, so 32 / L rows share each load and
+    no lane idles (bf16 r = 128: 16 lanes a row); each group of L lanes
+    takes Q rows a batch, the most up to 8 / nv (8 loads in flight a lane)
+    that still leave every SM a CTA of 8 warps with a batch each (m =
+    2048, bf16 r = 128: a row a group, 1024 batches on 128 CTAs rather
+    than 128 on 16)."""
+    from .kermatvec import _ROW_WARPS, _rows_kernel
+    nv, q, smem = _rows_kernel(r, B, vec, element_size)
+    lanes = 32
+    if nv:
+        rv = r // (16 // element_size)
+        lanes = min(32, 1 << (rv - 1).bit_length())
+        while q > 1 and -(-m // (32 // lanes * q)) < sms * _ROW_WARPS:
+            q //= 2
+    return nv, lanes, q, smem
+
+
+def _halfstep_plan(m: int, r: int, B: int, vec: bool, element_size: int,
+                   sms: int, blocks_per_sm: int) -> HalfstepPlan:
+    """The log half-step's geometry: its kernel (:func:`_halfstep_kernel`)
+    on the row kernel's grid (``kermatvec._rows_grid``: at most one wave
+    of the ``blocks_per_sm`` CTAs of that kernel an SM, warps taking
+    batches of R = (32 / L) Q rows in turn)."""
+    from .kermatvec import _rows_grid
+    nv, lanes, q, smem = _halfstep_kernel(m, r, B, vec, element_size, sms)
+    rows = 32 // lanes * q
+    return HalfstepPlan(nv, lanes, q, rows, smem,
+                        _rows_grid(-(-m // rows), sms, blocks_per_sm))
+
+
+@functools.cache
+def _halfstep_blocks_per_sm(device_index: int, bf16: bool, nv: int, q: int,
+                            smem: int) -> int:
+    with torch.cuda.device(device_index):
+        blocks = _lib().log_halfstep_occupancy(int(bf16), nv, q, smem)
+    if blocks <= 0:
+        build.check_launch(_lib(), -blocks or 1, "log_halfstep")
     return blocks
 
 
@@ -169,14 +239,19 @@ def log_halfstep(log_w: torch.Tensor, t: torch.Tensor, lmarg: torch.Tensor,
     if m < 1 or r < 1 or r * B * 4 > _MAX_SMEM:
         raise ValueError(f"log_halfstep kernel takes m, r >= 1 and r * B * 4 "
                          f"<= {_MAX_SMEM} bytes of t; got m={m}, r={r}, B={B}")
-    grid = min(-(-m // _HALFSTEP_ROWS), 4 * sm_count(dev))
+    bf16 = log_w.dtype == torch.bfloat16
+    vec = _vectorized(log_w, B)
+    es, sms = log_w.element_size(), sm_count(dev)
+    nv, _, q, smem = _halfstep_kernel(m, r, B, vec, es, sms)
+    plan = _halfstep_plan(m, r, B, vec, es, sms, _halfstep_blocks_per_sm(
+        dev.index, bf16, nv, q, smem))
     out = torch.empty((m, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().log_halfstep_launch(
-            log_w.data_ptr(), int(log_w.dtype == torch.bfloat16),
-            t.data_ptr(), lmarg.data_ptr(), out.data_ptr(),
-            m, r, B, float(scale), int(_vectorized(log_w, B)), grid, stream)
+            log_w.data_ptr(), int(bf16), t.data_ptr(), lmarg.data_ptr(),
+            out.data_ptr(), m, r, B, float(scale), int(vec), plan.nv,
+            plan.lanes, plan.group_rows, plan.grid, stream)
     build.check_launch(_lib(), code, "log_halfstep")
     log_halfstep.launches += 1
     return out

@@ -221,6 +221,13 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
                  "log_feature_contract_launch", "log_halfstep_launch",
                  "__nv_bfloat16", '#include "feature_ops.cuh"'):
         assert name in lm
+    # the log half-step is the row kernel's persistent grid, sized by an
+    # occupancy query, each row an exact two-pass LSE without the online
+    # push (which has no user left)
+    assert "log_halfstep_occupancy" in lm
+    assert lm.count("cudaOccupancyMaxActiveBlocksPerMultiprocessor") >= 2
+    assert "lse_push" not in lm
+    assert "lse_push" not in (csrc / "common.cuh").read_text()
     # the log contract is one cooperative launch: its (max, sum) partials
     # meet at a grid barrier, no second (combine) kernel
     assert "log_contract_combine_kernel" not in lm
@@ -251,6 +258,16 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
                  "cudaOccupancyMaxActiveClusters",
                  "log_sinkhorn_block_clusters"):
         assert name in fl
+    # so is the scaling megakernel, placed by its own query: both kernels
+    # read the cluster, combine over distributed shared memory (a column
+    # pass and the block-end error each), and no kernel is one CTA alone
+    scaling = fl[fl.index("sinkhorn_block_kernel(const ScalingArgs"):]
+    scaling = scaling[:scaling.index("\n}\n")]
+    assert "cg::this_cluster()" in scaling and "cluster.sync()" in scaling
+    assert "sinkhorn_block_clusters" in fl and "sum_cluster_combine" in fl
+    assert fl.count("cg::this_cluster()") == 2
+    assert fl.count("map_shared_rank") >= 4
+    assert "<<<1," not in fl
     pg = (csrc / "paged.cu").read_text()
     for name in ("paged_contract_kernel", "paged_rows_kernel",
                  "paged_feature_contract_launch",

@@ -4,14 +4,16 @@ The persistent feature map (``feature_map._map_plan``), the one-launch
 flat and paged contracts (``kermatvec._contract_plan``,
 ``paged._paged_plan``) and the persistent row kernel of the half-step and
 matvec (``kermatvec._rows_plan``), the one-launch log contract
-(``logmatvec._contract_plan``) and the log megakernel's thread block
-cluster (``fused_loop._block_plan``) are planned in plain Python; the CUDA
-kernels trust the plan. These tests hold the plans to what the kernels
-need: every grid dimension within CUDA's limits, every row covered exactly
-once and in order, no more CTAs than one wave or the work, the 16-byte
-path with row groups wherever B = 1 rows are 16-byte vectors, t in
-registers only where the row kernel's cap allows, and a cluster within
-its size limit and every CTA within its shared memory.
+(``logmatvec._contract_plan``), the log half-step on the row kernel's grid
+(``logmatvec._halfstep_plan``) and both megakernels' thread block cluster
+(``fused_loop._block_plan``) are planned in plain Python; the CUDA kernels
+trust the plan. These tests hold the plans to what the kernels need: every
+grid dimension within CUDA's limits, every row covered exactly once and in
+order, no more CTAs than one wave or the work, the 16-byte path with row
+groups wherever B = 1 rows are 16-byte vectors, t in registers only where
+the row kernel's cap allows, no idle lane at the trainer's bf16 r = 128,
+and a cluster within its size limit and every CTA within its shared
+memory.
 """
 import numpy as np
 import pytest
@@ -467,3 +469,171 @@ def test_block_plan_refuses_at_the_admission_edge():
             fused_loop._log_block_plan(edge + 1, edge + 1, 128, dtype)
     with pytest.raises(ValueError):
         fused_loop._log_block_plan(0, 5, 128, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The log half-step: the row kernel's persistent grid
+# ---------------------------------------------------------------------------
+
+
+def _halfstep_cover(plan, m):
+    """How often each row is taken; asserts that every warp takes its rows
+    in increasing order."""
+    seen = np.zeros(m, np.int64)
+    for w in range(plan.grid * kermatvec._ROW_WARPS):
+        rows = plan.warp_rows(w, m)
+        assert rows == sorted(rows)
+        seen[rows] += 1
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 13, 128, 256, 1024, 1100])
+@pytest.mark.parametrize("B", [1, 3])
+def test_halfstep_plan_covers_rows_once_in_order_within_one_wave(dtype, r, B):
+    w = torch.empty((8, r), dtype=dtype)
+    vec = logmatvec._vectorized(w, B)
+    es = w.element_size()
+    for blocks in (1, 3, 8):
+        for m in (1, 7, 256, 2048, 16384):
+            p = logmatvec._halfstep_plan(m, r, B, vec, es, SMS, blocks)
+            assert 1 <= p.grid <= SMS * blocks
+            assert (_halfstep_cover(p, m) == 1).all()
+            # no CTA without a row
+            last = (p.grid - 1) * kermatvec._ROW_WARPS
+            assert any(p.warp_rows(x, m)
+                       for x in range(last, last + kermatvec._ROW_WARPS))
+            assert p.rows == 32 // p.lanes * p.group_rows
+            if p.nv:
+                rv = r // (16 // es)
+                assert vec and p.smem == 0
+                assert p.lanes * p.nv >= rv          # every vector of a row
+                assert p.lanes <= rv                 # every lane a vector
+                assert p.lanes & (p.lanes - 1) == 0
+                assert 1 <= p.group_rows * p.nv <= 8  # loads in flight
+            else:
+                assert (p.lanes, p.group_rows, p.rows) == (32, 1, 1)
+                assert p.smem == 4 * r * B
+
+
+@pytest.mark.parametrize("dtype,r,B", [
+    (torch.float32, 4, 1), (torch.float32, 40, 1), (torch.float32, 128, 1),
+    (torch.float32, 256, 1), (torch.float32, 512, 1), (torch.float32, 1024, 1),
+    (torch.float32, 4096, 1), (torch.bfloat16, 8, 1), (torch.bfloat16, 128, 1),
+    (torch.bfloat16, 1024, 1), (torch.bfloat16, 2048, 1),
+    (torch.float32, 1001, 1), (torch.bfloat16, 1028, 1),
+    (torch.float32, 256, 3), (torch.bfloat16, 128, 3),
+])
+def test_halfstep_keeps_t_in_registers_exactly_where_the_row_kernel_does(
+        dtype, r, B):
+    w = torch.empty((16, r), dtype=dtype)
+    vec = logmatvec._vectorized(w, B)
+    nv, most, smem = _rows_kernel(r, B, vec, w.element_size())
+    p = logmatvec._halfstep_plan(16384, r, B, vec, w.element_size(), SMS, 3)
+    assert (p.nv, p.smem) == (nv, smem)
+    assert p.group_rows <= most
+    assert logmatvec._halfstep_kernel(16384, r, B, vec, w.element_size(),
+                                      SMS) == (p.nv, p.lanes, p.group_rows,
+                                               p.smem)
+    rows = _rows_plan(16384, r, B, vec, w.element_size(), SMS, 3)
+    if p.lanes == 32:                 # rows of 32 vectors or more
+        assert p == (rows.nv, 32, rows.rows, rows.rows, rows.smem, rows.grid)
+
+
+def test_halfstep_at_the_trainer_shape_idles_no_lane():
+    """bf16 r = 128: a row is 16 vectors, so 16 lanes take a row and each
+    load of a warp covers two rows; every lane holds a vector of t and
+    reads a vector of its row. At batch 2048 a group takes one row a batch,
+    so the rows spread over 128 CTAs of one wave."""
+    w = torch.empty((2048, 128), dtype=torch.bfloat16)
+    assert logmatvec._vectorized(w, 1)
+    for blocks in (1, 4, 8):
+        p = logmatvec._halfstep_plan(2048, 128, 1, True, 2, SMS, blocks)
+        assert (p.nv, p.lanes, p.group_rows, p.rows) == (1, 16, 1, 2)
+        assert p.grid == 128 <= SMS * blocks
+        # lane (g, l): vector l of row g of a load; all 32 lanes busy
+        held = {(lane // p.lanes, (lane % p.lanes) + p.lanes * k)
+                for lane in range(32) for k in range(p.nv)}
+        assert held == {(g, v) for g in range(2) for v in range(16)}
+    # at the solve size the groups take more rows a batch (loads in flight)
+    p = logmatvec._halfstep_plan(16384, 128, 1, True, 2, SMS, 4)
+    assert (p.lanes, p.group_rows, p.rows) == (16, 4, 8)
+    p = logmatvec._halfstep_plan(16384, 1024, 1, True, 4, SMS, 3)
+    assert (p.nv, p.lanes, p.rows, p.smem) == (0, 32, 1, 4096)  # t in smem
+    p = logmatvec._halfstep_plan(16384, 256, 1, True, 4, SMS, 3)
+    assert (p.nv, p.lanes, p.group_rows) == (2, 32, 4)          # 8 loads
+
+
+def test_halfstep_no_longer_takes_the_fixed_grid():
+    import inspect
+    src = inspect.getsource(logmatvec.log_halfstep)
+    assert "_HALFSTEP_ROWS" not in src and "4 * sm_count" not in src
+    assert "_halfstep_plan" in src
+    # log_matvec keeps its fixed grid
+    assert "_HALFSTEP_ROWS" in inspect.getsource(logmatvec.log_matvec)
+
+
+# ---------------------------------------------------------------------------
+# The scaling megakernel: the log kernel's thread block cluster
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 13, 100, 128, 129, 1024, 1100, 1400])
+def test_scaling_block_plan_covers_rows_once_within_a_cluster_at_every_admitted_shape(
+        dtype, r):
+    admitted = 0
+    for n in _BLOCK_NS:
+        for m in _BLOCK_NS:
+            if not block_plan_fits(n, m, r, 1, dtype):
+                continue
+            admitted += 1
+            p = _block_plan(n, m, r, dtype, "scaling")
+            _check_block_plan(p, n, m)
+            # the log kernel's geometry; only the layout differs
+            assert p._replace(smem=0) == _block_plan(n, m, r, dtype)._replace(
+                smem=0)
+            assert p.smem == fused_loop.smem_bytes(n, m, r, dtype,
+                                                   mode="scaling")
+    assert admitted > 0
+
+
+def test_scaling_block_plan_at_the_ot_gan_shape_is_a_cluster_of_eight():
+    p = fused_loop._scaling_block_plan(256, 256, 128, torch.bfloat16)
+    assert (p.cluster, p.threads, p.groups, p.lanes) == (8, 256, 4, 8)
+    assert p.rows_x == p.rows_z == 32 and p.ldw == 72
+    # 2 x 32 staged rows of 72 words, 5 slices, t and two partial slots
+    assert p.smem == 2 * 32 * 72 * 4 + 5 * 128 + 3 * 512 + 16 < 24 * 1024
+    with pytest.raises(ValueError):
+        fused_loop.smem_bytes(256, 256, 128, torch.bfloat16, mode="dense")
+
+
+@pytest.mark.parametrize("n,m,r,dtype", [
+    (3, 200, 24, torch.float32),       # n < C: five ranks hold no xi row
+    (200, 3, 13, torch.bfloat16),      # m < C, odd r: a padding column
+    (1, 688, 128, torch.bfloat16),     # one xi row
+    (256, 200, 128, torch.bfloat16),   # n != m
+    (37, 53, 13, torch.float32),
+    (20, 24, 1100, torch.bfloat16),    # r wider than the 512 threads
+])
+def test_scaling_block_plan_holds_ranks_without_rows_and_unequal_factors(
+        n, m, r, dtype):
+    assert block_plan_fits(n, m, r, 1, dtype)
+    p = fused_loop._scaling_block_plan(n, m, r, dtype)
+    _check_block_plan(p, n, m)
+    for rows in (n, m):
+        empty = [q for q in range(p.cluster)
+                 if p.slice(q, rows)[0] == p.slice(q, rows)[1]]
+        assert len(empty) == max(0, p.cluster - rows)
+    assert p.cluster > 1
+
+
+def test_scaling_block_plan_refuses_at_the_admission_edge():
+    for dtype, edge in ((torch.bfloat16, 352), (torch.float32, 176)):
+        p = fused_loop._scaling_block_plan(edge, edge, 128, dtype)
+        _check_block_plan(p, edge, edge)
+        assert p.cluster == 8
+        with pytest.raises(ValueError):
+            fused_loop._scaling_block_plan(edge + 1, edge + 1, 128, dtype)
+    with pytest.raises(ValueError):
+        fused_loop._scaling_block_plan(5, 0, 128, torch.float32)
