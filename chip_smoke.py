@@ -138,11 +138,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the paged kernels launched and the flat trio not; plus a split and a
    profile of one more update.
 
+Phases 2 and 4-7 also drive the solve loop as the port runs it on the
+card: every fused-plan solve replays its cell's captured CUDA graph
+(``repro_torch.core.runners``). Phase 2 captures each kernel wrapper in a
+graph (the contracts' cooperative launches, the megakernels' cluster
+launches) and holds two replays bit-identical to the eager launch. Phases
+4-7 print each solve's captures, replays and host reads, require the
+captures to equal the distinct cells and not to grow after warmup (phase
+5: the trainer's ``--strict`` zero post-warmup captures; phase 7:
+``StreamingSolver.traces`` flat), and hold each solve against the same
+solve through the eager host loop (one block and one host read at a time)
+on the same kernels: ``n_iter`` equal and the potentials bit-identical.
+Each prints the wall per iteration, solve, step or update and the busy
+share through both loops; phase 4 also times K, the blocks a replay runs,
+at 2, 4, 8 and 16.
+
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``. TF32 is off throughout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -372,6 +388,7 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
     check_scaling_block(torch, device, scaling_block_shapes, record)
     check_paged(torch, np, device, record)
     check_log_matvec(torch, device, record)
+    check_capture(torch, np, device, record)
     return errs, failures
 
 
@@ -932,6 +949,68 @@ def check_log_matvec(torch, device, record):
                    f"-inf={neg_inf}", err, ok)
 
 
+def check_capture(torch, np, device, record):
+    """Every kernel wrapper captured into a CUDA graph (as the solve
+    runners capture them; the contracts are cooperative launches, the
+    megakernels cluster launches) and replayed twice: each replay's output
+    bit-identical to the eager launch on the same inputs."""
+    from repro_torch import kernels as K
+
+    g = torch.Generator(device=device).manual_seed(19)
+
+    def rnd(*shape, dtype=torch.float32):
+        return (torch.rand(shape, generator=g, device=device) + 0.05
+                ).to(dtype).contiguous()
+
+    xi, u, t = rnd(N, R_ANCHORS), rnd(N, 1), rnd(R_ANCHORS, 1)
+    lxi = torch.log(xi)
+    live = torch.full((N // STREAM_PAGE,), STREAM_PAGE, dtype=torch.int32,
+                      device=device)
+    live[1::2] = 0
+    lx, lz = (torch.log(rnd(GAN_BATCH, 128)).to(torch.bfloat16)
+              for _ in range(2))
+    sx, sz = (rnd(GAN_BATCH, 128, dtype=torch.bfloat16) for _ in range(2))
+    w = torch.full((GAN_BATCH, 1), 1.0 / GAN_BATCH, device=device)
+    lw = torch.log(w)
+    f0 = torch.zeros((GAN_BATCH, 1), device=device)
+    t0 = K.log_feature_contract(lx, f0)
+    x, anchors = rnd(N, D), rnd(R_ANCHORS, D)
+    const = rnd(R_ANCHORS)
+    kw = dict(page_size=STREAM_PAGE)
+    cases = {
+        "gaussian_feature_map": lambda: K.gaussian_feature_map(
+            x, anchors, const, inv_eps=1 / EPS, log_space=True),
+        "feature_contract": lambda: K.feature_contract(xi, u),
+        "sinkhorn_halfstep": lambda: K.sinkhorn_halfstep(xi, t, u),
+        "feature_matvec": lambda: K.feature_matvec(xi, t),
+        "sinkhorn_block": lambda: K.sinkhorn_block(
+            sx, sz, w, w, w, w, w, inner_steps=8)[0],
+        "log_feature_contract": lambda: K.log_feature_contract(lxi, u),
+        "log_halfstep": lambda: K.log_halfstep(lxi, t, u, scale=EPS),
+        "log_sinkhorn_block": lambda: K.log_sinkhorn_block(
+            lx, lz, lw, lw, w, f0, f0, t0, inner_steps=8, eps=0.5)[0],
+        "log_matvec": lambda: K.log_matvec(lxi, t[:, 0].contiguous()),
+        "paged_feature_contract": lambda: K.paged_feature_contract(
+            xi, u, live, **kw),
+        "paged_halfstep": lambda: K.paged_halfstep(xi, t, u, live, **kw),
+        "paged_feature_matvec": lambda: K.paged_feature_matvec(
+            xi, t, live, **kw),
+    }
+    for name, fn in cases.items():
+        want = fn().clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn()
+        same = []
+        for _ in range(2):
+            got.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(torch.equal(got, want))
+        record(name, "captured in a CUDA graph, 2 replays bit-identical",
+               0.0, all(same))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: times
 # ---------------------------------------------------------------------------
@@ -1014,7 +1093,6 @@ def forced(module, key, value):
     """A context setting ``module._FORCE[key]`` (a launch option the
     planner otherwise picks) for its body; a no-op where the module has no
     such option (a checkout from before the option)."""
-    import contextlib
 
     @contextlib.contextmanager
     def ctx():
@@ -1332,8 +1410,6 @@ def log_contract_path(logmatvec, vec):
     """A context forcing the log contract's 16-byte path on (``vec``,
     where the rows allow it) or off: through ``_contract_vectorized`` in a
     checkout whose wrapper has that rule, else through ``_vectorized``."""
-    import contextlib
-
     name = ("_contract_vectorized" if hasattr(logmatvec,
                                               "_contract_vectorized")
             else "_vectorized")
@@ -1748,53 +1824,128 @@ def clouds(np, seed: int):
     return x.astype(np.float32), y.astype(np.float32)
 
 
-def build_problem(torch, np, seed, device):
+def build_problem(torch, np, seed, device, eps=EPS):
     """A user's request: numpy clouds and anchors, the default device."""
     from repro_torch.core import OTProblem
     x, y = clouds(np, seed)
     R = float(np.max(np.linalg.norm(np.concatenate([x, y]), axis=1)))
-    u, _ = anchors_for(torch, np, R_ANCHORS, D, EPS, R, seed, "cpu")
-    prob = OTProblem.from_point_clouds(x, y, u.numpy(), eps=EPS, R=R)
+    u, _ = anchors_for(torch, np, R_ANCHORS, D, eps, R, seed, "cpu")
+    prob = OTProblem.from_point_clouds(x, y, u.numpy(), eps=eps, R=R)
     if prob.a.device != device:
         raise RuntimeError(f"the default device put the request on "
                            f"{prob.a.device}, not {device}")
     return prob
 
 
+def runners_module():
+    """``repro_torch.core.runners``, or None in a checkout from before the
+    captured loops (``--src``)."""
+    try:
+        from repro_torch.core import runners
+    except ImportError:
+        return None
+    return runners
+
+
+def loop_stats(cache=None):
+    """Captures, replays, hits and host reads of a runner cache (default
+    the solves' ``RUNNERS``); zeros where the checkout has none."""
+    mod = runners_module()
+    if cache is None:
+        cache = None if mod is None else mod.RUNNERS
+    if cache is None:
+        return {"runners": 0, "captures": 0, "replays": 0, "hits": 0,
+                "reads": 0}
+    return cache.stats()
+
+
+def loop_delta(before, after):
+    return {k: after[k] - before[k] for k in ("captures", "replays",
+                                               "reads")}
+
+
+def clear_runners():
+    """Drop the solves' runners, so a phase counts its own captures."""
+    mod = runners_module()
+    if mod is not None:
+        mod.RUNNERS.clear()
+
+
+def eager_loop():
+    """A context running every fused-plan solve through the eager host
+    loop (one check block, one host read at a time), the graph path's
+    yardstick on the same kernels; a checkout from before the captured
+    loops runs that loop anyway. Raises where the checkout has runners but
+    no such option: the graph path would be held against itself."""
+    from repro_torch.core import sinkhorn
+    if runners_module() is not None and \
+            "graphs" not in getattr(sinkhorn, "_FORCE", {}):
+        raise RuntimeError("core.sinkhorn has runners but no "
+                           "_FORCE['graphs']: no eager loop to compare with")
+    return forced(sinkhorn, "graphs", False)
+
+
 def run_main_path(torch, np, device):
-    """The counted run: three solve() requests and one divergence."""
+    """The counted run: three solve() requests and one divergence. Every
+    solve's loop replays its cell's captured graph: the first request
+    captures one runner a stage eps, the rest (the divergence's three
+    terms share the last stage's cell) must capture nothing."""
     from repro_torch.core import EpsSchedule, sinkhorn_divergence_geometry, solve
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     schedule = EpsSchedule(eps_init=1.0, decay=0.5)
     problems = [build_problem(torch, np, s, device) for s in SEEDS]
+    clear_runners()
+    phase0 = loop_stats()
     torch.cuda.synchronize()
-    results = []
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    results, failures, later_captures = [], [], 0
     reset_launch_counts()
     for seed, prob in zip(SEEDS, problems):
-        before = launch_counts()
+        before, loop0 = launch_counts(), loop_stats()
         t0 = time.perf_counter()
         res = solve(prob, schedule=schedule, tol=TOL)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        after = launch_counts()
+        after, loop = launch_counts(), loop_delta(loop0, loop_stats())
         delta = {k: after[k] - before[k] for k in after}
         results.append(res)
+        if seed != SEEDS[0]:
+            later_captures += loop["captures"]
         log(f"  solve seed={seed}: cost={float(res.cost):.7f} "
             f"n_iter={res.n_iter} marginal_err={float(res.marginal_err):.3e} "
             f"wall={wall:.4f} s ({wall / res.n_iter * 1e3:.4f} ms/iteration)"
-            f"  launches={delta}")
-    before = launch_counts()
+            f"  loop {loop}  launches={delta}")
+    before, loop0 = launch_counts(), loop_stats()
     t0 = time.perf_counter()
     div = sinkhorn_divergence_geometry(problems[0].geometry, tol=TOL)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    after = launch_counts()
+    after, loop = launch_counts(), loop_delta(loop0, loop_stats())
+    later_captures += loop["captures"]
     delta = {k: after[k] - before[k] for k in after}
     log(f"  divergence seed=0: value={float(div):.7f} wall={wall:.3f} s  "
-        f"launches={delta}")
+        f"loop {loop}  launches={delta}")
     counts = launch_counts()
-    return problems, results, div, counts
+    stats = loop_stats()
+    cells = stats["runners"]
+    mib = 1 << 20
+    log(f"  device memory past the problems: peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / mib:.1f} MiB, held "
+        f"after {(torch.cuda.memory_allocated() - base) / mib:.1f} MiB "
+        f"(runner buffers {stats.get('bytes', 0) / mib:.1f} MiB)")
+    stats = loop_delta(phase0, stats)
+    ok = (runners_module() is None or
+          (later_captures == 0 and stats["captures"] == cells
+           == len(EpsSchedule(eps_init=1.0, decay=0.5).stages(EPS))))
+    log(f"  solve loops: {stats['captures']} captures for {cells} cells (one "
+        f"a stage eps), {later_captures} after the first request; "
+        f"{stats['replays']} replays, {stats['reads']} host reads "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("captures after warmup")
+    return problems, results, div, counts, failures
 
 
 def kernel_rows(torch, prof):
@@ -1806,10 +1957,126 @@ def kernel_rows(torch, prof):
 
 
 def profile_solve(torch, problem, schedule):
-    """Device busy share of one annealed solve request."""
+    """Device busy share of one annealed solve request, through the graph
+    loop and through the eager host loop."""
     from repro_torch.core import solve
-    profile_call(torch, "solve seed=0",
+    profile_call(torch, "solve seed=0 (graph loop)",
                  lambda: solve(problem, schedule=schedule, tol=TOL))
+    with eager_loop():
+        profile_call(torch, "solve seed=0 (eager host loop)",
+                     lambda: solve(problem, schedule=schedule, tol=TOL))
+
+
+def time_static_copies(torch, device):
+    """Device time of what a runner adds to each solve of the main path's
+    cell before its replays: the copy of the plan's two (n, r) float32
+    factors into the runner's static buffers, beside the copy's bound
+    (each byte read once and written once at 3.35 TB/s)."""
+    if SLEEP_MS[0] == 0.0:
+        calibrate_sleep(torch)
+    src = [torch.rand((N, R_ANCHORS), device=device) for _ in range(2)]
+    dst = [torch.empty_like(t) for t in src]
+
+    def copy():
+        for d, t in zip(dst, src):
+            d.copy_(t)
+
+    ms = time_ms(torch, copy)
+    nbytes = 2 * 2 * N * R_ANCHORS * 4
+    log(f"  static copies of a solve stage (two {N} x {R_ANCHORS} float32 "
+        f"factors): {ms:.4f} ms, bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f}"
+        " ms")
+
+
+def time_replay_blocks(torch, problem, schedule, solves=3):
+    """Wall of one annealed request (median of ``solves``) with K, the
+    check blocks a replay runs, set to 2, 4, 8 and 16 in place of
+    ``sinkhorn._replay_blocks``'s: host reads against the iterations run
+    past each stage's stop (the log half-step's launches over 3, less
+    n_iter). Each K is a cell of its own, captured by a first solve that
+    is not timed."""
+    from repro_torch.core import sinkhorn, solve
+    from repro_torch.kernels import launch_counts
+
+    if runners_module() is None:
+        return
+    real = sinkhorn._replay_blocks
+    for blocks in (2, 4, 8, 16):
+        sinkhorn._replay_blocks = \
+            lambda cadence, max_iter, dev, k=blocks: min(
+                k, -(-max_iter // cadence))
+        try:
+            solve(problem, schedule=schedule, tol=TOL)
+            walls = []
+            for _ in range(solves):
+                before, loop0 = launch_counts(), loop_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve(problem, schedule=schedule, tol=TOL)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                loop = loop_delta(loop0, loop_stats())
+                run = (launch_counts()["log_halfstep"]
+                       - before["log_halfstep"]) // 3
+        finally:
+            sinkhorn._replay_blocks = real
+        wall = statistics.median(walls)
+        log(f"  K={blocks:2d} blocks a replay: {wall * 1e3:.3f} ms a solve "
+            f"({wall / res.n_iter * 1e3:.4f} ms/iteration), n_iter "
+            f"{res.n_iter}, iterations run {run} ({run - res.n_iter} past "
+            f"the stops), {loop['reads']} host reads, {loop['replays']} "
+            "replays")
+
+
+def time_cache_pressure(torch, np, device, problem, repeats=3, one_off=4):
+    """Requests that test the solves' runner cache, on this checkout's
+    loop (the parent's through ``--src``): a 9-stage annealed request
+    (``EpsSchedule(1.0, 0.75)`` down to eps 0.1, 9 cells), ``repeats``
+    times from an empty cache; then ``one_off`` one-stage requests, each
+    at an eps no request used before (cells never repeated; the problem's
+    set-up not timed); the device memory each part adds at its peak and
+    holds after, and what the runners' buffers hold."""
+    from repro_torch.core import EpsSchedule, solve
+
+    nine = EpsSchedule(eps_init=1.0, decay=0.75)
+    mod = runners_module()
+    clear_runners()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(repeats):
+        loop0 = loop_stats()
+        t0 = time.perf_counter()
+        res = solve(problem, schedule=nine, tol=TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"  9-stage request {k}: {wall * 1e3:.3f} ms, n_iter "
+            f"{res.n_iter} ({wall / res.n_iter * 1e3:.4f} ms/iteration), "
+            f"loop {loop_delta(loop0, loop_stats())}")
+    mib = 1 << 20
+    held = 0 if mod is None else mod.RUNNERS.nbytes
+    log(f"  9-stage requests, device memory past the start: peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / mib:.1f} MiB, held "
+        f"after {(torch.cuda.memory_allocated() - base) / mib:.1f} MiB "
+        f"(runner buffers {held / mib:.1f} MiB, "
+        f"{loop_stats()['runners']} runners)")
+    for k in range(one_off):
+        prob = build_problem(torch, np, 0, device, eps=EPS + 0.01 * (k + 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        loop0 = loop_stats()
+        t0 = time.perf_counter()
+        res = solve(prob, tol=TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"  one-off request eps={prob.eps:.2f}: {wall * 1e3:.3f} ms, "
+            f"n_iter {res.n_iter} ({wall / res.n_iter * 1e3:.4f} "
+            f"ms/iteration), peak +"
+            f"{(torch.cuda.max_memory_allocated() - start) / mib:.1f} MiB, "
+            f"loop {loop_delta(loop0, loop_stats())}")
+        del prob, res
+    clear_runners()
 
 
 def profile_call(torch, label, fn):
@@ -1849,7 +2116,32 @@ def compare_main_path(torch, problems, results, div, schedule_cls):
     failures = []
     schedule = schedule_cls(eps_init=1.0, decay=0.5)
     for seed, prob, res in zip(SEEDS, problems, results):
+        loop0 = loop_stats()
+        t0 = time.perf_counter()
         k = solve_annealed(prob, schedule=schedule, tol=TOL)
+        torch.cuda.synchronize()
+        wall_k = time.perf_counter() - t0
+        loop = loop_delta(loop0, loop_stats())
+        with eager_loop():
+            t0 = time.perf_counter()
+            e = solve_annealed(prob, schedule=schedule, tol=TOL)
+            torch.cuda.synchronize()
+            wall_e = time.perf_counter() - t0
+        # the same kernels in the same order on the same inputs: the graph
+        # replays give the eager loop's iterations and its potentials bit
+        # for bit
+        same_e = (k.stage_iters == e.stage_iters
+                  and torch.equal(k.result.f, e.result.f)
+                  and torch.equal(k.result.g, e.result.g))
+        it = k.result.n_iter
+        log(f"  seed={seed}: graph loop {wall_k * 1e3:.3f} ms "
+            f"({wall_k / it * 1e3:.4f} ms/iteration, loop {loop}), eager "
+            f"host loop {wall_e * 1e3:.3f} ms ({wall_e / it * 1e3:.4f} "
+            f"ms/iteration); stage_iters {k.stage_iters} / "
+            f"{e.stage_iters}, potentials bit-identical {same_e} "
+            f"{'ok' if same_e and loop['captures'] == 0 else 'FAIL'}")
+        if not same_e or loop["captures"] != 0:
+            failures.append(f"graph loop against the eager loop seed={seed}")
         p = solve_annealed(prob, schedule=schedule, tol=TOL,
                            use_pallas=False)
         rel = abs(float(k.result.cost) - float(p.result.cost)) / \
@@ -1936,7 +2228,7 @@ def step_summary(out):
 def profile_train_steps(torch, device):
     """Busy share of one adversary step and one generator step at the
     default configuration under torch.profiler, with the kernel device time
-    by name."""
+    by name: through the graph loop, then through the eager host loop."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import ExecutionPolicy, OTObjective
@@ -1952,16 +2244,20 @@ def profile_train_steps(torch, device):
                             device=device)) for _ in range(3)]
     ot_gan.train_step(model, batches[0][1], batches[0][0], obj, adv=True)
     torch.cuda.synchronize()
-    for (data, z), adv in zip(batches[1:], (True, False)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for ((data, z), adv), graphs in zip(
+            [(b, a) for b, a in zip(batches[1:], (True, False))] * 2,
+            (True, True, False, False)):
+        with (contextlib.nullcontext() if graphs else eager_loop()), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             d, _ = ot_gan.train_step(model, z, data, obj, adv=adv)
             float(d)
             wall = time.perf_counter() - t0
         rows = kernel_rows(torch, prof)
         dev_us = sum(e.self_device_time_total for e in rows)
-        kind = "adversary" if adv else "generator"
+        kind = ("adversary" if adv else "generator") + \
+            (" (graph loop)" if graphs else " (eager host loop)")
         if dev_us <= 0:
             log(f"  profiled {kind} step: wall {wall * 1e3:.3f} ms; busy share"
                 " not measured (the profiler saw no device time)")
@@ -1977,11 +2273,13 @@ def profile_train_steps(torch, device):
                 f"{e.self_device_time_total / 1e3:9.3f} ms")
 
 
-def compare_step_plans(torch, device, steps=8):
+def compare_step_plans(torch, device, steps=24):
     """ms per trainer step at the default configuration with the auto
-    cadence (the megakernel, 8 iterations a launch) against the streaming
-    per-iteration plan (inner_steps=1) on the same data, in the order
-    auto, streaming, streaming, auto, each from fresh weights."""
+    cadence (the megakernel, 8 iterations a launch) through the graph loop
+    and through the eager host loop, and the streaming per-iteration plan
+    (inner_steps=1) through the graph loop, on the same data, in the order
+    graph, eager, streaming, streaming, eager, graph, each from fresh
+    weights."""
     from repro_torch.core import ExecutionPolicy, OTObjective
     from repro_torch.examples import ot_gan
 
@@ -1990,22 +2288,29 @@ def compare_step_plans(torch, device, steps=8):
                 torch.randn((GAN_BATCH, ot_gan.LATENT_Z), generator=gen,
                             device=device)) for _ in range(steps)]
     out = {}
-    for label in ("megakernel", "streaming", "streaming", "megakernel"):
+    for label in ("megakernel", "megakernel eager", "streaming", "streaming",
+                  "megakernel eager", "megakernel"):
         policy = ExecutionPolicy.training(
-            inner_steps=None if label == "megakernel" else 1)
+            inner_steps=1 if label == "streaming" else None)
         obj = OTObjective(eps=ot_gan.EPS, tol=0.0, max_iter=40, policy=policy)
         model = ot_gan.OTGAN.init(2, 128, torch.Generator().manual_seed(0),
                                   device)
-        ot_gan.train_step(model, batches[0][1], batches[0][0], obj, adv=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for k, (data, z) in enumerate(batches):
-            d, _ = ot_gan.train_step(model, z, data, obj, adv=k % 4 != 3)
-        float(d)
-        ms = (time.perf_counter() - t0) * 1e3 / steps
+        loop = eager_loop() if "eager" in label else contextlib.nullcontext()
+        with loop:
+            ot_gan.train_step(model, batches[0][1], batches[0][0], obj,
+                              adv=True)
+            torch.cuda.synchronize()
+            times = []
+            for k, (data, z) in enumerate(batches):
+                t0 = time.perf_counter()
+                d, _ = ot_gan.train_step(model, z, data, obj, adv=k % 4 != 3)
+                float(d)                # as the trainer reads each step's
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(times)
         out.setdefault(label, []).append(ms)
-        log(f"  {label:10s} plan: {ms:.3f} ms per trainer step (mean of "
-            f"{steps}, 3 adversary : 1 generator)")
+        log(f"  {label:16s} plan: {ms:.3f} ms per trainer step (median of "
+            f"{steps}, 3 adversary : 1 generator; mean "
+            f"{statistics.mean(times):.3f})")
     return out
 
 
@@ -2056,21 +2361,47 @@ def run_training_path(torch, np, device):
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     failures = []
+    clear_runners()
     reset_launch_counts()
+    loop0 = loop_stats()
     t0 = time.perf_counter()
     out_k = run_trainer(torch, device=device)
     wall = time.perf_counter() - t0
+    loop = loop_delta(loop0, loop_stats())
     counts_train = launch_counts()
     adv_ms, gen_ms = step_summary(out_k)
     per_step = 3 * math.ceil(40 / 8)
+    warm = out_k.get("warmup_launches", 0)
     log(f"  trainer --strict: {GAN_STEPS} steps in {wall:.3f} s; median "
         f"{adv_ms:.3f} ms per adversary step, {gen_ms:.3f} ms per generator "
         f"step; Wbar {out_k['divergences'][0]:.5f} -> "
         f"{out_k['divergences'][-1]:.5f}; launches {counts_train} "
-        f"({counts_train['log_sinkhorn_block'] / GAN_STEPS:.1f} megakernel "
-        f"launches a step, expected {per_step})")
-    if counts_train["log_sinkhorn_block"] != per_step * GAN_STEPS:
+        f"({sum(out_k['block_launches']) / GAN_STEPS:.1f} megakernel "
+        f"launches a step, expected {per_step}; {warm} in the warm-up)")
+    if counts_train["log_sinkhorn_block"] != per_step * GAN_STEPS + warm:
         failures.append("trainer megakernel launches")
+    # the warm-up's 3 solves: one capture and one read each
+    log(f"  trainer solve loops: {loop['captures']} captures (the warm-up), "
+        f"{out_k.get('captures', 0)} after it; {loop['replays']} replays and "
+        f"{loop['reads']} host reads, {(loop['reads'] - 3) / GAN_STEPS:.2f} a "
+        f"step after the warm-up (the eager host loop: "
+        f"{3 * math.ceil(40 / 8)} a step)")
+    if runners_module() is not None and (out_k["captures"] != 0
+                                         or loop["captures"] != 1):
+        failures.append("trainer captures after warmup")
+    first, z, data = trainer_step0(torch, device)
+    obj = OTObjective(eps=ot_gan.EPS, tol=0.0, max_iter=40,
+                      policy=ExecutionPolicy.training())
+    with torch.no_grad():
+        d_graph, _ = ot_gan.gan_losses(first, z, data, obj)
+        with eager_loop():
+            d_eager, _ = ot_gan.gan_losses(first, z, data, obj)
+    same = float(d_graph) == float(d_eager)
+    log(f"  trainer step-0 Wbar through the graph loop {float(d_graph):.9f}, "
+        f"the eager host loop {float(d_eager):.9f}: bit-identical {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("trainer graph loop against the eager loop")
 
     once = gan_gradient(torch, device, batch=GAN_BIG_BATCH, r=128, eps=2.0,
                         iters=30, use_pallas=None)
@@ -2198,13 +2529,15 @@ def run_scaling_path(torch, np, device):
     from repro_torch.kernels.ops import observe_plan_selection
 
     feats, clouds_, gan, leaves = scaling_inputs(torch, np, device)
+    clear_runners()
+    phase0 = loop_stats()
     torch.cuda.synchronize()
     out = {"feats": {}, "clouds": []}
     failures = []
     reset_launch_counts()
     for r, prob in feats.items():
         for precision in ("highest", "bf16"):
-            before = launch_counts()
+            before, loop0 = launch_counts(), loop_stats()
             with observe_plan_selection() as events:
                 t0 = time.perf_counter()
                 res = solve(prob, tol=0.0, max_iter=SCALING_ITERS,
@@ -2218,9 +2551,10 @@ def run_scaling_path(torch, np, device):
             log(f"  features n=m={N} r={r} {precision}: cost="
                 f"{float(res.cost):.7f} n_iter={res.n_iter} wall={wall:.4f} s"
                 f" ({wall / res.n_iter * 1e3:.4f} ms/iteration) plan={modes}"
+                f" loop {loop_delta(loop0, loop_stats())}"
                 f" launches={counts_delta(before, launch_counts())}")
     for seed, prob in zip(SEEDS, clouds_):
-        before = launch_counts()
+        before, loop0 = launch_counts(), loop_stats()
         t0 = time.perf_counter()
         res = solve(prob, method="factored", tol=TOL)
         torch.cuda.synchronize()
@@ -2230,32 +2564,47 @@ def run_scaling_path(torch, np, device):
                         prob.geometry.features())
         log(f"  clouds seed={seed} eps=1.0 method=factored: cost="
             f"{float(res.cost):.7f} n_iter={res.n_iter} marginal_err="
-            f"{float(res.marginal_err):.3e} wall={wall:.4f} s; feature rows "
-            f"that underflow to 0: {dead_rows}; launches="
+            f"{float(res.marginal_err):.3e} wall={wall:.4f} s "
+            f"({wall / res.n_iter * 1e3:.4f} ms/iteration); feature rows "
+            f"that underflow to 0: {dead_rows}; loop "
+            f"{loop_delta(loop0, loop_stats())} launches="
             f"{counts_delta(before, launch_counts())}")
-    before = launch_counts()
+    before, loop0 = launch_counts(), loop_stats()
     obj = scaling_objective()
     t0 = time.perf_counter()
     out["gan"] = obj.solve(gan, *obj.uniform_weights(gan))
     torch.cuda.synchronize()
     delta = counts_delta(before, launch_counts())
+    loop = loop_delta(loop0, loop_stats())
     log(f"  OTObjective.solve n=m={GAN_BATCH} r=128 bf16 40 iterations: cost="
         f"{float(out['gan'].cost):.7f} wall={time.perf_counter() - t0:.4f} s "
-        f"launches={delta}")
-    if delta["sinkhorn_block"] != 40 // 8:
+        f"loop {loop} launches={delta}")
+    # the first solve of the cell: its warm-up block, then 5 a replay
+    if delta["sinkhorn_block"] != 40 // 8 + min(loop["captures"], 1):
         failures.append("objective solve did not take the megakernel 5 times")
-    before = launch_counts()
+    before, loop0 = launch_counts(), loop_stats()
     t0 = time.perf_counter()
     out["div"] = scaling_divergence(torch, leaves)
     torch.cuda.synchronize()
     log(f"  scaling divergence n=m=4096 r=256: value "
         f"{float(out['div'][0]):.7f} wall={time.perf_counter() - t0:.4f} s "
-        f"(value and 4 gradients) "
+        f"(value and 4 gradients) loop {loop_delta(loop0, loop_stats())} "
         f"launches={counts_delta(before, launch_counts())}")
     counts = launch_counts()
     missing = [k for k in SCALING_PATH_KERNELS if counts[k] <= 0]
     if missing:
         failures.append(f"kernels never launched: {missing}")
+    stats = loop_stats()
+    cells = stats["runners"]
+    stats = loop_delta(phase0, stats)
+    # four feature cells, the clouds', the objective's, the divergence's
+    # (its three terms share one)
+    ok = runners_module() is None or stats["captures"] == cells == 7
+    log(f"  solve loops: {stats['captures']} captures for {cells} cells, "
+        f"{stats['replays']} replays, {stats['reads']} host reads "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("captures against cells")
     return (feats, clouds_, gan, leaves), out, counts, failures
 
 
@@ -2275,6 +2624,27 @@ def compare_scaling_path(torch, inputs, out):
             failures.append(label.split(":")[0])
 
     for (r, precision), res in out["feats"].items():
+        loop0 = loop_stats()
+        t0 = time.perf_counter()
+        g = solve(feats[r], tol=0.0, max_iter=SCALING_ITERS,
+                  precision=precision)
+        torch.cuda.synchronize()
+        wall_g = time.perf_counter() - t0
+        loop = loop_delta(loop0, loop_stats())
+        with eager_loop():
+            t0 = time.perf_counter()
+            e = solve(feats[r], tol=0.0, max_iter=SCALING_ITERS,
+                      precision=precision)
+            torch.cuda.synchronize()
+            wall_e = time.perf_counter() - t0
+        check(f"features r={r} {precision}: graph loop again "
+              f"{wall_g / g.n_iter * 1e3:.4f} ms/iteration (loop {loop}), "
+              f"eager host loop {wall_e / e.n_iter * 1e3:.4f} ms/iteration; "
+              f"n_iter {g.n_iter}/{e.n_iter}, u and v bit-identical to the "
+              "eager loop's and the counted run's",
+              loop["captures"] == 0 and g.n_iter == e.n_iter == res.n_iter
+              and all(torch.equal(x, y) for x, y in
+                      ((g.u, e.u), (g.v, e.v), (res.u, e.u), (res.v, e.v))))
         p = solve(feats[r], tol=0.0, max_iter=SCALING_ITERS,
                   precision=precision, use_pallas=False)
         rel = abs(float(res.cost) - float(p.cost)) / abs(float(p.cost))
@@ -2285,9 +2655,19 @@ def compare_scaling_path(torch, inputs, out):
               f"{res.n_iter}/{p.n_iter}",
               rel <= COST_RTOL and oku and okv and res.n_iter == p.n_iter)
     prob = feats[R_ANCHORS]
-    profile_call(torch, f"feature solve r={R_ANCHORS} f32",
+    profile_call(torch, f"feature solve r={R_ANCHORS} f32 (graph loop)",
                  lambda: solve(prob, tol=0.0, max_iter=SCALING_ITERS))
+    with eager_loop():
+        profile_call(torch, f"feature solve r={R_ANCHORS} f32 (eager host "
+                     "loop)",
+                     lambda: solve(prob, tol=0.0, max_iter=SCALING_ITERS))
     for seed, prob, res in zip(SEEDS, clouds_, out["clouds"]):
+        with eager_loop():
+            e = solve(prob, method="factored", tol=TOL)
+        check(f"clouds seed={seed}: eager host loop n_iter {e.n_iter}, u "
+              "and v bit-identical to the graph loop's",
+              e.n_iter == res.n_iter and torch.equal(e.u, res.u)
+              and torch.equal(e.v, res.v))
         p = solve(prob, method="factored", tol=TOL, use_pallas=False)
         lg = solve(prob, method="log_factored", tol=TOL)
         rel = abs(float(res.cost) - float(p.cost)) / abs(float(p.cost))
@@ -2298,6 +2678,13 @@ def compare_scaling_path(torch, inputs, out):
               f"{rel_log:.3e}",
               rel <= COST_RTOL and abs(res.n_iter - p.n_iter) <= 1
               and rel_log <= COST_RTOL)
+    obj = scaling_objective()
+    with eager_loop():
+        e = obj.solve(gan, *obj.uniform_weights(gan))
+    check(f"objective solve: eager host loop n_iter {e.n_iter}, u and v "
+          "bit-identical to the graph loop's",
+          e.n_iter == out["gan"].n_iter and torch.equal(e.u, out["gan"].u)
+          and torch.equal(e.v, out["gan"].v))
     obj = scaling_objective({"use_pallas": False})
     p = obj.solve(gan, *obj.uniform_weights(gan))
     rel = abs(float(out["gan"].cost) - float(p.cost)) / abs(float(p.cost))
@@ -2327,21 +2714,24 @@ def compare_scaling_path(torch, inputs, out):
 
 def compare_objective_plans(torch, gan, solves=10):
     """ms per OTObjective.solve at the OT-GAN batch with the auto cadence
-    (the scaling megakernel, 8 iterations a launch) against the streaming
-    plan (inner_steps=1), in the order megakernel, streaming, streaming,
-    megakernel."""
-    for label in ("megakernel", "streaming", "streaming", "megakernel"):
+    (the scaling megakernel, 8 iterations a launch) through the graph loop
+    and the eager host loop, against the streaming plan (inner_steps=1),
+    in the order graph, eager, streaming, streaming, eager, graph."""
+    for label in ("megakernel", "megakernel eager", "streaming",
+                  "streaming", "megakernel eager", "megakernel"):
         obj = scaling_objective(
-            {"inner_steps": None if label == "megakernel" else 1})
+            {"inner_steps": 1 if label == "streaming" else None})
         a, b = obj.uniform_weights(gan)
-        obj.solve(gan, a, b)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(solves):
-            res = obj.solve(gan, a, b)
-        float(res.cost)
-        ms = (time.perf_counter() - t0) * 1e3 / solves
-        log(f"  {label:10s} plan: {ms:.4f} ms per objective solve (mean of "
+        loop = eager_loop() if "eager" in label else contextlib.nullcontext()
+        with loop:
+            obj.solve(gan, a, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(solves):
+                res = obj.solve(gan, a, b)
+            float(res.cost)
+            ms = (time.perf_counter() - t0) * 1e3 / solves
+        log(f"  {label:16s} plan: {ms:.4f} ms per objective solve (mean of "
             f"{solves})")
 
 
@@ -2438,6 +2828,8 @@ def drive_stream(torch, np, device, method, precision, seed):
         pair = svc.register("stream", *sides)
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
+        traces_warm = getattr(solver, "traces", 0)
+        loop0 = loop_stats(getattr(solver, "_runners", None))
         state = stream_state(np, pair, (None, None))
         t0 = time.perf_counter()
         res = solver.cold_solve(pair)
@@ -2471,16 +2863,24 @@ def drive_stream(torch, np, device, method, precision, seed):
                           add_y=ay)
     solver.re_solve = real_re_solve
     delta = counts_delta(before, launch_counts())
+    loop = loop_delta(loop0, loop_stats(getattr(solver, "_runners", None)))
     stats = svc.stats()
     log(f"  {method} {precision}: warmup {warmup_s:.3f} s; {resolved} "
         f"mutations in {stats['solves']} flushes (coalesce ratio "
         f"{stats['coalesce_ratio']:.1f}); pages live "
         f"{pair.x.store.stats()['live_pages']}/{pair.x.store.n_pages}; "
         f"launches {delta}")
+    log(f"  {method} {precision} solve loops: traces {traces_warm} after the "
+        f"warmup, {getattr(solver, 'traces', 0)} after "
+        f"{len(records)} solves; {loop['replays']} replays and "
+        f"{loop['reads']} host reads over them "
+        f"({loop['reads'] / len(records):.1f} a solve)")
     return dict(method=method, precision=precision, solver=solver,
                 pair=pair, records=records, delta=delta,
                 events=[(e["mode"], e["kind"]) for e in events],
-                resolved=resolved, solves=stats["solves"])
+                resolved=resolved, solves=stats["solves"],
+                traces=(traces_warm, getattr(solver, "traces", 0)),
+                loop=loop)
 
 
 def compare_stream(torch, np, device, run):
@@ -2498,18 +2898,37 @@ def compare_stream(torch, np, device, run):
     failures = []
     solver, pair = run["solver"], run["pair"]
     warm_iters = cold_iters = 0
+    graph_ms, eager_ms, eager_ok = [], [], True
+    runners = ({"runners": solver._runners} if hasattr(solver, "_runners")
+               else {})
     for rec in run["records"]:
         st, res = rec["state"], rec["res"]
+        args = ([torch.as_tensor(st[s]["feats"], device=device)
+                 for s in "xy"]
+                + [st[s][k] for k in ("page_live", "weights", "f0")
+                   for s in "xy"])
+        kw = dict(page_size=STREAM_PAGE, eps=STREAM_EPS, method=method,
+                  tol=TOL, max_iter=solver.max_iter,
+                  momentum=solver.momentum, precision=precision)
+        # the solve alone from the same state, through the solver's runner
+        # and through the eager host loop, on the stores' storage dtype:
+        # the same kernels in the same order, so bit for bit the same
+        stored = [args[0].to(solver.storage_dtype),
+                  args[1].to(solver.storage_dtype)] + args[2:]
+        for loop, walls in ((contextlib.nullcontext(), graph_ms),
+                            (eager_loop(), eager_ms)):
+            with loop:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = run_paged(*stored, **kw, **runners,
+                                  use_pallas=solver.use_pallas)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            eager_ok = eager_ok and again.n_iter == res.n_iter and \
+                torch.equal(again.f, res.f) and torch.equal(again.g, res.g)
         # the plain operators on the same host state; a bf16 run's float32
         # rows round to the bf16 values its stores hold
-        p = run_paged(*(torch.as_tensor(st[s]["feats"], device=device)
-                        for s in "xy"),
-                      st["x"]["page_live"], st["y"]["page_live"],
-                      st["x"]["weights"], st["y"]["weights"],
-                      st["x"]["f0"], st["y"]["f0"], page_size=STREAM_PAGE,
-                      eps=STREAM_EPS, method=method, tol=TOL,
-                      max_iter=solver.max_iter, momentum=solver.momentum,
-                      use_pallas=False, precision=precision)
+        p = run_paged(*args, **kw, use_pallas=False)
         rel = abs(float(res.cost) - float(p.cost)) / abs(float(p.cost))
         pot_ok, pot_err = True, 0.0
         for side, got, want in (("x", res.f, p.f), ("y", res.g, p.g)):
@@ -2542,6 +2961,15 @@ def compare_stream(torch, np, device, run):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{method} {precision} {rec['label']}")
+    traces = run["traces"] + (getattr(solver, "traces", 0),)
+    ok = eager_ok and (not hasattr(solver, "traces") or traces == (1, 1, 1))
+    log(f"  {method} {precision} re-solves alone from the same states: graph "
+        f"loop {' '.join(f'{t:.3f}' for t in graph_ms)} ms, eager host loop "
+        f"{' '.join(f'{t:.3f}' for t in eager_ms)} ms; n_iter and "
+        f"potentials bit-identical {eager_ok}; traces after warmup, traffic "
+        f"and these re-solves {traces} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{method} {precision} graph loop")
     d = run["delta"]
     paged = ("paged_feature_contract", "paged_halfstep",
              "paged_feature_matvec")
@@ -2588,11 +3016,15 @@ def compare_stream(torch, np, device, run):
         f"(host bookkeeping) {(t1 - t0) * 1e3:.3f} ms, flush of {dirty} "
         f"dirty pages {(t2 - t1) * 1e3:.3f} ms, re-solve ({res.n_iter} "
         f"iterations) {(t3 - t2) * 1e3:.3f} ms")
-    gx, ax = stream_mutation(np, rng, live_ids["x"], "x", "profiled")
-    gy, ay = stream_mutation(np, rng, live_ids["y"], "y", "profiled")
-    profile_call(torch, f"streaming update {method} {precision}",
-                 lambda: solver.update(pair, remove_x=gx, add_x=ax,
-                                       remove_y=gy, add_y=ay))
+    for label, loop in (("graph loop", contextlib.nullcontext()),
+                        ("eager host loop", eager_loop())):
+        gx, ax = stream_mutation(np, rng, live_ids["x"], "x", label)
+        gy, ay = stream_mutation(np, rng, live_ids["y"], "y", label)
+        with loop:
+            profile_call(torch, f"streaming update {method} {precision} "
+                         f"({label})",
+                         lambda: solver.update(pair, remove_x=gx, add_x=ax,
+                                               remove_y=gy, add_y=ay))
     return failures
 
 
@@ -2793,8 +3225,12 @@ def main(argv=None) -> int:
     if 4 in phases:
         log(f"== phase 4: main path (n=m={N}, d={D}, r={R_ANCHORS}, "
             f"eps={EPS}, tol={TOL}, EpsSchedule(eps_init=1.0, decay=0.5))")
-        problems, results, div, c4 = run_main_path(torch, np, device)
+        problems, results, div, c4, failures = run_main_path(torch, np,
+                                                             device)
         log(f"  launches on the main path: {c4}")
+        if failures:
+            log(f"phase 4 FAILED: {failures}")
+            return 1
         counts["solve"] = c4
         missing = [k for k in SOLVE_PATH_KERNELS if c4[k] <= 0]
         if missing:
@@ -2802,11 +3238,15 @@ def main(argv=None) -> int:
             return 1
         profile_solve(torch, problems[0],
                       EpsSchedule(eps_init=1.0, decay=0.5))
+        time_replay_blocks(torch, problems[0],
+                           EpsSchedule(eps_init=1.0, decay=0.5))
+        time_static_copies(torch, device)
         failures = compare_main_path(torch, problems, results, div,
                                      EpsSchedule)
         if failures:
             log(f"phase 4 FAILED: {failures}")
             return 1
+        time_cache_pressure(torch, np, device, problems[0])
 
     if 5 in phases:
         log(f"== phase 5: training path (OT-GAN trainer, batch {GAN_BATCH}, "

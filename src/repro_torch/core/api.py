@@ -253,7 +253,10 @@ def solve_annealed(problem: OTProblem, *, method: str = "auto",
                    precision: str = "highest") -> AnnealedResult:
     """Annealed solve with per-stage diagnostics: each stage re-derives the
     kernel at eps_k and warm-starts from the previous stage's potentials.
-    ``result.n_iter`` is the total across stages."""
+    ``result.n_iter`` is the total across stages. On the fused plan each
+    stage eps has its own runner (``core.runners``, the counterpart of the
+    JAX package's per-stage jit runner), reused across calls; a stage's
+    potentials go into the next stage's static buffers on the device."""
     if method == "auto":
         method = _auto_method(problem)
     if not problem.geometry.anneal_capable:

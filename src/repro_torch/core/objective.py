@@ -154,7 +154,9 @@ class OTObjective:
         """Raw balanced-transport solve in scaling space under this policy
         (the routing entry point), not differentiable: the fused scaling
         plan, with the megakernel ``sinkhorn_block`` where it is admitted,
-        or the plain operators with ``use_pallas=False``."""
+        or the plain operators with ``use_pallas=False``. The fused plan's
+        loop replays one runner per cell (``core.runners``) across
+        calls."""
         self._check(geom)
         return sinkhorn_geometry(geom, a, b, tol=self.tol,
                                  max_iter=self.max_iter,

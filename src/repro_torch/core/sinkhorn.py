@@ -13,19 +13,24 @@ CUDA kernels on the card, their plain versions on the CPU) or, with
 u-update, so the Eq.-6 dual value is  a . f + b . g  with zero-weight atoms
 masked. Counterpart of ``repro.core.sinkhorn``.
 
-:func:`run_marginal_loop` is a host loop: PyTorch runs eagerly, so the
-marginal error is read to the host once per check block (one device
-synchronisation per check). With the fused plan on the card the auto
-cadence runs 8 iterations per launch of the megakernel
-(``kernels.fused_loop``: ``sinkhorn_block`` in scaling space,
-``log_sinkhorn_block`` in the log domain) wherever it is admitted, as the
-JAX package does on a compiled backend; on the CPU it checks every
+:func:`run_marginal_loop` is the eager host loop of the plain operators:
+one check block, then one host read of its error. A fused plan's solve
+runs the block-and-commit body, :func:`run_check_blocks`, over a
+:class:`LoopState` on the device, through its cell's runner
+(``core.runners``): on the card a captured CUDA graph of ``K`` blocks a
+replay, one host read a replay, the stop exact (the committed result is
+the first block that stops, whatever blocks run after it); on the CPU the
+same body eagerly, one block a read. With the fused plan on
+the card the auto cadence runs 8 iterations per launch of the
+megakernel (``kernels.fused_loop``: ``sinkhorn_block`` in scaling space,
+``log_sinkhorn_block`` in the log domain) wherever it is admitted, as
+the JAX package does on a compiled backend; on the CPU it checks every
 iteration, as the JAX package does in interpret mode.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,12 +42,16 @@ from ..kernels.ops import (
     relax_scaling,
 )
 from .geometry import FactoredPositive, Geometry, _masked_log
+from .runners import RUNNERS, CellKey, RunnerCache
 
 __all__ = [
     "SinkhornResult",
     "masked_dual_value",
     "make_scaling_step",
     "make_log_step",
+    "LoopState",
+    "loop_state",
+    "run_check_blocks",
     "run_marginal_loop",
     "sinkhorn_operator",
     "sinkhorn_geometry",
@@ -136,9 +145,100 @@ def make_log_step(log_matvec, log_rmatvec, a, b, *, eps: float,
     return step
 
 
+class LoopState(NamedTuple):
+    """The device state of the block-and-commit body. ``carry`` is the
+    committed carry, which the next block starts from; ``status`` packs
+    ``(running, n_iter)`` as float64 for the loop's one host read. The
+    body updates every field in place."""
+
+    carry: Tuple[torch.Tensor, ...]
+    n_iter: torch.Tensor        # int64, 0-d: iterations of the carry
+    err: torch.Tensor           # float32, 0-d: its marginal error
+    running: torch.Tensor       # bool, 0-d: no block has stopped yet
+    tol: torch.Tensor           # float32, 0-d
+    max_iter: torch.Tensor      # int64, 0-d
+    status: torch.Tensor        # float64, (2,)
+
+
+def loop_state(carry0, *, tol: Optional[float] = None,
+               max_iter: Optional[int] = None) -> LoopState:
+    """A new state on the carry's device, its carry shaped like
+    ``carry0``; loaded with ``carry0``, ``tol`` and ``max_iter`` where
+    ``tol`` is given (:func:`load_loop_state`)."""
+    dev = carry0[0].device
+
+    def scalar(dtype):
+        return torch.zeros((), dtype=dtype, device=dev)
+
+    state = LoopState(tuple(torch.empty_like(c) for c in carry0),
+                      scalar(torch.int64), scalar(torch.float32),
+                      scalar(torch.bool), scalar(torch.float32),
+                      scalar(torch.int64),
+                      torch.zeros((2,), dtype=torch.float64, device=dev))
+    if tol is not None:
+        load_loop_state(state, carry0, tol=tol, max_iter=max_iter)
+    return state
+
+
+def load_loop_state(state: LoopState, carry0, *, tol: float,
+                    max_iter: int) -> None:
+    """Start ``state`` over: the carry ``carry0``, no iteration, running,
+    and this solve's ``tol`` (rounded to float32, as the errors are) and
+    ``max_iter``."""
+    for dst, src in zip(state.carry, carry0):
+        dst.copy_(src)
+    state.n_iter.zero_()
+    state.err.zero_()
+    state.running.fill_(True)
+    state.tol.fill_(_f32(tol))
+    state.max_iter.fill_(int(max_iter))
+
+
+def run_check_blocks(step, state: LoopState, *, blocks: int,
+                     steps_per_check: int = 1, iters_per_step: int = 1):
+    """The block-and-commit body: ``blocks`` check blocks from the
+    committed carry, each ``steps_per_check`` calls of ``step`` (each
+    advancing ``iters_per_step`` iterations) and then, on the device::
+
+        if running: commit the block's carry, iteration count and error
+        running &= tol < err < inf and n < max_iter
+
+    which is the host loop's test after each block (a NaN error stops
+    it too), so the committed result is the first block that stops.
+    Blocks after it may run, on their own carry, and change nothing that
+    is committed, and a call on a stopped state commits nothing. Reads
+    nothing to the host, so a runner captures it in a CUDA graph."""
+    cadence = steps_per_check * iters_per_step
+    its = state.n_iter + torch.arange(
+        cadence, cadence * (blocks + 1), cadence, dtype=torch.int64,
+        device=state.n_iter.device)
+    under_cap = its < state.max_iter
+    running = state.running
+    carry = state.carry
+    for k in range(blocks):
+        for _ in range(steps_per_check):
+            carry, err = step(carry)
+        for dst, src in zip(state.carry, carry):
+            torch.where(running, src, dst, out=dst)
+        torch.where(running, its[k], state.n_iter, out=state.n_iter)
+        torch.where(running, err, state.err, out=state.err)
+        finite = torch.nan_to_num(err, nan=-math.inf, posinf=-math.inf)
+        running &= (finite > state.tol) & under_cap[k]
+    torch.stack([running.double(), state.n_iter.double()],
+                out=state.status)
+
+
+def _read_status(state: LoopState) -> Tuple[bool, int]:
+    """The loop's one host read: ``(done, n_iter)``."""
+    running, n_iter = state.status.tolist()
+    return not running, int(n_iter)
+
+
 def run_marginal_loop(step, carry0, *, tol: float, max_iter: int,
                       steps_per_check: int = 1, iters_per_step: int = 1):
-    """Run ``step`` until the marginal error drops below ``tol``.
+    """Run ``step`` until the marginal error drops below ``tol``: the
+    eager host loop of the plain operators (and of a fused plan's solve
+    with ``_FORCE["graphs"]`` off).
 
     One check block is always taken. Each block calls ``step``
     ``steps_per_check`` times back to back, each call advancing
@@ -219,27 +319,109 @@ def _resolve_cadence(plan, inner_steps: Optional[int],
     return inner, check, False
 
 
+# ``graphs=False`` runs a fused plan's solve on the card through the eager
+# host loop (one block, one host read at a time), the graph path's
+# yardstick in chip_smoke.py.
+_FORCE = {"graphs": True}
+
+# The most check blocks a replay runs (K). chip_smoke.py's phase 4 times
+# its request at K = 2, 4, 8 and 16: 2 reads 36 times a request and 8 ten,
+# 16 runs 27 iterations past the stops and 8 eleven; 4 and 8 time alike,
+# and 8 keeps a 40-iteration megakernel solve (5 blocks) one replay.
+_MAX_REPLAY_BLOCKS = 8
+
+
+def _replay_blocks(cadence: int, max_iter: int, device: torch.device) -> int:
+    """K, the check blocks a replay runs: 1 on the CPU (one block a read);
+    on the card ``_MAX_REPLAY_BLOCKS``, or the ``ceil(max_iter / cadence)``
+    blocks a solve can take where they are fewer. So every solve whose
+    ``max_iter`` spans ``_MAX_REPLAY_BLOCKS`` blocks shares one K (and one
+    runner); a replay runs at most K - 1 blocks past a stop, and they
+    commit nothing."""
+    if device.type != "cuda":
+        return 1
+    return min(_MAX_REPLAY_BLOCKS, max(1, -(-int(max_iter) // cadence)))
+
+
+def _run_captured(runners: RunnerCache, key: CellKey, plan, make, a, b,
+                  carry0, *, tol, max_iter, steps_per_check,
+                  iters_per_step):
+    """A fused plan's solve through its cell's runner: copy the operands
+    (into buffers the cache shares across runners of their shapes),
+    weights and start carry into the runner's buffers, capture the loop on
+    the cell's first solve (on the card after one eager block, which is
+    this solve's first), then replay K blocks at a time until the committed
+    state is done, reading it once a replay. Returns ``(n_iter, carry,
+    err)``, copied out of the buffers the next solve reuses."""
+    runner = runners.get(key)
+    bufs = runner.buffers
+    first = not runner.captured
+    if first:
+        bufs["operands"] = runners.slots(plan.operands)
+        bufs["a"], bufs["b"] = torch.empty_like(a), torch.empty_like(b)
+        bufs["plan"] = plan.bind(bufs["operands"])
+    for dst, src in zip(bufs["operands"], plan.operands):
+        dst.copy_(src)
+    bufs["a"].copy_(a)
+    bufs["b"].copy_(b)
+    carry = bufs["plan"].init(*carry0)
+    if first:
+        bufs["state"] = loop_state(carry)
+    state = bufs["state"]
+    load_loop_state(state, carry, tol=tol, max_iter=max_iter)
+
+    def program(blocks=key.blocks):
+        step, _ = make(bufs["plan"], bufs["a"], bufs["b"])
+        run_check_blocks(step, state, blocks=blocks,
+                         steps_per_check=steps_per_check,
+                         iters_per_step=iters_per_step)
+
+    # on the card the capture's warm-up block is this solve's first block
+    if not (first and runner.capture(program, warmup=lambda: program(1))):
+        runner.replay()
+    while True:
+        runners.reads += 1
+        done, n_iter = _read_status(state)
+        if done:
+            return (n_iter, tuple(c.clone() for c in state.carry),
+                    state.err.clone())
+        runner.replay()
+
+
 def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
-               check_every, momentum):
+               check_every, momentum, runners: Optional[RunnerCache] = None):
     """Run a fused plan's hot loop: the megakernel block step
     (``inner_steps`` iterations per launch) where the plan has one and
     admits the shape, else the per-iteration step at the same check
-    cadence (every iteration under auto). ``carry0`` is ``(f0, g0)``;
-    returns ``(n_iter, carry, err)``."""
+    cadence (every iteration under auto), through the cell's runner of
+    ``runners`` (default ``core.runners.RUNNERS``). ``carry0`` is
+    ``(u0, v0)`` or ``(f0, g0)``; returns ``(n_iter, carry, err)``."""
     inner, check, auto = _resolve_cadence(plan, inner_steps, check_every)
-    block = None
-    if inner > 1 and plan.make_block_step is not None:
-        block = plan.make_block_step(a, b, inner_steps=inner,
+    if inner > 1 and plan.block_admits(a.shape[0], b.shape[0]):
+        steps_per_check, iters_per_step = check // inner, inner
+
+        def make(p, a_, b_):
+            return p.make_block_step(a_, b_, inner_steps=inner,
                                      momentum=momentum)
-    if block is not None:
-        step, init = block
-        return run_marginal_loop(step, init(*carry0), tol=tol,
-                                 max_iter=max_iter,
-                                 steps_per_check=check // inner,
-                                 iters_per_step=inner)
-    step, init = plan.make_step(a, b, momentum=momentum)
-    return run_marginal_loop(step, init(*carry0), tol=tol, max_iter=max_iter,
-                             steps_per_check=1 if auto else check)
+    else:
+        steps_per_check, iters_per_step = (1 if auto else check), 1
+
+        def make(p, a_, b_):
+            return p.make_step(a_, b_, momentum=momentum)
+    kw = dict(tol=tol, max_iter=max_iter, steps_per_check=steps_per_check,
+              iters_per_step=iters_per_step)
+    if not _FORCE["graphs"]:
+        step, init = make(plan, a, b)
+        return run_marginal_loop(step, init(*carry0), **kw)
+    xi = plan.features[0]
+    blocks = _replay_blocks(steps_per_check * iters_per_step, max_iter,
+                            a.device)
+    key = CellKey(plan.mode, plan.kind, a.shape[0], b.shape[0], xi.shape[1],
+                  1, xi.dtype, plan.page_size, float(plan.eps),
+                  float(momentum), iters_per_step, steps_per_check, blocks,
+                  plan.precision, a.device)
+    return _run_captured(RUNNERS if runners is None else runners, key, plan,
+                         make, a, b, carry0, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +450,8 @@ def sinkhorn_operator(matvec, rmatvec, a, b, *, eps: float, tol: float = 1e-6,
 
 
 def _solve_scaling_plan(plan, a, b, *, eps, tol, max_iter, momentum,
-                        u_init, inner_steps=None,
-                        check_every=None) -> SinkhornResult:
+                        u_init, inner_steps=None, check_every=None,
+                        runners=None) -> SinkhornResult:
     """Algorithm 1 with the loop body routed through the fused scaling
     plan: the semantics of :func:`sinkhorn_operator` (warm start, marginal
     check, momentum) up to the check cadence. The plan divides ``b / s``
@@ -281,7 +463,7 @@ def _solve_scaling_plan(plan, a, b, *, eps, tol, max_iter, momentum,
                                     max_iter=max_iter,
                                     inner_steps=inner_steps,
                                     check_every=check_every,
-                                    momentum=momentum)
+                                    momentum=momentum, runners=runners)
     return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol)
 
 
@@ -292,7 +474,9 @@ def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
                       use_pallas: Optional[bool] = None,
                       inner_steps: Optional[int] = None,
                       check_every: Optional[int] = None,
-                      precision: str = "highest") -> SinkhornResult:
+                      precision: str = "highest",
+                      runners: Optional[RunnerCache] = None
+                      ) -> SinkhornResult:
     """Algorithm 1 in scaling space on any Geometry.
 
     With the fused plan (``use_pallas`` not ``False``) a factored or
@@ -304,7 +488,9 @@ def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     is admitted (see :func:`_resolve_cadence`). ``use_pallas=False``, and
     dense costs, which have no fused plan, run the geometry's plain torch
     operators. ``precision="bf16"`` stores the factors in bfloat16 with
-    float32 accumulation on both paths. ``u_init`` warm-starts u."""
+    float32 accumulation on both paths. ``u_init`` warm-starts u. A fused
+    plan's loop runs through its cell's runner of ``runners`` (default
+    ``core.runners.RUNNERS``): a captured CUDA graph on the card."""
     check_precision(precision)
     _check_inputs(geom, a, b, u_init)
     plan = _maybe_pallas_plan(geom, use_pallas, "scaling", precision)
@@ -312,7 +498,7 @@ def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
         return _solve_scaling_plan(plan, a, b, eps=geom.eps, tol=tol,
                                    max_iter=max_iter, momentum=momentum,
                                    u_init=u_init, inner_steps=inner_steps,
-                                   check_every=check_every)
+                                   check_every=check_every, runners=runners)
     _, check, _ = _resolve_cadence(None, inner_steps, check_every)
     matvec, rmatvec = geom.operators(precision=precision)
     return sinkhorn_operator(matvec, rmatvec, a, b, eps=geom.eps, tol=tol,
@@ -361,7 +547,9 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
                           use_pallas: Optional[bool] = None,
                           inner_steps: Optional[int] = None,
                           check_every: Optional[int] = None,
-                          precision: str = "highest") -> SinkhornResult:
+                          precision: str = "highest",
+                          runners: Optional[RunnerCache] = None
+                          ) -> SinkhornResult:
     """Log-domain Sinkhorn on any log-capable Geometry.
 
     With the fused plan (``use_pallas`` not ``False``) each iteration runs
@@ -371,7 +559,7 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     megakernel (see :func:`_resolve_cadence`). ``precision="bf16"`` stores
     the factors in bfloat16 with float32 accumulation, on the plan and on
     the plain operators alike. ``f_init``/``g_init`` warm-start the
-    potentials."""
+    potentials; ``runners`` as in :func:`sinkhorn_geometry`."""
     check_precision(precision)
     _check_inputs(geom, a, b, f_init, g_init)
     f0, g0 = _log_init(a, b, f_init, g_init)
@@ -381,7 +569,7 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
                                     max_iter=max_iter,
                                     inner_steps=inner_steps,
                                     check_every=check_every,
-                                    momentum=momentum)
+                                    momentum=momentum, runners=runners)
     else:
         _, check, _ = _resolve_cadence(None, inner_steps, check_every)
         log_matvec, log_rmatvec = geom.log_operators(precision=precision)

@@ -25,11 +25,12 @@ R^2; ``--pixels`` a 12x12 two-moons image domain.
 
 ``--strict`` is the train-smoke contract: the Gaussian plan was selected
 at bf16, every Wbar is finite, the mean Wbar of the last k steps is below
-that of the first k, and on the card the megakernel's launch counter rose
-by ``3 * ceil(iters / 8)`` a step (on the CPU the kernels run their plain
-versions and launch nothing). The JAX example also asserts zero
-post-warmup retraces of its jitted step; PyTorch runs eagerly and traces
-nothing, so that check has no counterpart here.
+that of the first k, on the card the megakernel's launch counter rose by
+``3 * ceil(iters / 8)`` a step (on the CPU the kernels run their plain
+versions and launch nothing), and no solve loop was captured after the
+warm-up: one forward pass of the loss before the first step captures the
+one runner (``core.runners``) the three solves of every step replay, as
+the JAX example asserts zero post-warmup retraces of its jitted step.
 
 Counterpart of ``examples/ot_gan.py`` (same configuration, same schedule;
 ``repro_torch.convert.gan_params`` carries its parameters across).
@@ -47,6 +48,7 @@ from torch import nn
 
 from ..core import ExecutionPolicy, GaussianFeatureMap, OTObjective
 from ..core.features import gaussian_log_features
+from ..core.runners import RUNNERS
 from ..kernels import log_sinkhorn_block
 from ..kernels.backend import resolve_device
 from ..kernels.ops import observe_plan_selection
@@ -205,7 +207,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-kernel", action="store_true")
     ap.add_argument("--strict", action="store_true",
                     help="assert the bf16 Gaussian plan, the megakernel's "
-                    "launches (on the card), finite and decreasing Wbar")
+                    "launches (on the card), zero post-warmup captures, "
+                    "finite and decreasing Wbar")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap
@@ -213,8 +216,11 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Run the trainer; returns ``{"model", "divergences", "step_ms",
-    "adv", "block_launches", "policy", "device"}`` (the per-step values as
-    lists) for callers that drive it as a library."""
+    "adv", "block_launches", "warmup_launches", "captures", "policy",
+    "device"}`` (the per-step values as lists; ``warmup_launches`` the
+    megakernel launches of the ``--strict`` warm-up, ``captures`` the
+    solve loops captured after it) for callers that drive it as a
+    library."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     x_dim = 144 if args.pixels else 2
@@ -227,6 +233,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     per_step_blocks = 3 * math.ceil(args.iters / 8)
     divergences, step_ms, advs, blocks = [], [], [], []
+    warmup_launches = 0
+    if args.strict:
+        # the loss's three solves on data of their own (the step data
+        # stays the unwarmed run's), which leaves the weights as they are
+        before = log_sinkhorn_block.launches
+        warm_gen = torch.Generator(device=device).manual_seed(2)
+        with torch.no_grad():
+            gan_losses(model, torch.randn((args.batch, LATENT_Z),
+                                          generator=warm_gen, device=device),
+                       make_data(warm_gen, args.batch, pixels=args.pixels),
+                       obj)
+        warmup_launches = log_sinkhorn_block.launches - before
+    captures0 = RUNNERS.captures
     t0 = time.perf_counter()
     with observe_plan_selection() as events:
         for step in range(args.steps):
@@ -246,6 +265,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 if not args.pixels:
                     msg += f" modes={mode_coverage(fake)}/8"
                 print(msg + f" ({time.perf_counter() - t0:.1f}s)")
+    captures = RUNNERS.captures - captures0
 
     if args.strict:
         sel = [e for e in events if e["geometry"] == "GaussianPointCloud"]
@@ -264,6 +284,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         else:
             print("[ot-gan] strict: on the CPU the kernels run their plain "
                   "versions; no launch count to check")
+        _require(captures == 0, f"{captures} solve loops captured after "
+                 "the warm-up")
+        print("[ot-gan] strict: 0 post-warmup captures (the warm-up "
+              f"captured the runner of {args.batch} x {args.batch}, "
+              f"r = {args.r})")
         _require(all(math.isfinite(d) for d in divergences),
                  "non-finite Wbar")
         k = max(5, args.steps // 10)
@@ -293,7 +318,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f"  noise/noise = {k_mean(noise, noise):.4e}")
 
     return dict(model=model, divergences=divergences, step_ms=step_ms, adv=advs,
-                block_launches=blocks, policy=policy.describe(),
+                block_launches=blocks, warmup_launches=warmup_launches,
+                captures=captures, policy=policy.describe(),
                 device=str(device))
 
 

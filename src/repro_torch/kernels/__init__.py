@@ -3,7 +3,11 @@
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its
 plain PyTorch version (``ref``) for a CPU tensor, and counts its launches
 in a plain integer attribute ``launches``: :func:`launch_counts` reads
-them, :func:`reset_launch_counts` sets them to 0.
+them, :func:`reset_launch_counts` sets them to 0. A wrapper called while
+a CUDA graph is captured launches nothing, and a replay of the graph calls
+no wrapper: ``core.runners`` takes the captured launches off the counts
+(:func:`set_launch_counts`) and adds them back at each replay
+(:func:`add_launches`).
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ __all__ = [
     "paged_feature_matvec",
     "launch_counts",
     "reset_launch_counts",
+    "set_launch_counts",
+    "add_launches",
 ]
 
 KERNELS = {
@@ -56,3 +62,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    for name, n in counts.items():
+        KERNELS[name].launches = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    for name, n in counts.items():
+        KERNELS[name].launches += n

@@ -154,6 +154,18 @@ class GeometryOps(NamedTuple):
                     megakernel (the paged plan).
     ``precision`` — "highest" (float32 factors) or "bf16" (bfloat16
                     factor storage); accumulation is float32 in both.
+    ``init``      — ``(u0, v0) -> carry`` (``(f0, g0)`` in log mode), the
+                    ``init`` both step kinds return.
+    ``operands``  — every tensor the steps read besides the weights: the
+                    factors, then the page tables of a paged plan.
+    ``bind``      — ``operands -> GeometryOps``: the same plan over other
+                    tensors of the operands' shapes and dtypes (a solve
+                    runner's static buffers, ``core.runners``).
+    ``page_size`` — the page of a paged geometry's plan (either mode), 0
+                    otherwise.
+
+    A plan's steps read no value to the host, so a runner can capture
+    them in a CUDA graph.
     """
 
     mode: str
@@ -164,6 +176,18 @@ class GeometryOps(NamedTuple):
     eps: float
     make_block_step: Optional[Callable]
     precision: str = "highest"
+    init: Optional[Callable] = None
+    operands: Tuple[torch.Tensor, ...] = ()
+    bind: Optional[Callable] = None
+    page_size: int = 0
+
+    def block_admits(self, n: int, m: int) -> bool:
+        """Whether ``make_block_step`` gives a megakernel step at n x m
+        (the plan has one and ``fused_loop.block_plan_fits`` admits the
+        shape)."""
+        xi = self.features[0]
+        return (self.make_block_step is not None
+                and block_plan_fits(n, m, xi.shape[1], 1, xi.dtype))
 
 
 def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
@@ -220,7 +244,10 @@ def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
 
     return GeometryOps(mode="scaling", kind=kind, features=(xi, zeta),
                        iteration=iteration, make_step=make_step, eps=eps,
-                       make_block_step=make_block_step, precision=precision)
+                       make_block_step=make_block_step, precision=precision,
+                       init=init, operands=(xi, zeta),
+                       bind=lambda ops: _scaling_plan(kind, *ops, eps,
+                                                      precision))
 
 
 def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
@@ -284,7 +311,10 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
 
     return GeometryOps(mode="log", kind=kind, features=(log_xi, log_zeta),
                        iteration=iteration, make_step=make_step, eps=eps,
-                       make_block_step=make_block_step, precision=precision)
+                       make_block_step=make_block_step, precision=precision,
+                       init=init, operands=(log_xi, log_zeta),
+                       bind=lambda ops: _log_plan(kind, *ops, eps,
+                                                  precision))
 
 
 def _paged_scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
@@ -341,7 +371,11 @@ def _paged_scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
 
     return GeometryOps(mode="scaling", kind=kind, features=(xi, zeta),
                        iteration=iteration, make_step=make_step, eps=eps,
-                       make_block_step=None, precision=precision)
+                       make_block_step=None, precision=precision, init=init,
+                       operands=(xi, zeta, live_x, live_y),
+                       bind=lambda ops: _paged_scaling_plan(
+                           kind, *ops, page_size, eps, precision),
+                       page_size=page_size)
 
 
 def geometry_ops(geom, *, mode: str = "log",
@@ -369,7 +403,8 @@ def geometry_ops(geom, *, mode: str = "log",
         if mode == "log":
             if lxi is None:
                 lxi, lzt = _masked_log(xi), _masked_log(zeta)
-            return _log_plan(kind, lxi, lzt, float(spec["eps"]), precision)
+            return _log_plan(kind, lxi, lzt, float(spec["eps"]), precision
+                             )._replace(page_size=int(spec["page_size"]))
         return _paged_scaling_plan(kind, xi, zeta, spec["page_live_x"],
                                    spec["page_live_y"],
                                    int(spec["page_size"]), eps, precision)

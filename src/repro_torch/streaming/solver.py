@@ -3,9 +3,16 @@
 :class:`StreamingSolver` re-solves a tracked pair through :func:`run_paged`:
 normalization, the :class:`~repro_torch.core.paged.PagedFactored`
 geometry, the warm start and the Sinkhorn loop, at the stores' fixed
-buffer shapes. PyTorch runs eagerly, so there is nothing to cache per
-bucket cell: the JAX package's runner LRU and its retrace gate have no
-counterpart here.
+buffer shapes. As in the JAX package, the solver keeps an LRU of runners,
+one a bucket cell, bounded by ``max_runners``: each a captured loop
+(``core.runners``) whose static buffers a solve copies the stores' device
+buffers, weights and start potentials into. The cell key refines the
+reference's :data:`RunnerKey` ``(C_x, C_y, r, page_size, eps, method)``
+with the solver's fixed settings (precision, momentum, cadence), so a
+RunnerKey maps to one runner, shared by every pair in that cell; a bucket
+crossing changes the capacity and so the cell. :attr:`StreamingSolver.traces`
+is the reference's retrace gate: captures across live runners, flat after
+warmup however many updates flow through.
 
 Warm-start contract:
 
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.paged import PagedFactored
+from ..core.runners import RunnerCache
 from ..core.sinkhorn import (
     SinkhornResult,
     sinkhorn_geometry,
@@ -44,9 +52,12 @@ from ..core.sinkhorn import (
 from ..resilience.health import SolveHealth, classify
 from .store import StreamingDistribution
 
-__all__ = ["StreamingPair", "StreamingSolver", "run_paged"]
+__all__ = ["RunnerKey", "StreamingPair", "StreamingSolver", "run_paged"]
 
 METHODS = ("scaling", "log")
+
+# (C_x, C_y, r, page_size, eps, method)
+RunnerKey = Tuple[int, int, int, int, float, str]
 
 
 class StreamingPair:
@@ -104,10 +115,12 @@ def run_paged(xi: torch.Tensor, zeta: torch.Tensor, live_x: np.ndarray,
               live_y: np.ndarray, wa: np.ndarray, wb: np.ndarray,
               f0: np.ndarray, g0: np.ndarray, *, page_size: int, eps: float,
               method: str, tol: float, max_iter: int, momentum: float,
-              use_pallas: Optional[bool], precision: str) -> SinkhornResult:
+              use_pallas: Optional[bool], precision: str,
+              runners: Optional[RunnerCache] = None) -> SinkhornResult:
     """One solve over paged buffers: ``xi`` / ``zeta`` are the stores'
     device factors, the rest host numpy (page tables, weights, start
-    potentials), sent to the factors' device here."""
+    potentials), sent to the factors' device here. A fused plan's loop
+    runs through its cell's runner of ``runners``."""
     dev = xi.device
 
     def put(arr, dtype=torch.float32):
@@ -123,12 +136,13 @@ def run_paged(xi: torch.Tensor, zeta: torch.Tensor, live_x: np.ndarray,
         return sinkhorn_log_geometry(
             geom, a, b, tol=tol, max_iter=max_iter, momentum=momentum,
             f_init=put(f0), g_init=put(g0), use_pallas=use_pallas,
-            precision=precision)
+            precision=precision, runners=runners)
     # the scaling iteration starts on the v-update: u0 alone seeds it
     u0 = torch.where(a > 0, torch.exp(put(f0) / eps), torch.zeros_like(a))
     return sinkhorn_geometry(
         geom, a, b, tol=tol, max_iter=max_iter, momentum=momentum,
-        u_init=u0, use_pallas=use_pallas, precision=precision)
+        u_init=u0, use_pallas=use_pallas, precision=precision,
+        runners=runners)
 
 
 class StreamingSolver:
@@ -138,13 +152,14 @@ class StreamingSolver:
     ``method`` picks the iteration domain ("scaling" | "log"). With the
     fused plan (``use_pallas`` not ``False``) scaling solves run the paged
     kernels and log solves the log plan on the paged buffers. One instance
-    serves many pairs.
+    serves many pairs; runners are shared across pairs that land in the
+    same bucket cell, at most ``max_runners`` of them.
     """
 
     def __init__(self, *, method: str = "scaling", tol: float = 1e-6,
                  max_iter: int = 2000, momentum: float = 1.0,
                  use_pallas: Optional[bool] = None,
-                 precision: str = "highest"):
+                 precision: str = "highest", max_runners: int = 8):
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, "
                              f"got {method!r}")
@@ -154,6 +169,8 @@ class StreamingSolver:
         self.momentum = float(momentum)
         self.use_pallas = use_pallas
         self.precision = precision
+        self.max_runners = int(max_runners)
+        self._runners = RunnerCache(self.max_runners)
         self._pairs: Dict[str, StreamingPair] = {}
         self.warmups = 0
         # resilience accounting (see _solve)
@@ -200,12 +217,26 @@ class StreamingSolver:
             *operands, page_size=sx.page_size, eps=pair.eps,
             method=self.method, tol=self.tol, max_iter=self.max_iter,
             momentum=self.momentum, use_pallas=self.use_pallas,
-            precision=self.precision)
+            precision=self.precision, runners=self._runners)
+
+    @property
+    def runner_keys(self) -> Tuple[RunnerKey, ...]:
+        """The :data:`RunnerKey` of each live runner, least recently used
+        first."""
+        return tuple((k.n, k.m, k.r, k.page_size, k.eps, self.method)
+                     for k in self._runners.keys())
+
+    @property
+    def traces(self) -> int:
+        """Captures across live runners, the retrace gate: flat after
+        warmup, no matter how many updates flow through."""
+        return self._runners.live_captures
 
     def warmup(self, pair: StreamingPair) -> None:
         """Run the pair's solve once on uniform all-live operands at its
-        buffer shapes (they converge in a few iterations), so that the
-        first real update finds its kernels built and loaded."""
+        buffer shapes (they converge in a few iterations), which builds
+        the kernels and captures the pair's runner, so that the first
+        real update replays it."""
         C_x, C_y = pair.x.capacity, pair.y.capacity
         r, page_size = pair.x.store.rank, pair.x.store.page_size
         dev, dtype = pair.x.device, self.storage_dtype
@@ -239,8 +270,9 @@ class StreamingSolver:
         health = classify(res)
         if health.failed and warm_used:
             # the warm re-solve went non-finite: the saved potentials no
-            # longer fit the mutated state. Retry cold, on the same
-            # device and kernels.
+            # longer fit the mutated state. Retry cold through the same
+            # runner: zero start potentials cost iterations, never a
+            # capture.
             self.cold_fallbacks += 1
             res = self._run(pair, *operands,
                      np.zeros((dx.capacity,), np.float32),
@@ -289,6 +321,8 @@ class StreamingSolver:
     def stats(self) -> Dict[str, object]:
         return {
             "pairs": len(self._pairs),
+            "runners": len(self._runners),
+            "traces": self.traces,
             "warmups": self.warmups,
             "method": self.method,
             "diverged": self.diverged,

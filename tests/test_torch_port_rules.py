@@ -292,3 +292,46 @@ def test_cuda_sources_hold_one_kernel_per_ported_function():
         assert not re.search(r"\b(?:atom|red)\.[\w.]+", src)
         for lib in ("cublas", "cudnn", "cutlass", "wmma", "mma.sync"):
             assert lib not in src.lower()
+
+
+def _graph_path_functions():
+    """What a runner captures: the block-and-commit body, the plans' step
+    factories and their steps (``make_step`` / ``make_block_step`` and the
+    ``step`` closures of ``kernels/ops.py``)."""
+    for path, names in (
+            (PKG / "core" / "sinkhorn.py", {"run_check_blocks"}),
+            (PKG / "kernels" / "ops.py", {"make_step", "make_block_step",
+                                          "step", "init"})):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and node.name in names:
+                yield f"{path.name}:{node.name}:{node.lineno}", node
+
+
+def test_graph_path_reads_nothing_to_the_host():
+    """No ``float(err)``, ``.item()`` or other read of a tensor to the
+    host inside the loop a runner captures in a CUDA graph: the loop
+    reads the committed state once a replay, outside it."""
+    found = list(_graph_path_functions())
+    assert {name.split(":")[1] for name, _ in found} == {
+        "run_check_blocks", "make_step", "make_block_step", "step", "init"}
+    reads = []
+    for name, fn in found:
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            if isinstance(f, ast.Name) and f.id in ("float", "int", "bool"):
+                reads.append(f"{name}: {f.id}()")
+            if isinstance(f, ast.Attribute) and f.attr in (
+                    "item", "tolist", "cpu", "numpy", "synchronize"):
+                reads.append(f"{name}: .{f.attr}()")
+    assert not reads, reads
+    # the graph path's host loop reads the state only through
+    # _read_status, once a replay (run_marginal_loop is the plain
+    # operators' host loop, one float(err) a block)
+    body = (PKG / "core" / "sinkhorn.py").read_text()
+    loop = body[body.index("def _run_captured("):]
+    loop = loop[:loop.index("\n\n\n")]
+    assert "float(" not in loop and ".item()" not in loop
+    assert ".tolist()" not in loop and loop.count("_read_status(state)") == 1
