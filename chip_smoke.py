@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -136,7 +136,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    relative), and the warm re-solves must take fewer iterations in all
    than those cold solves; in scaling mode the plan must be ``paged``,
    the paged kernels launched and the flat trio not; plus a split and a
-   profile of one more update.
+   profile of one more update;
+8. the families path, with the counters set to 0 before and read after:
+   Lemma-3 arc-cosine solves on phase 4's clouds (anchors 1.5 N(0, I), r
+   = 1024, so 1025 features with zero entries, eps 0.1, tol 1e-4) through
+   the log plan in float32 and bf16 and through ``method="factored"`` at
+   eps 0.5 (the scaling kernels), at n = 256, r + 1 = 128 with a dead
+   anchor column (the log megakernel in bf16; refused in float32, which
+   takes the per-iteration kernels), at n = 2048 through ``method=
+   "arccos"`` with ``rank=`` / ``key=``, and the divergence with its
+   gradient in x; Nystrom (rank 1024, the clouds scaled into the unit
+   ball) at eps 0.5 and 0.02; a 128 x 128 and a 64 x 64 grid at eps 0.1;
+   the accelerated solver and ``log_factored`` on Gaussian features at
+   eps 0.5 (n = 16384, r = 1024); the sphere barycenter example and a
+   barycenter of 3 histograms on n = 4096 Gaussian-feature points. Then
+   each arc-cosine solve is held against ``use_pallas=False`` (cost 1e-4
+   relative, |d n_iter| <= 1, potentials within 1e-4 of max |value|),
+   the n = 2048 one against the dense ``log_quadratic`` oracle at tol 1e-5
+   (1e-4 relative), the divergence's gradient within 1e-3 of max |grad|;
+   Nystrom's cost (eps 0.5, converged, 1e-4 relative) and ``diverged``
+   flag (eps 0.02) against the CPU on the same landmarks; the 128 grid
+   against the CPU and the 64 grid against the dense oracle (1e-5
+   relative); the accelerated cost within 2e-3 of ``log_factored``'s; the
+   example's peak under 25 degrees and the barycenter's weights >= 0
+   summing to 1 within 1e-5. It prints one line a family: ms an
+   iteration and a solve, one log plan iteration at r + 1 = 1025 beside
+   the Gaussian one at r = 1024 (CUDA events), and the arc-cosine solve's
+   busy share.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -159,6 +185,7 @@ The line before the last is a JSON object listing the kernels; the last is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -2082,7 +2109,8 @@ def time_cache_pressure(torch, np, device, problem, repeats=3, one_off=4):
 def profile_call(torch, label, fn):
     """Device busy share of one call of ``fn`` (a solve): the device time
     of every kernel the profiler saw over the call's wall time (both under
-    the profiler, which slows the host side)."""
+    the profiler, which slows the host side). Returns the share, or None
+    where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2100,12 +2128,13 @@ def profile_call(torch, label, fn):
     if device_us <= 0:
         log("  device busy share: not measured (the profiler saw no device "
             "time)")
-        return
+        return None
     log(f"  device busy share {device_us / 1e6 / wall:.3f} "
         f"(idle {1 - device_us / 1e6 / wall:.3f}) under the profiler")
     for e in top[:6]:
         log(f"    {e.key[:60]:60s} {e.count:6d} calls "
             f"{e.self_device_time_total / 1e3:9.3f} ms")
+    return device_us / 1e6 / wall
 
 
 def compare_main_path(torch, problems, results, div, schedule_cls):
@@ -3045,6 +3074,459 @@ def run_streaming_path(torch, np, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the families path
+# ---------------------------------------------------------------------------
+
+FAM_SIGMA = 1.5                 # arc-cosine anchors 1.5 N(0, I): r = 1024 ->
+                                # r + 1 = 1025 features, off the 16-byte paths
+FAM_SMALL, FAM_SMALL_R = 256, 127   # r + 1 = 128 at the trainer's batch: the
+                                # log megakernel admits it in bf16 only
+FAM_ORACLE_N = 2048             # the dense log_quadratic oracle's n = m
+FAM_ORACLE_TOL = 1e-5
+FAM_SCALING_EPS = 0.5           # method="factored" on the arc-cosine kernel
+NYS_RANK = 1024
+NYS_EPS = (0.5, 0.02)           # converges; the reference's failure regime
+NYS_COST_RTOL = 1e-4            # card against the CPU on the same landmarks:
+                                # cuSOLVER's eigh against LAPACK's, both f32;
+                                # 3.85e-06 read on the H100, so ~25x margin
+GRID_SIDE, GRID_ORACLE_SIDE, GRID_EPS = 128, 64, 0.1
+GRID_COST_RTOL = 1e-5
+ACC_EPS = 0.5
+ACC_MAX_ITER, ACC_CHECK = 20000, 10
+ACC_RTOL, ACC_ATOL = 2e-3, 1e-4     # tests/test_extensions.py:26-34
+BARY_N, BARY_K, BARY_EPS = 4096, 3, 0.5
+FAMILY_PATH_KERNELS = ("log_feature_contract", "log_halfstep",
+                       "log_sinkhorn_block")
+
+
+def family_inputs(np):
+    """The families path's data, numpy from seeds: phase 4's clouds (seed
+    0) with arc-cosine anchors; positive-orthant clouds at n = 256 with one
+    anchor in the negative orthant (a feature column 0 on both sides); the
+    clouds scaled into the unit ball (benchmarks/bench_tradeoff.py's
+    Nystrom problem); blob weights on the grids; three blob histograms on
+    n = 4096 points of the clouds."""
+    rng = np.random.default_rng(80)
+    x, y = clouds(np, 0)
+    anchors = (FAM_SIGMA * rng.standard_normal((R_ANCHORS, D))).astype(
+        np.float32)
+    xs = np.abs(rng.standard_normal((FAM_SMALL, D)) + 1.0).astype(np.float32)
+    ys = (np.abs(math.sqrt(0.1) * rng.standard_normal((FAM_SMALL, D)))
+          + 0.05).astype(np.float32)
+    us = (FAM_SIGMA * rng.standard_normal((FAM_SMALL_R, D))).astype(
+        np.float32)
+    us[0] = -FAM_SIGMA
+    R = float(np.max(np.linalg.norm(np.concatenate([x, y]), axis=1)))
+
+    def blobs(side, c1, c2):
+        g = np.stack(np.meshgrid(*[np.linspace(0, 1, side)] * 2,
+                                 indexing="ij"), -1)
+        out = []
+        for c, w in ((c1, 0.02), (c2, 0.05)):
+            h = np.exp(-np.sum((g - np.asarray(c)) ** 2, -1) / w) + 1e-3
+            out.append((h / h.sum()).reshape(-1).astype(np.float32))
+        return out
+
+    pts = x[:BARY_N]
+    centers = (np.full(D, 1.0), np.full(D, 0.0), np.r_[np.full(D // 2, 2.0),
+                                                       np.zeros(D - D // 2)])
+    hists = []
+    for c in centers:
+        z = -np.sum((pts - c) ** 2, 1) / 2.0
+        h = np.exp(z - z.max())
+        hists.append(h / h.sum())
+    return dict(x=x, y=y, anchors=anchors, xs=xs, ys=ys, us=us, R=R,
+                grid=blobs(GRID_SIDE, (0.3, 0.3), (0.7, 0.6)),
+                grid_small=blobs(GRID_ORACLE_SIDE, (0.3, 0.3), (0.7, 0.6)),
+                hists=np.stack(hists).astype(np.float32))
+
+
+def arccos_problem(torch, x, y, anchors, eps, device):
+    """A user's arc-cosine request: the clouds and anchors as tensors."""
+    from repro_torch.core import ArcCosinePointCloud, OTProblem
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    return OTProblem.from_geometry(ArcCosinePointCloud(
+        t(x), t(y), t(anchors), eps=eps, sigma=FAM_SIGMA), device=device)
+
+
+def log_step_ms(torch, geom, precision="highest"):
+    """Device time of one iteration of the log plan on ``geom`` in its
+    order (three log half-steps, two log contracts), and of one log
+    contract and one log half-step on its x factor alone, CUDA events."""
+    from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
+    from repro_torch.kernels.ops import geometry_ops
+
+    plan = geometry_ops(geom, mode="log", precision=precision)
+    n, m = geom.shape
+    a = torch.full((n,), 1.0 / n, device=geom.device)
+    b = torch.full((m,), 1.0 / m, device=geom.device)
+    step, init = plan.make_step(a, b)
+    carry = init(torch.zeros_like(a), torch.zeros_like(b))
+    lxi = plan.features[0]
+    s = torch.zeros((n, 1), device=geom.device)
+    t = log_feature_contract(lxi, s)
+    loga = torch.log(a)[:, None].contiguous()
+    return (time_ms(torch, lambda: step(carry)),
+            time_ms(torch, lambda: log_feature_contract(lxi, s)),
+            time_ms(torch, lambda: log_halfstep(lxi, t, loga,
+                                                scale=geom.eps)))
+
+
+def solve_line(res, wall):
+    it = res.n_iter
+    return (f"cost={float(res.cost):.7f} n_iter={it} "
+            f"converged={bool(res.converged)} diverged={bool(res.diverged)} "
+            f"err={float(res.marginal_err):.3e} wall={wall * 1e3:.3f} ms "
+            f"({wall / max(it, 1) * 1e3:.4f} ms/iteration)")
+
+
+def run_families_path(torch, np, device):
+    """The counted run of phase 8: every family's requests through the
+    entry points, with the launch counters set to 0 just before and read
+    just after. Each arc-cosine solve must launch its plan's kernels (the
+    log megakernel at n = 256 in bf16, and not in float32)."""
+    from repro_torch.core import (
+        OTProblem,
+        barycenter_log_factored,
+        gaussian_log_features,
+        sinkhorn_divergence_geometry,
+        solve,
+    )
+    from repro_torch.examples import sphere_barycenter
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    inp = family_inputs(np)
+    x, y, u = inp["x"], inp["y"], inp["anchors"]
+    probs = {
+        "arc": arccos_problem(torch, x, y, u, EPS, device),
+        "arc_scaling": arccos_problem(torch, x, y, u, FAM_SCALING_EPS,
+                                      device),
+        "arc_small": arccos_problem(torch, inp["xs"], inp["ys"], inp["us"],
+                                    EPS, device),
+    }
+    ga, _ = anchors_for(torch, np, R_ANCHORS, D, EPS, inp["R"], 81, "cpu")
+    probs["gauss_2k"] = OTProblem.from_point_clouds(
+        x[:FAM_ORACLE_N], y[:FAM_ORACLE_N], ga.numpy(), eps=EPS)
+    R = inp["R"]
+    gu, _ = anchors_for(torch, np, R_ANCHORS, D, EPS, 1.0, 82, "cpu")
+    probs["unit"] = {e: OTProblem.from_point_clouds(x / R, y / R, gu.numpy(),
+                                                    eps=e) for e in NYS_EPS}
+    axes = {side: [np.linspace(0, 1, side).astype(np.float32)] * 2
+            for side in (GRID_SIDE, GRID_ORACLE_SIDE)}
+    probs["grid"] = OTProblem.from_grid(axes[GRID_SIDE], a=inp["grid"][0],
+                                        b=inp["grid"][1], eps=GRID_EPS)
+    probs["grid_small"] = OTProblem.from_grid(
+        axes[GRID_ORACLE_SIDE], a=inp["grid_small"][0],
+        b=inp["grid_small"][1], eps=GRID_EPS)
+    ua, qa = anchors_for(torch, np, R_ANCHORS, D, ACC_EPS, R, 83, "cpu")
+    probs["gauss_acc"] = OTProblem.from_point_clouds(x, y, ua.numpy(),
+                                                     eps=ACC_EPS, R=R)
+    torch.cuda.synchronize()
+
+    clear_runners()
+    out, failures = {}, []
+    reset_launch_counts()
+
+    def timed(label, fn, need=(), refuse=()):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = counts_delta(before, launch_counts())
+        shown = {k: v for k, v in delta.items() if v}
+        line = solve_line(res, wall) if hasattr(res, "cost") else \
+            f"wall={wall * 1e3:.3f} ms"
+        log(f"  {label}: {line}  launches={shown}")
+        missing = [k for k in need if delta[k] <= 0]
+        extra = [k for k in refuse if delta[k] != 0]
+        if missing or extra:
+            failures.append(f"{label}: never launched {missing}, launched "
+                            f"{extra}")
+        out[label] = (res, wall, delta)
+        return res
+
+    logk = ("log_feature_contract", "log_halfstep")
+    timed("arccos f32", lambda: solve(probs["arc"], tol=TOL), need=logk)
+    timed("arccos bf16", lambda: solve(probs["arc"], tol=TOL,
+                                       precision="bf16"), need=logk)
+    timed(f"arccos factored eps={FAM_SCALING_EPS}",
+          lambda: solve(probs["arc_scaling"], method="factored", tol=TOL),
+          need=("feature_contract", "sinkhorn_halfstep", "feature_matvec"))
+    timed(f"arccos n={FAM_SMALL} bf16",
+          lambda: solve(probs["arc_small"], tol=TOL, precision="bf16"),
+          need=("log_sinkhorn_block",))
+    timed(f"arccos n={FAM_SMALL} f32",
+          lambda: solve(probs["arc_small"], tol=TOL), need=logk,
+          refuse=("log_sinkhorn_block",))
+    timed(f"arccos n={FAM_ORACLE_N} (rank=, key=)",
+          lambda: solve(probs["gauss_2k"], method="arccos", rank=R_ANCHORS,
+                        key=torch.Generator().manual_seed(81),
+                        tol=FAM_ORACLE_TOL), need=logk)
+    xg = probs["arc"].geometry.x.clone().requires_grad_(True)
+
+    def divergence():
+        geom = dataclasses.replace(probs["arc"].geometry, x=xg)
+        val = sinkhorn_divergence_geometry(geom, tol=TOL)
+        (grad,) = torch.autograd.grad(val, [xg])
+        return val.detach(), grad
+
+    timed("arccos divergence + grad", divergence, need=logk)
+    for e in NYS_EPS:
+        timed(f"nystrom eps={e} (rank=, key=)",
+              lambda e=e: solve(probs["unit"][e], method="nystrom",
+                                rank=NYS_RANK,
+                                key=torch.Generator().manual_seed(90),
+                                tol=TOL))
+    timed(f"grid {GRID_SIDE}x{GRID_SIDE}",
+          lambda: solve(probs["grid"], tol=TOL))
+    timed(f"grid {GRID_ORACLE_SIDE}x{GRID_ORACLE_SIDE}",
+          lambda: solve(probs["grid_small"], tol=TOL))
+    timed("accelerated", lambda: solve(
+        probs["gauss_acc"], method="accelerated", tol=TOL,
+        max_iter=ACC_MAX_ITER, check_every=ACC_CHECK))
+    timed("gaussian log_factored eps=0.5",
+          lambda: solve(probs["gauss_acc"], tol=TOL),
+          need=("gaussian_feature_map",) + logk)
+    timed("sphere barycenter",
+          lambda: sphere_barycenter.main(["--device", str(device)]))
+    pts = torch.as_tensor(x[:BARY_N], device=device)
+    lxi = gaussian_log_features(pts, ua.to(device), eps=BARY_EPS, q=qa)
+    hists = torch.as_tensor(inp["hists"], device=device)
+    timed(f"barycenter n={BARY_N} k={BARY_K}",
+          lambda: barycenter_log_factored(lxi, hists, eps=BARY_EPS,
+                                          tol=1e-6, max_iter=500))
+    counts = launch_counts()
+    missing = [k for k in FAMILY_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    return inp, probs, out, counts, failures
+
+
+def held(label, ok, detail):
+    log(f"  {label}: {detail} {'ok' if ok else 'FAIL'}")
+    return [] if ok else [label]
+
+
+def hold_solve(torch, label, k, p):
+    """A fused solve against the plain operators: cost 1e-4 relative,
+    |d n_iter| <= 1, both potentials within 1e-4 of max |value|."""
+    rel = abs(float(k.cost) - float(p.cost)) / abs(float(p.cost))
+    ef, okf = compare(torch, k.f, p.f, rel_to_max=COST_RTOL)
+    eg, okg = compare(torch, k.g, p.g, rel_to_max=COST_RTOL)
+    ok = (rel <= COST_RTOL and abs(k.n_iter - p.n_iter) <= 1 and okf and okg
+          and math.isfinite(float(k.cost)))
+    return held(label, ok, f"kernel cost={float(k.cost):.7f} n_iter="
+                f"{k.n_iter}, plain cost={float(p.cost):.7f} n_iter="
+                f"{p.n_iter}, rel_diff={rel:.3e}, f err {ef:.3e}, g err "
+                f"{eg:.3e}")
+
+
+def compare_families(torch, np, device, inp, probs, out):
+    """Phase 8's checks, after the counted run."""
+    from repro_torch.core import (
+        ArcCosineFeatureMap,
+        ArcCosinePointCloud,
+        NystromLowRank,
+        OTProblem,
+        sinkhorn_divergence_geometry,
+        solve,
+    )
+
+    failures = []
+    res = {k: v[0] for k, v in out.items()}
+    for label, kw in (("arccos f32", {}),
+                      ("arccos bf16", {"precision": "bf16"})):
+        p = solve(probs["arc"], tol=TOL, use_pallas=False, **kw)
+        failures += hold_solve(torch, f"{label} against the plain operators",
+                               res[label], p)
+    label = f"arccos factored eps={FAM_SCALING_EPS}"
+    p = solve(probs["arc_scaling"], method="factored", tol=TOL,
+              use_pallas=False)
+    failures += hold_solve(torch, f"{label} against the plain operators",
+                           res[label], p)
+    for label, kw in ((f"arccos n={FAM_SMALL} bf16",
+                       {"precision": "bf16", "inner_steps": 8}),
+                      (f"arccos n={FAM_SMALL} f32", {})):
+        # the plain operators at the megakernel's cadence (8 iterations a
+        # check) where it ran
+        p = solve(probs["arc_small"], tol=TOL, use_pallas=False, **kw)
+        failures += hold_solve(torch, f"{label} against the plain operators",
+                               res[label], p)
+    xi = probs["arc_small"].geometry.features()[0][:, :-1]
+    dead = int(torch.all(xi == 0, dim=0).sum())
+    failures += held(f"arccos n={FAM_SMALL} dead anchor columns", dead >= 1,
+                     f"{dead} all-zero feature columns (log -inf)")
+    big = probs["arc"].geometry.features()[0][:, :-1]
+    log(f"  arccos n={N}: {float((big == 0).float().mean()):.3f} of the "
+        f"rectified features are 0, {int(torch.all(big == 0, 0).sum())} "
+        "columns all 0")
+    g2 = probs["gauss_2k"].geometry
+    anchors = ArcCosineFeatureMap(r=R_ANCHORS, d=D).init(
+        torch.Generator().manual_seed(81), device=device)
+    arc2k = ArcCosinePointCloud(g2.x, g2.y, anchors, eps=EPS)
+    oracle = solve(OTProblem.from_cost(arc2k.cost_matrix(), eps=EPS),
+                   method="log_quadratic", tol=FAM_ORACLE_TOL, max_iter=5000)
+    k = res[f"arccos n={FAM_ORACLE_N} (rank=, key=)"]
+    rel = abs(float(k.cost) - float(oracle.cost)) / abs(float(oracle.cost))
+    failures += held(f"arccos n={FAM_ORACLE_N} against the dense oracle",
+                     rel <= COST_RTOL and bool(k.converged)
+                     and bool(oracle.converged),
+                     f"cost={float(k.cost):.7f} n_iter={k.n_iter}, "
+                     f"log_quadratic cost={float(oracle.cost):.7f} n_iter="
+                     f"{oracle.n_iter}, rel_diff={rel:.3e}")
+    val, grad = res["arccos divergence + grad"]
+    xg = probs["arc"].geometry.x.clone().requires_grad_(True)
+    pval = sinkhorn_divergence_geometry(
+        dataclasses.replace(probs["arc"].geometry, x=xg), tol=TOL,
+        use_pallas=False)
+    (pgrad,) = torch.autograd.grad(pval, [xg])
+    pval = pval.detach()
+    gerr, gok = compare(torch, grad, pgrad, rel_to_max=GRAD_REL_TOL)
+    dv = abs(float(val) - float(pval))
+    scale = abs(float(res["arccos f32"].cost))
+    failures += held("arccos divergence against the plain operators",
+                     gok and dv <= COST_RTOL * scale
+                     and bool(torch.isfinite(grad).all()),
+                     f"value {float(val):.7f} / {float(pval):.7f}, grad err "
+                     f"{gerr:.3e} (max |grad| {float(pgrad.abs().max()):.3e})")
+    x, y, R = inp["x"], inp["y"], inp["R"]
+    for e in NYS_EPS:
+        k = res[f"nystrom eps={e} (rank=, key=)"]
+        cpu_geom = NystromLowRank.from_point_clouds(
+            torch.as_tensor(x / R), torch.as_tensor(y / R), eps=e,
+            rank=NYS_RANK, generator=torch.Generator().manual_seed(90))
+        c = solve(OTProblem.from_geometry(cpu_geom, device="cpu"), tol=TOL)
+        if e == NYS_EPS[0]:
+            rel = abs(float(k.cost) - float(c.cost)) / abs(float(c.cost))
+            ok = (bool(k.converged) and not bool(k.diverged)
+                  and rel <= NYS_COST_RTOL)
+            detail = (f"card cost={float(k.cost):.7f} n_iter={k.n_iter}, "
+                      f"CPU cost={float(c.cost):.7f} n_iter={c.n_iter}, "
+                      f"rel_diff={rel:.3e}")
+        else:
+            ok = bool(k.diverged) == bool(c.diverged) \
+                and not bool(k.converged)
+            detail = (f"card diverged={bool(k.diverged)} converged="
+                      f"{bool(k.converged)} n_iter={k.n_iter}, CPU "
+                      f"diverged={bool(c.diverged)} n_iter={c.n_iter} (the "
+                      "flag reports it, no exception)")
+        failures += held(f"nystrom eps={e} against the CPU, same landmarks",
+                         ok, detail)
+    a, b = inp["grid"]
+    k = res[f"grid {GRID_SIDE}x{GRID_SIDE}"]
+    axes = [np.linspace(0, 1, GRID_SIDE).astype(np.float32)] * 2
+    c = solve(OTProblem.from_grid(axes, a=a, b=b, eps=GRID_EPS,
+                                  device="cpu"), tol=TOL)
+    rel = abs(float(k.cost) - float(c.cost)) / abs(float(c.cost))
+    failures += held(f"grid {GRID_SIDE}x{GRID_SIDE} against the CPU",
+                     rel <= GRID_COST_RTOL and abs(k.n_iter - c.n_iter) <= 1,
+                     f"card cost={float(k.cost):.7f} n_iter={k.n_iter}, CPU "
+                     f"cost={float(c.cost):.7f} n_iter={c.n_iter}, "
+                     f"rel_diff={rel:.3e}")
+    gs = probs["grid_small"]
+    k = res[f"grid {GRID_ORACLE_SIDE}x{GRID_ORACLE_SIDE}"]
+    oracle = solve(OTProblem.from_cost(gs.geometry.cost_matrix(), gs.a, gs.b,
+                                       eps=GRID_EPS),
+                   method="log_quadratic", tol=TOL)
+    rel = abs(float(k.cost) - float(oracle.cost)) / abs(float(oracle.cost))
+    failures += held(f"grid {GRID_ORACLE_SIDE}x{GRID_ORACLE_SIDE} against "
+                     "the dense oracle", rel <= GRID_COST_RTOL,
+                     f"cost={float(k.cost):.7f} n_iter={k.n_iter}, "
+                     f"log_quadratic cost={float(oracle.cost):.7f} n_iter="
+                     f"{oracle.n_iter}, rel_diff={rel:.3e}")
+    acc, lf = res["accelerated"], res["gaussian log_factored eps=0.5"]
+    diff = abs(float(acc.cost) - float(lf.cost))
+    failures += held("accelerated against log_factored",
+                     bool(acc.converged)
+                     and diff <= ACC_RTOL * abs(float(lf.cost)) + ACC_ATOL,
+                     f"accelerated cost={float(acc.cost):.7f} n_iter="
+                     f"{acc.n_iter} (converged={bool(acc.converged)}), "
+                     f"log_factored cost={float(lf.cost):.7f} n_iter="
+                     f"{lf.n_iter}, |diff|={diff:.3e}")
+    sph = res["sphere barycenter"]
+    failures += held("sphere barycenter", sph["angle"] < 25.0,
+                     f"peak {sph['angle']:.2f} deg from the octant centre")
+    bary = res[f"barycenter n={BARY_N} k={BARY_K}"]
+    w = bary.weights
+    ok = bool(torch.isfinite(w).all()) and bool((w >= 0).all()) and \
+        abs(float(w.sum()) - 1.0) <= 1e-5
+    failures += held(f"barycenter n={BARY_N} k={BARY_K}", ok,
+                     f"n_iter={bary.n_iter} err={float(bary.err):.3e} "
+                     f"converged={bool(bary.converged)} sum={float(w.sum()):.7f}"
+                     f" min={float(w.min()):.3e}")
+    return failures
+
+
+def time_families(torch, probs, out):
+    """One line a family: ms an iteration and ms a solve (from the counted
+    run), the arc-cosine log solve's busy share (profiler), and one log
+    iteration of the arc-cosine plan (r + 1 = 1025) beside the Gaussian
+    one (r = 1024) on the same clouds (CUDA events)."""
+    from repro_torch.core import solve
+
+    if SLEEP_MS[0] == 0.0:
+        calibrate_sleep(torch)
+    gauss = probs["gauss_acc"].geometry
+    arc = probs["arc"].geometry
+    steps = {(name, prec): log_step_ms(torch, g, prec)
+             for name, g in (("arccos", arc), ("gaussian", gauss))
+             for prec in ("highest", "bf16")}
+    share = profile_call(torch, f"arccos log solve n={N} r+1={R_ANCHORS + 1}",
+                         lambda: solve(probs["arc"], tol=TOL))
+
+    def warm(fn):
+        """Wall of a second call of a solve (its runner captured)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    warm_runs = {
+        "arccos f32": warm(lambda: solve(probs["arc"], tol=TOL)),
+        "arccos bf16": warm(lambda: solve(probs["arc"], tol=TOL,
+                                          precision="bf16")),
+        "gaussian": warm(lambda: solve(probs["gauss_acc"], tol=TOL)),
+    }
+    gres, gwall = warm_runs["gaussian"]
+    gline = (f"Gaussian r={R_ANCHORS} log_factored (eps 0.5, warm) "
+             f"{gwall / gres.n_iter * 1e3:.4f} ms/iteration, "
+             f"{gwall * 1e3:.3f} ms a solve ({gres.n_iter} iterations)")
+
+    def per(label):
+        r, wall = warm_runs[label] if label in warm_runs else out[label][:2]
+        it = getattr(r, "n_iter", 0) or 1
+        return (f"{wall / it * 1e3:.4f} ms/iteration, {wall * 1e3:.3f} ms a "
+                f"solve ({it} iterations{', warm' * (label in warm_runs)})")
+
+    for prec in ("highest", "bf16"):
+        (a, ac, ah), (g, gc, gh) = steps[("arccos", prec)], \
+            steps[("gaussian", prec)]
+        label = "arccos f32" if prec == "highest" else "arccos bf16"
+        log(f"  family {label}: {per(label)}; one log plan iteration "
+            f"r+1={R_ANCHORS + 1} {a:.4f} ms against Gaussian r={R_ANCHORS}"
+            f" {g:.4f} ms ({a / g:.3f}x; log contract {ac:.4f} / {gc:.4f}, "
+            f"log half-step {ah:.4f} / {gh:.4f}); {gline}; busy share "
+            f"{'not measured' if share is None else f'{share:.3f}'}")
+    for label in (f"arccos factored eps={FAM_SCALING_EPS}",
+                  f"arccos n={FAM_SMALL} bf16", f"arccos n={FAM_SMALL} f32",
+                  f"nystrom eps={NYS_EPS[0]} (rank=, key=)",
+                  f"grid {GRID_SIDE}x{GRID_SIDE}", "accelerated",
+                  f"barycenter n={BARY_N} k={BARY_K}"):
+        log(f"  family {label}: {per(label)}; {gline}")
+    wall = out["sphere barycenter"][1]
+    log(f"  family sphere barycenter (200 IBP steps, r=3): "
+        f"{wall * 1e3:.3f} ms a solve, {wall / 200 * 1e3:.4f} ms/iteration;"
+        f" {gline}")
+
+
+# ---------------------------------------------------------------------------
 
 
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
@@ -3058,7 +3540,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
 def main(argv=None) -> int:
@@ -3067,7 +3549,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all seven)")
+                    "result lines need all eight)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -3294,10 +3776,26 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 7 FAILED: {failures}")
             return 1
+    if 8 in phases:
+        log(f"== phase 8: families path (arc-cosine n=m={N}, r={R_ANCHORS} "
+            f"-> {R_ANCHORS + 1} features, eps={EPS}, f32 and bf16, and at "
+            f"n={FAM_SMALL}, r+1={FAM_SMALL_R + 1}; Nystrom rank {NYS_RANK} "
+            f"at eps {NYS_EPS}; grid {GRID_SIDE}x{GRID_SIDE} eps={GRID_EPS};"
+            f" accelerated at eps={ACC_EPS}; barycenters; tol={TOL})")
+        t8 = time.perf_counter()
+        inp, probs, out, c8, failures = run_families_path(torch, np, device)
+        log(f"  launches on the families path: {c8}")
+        counts["families"] = c8
+        failures += compare_families(torch, np, device, inp, probs, out)
+        time_families(torch, probs, out)
+        log(f"  phase 8: {time.perf_counter() - t8:.1f} s")
+        if failures:
+            log(f"phase 8 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "seven")
+            "eight")
         return 0
 
     kernels = []

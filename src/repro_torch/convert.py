@@ -1,8 +1,10 @@
 """Carry the JAX package's problem state into the port.
 
 A JAX ``GaussianPointCloud`` / ``FactoredPositive`` / ``DenseCost`` /
+``ArcCosinePointCloud`` / ``NystromLowRank`` / ``GridSeparable`` /
 ``OTProblem`` holds a few arrays and scalars: ``x``, ``y``, ``anchors``,
-``eps``, ``R``, ``(log_)xi``, ``(log_)zeta``, ``C``, ``a``, ``b``. Each
+``eps``, ``R``, ``s``, ``sigma``, ``kappa``, ``(log_)xi``, ``(log_)zeta``,
+``C``, ``L``, ``Rt``, ``axes_x``, ``axes_y``, ``a``, ``b``. Each
 function here takes those as numpy arrays (``np.asarray`` of the JAX
 arrays) and builds the port's object on ``device`` (default: the card), so
 one set of arrays can be handed to both packages. :func:`mlp_stack` and
@@ -19,7 +21,14 @@ import numpy as np
 import torch
 
 from .core.api import OTProblem
-from .core.geometry import DenseCost, FactoredPositive, GaussianPointCloud
+from .core.geometry import (
+    ArcCosinePointCloud,
+    DenseCost,
+    FactoredPositive,
+    GaussianPointCloud,
+    GridSeparable,
+    NystromLowRank,
+)
 from .core.paged import PagedFactored
 from .examples.ot_gan import MLP, OTGAN
 from .kernels.backend import as_f32, resolve_device
@@ -29,6 +38,9 @@ __all__ = [
     "gaussian_point_cloud",
     "factored_positive",
     "dense_cost",
+    "arccos_point_cloud",
+    "nystrom_low_rank",
+    "grid_separable",
     "ot_problem",
     "mlp_stack",
     "gan_params",
@@ -58,6 +70,31 @@ def factored_positive(*, eps: float, xi=None, zeta=None, log_xi=None,
 
 def dense_cost(C, *, eps: float, device=None) -> DenseCost:
     return DenseCost(as_f32(C, resolve_device(device)), float(eps))
+
+
+def arccos_point_cloud(x, y, anchors, *, eps: float, s: int = 1,
+                       sigma: float = 1.5, kappa: float = 1e-3,
+                       device=None) -> ArcCosinePointCloud:
+    dev = resolve_device(device)
+    return ArcCosinePointCloud(as_f32(x, dev), as_f32(y, dev),
+                               as_f32(anchors, dev), eps=float(eps), s=int(s),
+                               sigma=float(sigma), kappa=float(kappa))
+
+
+def nystrom_low_rank(L, Rt, *, eps: float, device=None) -> NystromLowRank:
+    dev = resolve_device(device)
+    return NystromLowRank(L=as_f32(L, dev), Rt=as_f32(Rt, dev),
+                          eps=float(eps))
+
+
+def grid_separable(axes_x, axes_y, *, eps: float,
+                   device=None) -> GridSeparable:
+    """A :class:`GridSeparable` from the JAX geometry's per-axis
+    coordinate vectors (``axes_y`` may be the same arrays)."""
+    dev = resolve_device(device)
+    return GridSeparable(axes_x=tuple(as_f32(t, dev) for t in axes_x),
+                         axes_y=tuple(as_f32(t, dev) for t in axes_y),
+                         eps=float(eps))
 
 
 def ot_problem(geometry, a=None, b=None, *, device=None) -> OTProblem:

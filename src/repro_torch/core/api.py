@@ -7,8 +7,10 @@ An :class:`OTProblem` is a thin ``(geometry, a, b)`` record; a ``method``
 names an algorithm and the geometry supplies the kernel operators. The
 constructors take tensors or numpy arrays and put them on ``device``,
 which defaults to the card (``device="cpu"`` runs the plain PyTorch
-versions of the kernels). Ported methods: ``factored``, ``log_factored``,
-``quadratic``, ``log_quadratic``; the others raise. Counterpart of
+versions of the kernels). Every single-problem method is ported:
+``factored``, ``log_factored``, ``accelerated``, ``quadratic``,
+``log_quadratic``, ``arccos`` and ``nystrom``; ``sharded`` /
+``sharded_log`` raise ``NotImplementedError``. Counterpart of
 ``repro.core.api`` (single-problem surface).
 """
 from __future__ import annotations
@@ -20,7 +22,17 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels.backend import as_f32, resolve_device
-from .geometry import DenseCost, FactoredPositive, GaussianPointCloud, Geometry
+from .accelerated import accelerated_sinkhorn_geometry
+from .features import ArcCosineFeatureMap
+from .geometry import (
+    ArcCosinePointCloud,
+    DenseCost,
+    FactoredPositive,
+    GaussianPointCloud,
+    Geometry,
+    GridSeparable,
+    NystromLowRank,
+)
 from .sinkhorn import SinkhornResult, sinkhorn_geometry, sinkhorn_log_geometry
 
 __all__ = [
@@ -111,6 +123,16 @@ class OTProblem:
                                         as_f32(anchors, dev), eps=eps, R=R)
         return cls.from_geometry(geom, a, b, device=dev)
 
+    @classmethod
+    def from_grid(cls, axes_x, axes_y=None, a=None, b=None, *, eps: float,
+                  device=None) -> "OTProblem":
+        """Separable-grid problem (images / histograms): the measures live
+        on the cartesian product of the axis coordinates, weights in C
+        order (``image.reshape(-1)``)."""
+        dev = resolve_device(device)
+        geom = GridSeparable.build(axes_x, axes_y, eps=eps, device=dev)
+        return cls.from_geometry(geom, a, b, device=dev)
+
 
 # ---------------------------------------------------------------------------
 # Epsilon annealing
@@ -187,7 +209,41 @@ def _run_log(geom, a, b, *, tol, max_iter, momentum, f_init, g_init,
                                  g_init=g_init, **policy)
 
 
-def _coerce_native_factored(geom, eps):
+def _run_accelerated(geom, a, b, *, tol, max_iter, momentum, f_init, g_init,
+                     use_pallas=None, inner_steps=None, check_every=None,
+                     precision="highest"):
+    # AGM's extrapolation is its acceleration and its body has no fused
+    # plan (use_pallas is ignored), so over-relaxation, the megakernel
+    # block and bf16 storage are refused rather than silently dropped
+    if momentum != 1.0:
+        raise ValueError(
+            "momentum (over-relaxation) is not supported by "
+            "method='accelerated': the AGM extrapolation already plays "
+            f"that role; got momentum={momentum}. Use momentum=1.0 or a "
+            "plain method ('factored', 'log_factored', ...).")
+    if inner_steps is not None and int(inner_steps) > 1:
+        raise ValueError(
+            "inner_steps > 1 (the persistent megakernel) is not available "
+            "for method='accelerated': the AGM body interleaves gradient "
+            "extrapolation with exact block steps and has no fused plan. "
+            "Use check_every= for the cadence win, or a plain method.")
+    if precision != "highest":
+        raise ValueError(
+            "method='accelerated' differentiates the smoothed dual through "
+            "its log-operators; the bf16 storage policy is not supported "
+            f"here (got precision={precision!r})")
+    return accelerated_sinkhorn_geometry(
+        geom, a, b, tol=tol, max_iter=max_iter, f_init=f_init, g_init=g_init,
+        check_every=1 if check_every is None else check_every)
+
+
+def _default_generator(key: Optional[torch.Generator]) -> torch.Generator:
+    """``key``, or a CPU generator seeded 0 (the JAX package's
+    ``PRNGKey(0)`` default)."""
+    return torch.Generator().manual_seed(0) if key is None else key
+
+
+def _coerce_native_factored(geom, eps, *, rank, key):
     if isinstance(geom, DenseCost):
         raise ValueError(
             "no factored kernel available (dense-cost problem); use a "
@@ -195,26 +251,68 @@ def _coerce_native_factored(geom, eps):
     return geom
 
 
-def _coerce_densify(geom, eps):
+def _coerce_densify(geom, eps, *, rank, key):
     if isinstance(geom, DenseCost):
         return geom
     return DenseCost(geom.cost_matrix(), eps)
+
+
+def _coerce_arccos(geom, eps, *, rank, key):
+    if isinstance(geom, ArcCosinePointCloud):
+        return geom
+    if isinstance(geom, GaussianPointCloud):
+        # the same supports under the arc-cosine family: fresh anchors
+        # u ~ N(0, sigma^2 I), as many as the problem's unless ``rank``
+        r = geom.anchors.shape[0] if rank is None else rank
+        fm = ArcCosineFeatureMap(r=r, d=geom.x.shape[-1])
+        anchors = fm.init(_default_generator(key), device=geom.device)
+        return ArcCosinePointCloud(geom.x, geom.y, anchors, eps=eps, s=fm.s,
+                                   sigma=fm.sigma, kappa=fm.kappa)
+    raise ValueError(
+        "method='arccos' needs point-cloud supports (an ArcCosinePointCloud "
+        f"or GaussianPointCloud geometry); got {type(geom).__name__}")
+
+
+def _coerce_nystrom(geom, eps, *, rank, key):
+    if isinstance(geom, NystromLowRank):
+        return geom
+    if isinstance(geom, (GaussianPointCloud, ArcCosinePointCloud)):
+        r = geom.anchors.shape[0] if rank is None else rank
+        return NystromLowRank.from_point_clouds(
+            geom.x, geom.y, eps=eps, rank=r,
+            generator=_default_generator(key))
+    raise ValueError(
+        "method='nystrom' needs point-cloud supports (a NystromLowRank or "
+        f"point-cloud geometry); got {type(geom).__name__}")
 
 
 # method -> (coerce geometry, runner). The only dispatch table in the file.
 _SOLVERS: Dict[str, Tuple[Callable, Callable]] = {
     "factored": (_coerce_native_factored, _run_scaling),
     "log_factored": (_coerce_native_factored, _run_log),
+    "accelerated": (_coerce_native_factored, _run_accelerated),
     "quadratic": (_coerce_densify, _run_scaling),
     "log_quadratic": (_coerce_densify, _run_log),
+    "arccos": (_coerce_arccos, _run_log),
+    "nystrom": (_coerce_nystrom, _run_scaling),
 }
 PORTED_METHODS = ("auto", *_SOLVERS)
+
+# auto dispatch: the first matching geometry type wins; other geometries
+# take "factored" on linear features, else "log_factored" (grids and
+# Gaussian clouds, the reference's last two rows)
+_AUTO_METHODS: Tuple[Tuple[type, str], ...] = (
+    (NystromLowRank, "nystrom"),
+    (ArcCosinePointCloud, "arccos"),
+    (DenseCost, "log_quadratic"),
+)
 
 
 def _auto_method(problem: OTProblem) -> str:
     g = problem.geometry
-    if isinstance(g, DenseCost):
-        return "log_quadratic"
+    for typ, method in _AUTO_METHODS:
+        if isinstance(g, typ):
+            return method
     if isinstance(g, FactoredPositive) and g.xi is not None:
         return "factored"
     return "log_factored"
@@ -224,6 +322,8 @@ def _solve_stage(problem: OTProblem, method: str, eps: float, *, tol: float,
                  max_iter: int, momentum: float,
                  f_init: Optional[torch.Tensor],
                  g_init: Optional[torch.Tensor],
+                 rank: Optional[int] = None,
+                 key: Optional[torch.Generator] = None,
                  use_pallas: Optional[bool] = None,
                  inner_steps: Optional[int] = None,
                  check_every: Optional[int] = None,
@@ -237,7 +337,7 @@ def _solve_stage(problem: OTProblem, method: str, eps: float, *, tol: float,
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{METHODS}")
     coerce, run = _SOLVERS[method]
-    geom = coerce(problem.geometry.rebuild_at(eps), eps)
+    geom = coerce(problem.geometry.rebuild_at(eps), eps, rank=rank, key=key)
     return run(geom, problem.a, problem.b, tol=tol, max_iter=max_iter,
                momentum=momentum, f_init=f_init, g_init=g_init,
                use_pallas=use_pallas, inner_steps=inner_steps,
@@ -247,6 +347,8 @@ def _solve_stage(problem: OTProblem, method: str, eps: float, *, tol: float,
 def solve_annealed(problem: OTProblem, *, method: str = "auto",
                    schedule: EpsSchedule, tol: float = 1e-6,
                    max_iter: int = 2000, momentum: float = 1.0,
+                   rank: Optional[int] = None,
+                   key: Optional[torch.Generator] = None,
                    use_pallas: Optional[bool] = None,
                    inner_steps: Optional[int] = None,
                    check_every: Optional[int] = None,
@@ -276,7 +378,8 @@ def solve_annealed(problem: OTProblem, *, method: str = "auto",
         res = _solve_stage(
             problem, method, e, tol=tol_k,
             max_iter=max_iter if last else schedule.stage_iters,
-            momentum=momentum, f_init=f, g_init=g, use_pallas=use_pallas,
+            momentum=momentum, f_init=f, g_init=g, rank=rank, key=key,
+            use_pallas=use_pallas,
             inner_steps=inner_steps, check_every=check_every,
             precision=precision)
         prev_err = float(res.marginal_err)
@@ -291,16 +394,25 @@ def solve_annealed(problem: OTProblem, *, method: str = "auto",
 def solve(problem: OTProblem, *, method: str = "auto",
           schedule: Optional[EpsSchedule] = None, tol: float = 1e-6,
           max_iter: int = 2000, momentum: float = 1.0,
+          rank: Optional[int] = None,
+          key: Optional[torch.Generator] = None,
           use_pallas: Optional[bool] = None,
           inner_steps: Optional[int] = None,
           check_every: Optional[int] = None,
           precision: str = "highest") -> SinkhornResult:
     """Solve one entropic OT problem.
 
-    ``method``: "auto" (point clouds and log-features -> "log_factored",
-    linear features -> "factored", dense costs -> "log_quadratic"),
-    "factored" (Algorithm 1 in scaling space, on features or point
-    clouds), "log_factored", "quadratic" or "log_quadratic".
+    ``method``: "auto" (Nystrom factors -> "nystrom", arc-cosine clouds
+    -> "arccos", dense costs -> "log_quadratic", grids, Gaussian point
+    clouds and log-features -> "log_factored", linear features ->
+    "factored"), "factored" (Algorithm 1 in scaling space, on features or
+    point clouds), "log_factored", "accelerated" (AGM on the log
+    operators, momentum 1, no megakernel, float32 only), "quadratic",
+    "log_quadratic", "arccos" (the log plan on Lemma-3 features; a
+    Gaussian problem's clouds get ``rank`` fresh anchors drawn by ``key``)
+    or "nystrom" (signed low-rank factors of ``rank`` landmarks drawn by
+    ``key``, scaling space). ``key`` is a ``torch.Generator`` (a CPU one
+    seeded 0 by default).
     ``schedule``: optional :class:`EpsSchedule` (anneal-capable
     geometries; scaling stages warm-start from ``u = exp(f / eps)``).
     ``use_pallas``: ``None``/``True`` run the fused plan of the method's
@@ -313,8 +425,8 @@ def solve(problem: OTProblem, *, method: str = "auto",
     """
     if method == "auto":
         method = _auto_method(problem)
-    kw = dict(tol=tol, max_iter=max_iter, momentum=momentum,
-              use_pallas=use_pallas, inner_steps=inner_steps,
+    kw = dict(tol=tol, max_iter=max_iter, momentum=momentum, rank=rank,
+              key=key, use_pallas=use_pallas, inner_steps=inner_steps,
               check_every=check_every, precision=precision)
     if schedule is not None:
         return solve_annealed(problem, method=method, schedule=schedule,

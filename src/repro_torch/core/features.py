@@ -7,8 +7,10 @@ costs O(r (n + m)). For exp(-||x - y||^2 / eps) (Lemma 1):
     log Xi[i, k] = c_k - (1/2) log r - 2/eps ||x_i - u_k||^2,
     c_k = (d/4) log(2q) + ||u_k||^2 / (q eps),   u_k ~ N(0, q eps / 4 I).
 
-Counterpart of ``repro.core.features`` (the arc-cosine map is not ported
-yet). Scalar configuration math is plain Python floats.
+Lemma 3's perturbed arc-cosine map, :func:`arccos_features`, gives
+k_s(x, y) + kappa through relu-rectified random projections and one shared
+sqrt(kappa) coordinate. Counterpart of ``repro.core.features``. Scalar
+configuration math is plain Python floats.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import math
 
 import torch
 
+from ..kernels.backend import resolve_device
 from ..kernels.ref import ieee_fp32
 
 __all__ = [
@@ -25,6 +28,8 @@ __all__ = [
     "GaussianFeatureMap",
     "gaussian_log_features",
     "gaussian_features",
+    "ArcCosineFeatureMap",
+    "arccos_features",
 ]
 
 
@@ -121,3 +126,55 @@ def gaussian_features(x: torch.Tensor, anchors: torch.Tensor, *, eps: float,
                       q: float) -> torch.Tensor:
     """Xi = exp(log Xi): strictly positive feature matrix, shape (n, r)."""
     return torch.exp(gaussian_log_features(x, anchors, eps=eps, q=q))
+
+
+# ---------------------------------------------------------------------------
+# Lemma 3: perturbed arc-cosine kernel k_s(x, y) + kappa
+# ---------------------------------------------------------------------------
+#
+#   phi_ac(x, u) = sigma^{d/2} sqrt(2) max(0, u.x)^s exp(-||u||^2/4 (1 - 1/sigma^2))
+#   u ~ N(0, sigma^2 I),  plus one constant coordinate sqrt(kappa).
+
+
+@dataclasses.dataclass(frozen=True)
+class ArcCosineFeatureMap:
+    """Static config for Lemma-3 features (output width r + 1)."""
+
+    r: int
+    d: int
+    s: int = 1              # rectification order (0: step, 1: relu, 2: sq-relu)
+    sigma: float = 1.5      # importance-sampling widening (> 1)
+    kappa: float = 1e-3     # positivity floor
+
+    def init(self, generator: torch.Generator, device=None) -> torch.Tensor:
+        """Sample anchors sigma * N(0, I), shape (r, d), from ``generator``
+        (a CPU generator), then move them to ``device`` (default: the
+        card): one seed gives the same anchors on every device."""
+        u = self.sigma * torch.randn((self.r, self.d), generator=generator,
+                                     dtype=torch.float32)
+        return u.to(resolve_device(device))
+
+
+def arccos_features(x: torch.Tensor, anchors: torch.Tensor, *, s: int,
+                    sigma: float, kappa: float) -> torch.Tensor:
+    """Arc-cosine positive features, shape (n, r + 1), the shared
+    sqrt(kappa) coordinate last:
+    k_theta(x, y) = (1/r) sum_k ac_k(x) ac_k(y) + kappa -> k_s(x, y) + kappa.
+    Entries of the r rectified columns may be exactly 0."""
+    n = x.shape[0]
+    r, d = anchors.shape
+    with ieee_fp32():
+        proj = x @ anchors.T
+    if s > 0:
+        rect = torch.clamp(proj, min=0.0) ** s
+    else:
+        rect = (proj > 0).to(x.dtype)
+    u2 = torch.sum(anchors * anchors, dim=-1)[None, :]
+    damp = torch.exp(-0.25 * u2 * (1.0 - 1.0 / (sigma * sigma)))
+    amp = (torch.tensor(sigma ** (d / 2.0), dtype=torch.float32)
+           * torch.sqrt(torch.tensor(2.0, dtype=torch.float32)))
+    feats = amp.to(x.device) * rect * damp / torch.sqrt(
+        torch.tensor(float(r), dtype=torch.float32, device=x.device))
+    const = torch.sqrt(torch.tensor(kappa, dtype=torch.float32,
+                                    device=x.device)).expand(n, 1)
+    return torch.cat([feats, const.to(feats.dtype)], dim=-1)

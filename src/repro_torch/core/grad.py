@@ -23,8 +23,6 @@ outside any Pallas kernel. Counterpart of ``repro.core.grad``.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..kernels.kermatvec import feature_contract
@@ -70,45 +68,40 @@ def rot_factored(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
                               momentum)
 
 
-def _tensor_fields(geom: Geometry):
-    return [f.name for f in dataclasses.fields(geom)
-            if isinstance(getattr(geom, f.name), torch.Tensor)]
-
-
 class _RotGeometry(torch.autograd.Function):
     """W_hat with the envelope VJP. Inputs: the geometry (its tensors are
-    re-supplied as ``leaves`` so autograd tracks them), the names of those
-    fields, the solve's keywords, the weights and the leaves."""
+    re-supplied as ``leaves`` so autograd tracks them, those of tuple
+    fields one by one), the paths of those tensors, the solve's keywords,
+    the weights and the leaves."""
 
     @staticmethod
-    def forward(ctx, geom, names, solve_kw, a, b, *leaves):
-        fresh = dataclasses.replace(
-            geom, **{n: t.detach() for n, t in zip(names, leaves)})
+    def forward(ctx, geom, paths, solve_kw, a, b, *leaves):
+        fresh = geom.with_tensors(paths, [t.detach() for t in leaves])
         with torch.no_grad():
             res = sinkhorn_log_geometry(fresh, a.detach(), b.detach(),
                                         **solve_kw)
-        ctx.geom, ctx.names = fresh, names
+        ctx.geom, ctx.paths = fresh, paths
         ctx.save_for_backward(res.f, res.g)
         return res.cost
 
     @staticmethod
     def backward(ctx, ct):
         f, g = ctx.saved_tensors
-        geom, names = ctx.geom, ctx.names
+        geom, paths = ctx.geom, ctx.paths
         eps = geom.eps
-        grads = [None] * len(names)
+        grads = [None] * len(paths)
         want = [i for i, need in enumerate(ctx.needs_input_grad[5:]) if need]
         if want:
             with torch.enable_grad(), ieee_fp32():
-                leaves = {n: getattr(geom, n).detach().requires_grad_(True)
-                          for n in names}
-                gm = dataclasses.replace(geom, **leaves)
+                leaves = [t.detach().requires_grad_(True)
+                          for t in geom.tensors()]
+                gm = geom.with_tensors(paths, leaves)
                 # zero-weight atoms carry f = -inf and add exactly 0
                 corr = -eps * torch.sum(torch.exp(f / eps + gm.log_apply_k(g)))
                 got = torch.autograd.grad(
-                    corr, [leaves[names[i]] for i in want], allow_unused=True)
+                    corr, [leaves[i] for i in want], allow_unused=True)
             for i, gr in zip(want, got):
-                grads[i] = (torch.zeros_like(leaves[names[i]]) if gr is None
+                grads[i] = (torch.zeros_like(leaves[i]) if gr is None
                             else ct * gr)
         return (None, None, None, ct * f, ct * g, *grads)
 
@@ -119,12 +112,11 @@ def rot_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor,
                  precision: str = "highest") -> torch.Tensor:
     """W_hat_{eps,c}(mu, nu), a 0-d tensor: the Eq.-6 dual value of the
     log-domain solve, differentiable in the geometry's tensors (supports,
-    anchors, features) and in the weights through the envelope theorem,
+    anchors, features, grid axes) and in the weights through the envelope theorem,
     with no backprop through the loop. The keywords are the forward
     solve's execution policy (see ``sinkhorn_log_geometry``)."""
-    names = _tensor_fields(geom)
     solve_kw = dict(tol=tol, max_iter=max_iter, use_pallas=use_pallas,
                     inner_steps=inner_steps, check_every=check_every,
                     precision=precision)
-    return _RotGeometry.apply(geom, names, solve_kw, a, b,
-                              *(getattr(geom, n) for n in names))
+    return _RotGeometry.apply(geom, geom.tensor_paths(), solve_kw, a, b,
+                              *geom.tensors())

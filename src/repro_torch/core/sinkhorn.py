@@ -41,7 +41,8 @@ from ..kernels.ops import (
     relax_log,
     relax_scaling,
 )
-from .geometry import FactoredPositive, Geometry, _masked_log
+from ..kernels.ref import ieee_fp32
+from .geometry import DenseCost, FactoredPositive, Geometry, _masked_log
 from .runners import RUNNERS, CellKey, RunnerCache
 
 __all__ = [
@@ -56,7 +57,10 @@ __all__ = [
     "sinkhorn_operator",
     "sinkhorn_geometry",
     "sinkhorn_factored",
+    "sinkhorn_quadratic",
     "sinkhorn_log_geometry",
+    "sinkhorn_log_factored",
+    "sinkhorn_log_quadratic",
 ]
 
 
@@ -518,6 +522,26 @@ def sinkhorn_factored(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
                              momentum=momentum, u_init=u_init)
 
 
+def sinkhorn_quadratic(K: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                       eps: float, tol: float = 1e-6, max_iter: int = 2000,
+                       momentum: float = 1.0,
+                       u_init: Optional[torch.Tensor] = None
+                       ) -> SinkhornResult:
+    """The paper's ``Sin`` baseline (Cuturi '13): dense O(nm) matvecs on
+    the (n, m) Gibbs kernel ``K``."""
+    def matvec(v):
+        with ieee_fp32():
+            return K @ v
+
+    def rmatvec(u):
+        with ieee_fp32():
+            return K.T @ u
+
+    return sinkhorn_operator(matvec, rmatvec, a, b, eps=eps, tol=tol,
+                             max_iter=max_iter, momentum=momentum,
+                             u_init=u_init)
+
+
 # ---------------------------------------------------------------------------
 # Log domain (small-eps safe)
 # ---------------------------------------------------------------------------
@@ -580,3 +604,30 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
                                            steps_per_check=check)
     return _finish_log(a, b, carry[0], carry[1], it, err, eps=geom.eps,
                        tol=tol)
+
+
+def sinkhorn_log_factored(log_xi: torch.Tensor, log_zeta: torch.Tensor,
+                          a: torch.Tensor, b: torch.Tensor, *, eps: float,
+                          tol: float = 1e-6, max_iter: int = 2000,
+                          f_init: Optional[torch.Tensor] = None,
+                          g_init: Optional[torch.Tensor] = None
+                          ) -> SinkhornResult:
+    """Log-stabilized linear Sinkhorn on K = exp(log_xi) exp(log_zeta)^T
+    through the exact two-stage LSE, O(r (n + m)) an iteration: the fused
+    log plan (the log kernels on the card), as ``method="log_factored"``
+    runs it. ``f_init``/``g_init`` warm-start the potentials."""
+    return sinkhorn_log_geometry(
+        FactoredPositive(log_xi=log_xi, log_zeta=log_zeta, eps=eps), a, b,
+        tol=tol, max_iter=max_iter, f_init=f_init, g_init=g_init)
+
+
+def sinkhorn_log_quadratic(C: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                           *, eps: float, tol: float = 1e-6,
+                           max_iter: int = 5000,
+                           f_init: Optional[torch.Tensor] = None,
+                           g_init: Optional[torch.Tensor] = None
+                           ) -> SinkhornResult:
+    """Dense log-domain Sinkhorn on the (n, m) cost ``C``: the oracle."""
+    return sinkhorn_log_geometry(DenseCost(C, eps), a, b, tol=tol,
+                                 max_iter=max_iter, f_init=f_init,
+                                 g_init=g_init)

@@ -16,6 +16,8 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.core import (
+    ArcCosineFeatureMap,
+    GridSeparable,
     OTProblem,
     sinkhorn_divergence_geometry,
     solve,
@@ -57,6 +59,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 13
+    # the families slice's modules are among those imported and checked
+    assert {"repro_torch.core.accelerated", "repro_torch.core.barycenter",
+            "repro_torch.core.nystrom",
+            "repro_torch.examples.sphere_barycenter"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
@@ -83,6 +89,13 @@ def test_without_cuda_the_default_device_raises(monkeypatch):
         convert.gaussian_point_cloud(x, y, u, eps=0.5)
     with pytest.raises(RuntimeError, match="CUDA"):
         backend.resolve_device()
+    axes = [np.linspace(0.0, 1.0, 4)] * 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GridSeparable.build(axes, eps=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OTProblem.from_grid(axes, eps=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ArcCosineFeatureMap(r=4, d=2).init(torch.Generator().manual_seed(0))
     assert backend.resolve_device("cpu") == torch.device("cpu")
     prob = OTProblem.from_point_clouds(x, y, u, eps=0.5, device="cpu")
     assert prob.a.device.type == "cpu"
@@ -176,8 +189,7 @@ def test_requires_grad_input_raises_not_implemented():
                         prob.b))
 
 
-@pytest.mark.parametrize("method", ["accelerated", "arccos", "nystrom",
-                                    "sharded", "sharded_log"])
+@pytest.mark.parametrize("method", ["sharded", "sharded_log"])
 def test_unported_methods_raise_not_implemented(method):
     prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
