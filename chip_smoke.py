@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -45,7 +45,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    pages (1e6 in u, NaN in the factor) and dead slots on live pages, the
    flat contract run twice on the same buffer with its dead pages zeroed,
    and a table of 8320 pages over 8 slabs (two sweeps, two list windows);
-   and log_matvec with -inf entries and an all -inf row. Tolerances: the
+   log_matvec with -inf entries and an all -inf row; and the four
+   kernels with a problem axis (flat contract, row kernel as half-step
+   and matvec, log contract, log half-step) on P = 1, 3 and 32 stacked
+   problems (n = 1024 and ragged n = 1001 and 1003, r = 256, 1024, 40,
+   1000 with B = 3, and 37) in float32 and bf16 against their plain
+   batched twins, each rerun bit-identical, each problem within the same
+   tolerance of the 2-D kernel on it alone, and a problem with a NaN row
+   leaving every other problem's bits unchanged. Tolerances: the
    feature map and the scaling kernels within 1e-5 of max
    |value|; the LSE kernels and the log megakernel's potentials atol 1e-4
    + rtol 1e-5 (summation order differs); the scaling megakernel's
@@ -88,7 +95,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    contract also its slabs alone and evict-first loads on and off, and
    one iteration of the paged plan in its order on two buffers at 50%
    live, evict-first loads on, off and as planned);
-   log_matvec at (16384, 1024);
+   log_matvec at (16384, 1024); the four kernels with a problem axis at
+   the batched engine's shape (P = 32, n = 1024, r = 256, float32 and
+   bf16, cold and warm) beside their batched twins, ``torch.bmm`` /
+   ``torch.logsumexp`` and 32 launches of the 2-D kernel;
 4. the solve path: three annealed ``solve()`` requests on Gaussian point
    clouds (N(1, I) against N(0, 0.1 I), n = m = 16384, d = 8, r = 1024,
    eps = 0.1, seeds 0, 1, 2, tol = 1e-4, well above the float32 noise floor
@@ -162,7 +172,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    summing to 1 within 1e-5. It prints one line a family: ms an
    iteration and a solve, one log plan iteration at r + 1 = 1025 beside
    the Gaussian one at r = 1024 (CUDA events), and the arc-cosine solve's
-   busy share.
+   busy share;
+9. the batched path, with the counters set to 0 before and read after:
+   ``BatchedSinkhorn.solve_stacked`` on P = 32 problems of n = m = 1024,
+   r = 256 (bench_batch's accelerator shape: features U(0.05, 1), eps
+   0.5, tol 1e-4) for ``factored`` and ``log_factored`` in float32 and
+   bf16, ``solve_point_clouds`` on 32 ``gaussian_clouds`` pairs (1024
+   points, d = 2) with r = 256 shared anchors annealed to eps 0.1 by
+   ``EpsSchedule(0.8, 0.4)``, ``solve_many`` over supports 300, 700, 1024,
+   1500 and 2048 (three buckets) and the quickstart, each solve twice
+   (the second captures nothing). Then each lane against its own single
+   solve and against the ``use_pallas=False`` engine (cost 1e-4 relative,
+   |d n_iter| <= 1, a stage each for the clouds), the launches a replay
+   at P = 1 and P = 32 (equal), and bench_batch's fixed 50 iterations:
+   one ``solve_stacked`` against a loop of 32 single solves, and one
+   iteration's device time stacked against 32 single steps.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -415,6 +439,7 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
     check_scaling_block(torch, device, scaling_block_shapes, record)
     check_paged(torch, np, device, record)
     check_log_matvec(torch, device, record)
+    check_batched(torch, device, record)
     check_capture(torch, np, device, record)
     return errs, failures
 
@@ -974,6 +999,114 @@ def check_log_matvec(torch, device, record):
                 ok = ok and float(got[m // 2]) == -math.inf
             record("log_matvec", f"{str(dtype)[6:]} m={m} r={r} "
                    f"-inf={neg_inf}", err, ok)
+
+
+BATCH_P = 32                    # bench_batch's accelerator shape: P
+BATCH_N = 1024                  # problems of n = m = 1024 supports,
+BATCH_R = 256                   # r = 256 features, eps 0.5
+BATCH_EPS = 0.5
+
+
+def check_batched(torch, device, record):
+    """The four kernels with a problem axis (the flat contract, the row
+    kernel as half-step and matvec, the log contract and the log
+    half-step) on P = 1, 3 and 32 stacked problems against their plain
+    batched twins (``kernels.ref``, ``@`` / LSE over each problem's axes),
+    in float32 and bf16: at the engine's shape (n = 1024, r = 256), with a
+    ragged last tile (n = 1001 and 1003: no slab or batch of rows divides
+    it), t in shared memory (float32 r = 1024), the scalar paths (B = 3,
+    r = 1000) and unaligned rows (r = 37). Each case also holds a second
+    launch bit-identical, each problem within the same tolerance of the 2-D
+    kernel on that problem alone, and, with P > 1, a problem whose factor
+    holds a NaN row leaving every other problem's bits unchanged.
+    Tolerances are phase 2's: the scaling kernels within 1e-5 of max
+    |value|, the LSE kernels atol 1e-4 + rtol 1e-5."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kermatvec import (
+        feature_contract,
+        feature_matvec,
+        sinkhorn_halfstep,
+    )
+    from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
+
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [(P, BATCH_N, BATCH_R, 1) for P in (1, 3, BATCH_P)]
+    cases += [(P, 1001, BATCH_R, 1) for P in (3, BATCH_P)]
+    cases += [(3, 1003, 1024, 1), (BATCH_P, 1003, 40, 1), (3, 777, 1000, 3),
+              (5, 301, 37, 1)]
+    for (P, n, r, B) in cases:
+        for dtype in (f32, bf):
+            g = torch.Generator(device=device).manual_seed(P * 101 + n + r + B)
+            xi = (torch.rand((P, n, r), generator=g, device=device)
+                  + 0.05).to(dtype)
+            lw = (30.0 * torch.randn((P, n, r), generator=g, device=device)
+                  - 50.0).to(dtype)
+            u = torch.rand((P, n, B), generator=g, device=device)
+            t = torch.rand((P, r, B), generator=g, device=device)
+            s = 10.0 * torch.randn((P, n, B), generator=g, device=device)
+            lt = 10.0 * torch.randn((P, r, B), generator=g, device=device)
+            marg = torch.full((P, n, B), 1.0 / n, device=device)
+            lmarg = torch.log(marg)
+            lw[:, n // 3] = -math.inf               # an all -inf row
+            s[:, n // 5] = -math.inf                # dead atoms
+            tag = f"{str(dtype)[6:]} P={P} n={n} r={r} B={B}"
+            runs = (
+                ("feature_contract", lambda x: feature_contract(x, u),
+                 lambda x: ref.feature_contract_ref(x, u), xi, "scaling"),
+                ("feature_matvec", lambda x: feature_matvec(x, t),
+                 lambda x: ref.feature_matvec_ref(x, t), xi, "scaling"),
+                ("sinkhorn_halfstep", lambda x: sinkhorn_halfstep(x, t, marg),
+                 lambda x: ref.sinkhorn_halfstep_ref(x, t, marg), xi,
+                 "scaling"),
+                ("log_feature_contract", lambda x: log_feature_contract(x, s),
+                 lambda x: ref.log_feature_contract_ref(x, s), lw, "lse"),
+                ("log_halfstep",
+                 lambda x: log_halfstep(x, lt, lmarg, scale=BATCH_EPS),
+                 lambda x: ref.log_halfstep_ref(x, lt, lmarg,
+                                                scale=BATCH_EPS), lw, "lse"),
+            )
+            one = {  # the 2-D kernel on problem i alone
+                "feature_contract": lambda x, i: feature_contract(
+                    x[i].contiguous(), u[i].contiguous()),
+                "feature_matvec": lambda x, i: feature_matvec(
+                    x[i].contiguous(), t[i].contiguous()),
+                "sinkhorn_halfstep": lambda x, i: sinkhorn_halfstep(
+                    x[i].contiguous(), t[i].contiguous(),
+                    marg[i].contiguous()),
+                "log_feature_contract": lambda x, i: log_feature_contract(
+                    x[i].contiguous(), s[i].contiguous()),
+                "log_halfstep": lambda x, i: log_halfstep(
+                    x[i].contiguous(), lt[i].contiguous(),
+                    lmarg[i].contiguous(), scale=BATCH_EPS),
+            }
+            for name, kernel, plain, x, kind in runs:
+                kw = (dict(rel_to_max=SCALING_REL_TOL) if kind == "scaling"
+                      else dict(atol=LSE_ATOL, rtol=LSE_RTOL))
+                got = kernel(x)
+                again = kernel(x)
+                want = plain(x)
+                torch.cuda.synchronize()
+                err, ok = compare(torch, got, want, **kw)
+                same = torch.equal(got, again)
+                lanes_ok = True
+                for i in sorted({0, P // 2, P - 1}):
+                    e_i, ok_i = compare(torch, got[i], one[name](x, i), **kw)
+                    lanes_ok = lanes_ok and ok_i
+                    err = max(err, e_i)
+                iso = "n/a"
+                if P > 1:
+                    bad = x.clone()
+                    bad[1, n // 2] = math.nan
+                    poisoned = kernel(bad)
+                    torch.cuda.synchronize()
+                    others = [i for i in range(P) if i != 1]
+                    iso = torch.equal(poisoned[others], got[others]) and \
+                        bool(torch.isnan(poisoned[1]).any())
+                record(name, f"batched {tag} rerun "
+                       f"{'bit-identical' if same else 'DIFFERS'}, lanes vs "
+                       f"2-D {'ok' if lanes_ok else 'OFF'}, NaN lane "
+                       f"isolated {iso}", err,
+                       ok and same and lanes_ok and iso is not False)
 
 
 def check_capture(torch, np, device, record):
@@ -3529,6 +3662,465 @@ def time_families(torch, probs, out):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phases 3 and 9: the batched engine (P problems on a leading axis)
+# ---------------------------------------------------------------------------
+
+
+def batch_features(torch, np, P, n, r, seed, device):
+    """bench_batch's stacked features: U(0.05, 1) from a numpy seed, (P,
+    n, r) float32 on the card."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(0.05, 1.0, (P, n, r)).astype(
+        np.float32), device=device)
+
+
+def time_batched_kernels(torch, np, device):
+    """Phase 3 for the four kernels with a problem axis at the batched
+    engine's shape (P = 32, n = 1024, r = 256, B = 1), float32 and bf16:
+    each wrapper on the stacked (P, n, r) factor beside its plain batched
+    twin, the one PyTorch call computing the same function
+    (``torch.bmm``, ``marg / torch.bmm``, ``torch.logsumexp``), and the
+    same work as P launches of the 2-D kernel, one a problem. A stacked
+    factor is 32 MiB in float32, inside the 50 MB L2, so each call is
+    timed cold (cycling through copies past 100 MB; the bound counts
+    device-memory bytes) and warm. Returns the float32 rows by kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kermatvec import (
+        feature_contract,
+        feature_matvec,
+        sinkhorn_halfstep,
+    )
+    from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
+
+    P, n, r, B = BATCH_P, BATCH_N, BATCH_R, 1
+    rows = {}
+    g = torch.Generator(device=device).manual_seed(23)
+    u = torch.rand((P, n, B), generator=g, device=device)
+    t = torch.rand((P, r, B), generator=g, device=device)
+    s = torch.randn((P, n, B), generator=g, device=device)
+    lt = torch.randn((P, r, B), generator=g, device=device)
+    marg = torch.full((P, n, B), 1.0 / n, device=device)
+    lmarg = torch.log(marg)
+    xi32 = batch_features(torch, np, P, n, r, 5, device)
+    for dtype in (torch.float32, torch.bfloat16):
+        fb = torch.finfo(dtype).bits // 8
+        ncopy = max(2, math.ceil(100e6 / (fb * P * n * r)))
+        copies = [xi32.to(dtype, copy=True) for _ in range(ncopy)]
+        logs = [torch.log(c.float()).to(dtype) for c in copies]
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        fac = fb * P * n * r
+        vec_in, vec_out = 4.0 * P * n * B, 4.0 * P * r * B
+        cases = (
+            ("feature_contract", copies,
+             lambda x: feature_contract(x, u),
+             lambda x: ref.feature_contract_ref(x, u),
+             lambda x: torch.bmm(x.float().mT, u),
+             lambda x, i: feature_contract(x[i], u[i]),
+             fac + vec_in + vec_out, 2.0 * P * n * r * B),
+            ("sinkhorn_halfstep", copies,
+             lambda x: sinkhorn_halfstep(x, t, marg),
+             lambda x: ref.sinkhorn_halfstep_ref(x, t, marg),
+             lambda x: marg / torch.bmm(x.float(), t),
+             lambda x, i: sinkhorn_halfstep(x[i], t[i], marg[i]),
+             fac + vec_out + 2 * vec_in, 2.0 * P * n * r * B + P * n * B),
+            ("feature_matvec", copies,
+             lambda x: feature_matvec(x, t),
+             lambda x: ref.feature_matvec_ref(x, t),
+             lambda x: torch.bmm(x.float(), t),
+             lambda x, i: feature_matvec(x[i], t[i]),
+             fac + vec_out + vec_in, 2.0 * P * n * r * B),
+            ("log_feature_contract", logs,
+             lambda x: log_feature_contract(x, s),
+             lambda x: ref.log_feature_contract_ref(x, s),
+             lambda x: torch.logsumexp(x.float() + s, dim=1),
+             lambda x, i: log_feature_contract(x[i], s[i]),
+             fac + vec_in + vec_out, 2.0 * P * n * r * B),
+            ("log_halfstep", logs,
+             lambda x: log_halfstep(x, lt, lmarg, scale=BATCH_EPS),
+             lambda x: ref.log_halfstep_ref(x, lt, lmarg, scale=BATCH_EPS),
+             lambda x: BATCH_EPS * (lmarg[..., 0] - torch.logsumexp(
+                 x.float() + lt.mT, dim=2)),
+             lambda x, i: log_halfstep(x[i], lt[i], lmarg[i],
+                                       scale=BATCH_EPS),
+             fac + vec_out + 2 * vec_in, 2.0 * P * n * r * B),
+        )
+        for name, xs, kernel, plain, library, one, nbytes, flops in cases:
+            cold = [time_ms(torch, cycling(fn, xs))
+                    for fn in (kernel, plain, library)]
+            warm = time_ms(torch, lambda: kernel(xs[0]))
+
+            def looped(x):
+                for i in range(P):
+                    one(x, i)
+
+            loop_ms = time_ms(torch, cycling(looped, xs), per_batch=2)
+            b_ms, b_by = bound(nbytes, flops)
+            row = dict(ms=cold[0], plain_ms=cold[1], library_ms=cold[2],
+                       bound_ms=b_ms, bound_by=b_by, warm_ms=warm,
+                       looped_ms=loop_ms, shape=f"P={P} n={n} r={r} {tag}")
+            if tag == "f32":
+                rows[name] = row
+            log(f"  {name:22s} batched {tag} P={P} n={n} r={r}: kernel "
+                f"{cold[0]:.4f} ms (L2-warm {warm:.4f})  plain "
+                f"{cold[1]:.4f} ms  library {cold[2]:.4f} ms  bound "
+                f"{b_ms:.5f} ms ({b_by})  kernel/bound {cold[0] / b_ms:.2f}"
+                f"  {P} 2-D launches {loop_ms:.4f} ms")
+        del copies, logs
+    return rows
+
+
+BATCH_SUPPORTS = (300, 700, 1024, 1500, 2048)   # the ragged solve_many list
+BATCH_CLOUD_EPS = 0.1
+BATCH_ITERS = 50                # bench_batch's fixed iteration count
+BATCH_PATH_KERNELS = ("gaussian_feature_map", "feature_contract",
+                      "sinkhorn_halfstep", "feature_matvec",
+                      "log_feature_contract", "log_halfstep")
+BATCH_RUNS = (("factored", "highest"), ("factored", "bf16"),
+              ("log_factored", "highest"), ("log_factored", "bf16"))
+
+
+def batch_inputs(torch, np, device):
+    """Phase 9's inputs: the stacked features (P = 32, n = m = 1024, r =
+    256) and their logs, uniform weights; 32 pairs of ``gaussian_clouds``
+    (1024 points, d = 2, seeds 0-31) and r = 256 shared Lemma-1 anchors at
+    eps 0.1; the ragged list's features (U(0.05, 1), n = m = each of
+    ``BATCH_SUPPORTS``, r = 256)."""
+    from repro_torch.core import GaussianFeatureMap, data_radius
+    from repro_torch.data import gaussian_clouds
+
+    P, n, r = BATCH_P, BATCH_N, BATCH_R
+    xi = batch_features(torch, np, P, n, r, 0, device)
+    zeta = batch_features(torch, np, P, n, r, 1, device)
+    w = torch.full((P, n), 1.0 / n, device=device)
+    pairs = [gaussian_clouds(i, n, 2, device=device) for i in range(P)]
+    x = torch.stack([p[0] for p in pairs])
+    y = torch.stack([p[1] for p in pairs])
+    R = math.ceil(float(data_radius(x, y)) * 2.0) / 2.0
+    fm = GaussianFeatureMap(r=r, d=2, eps=BATCH_CLOUD_EPS, R=R)
+    anchors = fm.init(torch.Generator().manual_seed(0)).to(device)
+    rng = np.random.default_rng(2)
+    ragged = [tuple(torch.as_tensor(rng.uniform(0.05, 1.0, (k, r)).astype(
+        np.float32), device=device) for _ in range(2))
+        for k in BATCH_SUPPORTS]
+    return dict(xi=xi, zeta=zeta, lxi=torch.log(xi), lzeta=torch.log(zeta),
+                w=w, x=x, y=y, R=R, anchors=anchors, ragged=ragged)
+
+
+def batch_engine(method, precision, **kw):
+    from repro_torch.core import BatchedSinkhorn
+    args = dict(eps=BATCH_EPS, method=method, tol=TOL, max_iter=2000,
+                precision=precision)
+    args.update(kw)
+    return BatchedSinkhorn(**args)
+
+
+def stacked_args(inp, method):
+    ka, kb = ((inp["xi"], inp["zeta"]) if method == "factored"
+              else (inp["lxi"], inp["lzeta"]))
+    return ka, kb, inp["w"], inp["w"]
+
+
+def run_batched_path(torch, np, device):
+    """The counted run of phase 9, with the launch counters set to 0 just
+    before and read just after: ``solve_stacked`` at P = 32, n = m = 1024,
+    r = 256, eps 0.5 for ``factored`` and ``log_factored`` in float32 and
+    bf16 (each twice: the second solve must capture nothing), 32 cloud
+    pairs through ``solve_point_clouds`` annealed to eps 0.1 (twice), the
+    ragged ``solve_many`` (twice) and the quickstart."""
+    from repro_torch.core import EpsSchedule, solve_many
+    from repro_torch.core.api import OTProblem
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    inp = batch_inputs(torch, np, device)
+    ragged = [OTProblem.from_features(a_, b_, eps=BATCH_EPS, device=device)
+              for a_, b_ in inp["ragged"]]
+    engines = {run: batch_engine(*run) for run in BATCH_RUNS}
+    cloud_engine = batch_engine(
+        "log_factored", "highest", eps=BATCH_CLOUD_EPS,
+        schedule=EpsSchedule(eps_init=0.8, decay=0.4))
+    out, failures = {}, []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for run, eng in engines.items():
+        args = stacked_args(inp, run[0])
+        for k in range(2):
+            c0 = eng.runners.captures
+            t0 = time.perf_counter()
+            res = eng.solve_stacked(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            new = eng.runners.captures - c0
+            if k and new:
+                failures.append(f"{run} captured {new} after warmup")
+        out[run] = res
+        log(f"  solve_stacked {run[0]} {run[1]} P={BATCH_P} n=m={BATCH_N} "
+            f"r={BATCH_R}: n_iter {res.n_iter.min().item()}-"
+            f"{res.n_iter.max().item()}, cost {float(res.cost.min()):.6f}-"
+            f"{float(res.cost.max()):.6f}, second solve {wall * 1e3:.2f} ms "
+            f"({wall * 1e3 / int(res.n_iter.max()):.4f} ms an iteration), "
+            f"runners {eng.runners.stats()}")
+    for k in range(2):
+        c0 = cloud_engine.runners.captures
+        t0 = time.perf_counter()
+        res = cloud_engine.solve_point_clouds(inp["x"], inp["y"],
+                                              inp["anchors"], R=inp["R"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if k and cloud_engine.runners.captures != c0:
+            failures.append("point clouds captured after warmup")
+    out["clouds"] = res
+    log(f"  solve_point_clouds P={BATCH_P} n=m={BATCH_N} d=2 r={BATCH_R} "
+        f"EpsSchedule(0.8, 0.4) -> eps {BATCH_CLOUD_EPS}: n_iter "
+        f"{res.n_iter.min().item()}-{res.n_iter.max().item()}, second "
+        f"solve {wall * 1e3:.2f} ms, runners {cloud_engine.runners.stats()}")
+    for k in range(2):
+        t0 = time.perf_counter()
+        res = solve_many(ragged, method="factored", tol=TOL, max_iter=2000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["ragged"] = res
+    log(f"  solve_many supports {BATCH_SUPPORTS}: n_iter "
+        f"{[r_.n_iter for r_ in res]}, second call {wall * 1e3:.2f} ms")
+    t0 = time.perf_counter()
+    out["quickstart"] = quickstart.main([])
+    torch.cuda.synchronize()
+    log(f"  quickstart (n=4000, r=500, its five steps): "
+        f"{time.perf_counter() - t0:.2f} s")
+    counts = launch_counts()
+    missing = [k for k in BATCH_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    return inp, ragged, engines, cloud_engine, out, counts, failures
+
+
+def lane_check(label, got, want, i, failures, n_tol=1):
+    """One lane against its yardstick: cost COST_RTOL relative, |d n_iter|
+    <= ``n_tol``."""
+    rel = abs(float(got.cost[i]) - float(want.cost)) / abs(float(want.cost))
+    dn = abs(int(got.n_iter[i]) - int(want.n_iter))
+    if not (rel <= COST_RTOL and dn <= n_tol):
+        failures.append(f"{label} lane {i}: rel {rel:.2e}, d n_iter {dn}")
+    return rel, dn
+
+
+def compare_batched_path(torch, np, device, inp, ragged, engines,
+                         cloud_engine, out):
+    """Each lane of phase 9's counted run against its own single solve
+    (``solve(SolveSpec)``, the same method and policy) and against the
+    ``use_pallas=False`` engine: cost 1e-4 relative, |d n_iter| <= 1, the
+    check cadence of both (every iteration: the megakernels refuse these
+    shapes). Then the launches a replay of the P = 1 and the P = 32 cell
+    (equal), and times at bench_batch's fixed 50 iterations."""
+    from repro_torch.core import EpsSchedule, ExecutionPolicy, SolveSpec, solve
+    from repro_torch.core.api import OTProblem
+
+    failures = []
+    for run, eng in engines.items():
+        method, precision = run
+        ka, kb, a, b = stacked_args(inp, method)
+        res = out[run]
+        worst = [0.0, 0]
+        pol = ExecutionPolicy(precision=precision)
+        t0 = time.perf_counter()
+        singles = []
+        for i in range(BATCH_P):
+            maker = (OTProblem.from_features if method == "factored"
+                     else OTProblem.from_log_features)
+            prob = maker(ka[i], kb[i], eps=BATCH_EPS, device=device)
+            singles.append(solve(SolveSpec.from_problem(
+                prob, method=method, tol=TOL, max_iter=2000, policy=pol)))
+        torch.cuda.synchronize()
+        loop_wall = time.perf_counter() - t0
+        plain = batch_engine(method, precision,
+                             use_pallas=False).solve_stacked(ka, kb, a, b)
+        for i in range(BATCH_P):
+            for label, want in (("single", singles[i]),
+                                ("plain", unpad_lane(plain, i))):
+                rel, dn = lane_check(f"{run} {label}", res, want, i,
+                                     failures)
+                worst = [max(worst[0], rel), max(worst[1], dn)]
+        log(f"  {run[0]} {run[1]}: {BATCH_P} lanes against their single "
+            f"solves and use_pallas=False: worst cost rel {worst[0]:.2e}, "
+            f"worst |d n_iter| {worst[1]} (32 single solves {loop_wall:.3f}"
+            " s)")
+    res = out["clouds"]
+    worst = [0.0, 0]
+    sched = EpsSchedule(eps_init=0.8, decay=0.4)
+    stages = len(sched.stages(BATCH_CLOUD_EPS))
+    plain = batch_engine("log_factored", "highest", eps=BATCH_CLOUD_EPS,
+                         schedule=sched, use_pallas=False).solve_point_clouds(
+        inp["x"], inp["y"], inp["anchors"], R=inp["R"])
+    for i in range(BATCH_P):
+        prob = OTProblem.from_point_clouds(inp["x"][i], inp["y"][i],
+                                           inp["anchors"],
+                                           eps=BATCH_CLOUD_EPS, R=inp["R"],
+                                           device=device)
+        single = solve(SolveSpec.from_problem(
+            prob, method="log_factored", tol=TOL, max_iter=2000,
+            schedule=sched))
+        for label, want in (("single", single), ("plain",
+                                                 unpad_lane(plain, i))):
+            rel, dn = lane_check(f"clouds {label}", res, want, i, failures,
+                                 n_tol=stages)
+            worst = [max(worst[0], rel), max(worst[1], dn)]
+    log(f"  point clouds: {BATCH_P} lanes against their single annealed "
+        f"solves and use_pallas=False: worst cost rel {worst[0]:.2e}, "
+        f"worst |d n_iter| {worst[1]} (within 1 a stage, {stages} stages)")
+    for k, (p, got) in enumerate(zip(ragged, out["ragged"])):
+        want = solve(SolveSpec.from_problem(p, method="factored", tol=TOL,
+                                            max_iter=2000))
+        rel = abs(float(got.cost) - float(want.cost)) / abs(float(want.cost))
+        dn = abs(got.n_iter - want.n_iter)
+        ok = rel <= COST_RTOL and dn <= 1 and got.f.shape == p.a.shape
+        log(f"  solve_many n=m={BATCH_SUPPORTS[k]}: cost rel {rel:.2e}, "
+            f"d n_iter {dn} against its single solve {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"ragged n={BATCH_SUPPORTS[k]}")
+    qs = out["quickstart"]
+    ok = (abs(qs["factored"] - qs["exact"]) < 0.05 * abs(qs["exact"])
+          and qs["after_step"] < qs["divergence"]
+          and bool(torch.isfinite(qs["batch_costs"]).all()))
+    log(f"  quickstart: exact {qs['exact']:.5f}, factored "
+        f"{qs['factored']:.5f}, cold {qs['cold_iters']} / annealed "
+        f"{qs['annealed_iters']} iterations, divergence "
+        f"{qs['divergence']:.5f} -> {qs['after_step']:.5f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("quickstart")
+    failures += launches_per_replay(torch, inp, engines)
+    failures += time_batched_engine(torch, device, inp)
+    return failures
+
+
+def unpad_lane(res, i):
+    from repro_torch.core.api import unpad_result
+    return unpad_result(res, i, res.f.shape[1], res.g.shape[1])
+
+
+def launches_per_replay(torch, inp, engines):
+    """The launches a replay of the P = 1 cell and of the P = 32 cell make
+    (K = 8 iterations a replay, one per-iteration step each): equal for
+    each method, the problems riding on the kernels' leading axis."""
+    failures = []
+    for run, eng in engines.items():
+        if run[1] != "highest":
+            continue
+        ka, kb, a, b = stacked_args(inp, run[0])
+        eng.solve_stacked(ka[:1], kb[:1], a[:1], b[:1])
+        per = {key.P: r_.per_replay for key, r_ in
+               ((k, eng.runners._runners[k]) for k in eng.runners.keys())}
+        same = per.get(1) == per.get(BATCH_P) and per.get(1)
+        log(f"  {run[0]}: launches a replay (8 iterations) at P=1 "
+            f"{per.get(1)} and at P={BATCH_P} {per.get(BATCH_P)} "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{run[0]} launches a replay differ")
+    return failures
+
+
+def graph_replay(torch, fn):
+    """``fn`` captured in a CUDA graph after one eager call: its replay,
+    so that CUDA events time the device work and not the host's
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph.replay
+
+
+def time_batched_engine(torch, device, inp):
+    """bench_batch's comparison on the card: P = 32 problems at a fixed 50
+    iterations (tol 0), through one ``solve_stacked`` against a loop of 32
+    single solves (each its own replays and reads), host clock ending in a
+    sync, best of 3 after a warm-up, each lane's cost held against its
+    single solve's (1e-4 relative); and one iteration's device time (CUDA
+    events over a captured graph) of the stacked plan's step against 32
+    steps of the single-problem plan. Returns the failures."""
+    from repro_torch.core import ExecutionPolicy, SolveSpec, solve
+    from repro_torch.core.api import OTProblem
+    from repro_torch.kernels import ops
+
+    failures = []
+    calibrate_sleep(torch)
+    for method in ("factored", "log_factored"):
+        ka, kb, a, b = stacked_args(inp, method)
+        eng = batch_engine(method, "highest", tol=0.0, max_iter=BATCH_ITERS)
+        maker = (OTProblem.from_features if method == "factored"
+                 else OTProblem.from_log_features)
+        probs = [maker(ka[i], kb[i], eps=BATCH_EPS, device=device)
+                 for i in range(BATCH_P)]
+        specs = [SolveSpec.from_problem(p, method=method, tol=0.0,
+                                        max_iter=BATCH_ITERS,
+                                        policy=ExecutionPolicy())
+                 for p in probs]
+
+        got, singles_res = {}, {}
+
+        def batched():
+            got["res"] = eng.solve_stacked(ka, kb, a, b)
+            torch.cuda.synchronize()
+
+        def looped():
+            singles_res["res"] = [solve(s_) for s_ in specs]
+            torch.cuda.synchronize()
+
+        walls = {}
+        for name, fn in (("batched", batched), ("loop", looped)):
+            fn()
+            best = math.inf
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                best = min(best, time.perf_counter() - t0)
+            walls[name] = best
+        mode = "scaling" if method == "factored" else "log"
+        kind = method
+        spec = ({"kind": kind, "xi": ka, "zeta": kb} if mode == "scaling"
+                else {"kind": kind, "log_xi": ka, "log_zeta": kb})
+        plan = ops.stacked_ops(spec, problems=BATCH_P, eps=BATCH_EPS,
+                               mode=mode)
+        res = got["res"]
+        worst = 0.0
+        for i, one in enumerate(singles_res["res"]):
+            rel = abs(float(res.cost[i]) - float(one.cost)) / abs(
+                float(one.cost))
+            worst = max(worst, rel)
+            if rel > COST_RTOL or int(res.n_iter[i]) != one.n_iter:
+                failures.append(f"{method} {BATCH_ITERS} iterations lane {i}"
+                                f": rel {rel:.2e}")
+        step, init = plan.make_step(a, b)
+        c0 = init(torch.ones_like(a) if mode == "scaling"
+                  else torch.zeros_like(a), torch.ones_like(b))
+        step_ms = time_ms(torch, graph_replay(torch, lambda: step(c0)))
+        singles = []
+        for i in range(BATCH_P):
+            p1 = ops.geometry_ops(probs[i].geometry, mode=mode)
+            s1, i1 = p1.make_step(a[i], b[i])
+            singles.append((s1, i1(*(t_[i] for t_ in c0[:2]))))
+
+        def loop_steps():
+            for s1, c1 in singles:
+                s1(c1)
+
+        loop_ms = time_ms(torch, graph_replay(torch, loop_steps),
+                          per_batch=4)
+        log(f"  batched {method} P={BATCH_P} n=m={BATCH_N} r={BATCH_R} "
+            f"{BATCH_ITERS} iterations: one solve_stacked "
+            f"{walls['batched'] * 1e3:.2f} ms, a loop of {BATCH_P} single "
+            f"solves {walls['loop'] * 1e3:.2f} ms, loop/batched "
+            f"{walls['loop'] / walls['batched']:.2f} (lanes against their "
+            f"single solves: worst cost rel {worst:.2e}, n_iter equal); one "
+            f"iteration (device, CUDA events on a captured graph) "
+            f"{step_ms:.4f} ms stacked, {loop_ms:.4f} ms as {BATCH_P} "
+            f"single steps ({loop_ms / step_ms:.2f}x)")
+    return failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -3540,7 +4132,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 
 
 def main(argv=None) -> int:
@@ -3549,7 +4141,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all eight)")
+                    "result lines need all nine)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -3702,6 +4294,9 @@ def main(argv=None) -> int:
         time_halfstep_cold(torch, np, device)
         flat_contract_digest(torch, device)
         times.update(time_paged_kernels(torch, np, device))
+        batched_rows = time_batched_kernels(torch, np, device)
+        for name, row in batched_rows.items():
+            times[name] = dict(times[name], batched=row)
 
     counts = {}
     if 4 in phases:
@@ -3792,10 +4387,27 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 8 FAILED: {failures}")
             return 1
+    if 9 in phases:
+        log(f"== phase 9: batched path (P={BATCH_P} problems of n=m="
+            f"{BATCH_N}, r={BATCH_R}, eps={BATCH_EPS}, factored and "
+            f"log_factored in f32 and bf16; {BATCH_P} cloud pairs annealed "
+            f"to eps {BATCH_CLOUD_EPS}; solve_many over {BATCH_SUPPORTS}; "
+            f"the quickstart; tol={TOL})")
+        t9 = time.perf_counter()
+        (inp, ragged, engines, cloud_engine, out, c9,
+         failures) = run_batched_path(torch, np, device)
+        log(f"  launches on the batched path: {c9}")
+        counts["batched"] = c9
+        failures += compare_batched_path(torch, np, device, inp, ragged,
+                                         engines, cloud_engine, out)
+        log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
+        if failures:
+            log(f"phase 9 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "eight")
+            "nine")
         return 0
 
     kernels = []

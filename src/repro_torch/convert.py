@@ -11,7 +11,11 @@ one set of arrays can be handed to both packages. :func:`mlp_stack` and
 :func:`gan_params` carry the JAX OT-GAN example's parameters (lists of
 ``{"w": (d_in, d_out), "b": (d_out,)}`` layers) into the port's modules;
 :func:`paged_factored` and :func:`streaming_distribution` carry a paged
-geometry and a streaming store's state, slot for slot.
+geometry and a streaming store's state, slot for slot;
+:func:`solve_spec` and :func:`recovery_policy` carry a ``SolveSpec`` and
+its ``RecoveryPolicy`` field by field. Stacked inputs of the batched
+engine are carried one problem at a time through :func:`factored_positive`
+and :func:`ot_problem`, then stacked.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Hashable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from .core.api import OTProblem
+from .core.api import EpsSchedule, OTProblem
 from .core.geometry import (
     ArcCosinePointCloud,
     DenseCost,
@@ -29,9 +33,12 @@ from .core.geometry import (
     GridSeparable,
     NystromLowRank,
 )
+from .core.objective import ExecutionPolicy
 from .core.paged import PagedFactored
+from .core.spec import SolveSpec
 from .examples.ot_gan import MLP, OTGAN
 from .kernels.backend import as_f32, resolve_device
+from .resilience.policy import RUNGS, RecoveryPolicy
 from .streaming import PagedFeatureStore, StreamingDistribution
 
 __all__ = [
@@ -46,6 +53,8 @@ __all__ = [
     "gan_params",
     "paged_factored",
     "streaming_distribution",
+    "recovery_policy",
+    "solve_spec",
 ]
 
 
@@ -166,3 +175,51 @@ def streaming_distribution(feats, weights, live, slot_of: Mapping[
     store._slot = dict(slot_of)
     store._alloc_order = [int(p) for p in alloc_order]
     return StreamingDistribution(store, eps=eps)
+
+
+def recovery_policy(*, rungs: Sequence[str] = RUNGS, max_attempts: int = 4,
+                    deadline_s: Optional[float] = None,
+                    eps_scale: float = 10.0,
+                    accept: Sequence[str] = ("ok", "maxed_out")
+                    ) -> RecoveryPolicy:
+    """A :class:`RecoveryPolicy` from the JAX record's fields (validated
+    as the JAX package validates them)."""
+    return RecoveryPolicy(rungs=tuple(rungs), max_attempts=int(max_attempts),
+                          deadline_s=deadline_s, eps_scale=float(eps_scale),
+                          accept=tuple(accept))
+
+
+def solve_spec(geometry, a=None, b=None, *, method: str = "auto",
+               schedule: Optional[Mapping] = None, tol: float = 1e-6,
+               max_iter: int = 2000, momentum: float = 1.0,
+               precision: str = "highest",
+               use_pallas: Optional[bool] = None,
+               inner_steps: Optional[int] = None,
+               check_every: Optional[int] = None,
+               rank: Optional[int] = None, seed: Optional[int] = None,
+               recovery: Optional[Mapping] = None,
+               device=None) -> SolveSpec:
+    """A :class:`SolveSpec` from a JAX spec's fields: ``geometry`` a port
+    geometry already on ``device`` (built by the functions above),
+    ``a``/``b`` numpy weights (``None``: uniform), ``schedule`` the
+    ``EpsSchedule`` fields as a mapping, the ``ExecutionPolicy`` knobs one
+    by one (the JAX ``backend`` pin has no counterpart: the geometry's
+    device is the policy's), ``seed`` for the ``key`` (a CPU
+    ``torch.Generator`` seeded with it; the JAX ``PRNGKey`` draws other
+    numbers) and ``recovery`` the ``RecoveryPolicy`` fields as a
+    mapping."""
+    dev = resolve_device(device)
+    return SolveSpec(
+        geometry=geometry,
+        a=None if a is None else as_f32(a, dev),
+        b=None if b is None else as_f32(b, dev),
+        method=method,
+        schedule=None if schedule is None else EpsSchedule(**schedule),
+        tol=float(tol), max_iter=int(max_iter), momentum=float(momentum),
+        policy=ExecutionPolicy(precision=precision, use_pallas=use_pallas,
+                               inner_steps=inner_steps,
+                               check_every=check_every),
+        rank=rank,
+        key=None if seed is None else torch.Generator().manual_seed(
+            int(seed)),
+        recovery=None if recovery is None else recovery_policy(**recovery))

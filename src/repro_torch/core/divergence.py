@@ -12,8 +12,10 @@ cross term's. :func:`sinkhorn_divergence_features` takes precomputed
 features: in the log domain it is the geometry divergence, in scaling
 space three ``grad.rot_factored`` terms (the scaling plan and its
 closed-form envelope rule). :func:`sinkhorn_divergence_gaussian` builds
-Lemma-1 features of two point clouds and takes either. Counterpart of
-``repro.core.divergence`` (single-problem surface).
+Lemma-1 features of two point clouds and takes either. The ``_batched``
+variants take P problems stacked on a leading axis (the GAN minibatch of
+the paper's Section 4): three batched solves, differentiable through the
+batched envelope VJPs. Counterpart of ``repro.core.divergence``.
 """
 from __future__ import annotations
 
@@ -23,12 +25,19 @@ import torch
 
 from .features import gaussian_log_features
 from .geometry import FactoredPositive, Geometry
-from .grad import rot_factored, rot_geometry
+from .grad import (
+    rot_factored,
+    rot_factored_batched,
+    rot_geometry,
+    rot_log_factored_batched,
+)
 
 __all__ = [
     "sinkhorn_divergence_geometry",
     "sinkhorn_divergence_features",
     "sinkhorn_divergence_gaussian",
+    "sinkhorn_divergence_features_batched",
+    "sinkhorn_divergence_gaussian_batched",
 ]
 
 
@@ -94,3 +103,50 @@ def sinkhorn_divergence_gaussian(x: torch.Tensor, y: torch.Tensor,
     return sinkhorn_divergence_features(torch.exp(lxi), torch.exp(lzeta), a,
                                         b, eps=eps, tol=tol,
                                         max_iter=max_iter)
+
+
+def sinkhorn_divergence_features_batched(xi: torch.Tensor, zeta: torch.Tensor,
+                                         a: torch.Tensor, b: torch.Tensor, *,
+                                         eps: float, tol: float = 1e-6,
+                                         max_iter: int = 2000,
+                                         log_domain: bool = False
+                                         ) -> torch.Tensor:
+    """Stacked Wbar, shape (P,), from (log-)features (P, n, r) / (P, m, r)
+    and weights (P, n) / (P, m): three batched solves, differentiable in
+    all four tensors."""
+    if log_domain:
+        def rot(p, q, w, z):
+            return rot_log_factored_batched(p, q, w, z, eps, tol, max_iter)
+    else:
+        def rot(p, q, w, z):
+            return rot_factored_batched(p, q, w, z, eps, tol, max_iter, 1.0)
+    w_xy = rot(xi, zeta, a, b)
+    w_xx = rot(xi, xi, a, a)
+    w_yy = rot(zeta, zeta, b, b)
+    return w_xy - 0.5 * (w_xx + w_yy)
+
+
+def sinkhorn_divergence_gaussian_batched(x: torch.Tensor, y: torch.Tensor,
+                                         anchors: torch.Tensor, *,
+                                         eps: float, q: float,
+                                         a: Optional[torch.Tensor] = None,
+                                         b: Optional[torch.Tensor] = None,
+                                         tol: float = 1e-6,
+                                         max_iter: int = 2000,
+                                         log_domain: bool = True
+                                         ) -> torch.Tensor:
+    """Batched Wbar, shape (P,), between per-problem clouds (P, n, d) /
+    (P, m, d) under SHARED Lemma-1 anchors (r, d): the GAN objective of
+    Eq. 18 over a minibatch, differentiable in ``x``, ``y`` and
+    ``anchors``."""
+    P, n, _ = x.shape
+    m = y.shape[1]
+    a = torch.full((P, n), 1.0 / n, device=x.device) if a is None else a
+    b = torch.full((P, m), 1.0 / m, device=y.device) if b is None else b
+    lxi = gaussian_log_features(x, anchors, eps=eps, q=q)
+    lzeta = gaussian_log_features(y, anchors, eps=eps, q=q)
+    if not log_domain:
+        lxi, lzeta = torch.exp(lxi), torch.exp(lzeta)
+    return sinkhorn_divergence_features_batched(
+        lxi, lzeta, a, b, eps=eps, tol=tol, max_iter=max_iter,
+        log_domain=log_domain)

@@ -13,16 +13,17 @@
 
 Counterpart of ``repro.core.objective``. The JAX ``backend`` field is a
 ``device`` here. Sharded solves (``mesh``) are not ported and raise;
-``from_config`` and ``spec`` wait for the config and spec modules.
+``from_config`` waits for the config module.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
 
-from ..kernels.backend import resolve_device
+from ..kernels.backend import device_scope, resolve_device
 from ..kernels.ops import check_precision
 from .divergence import sinkhorn_divergence_geometry
 from .geometry import FactoredPositive, GaussianPointCloud, Geometry
@@ -76,6 +77,14 @@ class ExecutionPolicy:
         """The knobs threaded into ``sinkhorn_*`` / ``rot_geometry`` calls."""
         return dict(use_pallas=self.use_pallas, inner_steps=self.inner_steps,
                     check_every=self.check_every, precision=self.precision)
+
+    def scope(self):
+        """Context manager pinning the policy's device for the enclosed
+        solves (``kernels.backend.device_scope``); a no-op where the policy
+        keeps the geometry's device."""
+        if self.device is None:
+            return contextlib.nullcontext()
+        return device_scope(self.device)
 
     def check_device(self, geom: Geometry) -> None:
         """Refuse a geometry that is not on the policy's device."""
@@ -167,3 +176,16 @@ class OTObjective:
         dev = geom.device
         return (torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev),
                 torch.full((m,), 1.0 / m, dtype=torch.float32, device=dev))
+
+    def spec(self, geom: Geometry, a: Optional[torch.Tensor] = None,
+             b: Optional[torch.Tensor] = None, *, method: str = "auto"):
+        """The :class:`~repro_torch.core.spec.SolveSpec` naming this
+        objective's solve of ``geom``: a training loss's configuration and
+        an offline ``solve`` of the same problem are one record."""
+        from .spec import SolveSpec     # spec imports this module
+        if geom.eps != self.eps:
+            raise ValueError(
+                f"geometry eps={geom.eps} != objective eps={self.eps}")
+        return SolveSpec(geometry=geom, a=a, b=b, method=method,
+                         tol=self.tol, max_iter=self.max_iter,
+                         policy=self.policy)

@@ -65,7 +65,8 @@ class CellKey(NamedTuple):
     n: int
     m: int
     r: int
-    B: int
+    P: int                      # problems stacked on a leading axis (0: one
+                                # problem's plan, no problem axis)
     dtype: torch.dtype          # factor storage
     page_size: int              # 0 for a flat plan
     eps: float

@@ -26,6 +26,15 @@ megakernel (``kernels.fused_loop``: ``sinkhorn_block`` in scaling space,
 ``log_sinkhorn_block`` in the log domain) wherever it is admitted, as
 the JAX package does on a compiled backend; on the CPU it checks every
 iteration, as the JAX package does in interpret mode.
+
+The same body runs P problems stacked on a leading axis (the batched
+engine, ``core.api.BatchedSinkhorn``): the carry is ``(P, n)`` / ``(P,
+m)``, the state's ``n_iter``, ``err``, ``running`` and ``tol`` are
+``(P,)``, each lane commits only while it runs, and the host read stops
+when no lane runs. That is the JAX package's ``vmap`` of its
+``while_loop``: a stopped lane is frozen, and its result equals its own
+solve. :func:`run_lane_loop` is the eager host loop of stacked problems
+(one block and one read at a time).
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ __all__ = [
     "loop_state",
     "run_check_blocks",
     "run_marginal_loop",
+    "run_lane_loop",
     "sinkhorn_operator",
     "sinkhorn_geometry",
     "sinkhorn_factored",
@@ -106,11 +116,18 @@ def _check_inputs(geom: Geometry, *tensors: torch.Tensor) -> None:
                              f"{geom.device}")
 
 
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over a problem's atoms: the whole of a 1-D tensor (0-d), the
+    last axis of P stacked problems ((P,))."""
+    return torch.sum(x) if x.dim() <= 1 else torch.sum(x, dim=-1)
+
+
 def masked_dual_value(a, b, f, g):
     """W_hat = <a, f> + <b, g> with zero-weight atoms excluded (their
-    potentials are -inf, and 0 * -inf would be NaN)."""
-    ta = torch.sum(torch.where(a > 0, a * f, torch.zeros_like(f)))
-    tb = torch.sum(torch.where(b > 0, b * g, torch.zeros_like(g)))
+    potentials are -inf, and 0 * -inf would be NaN); one value a problem
+    for stacked problems."""
+    ta = lane_sum(torch.where(a > 0, a * f, torch.zeros_like(f)))
+    tb = lane_sum(torch.where(b > 0, b * g, torch.zeros_like(g)))
     return ta + tb
 
 
@@ -127,7 +144,7 @@ def make_scaling_step(matvec, rmatvec, a, b, *, momentum: float = 1.0):
         u_new = relax_scaling(
             torch.where(a > 0, a / matvec(v_new), zero_a), u, momentum)
         s_new = rmatvec(u_new)
-        err = torch.sum(torch.abs(v_new * s_new - b))
+        err = lane_sum(torch.abs(v_new * s_new - b))
         return (u_new, v_new, s_new), err
 
     return step
@@ -143,7 +160,7 @@ def make_log_step(log_matvec, log_rmatvec, a, b, *, eps: float,
         g = relax_log(eps * (logb - log_rmatvec(f)), g, momentum)
         f = relax_log(eps * (loga - log_matvec(g)), f, momentum)
         log_col = log_rmatvec(f) + g / eps
-        err = torch.sum(torch.abs(torch.exp(log_col) - b))
+        err = lane_sum(torch.abs(torch.exp(log_col) - b))
         return (f, g), err
 
     return step
@@ -153,48 +170,55 @@ class LoopState(NamedTuple):
     """The device state of the block-and-commit body. ``carry`` is the
     committed carry, which the next block starts from; ``status`` packs
     ``(running, n_iter)`` as float64 for the loop's one host read. The
-    body updates every field in place."""
+    body updates every field in place. A lane is a problem: the lane
+    fields are 0-d for one problem and (P,) for P stacked problems."""
 
     carry: Tuple[torch.Tensor, ...]
-    n_iter: torch.Tensor        # int64, 0-d: iterations of the carry
-    err: torch.Tensor           # float32, 0-d: its marginal error
-    running: torch.Tensor       # bool, 0-d: no block has stopped yet
-    tol: torch.Tensor           # float32, 0-d
+    n_iter: torch.Tensor        # int64, per lane: iterations of the carry
+    err: torch.Tensor           # float32, per lane: its marginal error
+    running: torch.Tensor       # bool, per lane: no block has stopped yet
+    tol: torch.Tensor           # float32, per lane
     max_iter: torch.Tensor      # int64, 0-d
-    status: torch.Tensor        # float64, (2,)
+    status: torch.Tensor        # float64, (2,) + lanes
 
 
-def loop_state(carry0, *, tol: Optional[float] = None,
-               max_iter: Optional[int] = None) -> LoopState:
+def loop_state(carry0, *, tol=None, max_iter: Optional[int] = None,
+               lanes: Optional[int] = None) -> LoopState:
     """A new state on the carry's device, its carry shaped like
-    ``carry0``; loaded with ``carry0``, ``tol`` and ``max_iter`` where
-    ``tol`` is given (:func:`load_loop_state`)."""
+    ``carry0``, with ``lanes`` problems on the carry's leading axis
+    (``None``: one problem, 0-d lane fields); loaded with ``carry0``,
+    ``tol`` and ``max_iter`` where ``tol`` is given
+    (:func:`load_loop_state`)."""
     dev = carry0[0].device
+    lead = () if lanes is None else (int(lanes),)
 
-    def scalar(dtype):
-        return torch.zeros((), dtype=dtype, device=dev)
+    def field(dtype, shape=lead):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     state = LoopState(tuple(torch.empty_like(c) for c in carry0),
-                      scalar(torch.int64), scalar(torch.float32),
-                      scalar(torch.bool), scalar(torch.float32),
-                      scalar(torch.int64),
-                      torch.zeros((2,), dtype=torch.float64, device=dev))
+                      field(torch.int64), field(torch.float32),
+                      field(torch.bool), field(torch.float32),
+                      field(torch.int64, ()),
+                      field(torch.float64, (2,) + lead))
     if tol is not None:
         load_loop_state(state, carry0, tol=tol, max_iter=max_iter)
     return state
 
 
-def load_loop_state(state: LoopState, carry0, *, tol: float,
+def load_loop_state(state: LoopState, carry0, *, tol,
                     max_iter: int) -> None:
     """Start ``state`` over: the carry ``carry0``, no iteration, running,
-    and this solve's ``tol`` (rounded to float32, as the errors are) and
-    ``max_iter``."""
+    and this solve's ``tol`` (a float, rounded to float32 as the errors
+    are, or a float32 tensor of one tolerance a lane) and ``max_iter``."""
     for dst, src in zip(state.carry, carry0):
         dst.copy_(src)
     state.n_iter.zero_()
     state.err.zero_()
     state.running.fill_(True)
-    state.tol.fill_(_f32(tol))
+    if isinstance(tol, torch.Tensor):
+        state.tol.copy_(tol)
+    else:
+        state.tol.fill_(_f32(tol))
     state.max_iter.fill_(int(max_iter))
 
 
@@ -210,10 +234,12 @@ def run_check_blocks(step, state: LoopState, *, blocks: int,
     which is the host loop's test after each block (a NaN error stops
     it too), so the committed result is the first block that stops.
     Blocks after it may run, on their own carry, and change nothing that
-    is committed, and a call on a stopped state commits nothing. Reads
-    nothing to the host, so a runner captures it in a CUDA graph."""
+    is committed, and a call on a stopped state commits nothing. With
+    stacked problems each lane commits and stops on its own (a stopped
+    lane is frozen), so its result is its own solve's. Reads nothing to
+    the host, so a runner captures it in a CUDA graph."""
     cadence = steps_per_check * iters_per_step
-    its = state.n_iter + torch.arange(
+    its = state.n_iter.unsqueeze(-1) + torch.arange(
         cadence, cadence * (blocks + 1), cadence, dtype=torch.int64,
         device=state.n_iter.device)
     under_cap = its < state.max_iter
@@ -223,18 +249,29 @@ def run_check_blocks(step, state: LoopState, *, blocks: int,
         for _ in range(steps_per_check):
             carry, err = step(carry)
         for dst, src in zip(state.carry, carry):
-            torch.where(running, src, dst, out=dst)
-        torch.where(running, its[k], state.n_iter, out=state.n_iter)
+            torch.where(_lanes_like(running, dst), src, dst, out=dst)
+        torch.where(running, its[..., k], state.n_iter, out=state.n_iter)
         torch.where(running, err, state.err, out=state.err)
         finite = torch.nan_to_num(err, nan=-math.inf, posinf=-math.inf)
-        running &= (finite > state.tol) & under_cap[k]
+        running &= (finite > state.tol) & under_cap[..., k]
     torch.stack([running.double(), state.n_iter.double()],
                 out=state.status)
 
 
-def _read_status(state: LoopState) -> Tuple[bool, int]:
-    """The loop's one host read: ``(done, n_iter)``."""
+def _lanes_like(lanes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A lane field ((P,) or 0-d) shaped to broadcast over a carry ``x``
+    whose leading axis holds the lanes."""
+    if lanes.dim() == 0:
+        return lanes
+    return lanes.view(lanes.shape + (1,) * (x.dim() - 1))
+
+
+def _read_status(state: LoopState):
+    """The loop's one host read: ``(done, n_iter)``; with stacked problems
+    ``done`` once no lane runs, and ``n_iter`` a list, one count a lane."""
     running, n_iter = state.status.tolist()
+    if isinstance(running, list):
+        return not any(running), [int(k) for k in n_iter]
     return not running, int(n_iter)
 
 
@@ -267,6 +304,24 @@ def run_marginal_loop(step, carry0, *, tol: float, max_iter: int,
         it += cadence
         e = float(err)
     return it, carry, err
+
+
+def run_lane_loop(step, carry0, *, tol, max_iter: int, lanes: int,
+                  steps_per_check: int = 1, iters_per_step: int = 1):
+    """The eager host loop of ``lanes`` stacked problems: the block-and-
+    commit body one block at a time over a fresh state, one host read a
+    block, until no lane runs (each lane stops as :func:`run_marginal_loop`
+    stops one problem). ``tol`` is a float or one float32 tolerance a lane.
+    Returns ``(n_iter, carry, err)``: a list of counts, the committed
+    carry and the (P,) errors."""
+    state = loop_state(carry0, tol=tol, max_iter=max_iter, lanes=lanes)
+    while True:
+        run_check_blocks(step, state, blocks=1,
+                         steps_per_check=steps_per_check,
+                         iters_per_step=iters_per_step)
+        done, n_iter = _read_status(state)
+        if done:
+            return n_iter, state.carry, state.err
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +425,7 @@ def _run_captured(runners: RunnerCache, key: CellKey, plan, make, a, b,
     bufs["b"].copy_(b)
     carry = bufs["plan"].init(*carry0)
     if first:
-        bufs["state"] = loop_state(carry)
+        bufs["state"] = loop_state(carry, lanes=key.P or None)
     state = bufs["state"]
     load_loop_state(state, carry, tol=tol, max_iter=max_iter)
 
@@ -399,9 +454,15 @@ def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
     admits the shape, else the per-iteration step at the same check
     cadence (every iteration under auto), through the cell's runner of
     ``runners`` (default ``core.runners.RUNNERS``). ``carry0`` is
-    ``(u0, v0)`` or ``(f0, g0)``; returns ``(n_iter, carry, err)``."""
+    ``(u0, v0)`` or ``(f0, g0)``; returns ``(n_iter, carry, err)``. A plan
+    over P stacked problems (weights ``(P, n)``) runs its lanes in one
+    loop, its ``n_iter`` a list and ``tol`` a float or one a lane; the
+    megakernels take no problem axis, so ``block_admits`` refuses P > 1
+    and the per-iteration step runs, as for any shape they refuse."""
+    lanes = a.shape[0] if a.dim() == 2 else None
+    n, m = a.shape[-1], b.shape[-1]
     inner, check, auto = _resolve_cadence(plan, inner_steps, check_every)
-    if inner > 1 and plan.block_admits(a.shape[0], b.shape[0]):
+    if inner > 1 and plan.block_admits(n, m, lanes or 1):
         steps_per_check, iters_per_step = check // inner, inner
 
         def make(p, a_, b_):
@@ -416,12 +477,14 @@ def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
               iters_per_step=iters_per_step)
     if not _FORCE["graphs"]:
         step, init = make(plan, a, b)
+        if lanes is not None:
+            return run_lane_loop(step, init(*carry0), lanes=lanes, **kw)
         return run_marginal_loop(step, init(*carry0), **kw)
     xi = plan.features[0]
     blocks = _replay_blocks(steps_per_check * iters_per_step, max_iter,
                             a.device)
-    key = CellKey(plan.mode, plan.kind, a.shape[0], b.shape[0], xi.shape[1],
-                  1, xi.dtype, plan.page_size, float(plan.eps),
+    key = CellKey(plan.mode, plan.kind, n, m, xi.shape[-1], lanes or 0,
+                  xi.dtype, plan.page_size, float(plan.eps),
                   float(momentum), iters_per_step, steps_per_check, blocks,
                   plan.precision, a.device)
     return _run_captured(RUNNERS if runners is None else runners, key, plan,
@@ -433,10 +496,16 @@ def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
 # ---------------------------------------------------------------------------
 
 
+def _converged(err: torch.Tensor, tol) -> torch.Tensor:
+    """``err <= tol``, ``tol`` a float (rounded to float32) or a tensor of
+    one tolerance a lane."""
+    return err <= (tol if isinstance(tol, torch.Tensor) else _f32(tol))
+
+
 def _finish_scaling(a, b, u, v, it, err, *, eps, tol) -> SinkhornResult:
     f, g = eps * _masked_log(u), eps * _masked_log(v)
     cost = masked_dual_value(a, b, f, g)
-    return SinkhornResult(u, v, f, g, cost, it, err, err <= _f32(tol))
+    return SinkhornResult(u, v, f, g, cost, it, err, _converged(err, tol))
 
 
 def sinkhorn_operator(matvec, rmatvec, a, b, *, eps: float, tol: float = 1e-6,
@@ -560,7 +629,20 @@ def _log_init(a, b, f_init, g_init):
 def _finish_log(a, b, f, g, it, err, *, eps, tol) -> SinkhornResult:
     cost = masked_dual_value(a, b, f, g)
     u, v = torch.exp(f / eps), torch.exp(g / eps)
-    return SinkhornResult(u, v, f, g, cost, it, err, err <= _f32(tol))
+    return SinkhornResult(u, v, f, g, cost, it, err, _converged(err, tol))
+
+
+def _solve_log_plan(plan, a, b, *, eps, tol, max_iter, momentum, f_init,
+                    g_init, inner_steps=None, check_every=None,
+                    runners=None) -> SinkhornResult:
+    """The log-domain solve with the loop body routed through the fused
+    log plan (:func:`sinkhorn_log_geometry`'s plan path)."""
+    f0, g0 = _log_init(a, b, f_init, g_init)
+    it, carry, err = _plan_loop(plan, a, b, (f0, g0), tol=tol,
+                                max_iter=max_iter, inner_steps=inner_steps,
+                                check_every=check_every, momentum=momentum,
+                                runners=runners)
+    return _finish_log(a, b, carry[0], carry[1], it, err, eps=eps, tol=tol)
 
 
 def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
@@ -586,22 +668,21 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     potentials; ``runners`` as in :func:`sinkhorn_geometry`."""
     check_precision(precision)
     _check_inputs(geom, a, b, f_init, g_init)
-    f0, g0 = _log_init(a, b, f_init, g_init)
     plan = _maybe_pallas_plan(geom, use_pallas, "log", precision)
     if plan is not None:
-        it, carry, err = _plan_loop(plan, a, b, (f0, g0), tol=tol,
-                                    max_iter=max_iter,
-                                    inner_steps=inner_steps,
-                                    check_every=check_every,
-                                    momentum=momentum, runners=runners)
-    else:
-        _, check, _ = _resolve_cadence(None, inner_steps, check_every)
-        log_matvec, log_rmatvec = geom.log_operators(precision=precision)
-        step = make_log_step(log_matvec, log_rmatvec, a, b, eps=geom.eps,
-                             momentum=momentum)
-        it, carry, err = run_marginal_loop(step, (f0, g0), tol=tol,
-                                           max_iter=max_iter,
-                                           steps_per_check=check)
+        return _solve_log_plan(plan, a, b, eps=geom.eps, tol=tol,
+                               max_iter=max_iter, momentum=momentum,
+                               f_init=f_init, g_init=g_init,
+                               inner_steps=inner_steps,
+                               check_every=check_every, runners=runners)
+    f0, g0 = _log_init(a, b, f_init, g_init)
+    _, check, _ = _resolve_cadence(None, inner_steps, check_every)
+    log_matvec, log_rmatvec = geom.log_operators(precision=precision)
+    step = make_log_step(log_matvec, log_rmatvec, a, b, eps=geom.eps,
+                         momentum=momentum)
+    it, carry, err = run_marginal_loop(step, (f0, g0), tol=tol,
+                                       max_iter=max_iter,
+                                       steps_per_check=check)
     return _finish_log(a, b, carry[0], carry[1], it, err, eps=geom.eps,
                        tol=tol)
 

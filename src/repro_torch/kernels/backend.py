@@ -10,12 +10,14 @@ version (the configuration of the tests).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "MEGAKERNEL_BUDGET", "resolve_device", "as_f32",
-           "check_operand", "l2_bytes", "sm_count"]
+__all__ = ["DEFAULT_DEVICE", "MEGAKERNEL_BUDGET", "resolve_device",
+           "device_scope", "as_f32", "check_operand", "stacked_dims",
+           "l2_bytes", "sm_count"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -49,6 +51,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
+def device_scope(device: DeviceLike):
+    """Pin ``device`` for the enclosed calls: entry points given no device
+    resolve to it, and a CUDA device is the current one. The counterpart
+    of the JAX package's ``backend_scope``."""
+    global DEFAULT_DEVICE
+    dev = resolve_device(device)
+    saved = DEFAULT_DEVICE
+    DEFAULT_DEVICE = str(dev)
+    try:
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                yield dev
+        else:
+            yield dev
+    finally:
+        DEFAULT_DEVICE = saved
+
+
 def as_f32(arr, device: Optional[torch.device]) -> torch.Tensor:
     """A contiguous float32 tensor on ``device`` from a tensor or an array."""
     return torch.as_tensor(arr, dtype=torch.float32,
@@ -76,6 +97,19 @@ def check_operand(t: torch.Tensor, name: str, ndim: int,
         raise ValueError(f"{name}: unsupported device {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def stacked_dims(t: torch.Tensor, name: str) -> int:
+    """The dimensions of a kernel's leading operand: 2 for one problem, 3
+    for P problems stacked on a leading axis (the batched engine's
+    ``(P, n, r)`` factors). Every other operand of the call must have as
+    many."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dim() not in (2, 3):
+        raise ValueError(f"{name} must have 2 dimensions, or 3 with the "
+                         f"problems first; got shape {tuple(t.shape)}")
+    return t.dim()
 
 
 def sm_count(device: torch.device) -> int:

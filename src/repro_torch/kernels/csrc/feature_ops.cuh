@@ -16,6 +16,16 @@
 // the outputs over the splits in a fixed order (grid_combine). No atomics,
 // so a rerun is bit-identical.
 //
+// A batched contract serves P problems in one launch, (P, n, r) factors
+// and (P, n, B) vectors into (P, r, B) outputs: CTA x = p * splits + split
+// reduces slab `split` of problem p (problem_args moves its operands to
+// that problem), so a CTA never mixes problems and each problem's partials
+// sit together in a (P, splits, r, B) buffer; the combine takes a slice of
+// the P * r * B outputs, each summed over its own problem's splits in
+// split order. A problem's sums never read another's, and the split plan
+// depends on (P, n, r) and the storage type only, so a non-finite lane
+// leaves its siblings' bits unchanged.
+//
 // The paged row kernels take one warp per row against t staged in shared
 // memory: the vector path reads vectors lane, lane + 32, ... of the row;
 // the scalar path elements lane, lane + 32, ... for kMaxCols columns of t
@@ -39,7 +49,30 @@ struct ContractArgs {
   int splits, rows_per_split;
   int tile, groups;        // threads of a row group; row groups of a CTA
   int combine;             // 0: slabs only, t not formed (phase 3 times it)
+  int P = 1;               // problems on the leading axis of xi, u and t
 };
+
+// The operands of problem p of a batched contract: xi, u and t moved by
+// p (n, r), (n, B) and (r, B) blocks (the partials stay put: a CTA writes
+// slice blockIdx.x = p * splits + split of them).
+template <typename T>
+__device__ __forceinline__ ContractArgs problem_args(const ContractArgs& a,
+                                                     int p) {
+  ContractArgs b = a;
+  b.xi = static_cast<const T*>(a.xi) + (size_t)p * a.n * a.r;
+  b.u = a.u + (size_t)p * a.n * a.B;
+  b.t = a.t + (size_t)p * a.r * a.B;
+  return b;
+}
+
+// Where output o of the (P, r, B) outputs starts in the (P, splits, r, B)
+// partials (its splits follow at a stride of r * B).
+__device__ __forceinline__ size_t partial_offset(const ContractArgs& a,
+                                                 int o) {
+  const int O = a.r * a.B;
+  const int p = o / O;
+  return (size_t)p * a.splits * O + (o - p * O);
+}
 
 // The plan's geometry as the contract kernels need it (the slabs are each
 // launcher's own); nonzero when the plan cannot run.
@@ -50,7 +83,8 @@ __host__ int contract_plan_invalid(const ContractArgs& a, int col_tiles,
   const int rv = vec ? a.r / V : a.r;
   return (vec && (a.B != 1 || a.r % V != 0 || chunks != 1)) || a.tile < 1 ||
          a.groups < 1 || a.groups * a.tile > kFlatThreads ||
-         col_tiles * a.tile < rv || chunks * kMaxCols < a.B || a.splits < 1;
+         col_tiles * a.tile < rv || chunks * kMaxCols < a.B || a.splits < 1 ||
+         a.P < 1 || (long long)a.P * a.splits > 0x7fffffff;
 }
 
 // A thread's place in a contract CTA: its row group g and slot q (a 16-byte
@@ -228,23 +262,25 @@ __device__ __forceinline__ float ordered_sum(const float* p, int count,
 }
 
 // After the grid barrier: t = the sum over splits of the partials, every
-// CTA adding a slice of the r * B outputs. A slice of w outputs is split
-// over parts runs of consecutive splits (parts * w <= the CTA's threads),
-// each run summed in split order, and the runs added by a fixed pairwise
-// tree in shared memory: the same order on every launch.
+// CTA adding a slice of the P * r * B outputs. A slice of w outputs is
+// split over parts runs of consecutive splits (parts * w <= the CTA's
+// threads), each run summed in split order, and the runs added by a fixed
+// pairwise tree in shared memory: the same order on every launch.
 __device__ __forceinline__ void grid_combine(const ContractArgs& a,
                                              float* red) {
   constexpr int kT = kFlatThreads;
   const int O = a.r * a.B;
+  const int total = a.P * O;
   const int nblocks = gridDim.x * gridDim.y * gridDim.z;
   const int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int w = (O + nblocks - 1) / nblocks;
+  const int w = (total + nblocks - 1) / nblocks;
   const int o0 = b * w;
-  if (o0 >= O) return;
-  const int wb = min(w, O - o0);
+  if (o0 >= total) return;
+  const int wb = min(w, total - o0);
   if (w > kT / 2) {            // wide slices: a thread an output, all splits
     for (int j = threadIdx.x; j < wb; j += kT)
-      a.t[o0 + j] = ordered_sum(a.partial + o0 + j, a.splits, O);
+      a.t[o0 + j] = ordered_sum(a.partial + partial_offset(a, o0 + j),
+                                a.splits, O);
     return;
   }
   int parts = 1;
@@ -254,7 +290,7 @@ __device__ __forceinline__ void grid_combine(const ContractArgs& a,
   if (p < parts) {
     const int first = p * len;
     red[p * w + j] = j < wb && first < a.splits
-        ? ordered_sum(a.partial + (size_t)first * O + o0 + j,
+        ? ordered_sum(a.partial + partial_offset(a, o0 + j) + (size_t)first * O,
                       min(len, a.splits - first), O)
         : 0.0f;
   }

@@ -69,6 +69,16 @@
 // as float32 does. Rows are not padded: bounds checks replace the JAX
 // package's pad-with-1 rows.
 //
+// Both kernels serve P problems in one launch where the caller stacks them
+// on a leading axis, (P, n, r) factors and (P, n, B) vectors: the
+// contract's CTA x = p * splits + split reduces slab `split` of problem p
+// and the combine sums each problem's own partials (feature_ops.cuh); the
+// row kernel runs `grid` CTAs a problem, CTA x serving problem x / grid,
+// so a CTA stages (or holds in registers) one problem's t and its warps
+// take that problem's batches in turn. No CTA mixes problems, and a
+// problem's results never depend on another's values. P = 1 is the single
+// problem of the solvers.
+//
 // The factor xi is stored as float or as bfloat16 (precision="bf16", half
 // the bytes); each kernel is a template on that storage type T, widens
 // every element to float on load and accumulates with float FMAs. No
@@ -99,15 +109,17 @@ __global__ void __launch_bounds__(kFlatThreads, 2)
 flat_contract_kernel(const ContractArgs a) {
   __shared__ __align__(16) float red[kFlatThreads * 8];
   const ContractThread th = contract_thread<T, kVecPath>(a);
-  const int i0 = blockIdx.x * a.rows_per_split;
+  const int p = blockIdx.x / a.splits;
+  const ContractArgs b = problem_args<T>(a, p);
+  const int i0 = (blockIdx.x - p * a.splits) * a.rows_per_split;
   const int i1 = min(a.n, i0 + a.rows_per_split);
   float acc[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
   if (th.active)
-    flat_accumulate<T, kVecPath>(a, static_cast<const T*>(a.xi), acc, th.q,
+    flat_accumulate<T, kVecPath>(b, static_cast<const T*>(b.xi), acc, th.q,
                                  th.g, th.c0, th.nc, i0, i1);
-  contract_partial<T, kVecPath>(a, th, acc, red);
+  contract_partial<T, kVecPath>(b, th, acc, red);
   if (a.splits == 1 || !a.combine) return;   // the same on every CTA
   cooperative_groups::this_grid().sync();
   grid_combine(a, red);
@@ -121,7 +133,21 @@ struct RowsArgs {
   int n, r, B;
   int vec;                 // 16-byte rows (the shared-memory path's choice)
   int evict_first;         // evict-first loads of xi (ld.global.cs)
+  int P;                   // problems on the leading axis of xi, t, marg, out
 };
+
+// The operands of problem p: xi, t, marg and out moved by p (n, r), (r, B),
+// (n, B) and (n, B) blocks.
+template <typename T>
+__device__ __forceinline__ RowsArgs problem_rows(const RowsArgs& a, int p) {
+  RowsArgs b = a;
+  const size_t nb = (size_t)p * a.n * a.B;
+  b.xi = static_cast<const T*>(a.xi) + (size_t)p * a.n * a.r;
+  b.t = a.t + (size_t)p * a.r * a.B;
+  b.marg = a.marg == nullptr ? nullptr : a.marg + nb;
+  b.out = a.out + nb;
+  return b;
+}
 
 // A 16-byte load of a row, evict-first or read-only as the launch asks.
 // The choice, made at run time, also keeps the R * kNV loads of a batch
@@ -207,13 +233,17 @@ __device__ __forceinline__ void rows_in_registers(const RowsArgs& a, int lane,
 
 // kNV > 0: the 16-byte path with t in registers, R rows a batch; kNV = 0:
 // t in shared memory, a row a warp (R = 1; any B, any r whose t fits the
-// CTA). Warp w of W takes the batches w, w + W, ...
+// CTA). The grid holds gridDim.x / P CTAs a problem; of a problem's W
+// warps, warp w takes its batches w, w + W, ...
 template <typename T, bool kDivide, int kNV, int R>
 __global__ void __launch_bounds__(kRowWarps * 32)
-feature_rows_kernel(const RowsArgs a) {
+feature_rows_kernel(const RowsArgs args) {
+  const int per = gridDim.x / args.P;
+  const int p = blockIdx.x / per;
+  const RowsArgs a = problem_rows<T>(args, p);
   const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * kRowWarps;
-  const int warp = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  const int warps = per * kRowWarps;
+  const int warp = (blockIdx.x - p * per) * kRowWarps + (threadIdx.x >> 5);
   const int batches = a.n / R + (a.n % R != 0);
   if constexpr (kNV > 0) {
     rows_in_registers<T, kDivide, kNV, R>(a, lane, warp, batches, warps);
@@ -234,7 +264,7 @@ feature_rows_kernel(const RowsArgs a) {
 template <typename T, bool kVecPath>
 int flat_launch(const ContractArgs& a, int col_tiles, int chunks,
                 cudaStream_t stream) {
-  const dim3 grid(a.splits, col_tiles, chunks);
+  const dim3 grid(a.P * a.splits, col_tiles, chunks);
   auto kernel = flat_contract_kernel<T, kVecPath>;
   if (a.splits == 1 || !a.combine) {
     kernel<<<grid, kFlatThreads, 0, stream>>>(a);
@@ -287,13 +317,14 @@ int rows_launch(const RowsArgs& a, int nv, int grid, cudaStream_t stream) {
   constexpr int V = kVec<T>;
   auto kernel = rows_kernel<T, kDivide>(nv);
   if (kernel == nullptr || grid < 1 || a.n < 1 || a.r < 1 || a.B < 1 ||
+      a.P < 1 || (long long)grid * a.P > 0x7fffffff ||
       (a.vec && (a.B != 1 || a.r % V != 0)) ||
       (nv > 0 && (!a.vec || (a.r / V + 31) / 32 > nv)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = nv ? 0 : (size_t)a.r * a.B * sizeof(float);
   const int err = reserve_t_smem(kernel, smem);
   if (err != 0) return err;
-  kernel<<<grid, kRowWarps * 32, smem, stream>>>(a);
+  kernel<<<grid * a.P, kRowWarps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,28 +342,30 @@ int rows_occupancy(int nv, int smem) {
 
 template <bool kDivide>
 int rows_entry(const void* xi, int bf16, const float* t, const float* marg,
-               float* out, int n, int r, int B, int vec, int nv, int grid,
-               int evict_first, cudaStream_t stream) {
-  const RowsArgs a{xi, t, marg, out, n, r, B, vec, evict_first};
+               float* out, int P, int n, int r, int B, int vec, int nv,
+               int grid, int evict_first, cudaStream_t stream) {
+  const RowsArgs a{xi, t, marg, out, n, r, B, vec, evict_first, P};
   return bf16 ? rows_launch<__nv_bfloat16, kDivide>(a, nv, grid, stream)
               : rows_launch<float, kDivide>(a, nv, grid, stream);
 }
 
 }  // namespace
 
-// xi is float (bf16 == 0) or bfloat16 (bf16 != 0). vec != 0 selects the
-// 16-byte path; the caller passes it only for B == 1, rows of a multiple
-// of 16 bytes and a 16-byte aligned xi. The grid (splits, col_tiles,
-// chunks) and the row groups come from kernels/kermatvec.py:_contract_plan;
-// partial holds splits * r * B floats (unused with one split). combine == 0
-// stops after the partials (t is not formed): chip_smoke.py times the
-// slabs apart from the grid barrier and the combine that way.
+// xi is float (bf16 == 0) or bfloat16 (bf16 != 0), P problems of (n, r)
+// stacked (P = 1: one problem). vec != 0 selects the 16-byte path; the
+// caller passes it only for B == 1, rows of a multiple of 16 bytes and a
+// 16-byte aligned xi. The grid (P * splits, col_tiles, chunks) and the row
+// groups come from kernels/kermatvec.py:_contract_plan; partial holds P *
+// splits * r * B floats (unused with one split). combine == 0 stops after
+// the partials (t is not formed): chip_smoke.py times the slabs apart from
+// the grid barrier and the combine that way.
 REPRO_EXPORT int feature_contract_launch(
     const void* xi, int bf16, const float* u, float* partial, float* t,
-    int n, int r, int B, int splits, int rows_per_split, int tile, int groups,
-    int col_tiles, int chunks, int vec, int combine, cudaStream_t stream) {
+    int P, int n, int r, int B, int splits, int rows_per_split, int tile,
+    int groups, int col_tiles, int chunks, int vec, int combine,
+    cudaStream_t stream) {
   const ContractArgs a{xi, u, partial, t, n, r, B, splits, rows_per_split,
-                       tile, groups, combine};
+                       tile, groups, combine, P};
   if (bf16)
     return contract_launch<__nv_bfloat16>(a, col_tiles, chunks, vec, stream);
   return contract_launch<float>(a, col_tiles, chunks, vec, stream);
@@ -347,26 +380,26 @@ REPRO_EXPORT int feature_contract_occupancy(int bf16, int vec) {
 
 // The row kernels: nv vectors of t a lane in registers (1, 2 or 4; needs
 // vec) and 8 / nv rows a batch, or nv = 0 (t in shared
-// memory, a row a batch), on `grid` CTAs of kRowWarps warps
-// (kernels/kermatvec.py:_rows_plan); evict_first != 0 reads xi with
-// evict-first loads on the register path.
+// memory, a row a batch), on `grid` CTAs of kRowWarps warps a problem, P *
+// grid in all (kernels/kermatvec.py:_rows_plan); evict_first != 0 reads xi
+// with evict-first loads on the register path.
 REPRO_EXPORT int sinkhorn_halfstep_launch(const void* xi, int bf16,
                                           const float* t, const float* marg,
-                                          float* out, int n, int r, int B,
-                                          int vec, int nv, int grid,
+                                          float* out, int P, int n, int r,
+                                          int B, int vec, int nv, int grid,
                                           int evict_first,
                                           cudaStream_t stream) {
-  return rows_entry<true>(xi, bf16, t, marg, out, n, r, B, vec, nv, grid,
+  return rows_entry<true>(xi, bf16, t, marg, out, P, n, r, B, vec, nv, grid,
                           evict_first, stream);
 }
 
 REPRO_EXPORT int feature_matvec_launch(const void* xi, int bf16,
-                                       const float* t, float* out, int n,
-                                       int r, int B, int vec, int nv,
+                                       const float* t, float* out, int P,
+                                       int n, int r, int B, int vec, int nv,
                                        int grid, int evict_first,
                                        cudaStream_t stream) {
-  return rows_entry<false>(xi, bf16, t, nullptr, out, n, r, B, vec, nv, grid,
-                           evict_first, stream);
+  return rows_entry<false>(xi, bf16, t, nullptr, out, P, n, r, B, vec, nv,
+                           grid, evict_first, stream);
 }
 
 // Row-kernel CTAs resident on one SM with smem bytes of t (the planner's

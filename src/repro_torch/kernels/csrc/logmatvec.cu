@@ -66,6 +66,13 @@
 // pass sums exp(x - max). The second pass reads the row again, from the
 // L1 or the L2; the bound counts one read.
 //
+// The contract and the half-step serve P problems in one launch where the
+// caller stacks them on a leading axis, (P, n, r) factors and (P, n, B)
+// vectors, as the scaling kernels do (kermatvec.cu): contract CTA x = p *
+// splits + split takes slab `split` of problem p and the combine adds each
+// problem's own (max, sum) partials; the half-step runs `grid` CTAs a
+// problem. No CTA mixes problems. P = 1 is the solvers' single problem.
+//
 // The factor log_w is stored as float or as bfloat16 (precision="bf16",
 // half the bytes); each kernel is a template on that storage type T,
 // widens every element to float on load and accumulates in float.
@@ -291,7 +298,7 @@ struct Run {
 };
 
 // After the grid barrier: t = the exact LSE over splits of the (max, sum)
-// partials, every CTA taking a slice of the r * B outputs (the slices of
+// partials, every CTA taking a slice of the P * r * B outputs (the slices of
 // fo::grid_combine). A slice of w outputs is split over parts runs of
 // consecutive splits; the runs' maxima meet by a fixed tree in shared
 // memory, then each run adds its sums rescaled to the joint max in split
@@ -301,16 +308,17 @@ __device__ __forceinline__ void log_grid_combine(const fo::ContractArgs& a,
                                                  float2* red) {
   constexpr int kT = fo::kFlatThreads;
   const int O = a.r * a.B;
+  const int total = a.P * O;
   const int nblocks = gridDim.x * gridDim.y * gridDim.z;
   const int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int w = (O + nblocks - 1) / nblocks;
+  const int w = (total + nblocks - 1) / nblocks;
   const int o0 = b * w;
-  if (o0 >= O) return;
-  const int wb = min(w, O - o0);
+  if (o0 >= total) return;
+  const int wb = min(w, total - o0);
   const float2* P = reinterpret_cast<const float2*>(a.partial);
   if (w > kT / 2) {            // wide slices: a thread an output, all splits
     for (int j = threadIdx.x; j < wb; j += kT) {
-      const float2* p = P + o0 + j;
+      const float2* p = P + fo::partial_offset(a, o0 + j);
       const float shift = lse_shift(ordered_max(p, a.splits, O));
       a.t[o0 + j] = shift + logf(ordered_lse_sum(p, a.splits, O, shift));
     }
@@ -323,7 +331,8 @@ __device__ __forceinline__ void log_grid_combine(const fo::ContractArgs& a,
   const int first = p * len;
   const bool mine = p < parts && j < wb && first < a.splits;
   const int count = mine ? min(len, a.splits - first) : 0;
-  const float2* src = P + (size_t)first * O + o0 + j;
+  const float2* src =
+      P + (mine ? fo::partial_offset(a, o0 + j) + (size_t)first * O : 0);
   const bool held = len <= 16;       // the run stays in registers
   Run run;
   if (held) run.load(src, count, O);
@@ -344,7 +353,8 @@ __device__ __forceinline__ void log_grid_combine(const fo::ContractArgs& a,
   if (p == 0 && j < wb) a.t[o0 + j] = shift + logf(red[j].y);
 }
 
-// One launch: CTA (split, column tile, column chunk) reduces its slab in
+// One launch: CTA (problem * splits + split, column tile, column chunk)
+// reduces its slab of its problem in
 // row groups; with more than one split the grid meets at a grid barrier
 // and combines the partials (the launch is then cooperative).
 template <typename T, bool kVecPath>
@@ -352,7 +362,9 @@ __global__ void __launch_bounds__(fo::kFlatThreads, 2)
 log_contract_kernel(const fo::ContractArgs a) {
   __shared__ __align__(16) float2 red[fo::kFlatThreads * 8];
   const fo::ContractThread th = fo::contract_thread<T, kVecPath>(a);
-  const int i0 = blockIdx.x * a.rows_per_split;
+  const int p = blockIdx.x / a.splits;
+  const fo::ContractArgs b = fo::problem_args<T>(a, p);
+  const int i0 = (blockIdx.x - p * a.splits) * a.rows_per_split;
   const int i1 = min(a.n, i0 + a.rows_per_split);
   float mx[8], acc[8];
 #pragma unroll
@@ -361,9 +373,9 @@ log_contract_kernel(const fo::ContractArgs a) {
     acc[e] = 0.0f;
   }
   if (th.active)
-    log_accumulate<T, kVecPath>(a, static_cast<const T*>(a.xi), mx, acc,
+    log_accumulate<T, kVecPath>(b, static_cast<const T*>(b.xi), mx, acc,
                                 th.q, th.g, th.nc, i0, i1);
-  log_contract_partial<T, kVecPath>(a, th, mx, acc, red);
+  log_contract_partial<T, kVecPath>(b, th, mx, acc, red);
   if (a.splits == 1) return;                 // the same on every CTA
   cooperative_groups::this_grid().sync();
   log_grid_combine(a, red);
@@ -384,7 +396,22 @@ struct HalfstepArgs {
   float scale;
   int vec;                 // 16-byte rows, B = 1
   int lanes;               // L: lanes of a row (the register path)
+  int P;                   // problems on the leading axis of every operand
 };
+
+// The operands of problem p: log_w, t, lmarg and out moved by p (m, r),
+// (r, B), (m, B) and (m, B) blocks.
+template <typename T>
+__device__ __forceinline__ HalfstepArgs problem_halfstep(const HalfstepArgs& a,
+                                                         int p) {
+  HalfstepArgs b = a;
+  const size_t mb = (size_t)p * a.m * a.B;
+  b.log_w = static_cast<const T*>(a.log_w) + (size_t)p * a.m * a.r;
+  b.t = a.t + (size_t)p * a.r * a.B;
+  b.lmarg = a.lmarg + mb;
+  b.out = a.out + mb;
+  return b;
+}
 
 // The LSE shift of a row: its max, or 0 where the max is not finite
 // (_finite_or_zero), so an all -inf row sums exp(-inf) = 0 and reads back
@@ -595,14 +622,18 @@ __device__ __forceinline__ void halfstep_row(const HalfstepArgs& a,
 
 // kNV > 0: the 16-byte path with t in registers, batches of R = (32 / L)
 // kQ rows; kNV = 0: t in shared memory, a row a warp (any B <= kMaxCols,
-// any r whose t fits the CTA). Warp w of W takes the batches w, w + W, ...
+// any r whose t fits the CTA). The grid holds gridDim.x / P CTAs a
+// problem; of a problem's W warps, warp w takes its batches w, w + W, ...
 // (kernels/logmatvec.py:_halfstep_plan).
 template <typename T, int kNV, int kQ>
 __global__ void __launch_bounds__(fo::kRowWarps * 32)
-log_halfstep_kernel(const HalfstepArgs a) {
+log_halfstep_kernel(const HalfstepArgs args) {
+  const int per = gridDim.x / args.P;
+  const int p = blockIdx.x / per;
+  const HalfstepArgs a = problem_halfstep<T>(args, p);
   const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * fo::kRowWarps;
-  const int warp = blockIdx.x * fo::kRowWarps + (threadIdx.x >> 5);
+  const int warps = per * fo::kRowWarps;
+  const int warp = (blockIdx.x - p * per) * fo::kRowWarps + (threadIdx.x >> 5);
   if constexpr (kNV > 0) {
     const int R = 32 / a.lanes * kQ;
     halfstep_in_registers<T, kNV, kQ>(a, lane, warp, (a.m + R - 1) / R,
@@ -707,7 +738,7 @@ int log_matvec_launch_t(const T* log_m, const float* t, float* out, int m,
 template <typename T, bool kVecPath>
 int log_contract_launch_t(const fo::ContractArgs& a, int col_tiles,
                           int chunks, cudaStream_t stream) {
-  const dim3 grid(a.splits, col_tiles, chunks);
+  const dim3 grid(a.P * a.splits, col_tiles, chunks);
   auto kernel = log_contract_kernel<T, kVecPath>;
   if (a.splits == 1) {
     kernel<<<grid, fo::kFlatThreads, 0, stream>>>(a);
@@ -768,6 +799,7 @@ int halfstep_launch(const HalfstepArgs& a, int nv, int q, int grid,
   auto kernel = halfstep_kernel<T>(nv, q);
   const int L = a.lanes;
   if (kernel == nullptr || grid < 1 || a.m < 1 || a.r < 1 || a.B < 1 ||
+      a.P < 1 || (long long)grid * a.P > 0x7fffffff ||
       a.B > kMaxCols || (a.vec && (a.B != 1 || a.r % V != 0)) || L < 1 ||
       L > 32 || (L & (L - 1)) != 0 || (nv == 0 && L != 32) ||
       (nv > 0 && (!a.vec || L * nv < a.r / V)))
@@ -775,7 +807,7 @@ int halfstep_launch(const HalfstepArgs& a, int nv, int q, int grid,
   const size_t smem = nv ? 0 : (size_t)a.r * a.B * sizeof(float);
   const int err = fo::reserve_t_smem(kernel, smem);
   if (err != 0) return err;
-  kernel<<<grid, fo::kRowWarps * 32, smem, stream>>>(a);
+  kernel<<<grid * a.P, fo::kRowWarps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -793,18 +825,18 @@ int halfstep_occupancy(int nv, int q, int smem) {
 
 }  // namespace
 
-// log_w is float (bf16 == 0) or bfloat16 (bf16 != 0). vec != 0 selects the
-// 16-byte path; the caller passes it only for B == 1, rows of a multiple
-// of 16 bytes and a 16-byte aligned log_w. The grid (splits, col_tiles,
-// chunks = 1) and the row groups come from
-// kernels/logmatvec.py:_contract_plan; partial holds splits * r * B
-// (max, sum) pairs (unused with one split).
+// log_w is float (bf16 == 0) or bfloat16 (bf16 != 0), P problems of (n, r)
+// stacked (P = 1: one problem). vec != 0 selects the 16-byte path; the
+// caller passes it only for B == 1, rows of a multiple of 16 bytes and a
+// 16-byte aligned log_w. The grid (P * splits, col_tiles, chunks = 1) and
+// the row groups come from kernels/logmatvec.py:_contract_plan; partial
+// holds P * splits * r * B (max, sum) pairs (unused with one split).
 REPRO_EXPORT int log_feature_contract_launch(
     const void* log_w, int bf16, const float* s, float* partial, float* t,
-    int n, int r, int B, int splits, int rows_per_split, int tile, int groups,
-    int col_tiles, int chunks, int vec, cudaStream_t stream) {
+    int P, int n, int r, int B, int splits, int rows_per_split, int tile,
+    int groups, int col_tiles, int chunks, int vec, cudaStream_t stream) {
   const fo::ContractArgs a{log_w, s, partial, t, n, r, B, splits,
-                           rows_per_split, tile, groups, 1};
+                           rows_per_split, tile, groups, 1, P};
   if (bf16)
     return contract_launch<__nv_bfloat16>(a, col_tiles, chunks, vec, stream);
   return contract_launch<float>(a, col_tiles, chunks, vec, stream);
@@ -820,13 +852,14 @@ REPRO_EXPORT int log_feature_contract_occupancy(int bf16, int vec) {
 // The half-step: nv vectors of t a lane in registers (1, 2 or 4; needs
 // vec, B = 1), L lanes a row and q rows a group of L lanes a batch, or nv
 // = 0 (t in shared memory, a row a warp: L = 32, q = 1), on `grid` CTAs of
-// kRowWarps warps (kernels/logmatvec.py:_halfstep_plan).
+// kRowWarps warps a problem, P * grid in all
+// (kernels/logmatvec.py:_halfstep_plan).
 REPRO_EXPORT int log_halfstep_launch(const void* log_w, int bf16,
                                      const float* t, const float* lmarg,
-                                     float* out, int m, int r, int B,
+                                     float* out, int P, int m, int r, int B,
                                      float scale, int vec, int nv, int lanes,
                                      int q, int grid, cudaStream_t stream) {
-  const HalfstepArgs a{log_w, t, lmarg, out, m, r, B, scale, vec, lanes};
+  const HalfstepArgs a{log_w, t, lmarg, out, m, r, B, scale, vec, lanes, P};
   return bf16 ? halfstep_launch<__nv_bfloat16>(a, nv, q, grid, stream)
               : halfstep_launch<float>(a, nv, q, grid, stream);
 }

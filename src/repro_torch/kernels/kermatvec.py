@@ -21,7 +21,15 @@ One half-step ``v <- b / (Zeta (Xi^T u))`` splits into
 widen it on load and accumulate in float32, as the plain versions do. Any
 B >= 1 runs; off the register path the row kernel keeps ``t`` (r x B
 float32) in shared memory, so ``r * B * 4`` bytes must fit one CTA.
-Counterpart of ``repro.kernels.kermatvec``.
+
+Every wrapper also takes P problems stacked on a leading axis (``xi``
+(P, n, r), ``u`` (P, n, B), ``t`` (P, r, B), ``marg`` (P, n, B)) and serves
+them all in one launch, as ``jax.vmap`` over a ``pallas_call`` adds a
+leading grid axis in the JAX package (``repro.kernels.ops.
+fused_batched_sinkhorn_iteration``): a CTA never mixes problems, the
+contract splits each problem's rows as its plan says for (P, n, r) and
+combines each problem's own partials, and the row kernel runs its grid a
+problem. Counterpart of ``repro.kernels.kermatvec``.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from . import build
-from .backend import check_operand, sm_count
+from .backend import check_operand, sm_count, stacked_dims
 from .logmatvec import MAX_COLS, _vectorized
 from .ref import (
     feature_contract_ref,
@@ -72,15 +80,20 @@ class ContractPlan(NamedTuple):
 
 def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
                    sms: int, blocks_per_sm: int, *,
-                   max_splits: int = 0) -> ContractPlan:
+                   max_splits: int = 0, P: int = 1) -> ContractPlan:
     """The flat contract's geometry for an (n, r) factor of
     ``element_size`` bytes and B columns of u, on a card of ``sms`` SMs
     with ``blocks_per_sm`` contract CTAs resident on each: two slabs an
     SM (one, four measured slower at n = 16384), fewer where a slab would
     be under 16 rows (or where ``max_splits`` caps them), every slab
     non-empty, never more CTAs than one wave (with more than one split the
-    grid meets at a grid barrier, so it must be resident at once). The log
-    contract (``logmatvec._contract_plan``) shares it."""
+    grid meets at a grid barrier, so it must be resident at once). With P
+    problems stacked, each takes ``splits`` slabs of its own rows and the
+    wave is shared among them (P * splits * col_tiles * chunks CTAs); where
+    P problems alone fill more than a wave each takes one slab and the
+    grid needs no barrier. The plan is a function of (P, n, r, B) and the
+    element size only, never of the values. The log contract
+    (``logmatvec._contract_plan``) shares it."""
     width = 16 // element_size if vec else 1
     if vec and (B != 1 or r % width):
         raise ValueError(f"the 16-byte path takes B = 1 and rows of a "
@@ -90,7 +103,7 @@ def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     tile = -(-slots // col_tiles)
     groups = _FLAT_THREADS // tile
     chunks = 1 if vec else -(-B // MAX_COLS)
-    per_tile = max(1, (sms * blocks_per_sm) // (col_tiles * chunks))
+    per_tile = max(1, (sms * blocks_per_sm) // (col_tiles * chunks * P))
     splits = max(1, min(per_tile, _SLABS_PER_SM * sms, n // _MIN_SLAB_ROWS,
                         max_splits or n))
     rows = -(-n // splits)
@@ -146,7 +159,7 @@ def _rows_kernel(r: int, B: int, vec: bool,
 
 
 def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
-               sms: int, blocks_per_sm: int) -> RowsPlan:
+               sms: int, blocks_per_sm: int, *, P: int = 1) -> RowsPlan:
     """The row kernel's geometry on a card of ``sms`` SMs where
     ``blocks_per_sm`` CTAs of the chosen kernel (``_rows_kernel``) are
     resident: at most one wave, and never more CTAs than batches of R rows
@@ -154,20 +167,25 @@ def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     ceil(batches / W) rounds; of the CTAs an SM that fit, the plan takes
     the one that leaves the fewest warp-batch slots of those rounds idle
     (the most CTAs among equals): at n = 16384, bf16 r = 1024, three an SM
-    would run 3 rounds, the last 59% full, two an SM 4 rounds 97% full."""
+    would run 3 rounds, the last 59% full, two an SM 4 rounds 97% full.
+    ``grid`` is a problem's CTAs: P stacked problems share the wave
+    (``_rows_grid``) and the launch runs P * grid CTAs."""
     nv, rows, smem = _rows_kernel(r, B, vec, element_size)
     return RowsPlan(nv, rows, smem,
-                    _rows_grid(-(-n // rows), sms, blocks_per_sm))
+                    _rows_grid(-(-n // rows), sms, blocks_per_sm, P=P))
 
 
-def _rows_grid(batches: int, sms: int, blocks_per_sm: int) -> int:
-    """CTAs of ``_ROW_WARPS`` warps that take ``batches`` batches in turn:
-    at most one wave (``blocks_per_sm`` an SM) and never more than the
-    batches fill; of the CTAs an SM that fit, the count that leaves the
-    fewest warp-batch slots of the last round idle (the most among
-    equals). The log half-step (``logmatvec._halfstep_plan``) shares it."""
+def _rows_grid(batches: int, sms: int, blocks_per_sm: int, *,
+               P: int = 1) -> int:
+    """CTAs of ``_ROW_WARPS`` warps that take ``batches`` batches (of one
+    problem) in turn: with the P problems' CTAs, at most one wave
+    (``blocks_per_sm`` an SM; at least one CTA a problem where P alone
+    fill more) and never more than the batches fill; of the CTAs an SM
+    that fit, the count that leaves the fewest warp-batch slots of the
+    last round idle (the most among equals). The log half-step
+    (``logmatvec._halfstep_plan``) shares it."""
     def grid_of(per_sm):
-        return max(1, min(sms * per_sm, -(-batches // _ROW_WARPS)))
+        return max(1, min(sms * per_sm // P, -(-batches // _ROW_WARPS)))
 
     def slots(per_sm):
         warps = grid_of(per_sm) * _ROW_WARPS
@@ -183,18 +201,18 @@ def _lib():
     lib = build.load("kermatvec")
     c = lib.feature_contract_launch
     c.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     c.restype = ctypes.c_int
     o = lib.feature_contract_occupancy
     o.argtypes = [ctypes.c_int] * 2
     o.restype = ctypes.c_int
     h = lib.sinkhorn_halfstep_launch
     h.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     h.restype = ctypes.c_int
     v = lib.feature_matvec_launch
     v.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     v.restype = ctypes.c_int
     ro = lib.feature_rows_occupancy
     ro.argtypes = [ctypes.c_int] * 4
@@ -233,35 +251,39 @@ _FORCE = {"combine": True, "stream": False}
 
 
 def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """t = Xi^T u, shape (r, B), float32.
+    """t = Xi^T u, shape (r, B), float32; (P, r, B) for P stacked problems
+    (``xi`` (P, n, r), ``u`` (P, n, B)), in one launch.
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.feature_contract_ref`."""
     dev = xi.device
-    check_operand(xi, "xi", 2, dev, factor=True)
-    check_operand(u, "u", 2, dev)
-    n, r = xi.shape
-    B = u.shape[1]
-    if u.shape[0] != n:
+    nd = stacked_dims(xi, "xi")
+    check_operand(xi, "xi", nd, dev, factor=True)
+    check_operand(u, "u", nd, dev)
+    n, r = xi.shape[-2:]
+    B = u.shape[-1]
+    if u.shape[:-1] != xi.shape[:-1]:
         raise ValueError(f"shape mismatch: xi {tuple(xi.shape)}, u "
                          f"{tuple(u.shape)}")
     if dev.type == "cpu":
         return feature_contract_ref(xi, u)
-    if min(n, r, B) < 1:
-        raise ValueError(f"feature_contract kernel takes n, r, B >= 1, got "
-                         f"n={n}, r={r}, B={B}")
+    lead = tuple(xi.shape[:-2])
+    P = lead[0] if lead else 1
+    if min(P, n, r, B) < 1:
+        raise ValueError(f"feature_contract kernel takes P, n, r, B >= 1, "
+                         f"got P={P}, n={n}, r={r}, B={B}")
     bf16 = xi.dtype == torch.bfloat16
     vec = _flat_vectorized(xi, B)
     plan = _contract_plan(n, r, B, vec, xi.element_size(), sm_count(dev),
-                          _blocks_per_sm(dev.index, bf16, vec))
-    t = torch.empty((r, B), dtype=torch.float32, device=dev)
-    partial = (torch.empty((plan.splits, r, B), dtype=torch.float32,
+                          _blocks_per_sm(dev.index, bf16, vec), P=P)
+    t = torch.empty(lead + (r, B), dtype=torch.float32, device=dev)
+    partial = (torch.empty((P, plan.splits, r, B), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else t)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().feature_contract_launch(
             xi.data_ptr(), int(bf16), u.data_ptr(), partial.data_ptr(),
-            t.data_ptr(), n, r, B, plan.splits, plan.rows_per_split,
+            t.data_ptr(), P, n, r, B, plan.splits, plan.rows_per_split,
             plan.tile, plan.groups, plan.col_tiles, plan.chunks, int(vec),
             int(_FORCE["combine"]), stream)
     build.check_launch(_lib(), code, "feature_contract")
@@ -270,30 +292,53 @@ def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def _check_rows(xi, t, what):
-    n, r = xi.shape
-    B = t.shape[1]
-    if min(n, r, B) < 1 or r * B * 4 > _MAX_SMEM:
-        raise ValueError(f"{what} kernel takes n, r, B >= 1 and r * B * 4 "
-                         f"<= {_MAX_SMEM} bytes of t; got n={n}, r={r}, B={B}")
+    n, r = xi.shape[-2:]
+    B = t.shape[-1]
+    P = xi.shape[0] if xi.dim() == 3 else 1
+    if min(P, n, r, B) < 1 or r * B * 4 > _MAX_SMEM:
+        raise ValueError(f"{what} kernel takes P, n, r, B >= 1 and r * B * 4 "
+                         f"<= {_MAX_SMEM} bytes of t a problem; got P={P}, "
+                         f"n={n}, r={r}, B={B}")
+
+
+def _rows_shapes(xi, t, marg):
+    """Check the row kernels' operands: (n, r), (r, B) and (n, B), or the
+    same with P problems first."""
+    dev = xi.device
+    nd = stacked_dims(xi, "xi")
+    check_operand(xi, "xi", nd, dev, factor=True)
+    check_operand(t, "t", nd, dev)
+    n, r = xi.shape[-2:]
+    lead = tuple(xi.shape[:-2])
+    if tuple(t.shape[:-1]) != lead + (r,):
+        raise ValueError(f"shape mismatch: xi {tuple(xi.shape)}, t "
+                         f"{tuple(t.shape)}")
+    if marg is not None:
+        check_operand(marg, "marg", nd, dev)
+        if tuple(marg.shape) != lead + (n, t.shape[-1]):
+            raise ValueError(f"shape mismatch: xi {tuple(xi.shape)}, t "
+                             f"{tuple(t.shape)}, marg {tuple(marg.shape)}")
 
 
 def _launch_rows(xi, t, marg, what):
     """Plan and launch the row kernel (the half-step where ``marg`` is
-    given, else the matvec); returns out (n, B)."""
+    given, else the matvec); returns out (n, B), or (P, n, B)."""
     _check_rows(xi, t, what)
     dev = xi.device
-    n, r = xi.shape
-    B = t.shape[1]
+    n, r = xi.shape[-2:]
+    lead = tuple(xi.shape[:-2])
+    P = lead[0] if lead else 1
+    B = t.shape[-1]
     bf16 = xi.dtype == torch.bfloat16
     vec = _vectorized(xi, B)
     nv, _, smem = _rows_kernel(r, B, vec, xi.element_size())
     plan = _rows_plan(n, r, B, vec, xi.element_size(), sm_count(dev),
                       _rows_blocks_per_sm(dev.index, bf16, marg is not None,
-                                          nv, smem))
-    out = torch.empty((n, B), dtype=torch.float32, device=dev)
+                                          nv, smem), P=P)
+    out = torch.empty(lead + (n, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        shape = (n, r, B, int(vec), plan.nv, plan.grid,
+        shape = (P, n, r, B, int(vec), plan.nv, plan.grid,
                  int(_FORCE["stream"]), stream)
         if marg is None:
             code = _lib().feature_matvec_launch(
@@ -308,19 +353,13 @@ def _launch_rows(xi, t, marg, what):
 
 def sinkhorn_halfstep(xi: torch.Tensor, t: torch.Tensor,
                       marg: torch.Tensor) -> torch.Tensor:
-    """out = marg / (Xi t), shape (n, B), float32 (IEEE divide).
+    """out = marg / (Xi t), shape (n, B), float32 (IEEE divide); (P, n, B)
+    for P stacked problems, in one launch.
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.sinkhorn_halfstep_ref`."""
     dev = xi.device
-    check_operand(xi, "xi", 2, dev, factor=True)
-    check_operand(t, "t", 2, dev)
-    check_operand(marg, "marg", 2, dev)
-    n, r = xi.shape
-    B = t.shape[1]
-    if t.shape[0] != r or tuple(marg.shape) != (n, B):
-        raise ValueError(f"shape mismatch: xi {tuple(xi.shape)}, t "
-                         f"{tuple(t.shape)}, marg {tuple(marg.shape)}")
+    _rows_shapes(xi, t, marg)
     if dev.type == "cpu":
         return sinkhorn_halfstep_ref(xi, t, marg)
     out = _launch_rows(xi, t, marg, "sinkhorn_halfstep")
@@ -329,18 +368,13 @@ def sinkhorn_halfstep(xi: torch.Tensor, t: torch.Tensor,
 
 
 def feature_matvec(xi: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """out = Xi t, shape (n, B), float32.
+    """out = Xi t, shape (n, B), float32; (P, n, B) for P stacked problems,
+    in one launch.
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.feature_matvec_ref`."""
     dev = xi.device
-    check_operand(xi, "xi", 2, dev, factor=True)
-    check_operand(t, "t", 2, dev)
-    n, r = xi.shape
-    B = t.shape[1]
-    if t.shape[0] != r:
-        raise ValueError(f"shape mismatch: xi {tuple(xi.shape)}, t "
-                         f"{tuple(t.shape)}")
+    _rows_shapes(xi, t, None)
     if dev.type == "cpu":
         return feature_matvec_ref(xi, t)
     out = _launch_rows(xi, t, None, "feature_matvec")

@@ -45,6 +45,17 @@ on its full-capacity log-factors: dead slots have zero weight, so their
 potentials are pinned to ``-inf`` and drop out of every LSE. Counterpart
 of ``repro.kernels.ops``.
 
+The scaling and log plans also run P problems stacked on a leading axis
+(``(P, n, r)`` factors, ``(P, n)`` weights and carries, one error a
+problem): every kernel launch then serves all P problems, the port's
+counterpart of the JAX package's ``vmap`` over its kernels, which adds the
+problems as a leading grid axis (``repro.kernels.ops.
+fused_batched_sinkhorn_iteration``). :func:`stacked_ops` builds such a plan
+from stacked factors, or from flattened ``(P * n, d)`` point clouds with
+shared anchors, whose Lemma-1 features are per point and so need no
+problem axis in the feature map. The megakernels take no problem axis:
+``block_admits`` refuses P > 1.
+
 ``observe_plan_selection`` is the test hook: while it is active every plan
 installed on a solve path appends an event dict.
 """
@@ -72,8 +83,11 @@ __all__ = [
     "feature_matvec",
     "log_matvec",
     "fused_sinkhorn_iteration",
+    "batched_sinkhorn_halfstep",
+    "fused_batched_sinkhorn_iteration",
     "GeometryOps",
     "geometry_ops",
+    "stacked_ops",
     "observe_plan_selection",
     "notify_plan_selected",
 ]
@@ -122,6 +136,37 @@ def fused_sinkhorn_iteration(xi: torch.Tensor, zeta: torch.Tensor,
     v = sinkhorn_halfstep(zeta, t, b)
     s = feature_contract(zeta, v)
     return sinkhorn_halfstep(xi, s, a), v
+
+
+def batched_sinkhorn_halfstep(xi: torch.Tensor, u: torch.Tensor,
+                              marg: torch.Tensor,
+                              zeta: torch.Tensor) -> torch.Tensor:
+    """One fused half-step ``v_p = marg_p / (Xi_p (Zeta_p^T u_p))`` for P
+    problems with their own factors: ``xi`` (P, n, r), ``u`` (P, m),
+    ``marg`` (P, n), ``zeta`` (P, m, r) -> (P, n). One contract and one
+    half-step launch serve all P."""
+    t = feature_contract(zeta, u[..., None].contiguous())
+    return sinkhorn_halfstep(xi, t, marg[..., None].contiguous())[..., 0]
+
+
+def fused_batched_sinkhorn_iteration(xi: torch.Tensor, zeta: torch.Tensor,
+                                     a: torch.Tensor, b: torch.Tensor,
+                                     u: torch.Tensor):
+    """One full Alg.-1 iteration for P independent problems, ``xi`` (P, n,
+    r), ``zeta`` (P, m, r), ``a``/``u`` (P, n), ``b`` (P, m)::
+
+        t_p = Xi_p^T u_p ;  v_p  = b_p / (Zeta_p t_p)
+        s_p = Zeta_p^T v_p ; u_p' = a_p / (Xi_p s_p)
+
+    Returns ``(u', v)`` stacked: four launches for all P problems."""
+    v = batched_sinkhorn_halfstep(zeta, u, b, xi)
+    return batched_sinkhorn_halfstep(xi, v, a, zeta), v
+
+
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over a problem's atoms: all of a 1-D tensor, the last axis
+    of stacked problems (``core.sinkhorn.lane_sum``)."""
+    return torch.sum(x) if x.dim() <= 1 else torch.sum(x, dim=-1)
 
 
 class GeometryOps(NamedTuple):
@@ -181,13 +226,32 @@ class GeometryOps(NamedTuple):
     bind: Optional[Callable] = None
     page_size: int = 0
 
-    def block_admits(self, n: int, m: int) -> bool:
-        """Whether ``make_block_step`` gives a megakernel step at n x m
-        (the plan has one and ``fused_loop.block_plan_fits`` admits the
-        shape)."""
+    def block_admits(self, n: int, m: int, P: int = 1) -> bool:
+        """Whether ``make_block_step`` gives a megakernel step at n x m for
+        P stacked problems: the plan has one, P = 1 (the megakernels take
+        no problem axis) and ``fused_loop.block_plan_fits`` admits the
+        shape."""
         xi = self.features[0]
-        return (self.make_block_step is not None
-                and block_plan_fits(n, m, xi.shape[1], 1, xi.dtype))
+        return (self.make_block_step is not None and P == 1
+                and block_plan_fits(n, m, xi.shape[-1], 1, xi.dtype))
+
+
+def _one_problem_block_step(plan_of, operands, a, b, **kw):
+    """A stacked plan's megakernel step at P = 1: the 2-D plan's step on
+    the one problem (``plan_of(*operands)``), its carry and error given
+    back their problem axis; ``None`` where the 2-D plan refuses the
+    shape."""
+    got = plan_of(*(t[0] for t in operands)).make_block_step(a[0], b[0],
+                                                             **kw)
+    if got is None:
+        return None
+    step2, _ = got
+
+    def step(carry):
+        out, err = step2(tuple(c[0] for c in carry))
+        return tuple(c[None] for c in out), err[None]
+
+    return step
 
 
 def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
@@ -198,35 +262,43 @@ def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
         return fused_sinkhorn_iteration(xi, zeta, a, b, u)
 
     def apply_kt(u):
-        """``u (n,) -> K^T u (m,)``."""
-        t = feature_contract(xi, u[:, None].contiguous())
-        return feature_matvec(zeta, t)[:, 0]
+        """``u (n,) -> K^T u (m,)`` (a problem axis first where stacked)."""
+        t = feature_contract(xi, u[..., None].contiguous())
+        return feature_matvec(zeta, t)[..., 0]
 
     def init(u0, v0):
         """The carry ``(u, v, s = K^T u)`` both step kinds advance."""
         return (u0, v0, apply_kt(u0))
 
     def make_step(a, b, *, momentum: float = 1.0):
-        ac = a[:, None].contiguous()
+        ac = a[..., None].contiguous()
 
         def step(carry):
             u, v, s = carry
             v_new = relax_scaling(b / s, v, momentum)
-            t = feature_contract(zeta, v_new[:, None].contiguous())
+            t = feature_contract(zeta, v_new[..., None].contiguous())
             if momentum == 1.0:
                 # matvec and marginal divide fused in one pass
-                u_new = sinkhorn_halfstep(xi, t, ac)[:, 0]
+                u_new = sinkhorn_halfstep(xi, t, ac)[..., 0]
             else:
-                kv = feature_matvec(xi, t)[:, 0]
+                kv = feature_matvec(xi, t)[..., 0]
                 u_new = relax_scaling(a / kv, u, momentum)
-            t2 = feature_contract(xi, u_new[:, None].contiguous())
-            s_new = feature_matvec(zeta, t2)[:, 0]
-            err = torch.sum(torch.abs(v_new * s_new - b))
+            t2 = feature_contract(xi, u_new[..., None].contiguous())
+            s_new = feature_matvec(zeta, t2)[..., 0]
+            err = _lane_sum(torch.abs(v_new * s_new - b))
             return (u_new, v_new, s_new), err
 
         return step, init
 
     def make_block_step(a, b, *, inner_steps: int, momentum: float = 1.0):
+        if xi.dim() == 3:
+            if xi.shape[0] != 1:
+                return None
+            step = _one_problem_block_step(
+                lambda x, z: _scaling_plan(kind, x, z, eps, precision),
+                (xi, zeta), a, b, inner_steps=inner_steps,
+                momentum=momentum)
+            return None if step is None else (step, init)
         n, m = a.shape[0], b.shape[0]
         if not block_plan_fits(n, m, xi.shape[1], 1, xi.dtype):
             return None
@@ -264,34 +336,43 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
     def contract_f(f):
         """Stage-1 LSE over logXi: computed once per iteration, it serves
         both the convergence check and the next iteration's g-update."""
-        return log_feature_contract(log_xi, f[:, None] / eps)
+        return log_feature_contract(log_xi, f[..., None] / eps)
 
     def init(f0, g0):
         """The carry ``(f, g, t1)`` both step kinds advance."""
         return (f0, g0, contract_f(f0))
 
     def make_step(a, b, *, momentum: float = 1.0):
-        loga = _masked_log(a)[:, None].contiguous()
-        logb = _masked_log(b)[:, None].contiguous()
+        loga = _masked_log(a)[..., None].contiguous()
+        logb = _masked_log(b)[..., None].contiguous()
         zero = torch.zeros_like(logb)
 
         def step(carry):
             f, g, t1 = carry
             g_new = relax_log(
-                log_halfstep(log_zeta, t1, logb, scale=eps)[:, 0], g,
+                log_halfstep(log_zeta, t1, logb, scale=eps)[..., 0], g,
                 momentum)
-            t2 = log_feature_contract(log_zeta, g_new[:, None] / eps)
+            t2 = log_feature_contract(log_zeta, g_new[..., None] / eps)
             f_new = relax_log(
-                log_halfstep(log_xi, t2, loga, scale=eps)[:, 0], f, momentum)
+                log_halfstep(log_xi, t2, loga, scale=eps)[..., 0], f,
+                momentum)
             t3 = contract_f(f_new)
-            lse = log_halfstep(log_zeta, t3, zero, scale=-1.0)[:, 0]
+            lse = log_halfstep(log_zeta, t3, zero, scale=-1.0)[..., 0]
             log_col = lse + g_new / eps
-            err = torch.sum(torch.abs(torch.exp(log_col) - b))
+            err = _lane_sum(torch.abs(torch.exp(log_col) - b))
             return (f_new, g_new, t3), err
 
         return step, init
 
     def make_block_step(a, b, *, inner_steps: int, momentum: float = 1.0):
+        if log_xi.dim() == 3:
+            if log_xi.shape[0] != 1:
+                return None
+            step = _one_problem_block_step(
+                lambda x, z: _log_plan(kind, x, z, eps, precision),
+                (log_xi, log_zeta), a, b, inner_steps=inner_steps,
+                momentum=momentum)
+            return None if step is None else (step, init)
         n, m = a.shape[0], b.shape[0]
         if not block_plan_fits(n, m, log_xi.shape[1], 1, log_xi.dtype):
             return None
@@ -389,10 +470,34 @@ def geometry_ops(geom, *, mode: str = "log",
     spec = geom.pallas_ops()
     if spec is None:
         return None
+    return _spec_ops(spec, float(geom.eps), mode, precision)
+
+
+def stacked_ops(spec: dict, *, problems: int, eps: float, mode: str,
+                precision: str = "highest") -> GeometryOps:
+    """The fused plan of ``problems`` stacked problems from a
+    ``pallas_ops()``-shaped spec: kinds ``factored`` (``xi``/``zeta`` (P,
+    n, r)/(P, m, r)), ``log_factored`` (``log_xi``/``log_zeta``) or
+    ``gaussian`` (``x``/``y`` the P problems' clouds flattened to (P * n,
+    d)/(P * m, d), shared ``anchors``: one feature map launch a side, the
+    features viewed as (P, n, r))."""
+    if mode not in ("scaling", "log"):
+        raise ValueError(f"unknown plan mode {mode!r}")
+    check_precision(precision)
+    if spec["kind"] not in ("factored", "log_factored", "gaussian"):
+        raise ValueError(f"no stacked plan for kind {spec['kind']!r}")
+    return _spec_ops(dict(spec, eps=float(eps)), float(eps), mode, precision,
+                     problems=int(problems))
+
+
+def _spec_ops(spec: dict, eps: float, mode: str, precision: str,
+              problems: int = 0) -> GeometryOps:
+    """The plan of a ``pallas_ops()`` spec; ``problems`` P > 0 where its
+    point clouds hold P problems flattened (the features are then viewed
+    as (P, n, r))."""
     kind = spec["kind"]
     if kind not in ("factored", "log_factored", "gaussian", "paged"):
         raise ValueError(f"unknown pallas_ops spec kind {kind!r}")
-    eps = float(geom.eps)
     if kind == "paged":
         if "xi" in spec:
             xi, zeta = spec["xi"], spec["zeta"]
@@ -424,6 +529,9 @@ def geometry_ops(geom, *, mode: str = "log",
               inv_eps=spec["inv_eps"], log_space=mode == "log")
     xi = gaussian_feature_map(spec["x"], **kw)
     zeta = gaussian_feature_map(spec["y"], **kw)
+    if problems:
+        xi = xi.view(problems, -1, xi.shape[-1])
+        zeta = zeta.view(problems, -1, zeta.shape[-1])
     if mode == "scaling":
         return _scaling_plan(kind, xi, zeta, eps, precision)
     return _log_plan(kind, xi, zeta, eps, precision)

@@ -11,6 +11,13 @@ package). The shift is held constant under autograd, as
 ``jax.nn.logsumexp`` holds it, so the gradient is the softmax. Factors
 stored in bfloat16 are upcast to float32 before any arithmetic: every sum
 accumulates in float32.
+
+The contract, half-step and matvec versions are also the batched twins of
+their kernels: given P problems stacked on a leading axis (``(P, n, r)``
+factors, ``(P, n, B)`` columns) they compute every problem at once, the
+products as batched matrix products (``torch.bmm`` through ``@``) and the
+LSEs over the problem's own axes, exactly as
+``repro.kernels.ops.fused_batched_sinkhorn_iteration`` vmaps its kernels.
 """
 from __future__ import annotations
 
@@ -92,35 +99,38 @@ def gaussian_feature_map_ref(x: torch.Tensor, anchors: torch.Tensor,
 
 
 def feature_contract_ref(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """t = Xi^T u : (n, r), (n, B) -> (r, B)."""
+    """t = Xi^T u : (n, r), (n, B) -> (r, B); (P, ...) stacked."""
     with ieee_fp32():
-        return xi.float().T @ u
+        return xi.float().mT @ u
 
 
 def sinkhorn_halfstep_ref(xi: torch.Tensor, t: torch.Tensor,
                           marg: torch.Tensor) -> torch.Tensor:
-    """out = marg / (Xi t) : (n, r), (r, B), (n, B) -> (n, B)."""
+    """out = marg / (Xi t) : (n, r), (r, B), (n, B) -> (n, B); (P, ...)
+    stacked."""
     return marg / feature_matvec_ref(xi, t)
 
 
 def feature_matvec_ref(xi: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """out = Xi t : (n, r), (r, B) -> (n, B)."""
+    """out = Xi t : (n, r), (r, B) -> (n, B); (P, ...) stacked."""
     with ieee_fp32():
         return xi.float() @ t
 
 
 def log_feature_contract_ref(log_w: torch.Tensor,
                              s: torch.Tensor) -> torch.Tensor:
-    """t[k, c] = LSE_i(log_w[i, k] + s[i, c]) : (n, r), (n, B) -> (r, B)."""
-    return lse(log_w.float()[:, :, None] + s[:, None, :], dim=0)
+    """t[k, c] = LSE_i(log_w[i, k] + s[i, c]) : (n, r), (n, B) -> (r, B);
+    (P, ...) stacked."""
+    return lse(log_w.float()[..., :, :, None] + s[..., :, None, :], dim=-3)
 
 
 def log_halfstep_ref(log_w: torch.Tensor, t: torch.Tensor,
                      lmarg: torch.Tensor, *, scale: float = 1.0
                      ) -> torch.Tensor:
-    """out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :])), shape (m, B)."""
-    return scale * (lmarg - lse(log_w.float()[:, :, None] + t[None, :, :],
-                                dim=1))
+    """out = scale * (lmarg - LSE_k(log_w[:, k] + t[k, :])), shape (m, B);
+    (P, m, B) stacked."""
+    return scale * (lmarg - lse(log_w.float()[..., :, :, None]
+                                + t[..., None, :, :], dim=-2))
 
 
 def log_matvec_ref(log_m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
