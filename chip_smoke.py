@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -49,7 +49,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernels with a problem axis (flat contract, row kernel as half-step
    and matvec, log contract, log half-step) on P = 1, 3 and 32 stacked
    problems (n = 1024 and ragged n = 1001 and 1003, r = 256, 1024, 40,
-   1000 with B = 3, and 37) in float32 and bf16 against their plain
+   1000 with B = 3, and 37) in float32 and bf16, and in float32 at every
+   shape phase 10's service sends them (P = 1, 2, 4, 8, 16 on sides of
+   512, 1024 and 2048, r = 256), against their plain
    batched twins, each rerun bit-identical, each problem within the same
    tolerance of the 2-D kernel on it alone, and a problem with a NaN row
    leaving every other problem's bits unchanged. Tolerances: the
@@ -186,7 +188,48 @@ Phases, each of which fails the run (nonzero exit, no result line):
    |d n_iter| <= 1, a stage each for the clouds), the launches a replay
    at P = 1 and P = 32 (equal), and bench_batch's fixed 50 iterations:
    one ``solve_stacked`` against a loop of 32 single solves, and one
-   iteration's device time stacked against 32 single steps.
+   iteration's device time stacked against 32 single steps;
+10. the serving path, with the counters set to 0 before and read after:
+   one trace of the reference's traffic generator at the card's width
+   (``TrafficSpec(n_requests=400, eps=0.5, r=256, size_classes=((1024,
+   1024), (2048, 1536), (512, 700)), pool_size=32, repeat_frac=0.6,
+   near_frac=0.3, seed=0)``: bench_batch's r = 256 and three bucket cells,
+   (1024, 1024), (2048, 2048) and (512, 1024), features U(0.05, 1.05),
+   Dirichlet weights) through ``OTService(method=..., tol=1e-6,
+   max_batch=16, max_wait=0.004)`` in float32, for ``log_factored`` (the
+   log contract and half-step with their problem axis) and then
+   ``factored`` (the flat contract and the row kernel). For each method:
+   ``warmup(traffic_cells(...))``; a closed loop (a client keeping 64
+   requests in flight, ``solve_many`` a window); the same closed loop
+   with ``warm_starts=False`` and again under ``torch.profiler``, both
+   through the same runners; the open loop (``run_open_loop``) at half
+   the closed loop's rate; and bench_serve's sequential cold baseline,
+   ``engine.solve_many([p])`` a request after an untimed pass. It prints
+   each loop's rps, p50 / p99 and mean batch, the warm-start hits (exact
+   / near / miss) and mean iterations warm and cold, the serve speedup
+   (closed loop over sequential), kernel launches, loop replays and host
+   reads a dispatch, the closed loop's device busy share, and the host's
+   ms a request in ``kernel_data``, fingerprint, pad and upload,
+   dispatch, pull and unpad, and ``classify``. Gates: every ticket
+   served; every cost within 1e-4 relative of its sequential cold solve,
+   exact repeats within 1e-5; without warm starts each lane's f and g
+   within 1e-4 of max |value| of its sequential solve's, the same dead
+   atoms, and |d n_iter| <= 1 (with warm starts the potentials are printed
+   up to the constant (f + c, g - c)); exact and near hits, and mean warm
+   iterations below cold for ``log_factored`` and not above cold for
+   ``factored`` (a warm lane's padded atoms start at 0 as in the JAX
+   package, u = 1 in scaling space, which spoils the first ``K^T u``, so
+   a warm scaling start on a padded lane saves nothing there either); no capture after warmup in the service's
+   runners, the engine's ``RunnerCache`` or ``RUNNERS``. Then the
+   ``ot_service`` driver in-process, as the reference's CI runs it:
+   ``--strict --rank 256``, ``--stream --strict`` and ``--chaos --strict
+   --rank 256`` (NaN / inf feature rows, NaN weights, Gaussian features
+   underflowing at eps 1e-4, injected runner faults, a poisoned warm
+   entry, a skewed clock, quarantine and shedding; its gates include
+   ``runner_faults`` equal to the injector's count and parity within
+   1e-3 of the log-domain truth), each returning 0. A kernel build,
+   launch or capture failure is never absorbed by the service, its
+   ladder or the driver: it raises and fails the run.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -1015,7 +1058,10 @@ def check_batched(torch, device, record):
     in float32 and bf16: at the engine's shape (n = 1024, r = 256), with a
     ragged last tile (n = 1001 and 1003: no slab or batch of rows divides
     it), t in shared memory (float32 r = 1024), the scalar paths (B = 3,
-    r = 1000) and unaligned rows (r = 37). Each case also holds a second
+    r = 1000) and unaligned rows (r = 37); and in float32 at every shape
+    phase 10's service sends them: P = 1, 2, 4, 8 and 16 (its batch
+    buckets) on sides of 512, 1024 and 2048 (its padded supports), r =
+    256. Each case also holds a second
     launch bit-identical, each problem within the same tolerance of the 2-D
     kernel on that problem alone, and, with P > 1, a problem whose factor
     holds a NaN row leaving every other problem's bits unchanged.
@@ -1034,8 +1080,13 @@ def check_batched(torch, device, record):
     cases += [(P, 1001, BATCH_R, 1) for P in (3, BATCH_P)]
     cases += [(3, 1003, 1024, 1), (BATCH_P, 1003, 40, 1), (3, 777, 1000, 3),
               (5, 301, 37, 1)]
-    for (P, n, r, B) in cases:
-        for dtype in (f32, bf):
+    cases = [c + ((f32, bf),) for c in cases]
+    # phase 10's megabatches: every batch bucket on every padded side
+    cases += [(P, n, SERVE_TRACE["r"], 1, (f32,))
+              for P in SERVE_BUCKETS for n in SERVE_SIDES
+              if (P, n) != (1, BATCH_N)]
+    for (P, n, r, B, dtypes) in cases:
+        for dtype in dtypes:
             g = torch.Generator(device=device).manual_seed(P * 101 + n + r + B)
             xi = (torch.rand((P, n, r), generator=g, device=device)
                   + 0.05).to(dtype)
@@ -4121,6 +4172,321 @@ def time_batched_engine(torch, device, inp):
     return failures
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the serving front end
+# ---------------------------------------------------------------------------
+
+SERVE_TRACE = dict(n_requests=400, eps=0.5, r=256,
+                   size_classes=((1024, 1024), (2048, 1536), (512, 700)),
+                   pool_size=32, repeat_frac=0.6, near_frac=0.3, seed=0)
+SERVE_TOL = 1e-6                # the reference's serving tol
+SERVE_MAX_BATCH = 16
+SERVE_BUCKETS = (1, 2, 4, 8, 16)    # ot_batch_bucket up to SERVE_MAX_BATCH
+SERVE_SIDES = (512, 1024, 2048)     # the cells' padded supports
+SERVE_MAX_WAIT = 0.004
+SERVE_WINDOW = 64               # requests a closed-loop client keeps in flight
+SERVE_METHODS = ("log_factored", "factored")
+SERVE_EXACT_RTOL = 1e-5         # an exact repeat against its cold solve
+SERVE_POT_TOL = 1e-4            # a cold lane's f, g: of max |value|
+SERVE_WARM_SAVES = ("log_factored",)   # warm iterations below cold
+SERVE_LANES = (("--strict", "--rank", "256"), ("--stream", "--strict"),
+               ("--chaos", "--strict", "--rank", "256"))
+SERVE_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
+                      "feature_matvec", "log_feature_contract",
+                      "log_halfstep")
+
+
+def closed_loop(svc, problems, window=SERVE_WINDOW):
+    """A client that keeps ``window`` requests in flight: submit them,
+    drain, repeat (``OTService.solve_many`` a window at a time). Returns the
+    tickets and the wall (host clock; every drain ends in its loops' last
+    host read and the results' read)."""
+    tickets = []
+    t0 = time.perf_counter()
+    for k in range(0, len(problems), window):
+        part = [svc.submit(p) for p in problems[k:k + window]]
+        svc.drain()
+        tickets += part
+    return tickets, time.perf_counter() - t0
+
+
+def busy_share(torch, fn):
+    """Device busy share of ``fn()`` under torch.profiler (the kernel rows'
+    device time over the wall, both under the profiler); None where the
+    profiler saw no device time. Returns ``(share, wall, top rows)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = kernel_rows(torch, prof)
+    device_us = sum(e.self_device_time_total for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    share = device_us / 1e6 / wall if device_us > 0 else None
+    return share, wall, top
+
+
+def potentials_err(torch, got, want, shift=False):
+    """Worst of f and g of ``got`` against ``want`` (both unpadded CPU
+    results), over max |value| of ``want``; inf where their dead (-inf)
+    atoms differ. ``shift`` first takes out the constant (f + c, g - c)
+    that leaves a solution's cost and plan unchanged (a warm start may
+    land on another one)."""
+    diffs = []
+    pairs = [(x.cpu(), w.cpu()) for x, w in ((got.f, want.f),
+                                              (got.g, want.g))]
+    for x, w in pairs:
+        live = torch.isfinite(w)
+        if not torch.equal(live, torch.isfinite(x)):
+            return math.inf
+        diffs.append(x[live].double() - w[live].double())
+    if shift:
+        c = float(diffs[0].median())
+        diffs = [diffs[0] - c, diffs[1] + c]
+    scale = max(float(w[torch.isfinite(w)].abs().max()) for _, w in pairs)
+    return max(float(d.abs().max()) for d in diffs) / max(scale, 1.0)
+
+
+def percentiles_ms(np, latencies):
+    lat = np.asarray(latencies, np.float64) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def serve_method(torch, np, method, trace, device):
+    """One method's serving run (see the module doc, phase 10): warmup,
+    the closed loop with warm starts, again without (same runners), again
+    under the profiler (a fresh warm cache, same runners), the open loop
+    at half the closed loop's rate, and bench_serve's sequential cold
+    baseline; then its gates. Returns the failures."""
+    from repro_torch.core import runners as core_runners
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import OTService, run_open_loop, traffic_cells
+    from repro_torch.serving.service import HOST_SPLIT
+    from repro_torch.serving.traffic import Request, TrafficSpec
+
+    failures = []
+    problems = [req.problem for req in trace]
+    n_req = len(problems)
+
+    def service(**kw):
+        return OTService(eps=SERVE_TRACE["eps"], method=method,
+                         tol=SERVE_TOL, max_batch=SERVE_MAX_BATCH,
+                         max_wait=SERVE_MAX_WAIT, device=device, **kw)
+
+    svc = service()
+    engine = svc.engine
+    cells = traffic_cells(trace, engine)
+    t0 = time.perf_counter()
+    built = svc.warmup(cells)
+    torch.cuda.synchronize()
+    log(f"  serve {method}: warmup {built} runners over {len(cells)} cells "
+        f"{[(c.n_pad, c.m_pad, c.r) for c in cells]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    loops0 = svc.runners.loop_stats()
+    engine0 = engine.runners.captures
+    global0 = core_runners.RUNNERS.captures
+
+    # -- closed loop, warm starts on --------------------------------------
+    s0, c0 = svc.stats(), launch_counts()
+    warm_t, wall = closed_loop(svc, problems)
+    s1, c1, loops1 = svc.stats(), launch_counts(), svc.runners.loop_stats()
+    batches = s1["batches"] - s0["batches"]
+    launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    rps = n_req / wall
+    p50, p99 = percentiles_ms(np, [t.latency for t in warm_t])
+    w = s1["warm"]
+    converged = sum(bool(t.result.converged) for t in warm_t if t.result)
+    log(f"  serve {method} closed loop ({SERVE_WINDOW} in flight, warm "
+        f"starts on): {n_req} requests in {wall:.3f} s = {rps:.1f} rps, "
+        f"p50 {p50:.2f} ms p99 {p99:.2f} ms, {batches} dispatches, mean "
+        f"batch {n_req / batches:.2f}; warm hits exact {w['exact_hits']} "
+        f"near {w['near_hits']} miss {w['misses']} (hit rate "
+        f"{w['hit_rate']:.3f}); mean iterations warm "
+        f"{s1['mean_iters_warm']:.2f} cold {s1['mean_iters_cold']:.2f}; "
+        f"converged {converged}/{n_req} at tol {SERVE_TOL}")
+    log(f"  serve {method} per dispatch: kernel launches "
+        f"{sum(launches.values()) / batches:.2f} ({launches}), loop "
+        f"replays {(loops1['replays'] - loops0['replays']) / batches:.2f}, "
+        f"loop host reads {(loops1['reads'] - loops0['reads']) / batches:.2f}"
+        f" (+1 read of the results a dispatch, +2 reads a request: its "
+        f"weights and its fingerprint)")
+    split = {k: (s1["host_s"][k] - s0["host_s"][k]) / n_req * 1e3
+             for k in HOST_SPLIT}
+    log(f"  serve {method} host ms a request: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items())
+        + f"; sum {sum(split.values()):.3f} of {wall / n_req * 1e3:.3f}")
+
+    # -- closed loop, warm starts off, the same runners --------------------
+    cold = service(warm_starts=False)
+    cold.runners = svc.runners
+    cold_t, cold_wall = closed_loop(cold, problems)
+    cs = cold.stats()
+    cp50, cp99 = percentiles_ms(np, [t.latency for t in cold_t])
+    csplit = sum(cs["host_s"].values()) / n_req * 1e3
+    log(f"  serve {method} closed loop, warm starts off: "
+        f"{n_req / cold_wall:.1f} rps, p50 {cp50:.2f} ms p99 {cp99:.2f} ms, "
+        f"mean batch "
+        f"{cs['mean_batch']:.2f}, mean iterations {cs['mean_iters_cold']:.2f}"
+        f", host {csplit:.3f} ms a request (fingerprint "
+        f"{cs['host_s']['fingerprint'] / n_req * 1e3:.3f})")
+
+    # -- the closed loop under the profiler --------------------------------
+    prof = service()
+    prof.runners = svc.runners
+    share, pwall, top = busy_share(torch, lambda: closed_loop(prof, problems))
+    if share is None:
+        log(f"  serve {method} closed loop busy share: not measured (the "
+            "profiler saw no device time)")
+    else:
+        log(f"  serve {method} closed loop under the profiler: wall "
+            f"{pwall:.3f} s, device busy share {share:.3f} (idle "
+            f"{1 - share:.3f})")
+        for e in top:
+            log(f"    {e.key[:60]:60s} {e.count:6d} calls "
+                f"{e.self_device_time_total / 1e3:9.3f} ms")
+
+    # -- open loop at half the closed loop's rate --------------------------
+    rate = rps / 2
+    stretch = TrafficSpec(**SERVE_TRACE).rate_hz / rate
+    open_trace = [Request(r.t_offset * stretch, r.problem, r.kind)
+                  for r in trace]
+    o0 = svc.stats()
+    report = run_open_loop(svc, open_trace)
+    o1 = svc.stats()
+    ob = o1["batches"] - o0["batches"]
+    log(f"  serve {method} open loop at {rate:.1f} rps offered: "
+        f"{report.completed}/{n_req} served in {report.duration_s:.3f} s = "
+        f"{report.rps:.1f} rps, p50 {report.p50_ms:.2f} ms p99 "
+        f"{report.p99_ms:.2f} ms (from the scheduled arrival), mean batch "
+        f"{(o1['served'] - o0['served']) / max(ob, 1):.2f}")
+
+    # -- sequential cold baseline: engine.solve_many([p]) a request --------
+    engine_served = engine.runners.captures
+    firsts = {}
+    for p, c in zip(problems, (engine.batch_shape(*engine.kernel_data(p))
+                               for p in problems)):
+        firsts.setdefault(c, p)
+    for p in firsts.values():                   # the untimed pass
+        engine.solve_many([p])
+    torch.cuda.synchronize()
+    e1 = engine.runners.captures
+    seq, seq_lat = [], []
+    t0 = time.perf_counter()
+    for p in problems:
+        t1 = time.perf_counter()
+        seq.append(engine.solve_many([p])[0])
+        seq_lat.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    e2 = engine.runners.captures
+    seq_rps = n_req / seq_wall
+    sp50, sp99 = percentiles_ms(np, seq_lat)
+    log(f"  serve {method} sequential cold (engine.solve_many([p]) a "
+        f"request): {seq_rps:.1f} rps, p50 {sp50:.2f} ms p99 {sp99:.2f} "
+        f"ms (a request's own solve, ending in its loop's host read); "
+        f"serve speedup (closed loop over "
+        f"sequential) {rps / seq_rps:.3f}, without warm starts "
+        f"{n_req / cold_wall / seq_rps:.3f}")
+
+    # -- gates --------------------------------------------------------------
+    for label, tickets in (("closed", warm_t), ("no-warm", cold_t)):
+        undone = sum(not t.done or t.result is None for t in tickets)
+        if undone:
+            failures.append(f"{method} {label}: {undone} tickets not served")
+            continue
+        worst = worst_exact = pot = 0.0
+        d_iter = 0
+        for t, s_ in zip(tickets, seq):
+            rel = abs(float(t.result.cost) - float(s_.cost)) / abs(
+                float(s_.cost))
+            worst = max(worst, rel)
+            if t.warm_exact:
+                worst_exact = max(worst_exact, rel)
+            # a cold lane starts where its sequential solve starts; a
+            # warm one is compared up to the constant (f + c, g - c)
+            pot = max(pot, potentials_err(torch, t.result, s_,
+                                          shift=t.warm_hit))
+            if not t.warm_hit:
+                d_iter = max(d_iter, abs(int(t.result.n_iter)
+                                         - int(s_.n_iter)))
+        log(f"  serve {method} {label}: worst cost rel to the sequential "
+            f"cold solve {worst:.2e}, exact repeats {worst_exact:.2e}; "
+            f"f, g {pot:.2e} of max |value| (warm lanes up to a "
+            f"constant); cold lanes' max |d n_iter| {d_iter}")
+        if worst > COST_RTOL or worst_exact > SERVE_EXACT_RTOL:
+            failures.append(f"{method} {label}: cost rel {worst:.2e} "
+                            f"(exact {worst_exact:.2e})")
+        if label == "no-warm" and (pot > SERVE_POT_TOL or d_iter > 1):
+            failures.append(f"{method} {label}: f, g {pot:.2e}, "
+                            f"|d n_iter| {d_iter}")
+    if report.completed != n_req:
+        failures.append(f"{method} open loop served {report.completed}")
+    # a warm lane's padded atoms start at 0, as the JAX package pads them:
+    # in scaling space that is u = 1 there, which spoils the first K^T u,
+    # so a warm `factored` start saves no iteration on a padded lane (the
+    # reference's too) and only must not cost one
+    saves = method in SERVE_WARM_SAVES
+    if not (w["exact_hits"] and w["near_hits"]
+            and (s1["mean_iters_warm"] < s1["mean_iters_cold"] if saves
+                 else s1["mean_iters_warm"] <= s1["mean_iters_cold"])):
+        failures.append(f"{method}: warm hits {w} and iterations "
+                        f"{s1['mean_iters_warm']:.2f} warm, "
+                        f"{s1['mean_iters_cold']:.2f} cold")
+    snap = svc.runners.snapshot()
+    captured = {
+        "service runners": svc.runners.loop_stats()["captures"]
+        - loops0["captures"],
+        "service builds": snap["misses"] - built,
+        "service extra_traces": snap["extra_traces"],
+        "engine (service loops)": engine_served - engine0,
+        "engine (timed sequential)": e2 - e1,
+        "RUNNERS": core_runners.RUNNERS.captures - global0,
+    }
+    log(f"  serve {method} captures after warmup: {captured}")
+    if any(captured.values()):
+        failures.append(f"{method}: captures after warmup {captured}")
+    return failures
+
+
+def run_serving_path(torch, np, device):
+    """Phase 10's counted run, with the launch counters set to 0 just
+    before and read just after: both methods' serving runs over one trace
+    at the card's width, then the ot_service driver's three lanes
+    in-process."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import ot_service
+    from repro_torch.serving import TrafficSpec, make_traffic
+
+    t0 = time.perf_counter()
+    trace = make_traffic(TrafficSpec(**SERVE_TRACE), device=device)
+    torch.cuda.synchronize()
+    kinds = {k: sum(r.kind == k for r in trace)
+             for k in ("fresh", "repeat", "near")}
+    log(f"  trace: {len(trace)} requests {kinds} over "
+        f"{SERVE_TRACE['pool_size']} pairs, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    failures = []
+    reset_launch_counts()
+    for method in SERVE_METHODS:
+        failures += serve_method(torch, np, method, trace, device)
+    for lane in SERVE_LANES:
+        t0 = time.perf_counter()
+        rc = ot_service.main(list(lane))
+        log(f"  ot_service {' '.join(lane)}: rc {rc} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if rc != 0:
+            failures.append(f"ot_service {' '.join(lane)} returned {rc}")
+    counts = launch_counts()
+    missing = [k for k in SERVE_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -4132,7 +4498,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 
 
 def main(argv=None) -> int:
@@ -4141,7 +4507,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all nine)")
+                    "result lines need all ten)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -4404,10 +4770,26 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 9 FAILED: {failures}")
             return 1
+    if 10 in phases:
+        log(f"== phase 10: serving path (trace of "
+            f"{SERVE_TRACE['n_requests']} requests over "
+            f"{SERVE_TRACE['pool_size']} pairs, r={SERVE_TRACE['r']}, "
+            f"eps={SERVE_TRACE['eps']}, size classes "
+            f"{SERVE_TRACE['size_classes']}; OTService {SERVE_METHODS}, "
+            f"tol={SERVE_TOL}, max_batch={SERVE_MAX_BATCH}, max_wait="
+            f"{SERVE_MAX_WAIT}; the ot_service lanes)")
+        t10 = time.perf_counter()
+        c10, failures = run_serving_path(torch, np, device)
+        log(f"  launches on the serving path: {c10}")
+        counts["serving"] = c10
+        log(f"  phase 10: {time.perf_counter() - t10:.1f} s")
+        if failures:
+            log(f"phase 10 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "nine")
+            "ten")
         return 0
 
     kernels = []

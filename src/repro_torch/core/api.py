@@ -439,14 +439,6 @@ def solve_annealed(problem: OTProblem, *, method: str = "auto",
                           torch.stack(stage_errs))
 
 
-def _refuse_recovery(spec) -> None:
-    if spec.recovery is not None:
-        raise NotImplementedError(
-            "SolveSpec.recovery: the recovery ladder (resilience/ladder.py) "
-            "is not ported to repro_torch yet (ROADMAP.md, queue A item 5: "
-            "resilience); solve with recovery=None")
-
-
 def _warn_legacy(where: str, use_pallas, inner_steps, check_every,
                  precision) -> None:
     if (use_pallas is not None or inner_steps is not None
@@ -481,8 +473,9 @@ def solve(problem, *, method: str = "auto",
     The keyword form below stays as a wrapper; the execution kwargs
     (``use_pallas=`` / ``inner_steps=`` / ``check_every=`` /
     ``precision=``) with a bare problem emit a ``DeprecationWarning``. A
-    spec with ``recovery`` set raises ``NotImplementedError`` (the ladder
-    is not ported yet).
+    spec with ``recovery`` set climbs its recovery ladder on a failed
+    verdict and returns the ladder's last result
+    (:func:`~repro_torch.resilience.ladder.solve_with_recovery`).
 
     ``method``: "auto" (Nystrom factors -> "nystrom", arc-cosine clouds
     -> "arccos", dense costs -> "log_quadratic", grids, Gaussian point
@@ -509,7 +502,9 @@ def solve(problem, *, method: str = "auto",
 
     if isinstance(problem, SolveSpec):
         spec = problem
-        _refuse_recovery(spec)
+        if spec.recovery is not None:
+            from ..resilience.ladder import solve_with_recovery
+            return solve_with_recovery(spec).result
         kw = spec.solver_kwargs()
         meth, sched = kw.pop("method"), kw.pop("schedule")
         with spec.policy.scope():
@@ -669,11 +664,12 @@ class BatchedSinkhorn:
     # -- one stacked solve ---------------------------------------------------
 
     def _solve(self, ka, kb, a, b, f_init, g_init, *, eps: float, tol,
-               max_iter: int, plan_spec: Optional[dict] = None
-               ) -> SinkhornResult:
+               max_iter: int, plan_spec: Optional[dict] = None,
+               runners: Optional[RunnerCache] = None) -> SinkhornResult:
         """One stacked solve at ``eps``: the fused plan of the method's
         mode where it applies (built from ``plan_spec`` where given, else
-        from the stacked factors ``ka``/``kb``), else the plain operators
+        from the stacked factors ``ka``/``kb``), its loop captured in
+        ``runners`` (default the engine's own), else the plain operators
         through the eager lane loop. ``tol`` is a float or one a lane."""
         method, mode = self.method, _ENGINE_MODES[self.method]
         P = a.shape[0]
@@ -691,7 +687,8 @@ class BatchedSinkhorn:
                                   "precision": plan.precision})
             kw = dict(eps=eps, tol=tol, max_iter=max_iter,
                       momentum=self.momentum, inner_steps=self.inner_steps,
-                      check_every=self.check_every, runners=self.runners)
+                      check_every=self.check_every,
+                      runners=self.runners if runners is None else runners)
             if mode == "scaling":
                 u0 = None if f_init is None else torch.exp(f_init / eps)
                 res = _solve_scaling_plan(plan, a, b, u_init=u0, **kw)
@@ -732,8 +729,9 @@ class BatchedSinkhorn:
 
     # -- stacked entry points ------------------------------------------------
 
-    def solve_stacked(self, ka, kb, a, b, f_init=None,
-                      g_init=None) -> SinkhornResult:
+    def solve_stacked(self, ka, kb, a, b, f_init=None, g_init=None, *,
+                      runners: Optional[RunnerCache] = None
+                      ) -> SinkhornResult:
         """Solve P problems given stacked kernel data.
 
         factored: ``ka``/``kb`` = features (P, n, r)/(P, m, r);
@@ -745,6 +743,10 @@ class BatchedSinkhorn:
         ``f_init``/``g_init`` (both (P, n)/(P, m)) warm-start the
         potentials: they are copied into the cell's runner buffers (the
         JAX package donates them), so no second pair is held.
+
+        ``runners`` is the :class:`~repro_torch.core.runners.RunnerCache`
+        the fused loop captures into, the engine's own ``runners`` by
+        default (the serving layer gives each of its runners its own).
         """
         if self.schedule is not None:
             raise ValueError(
@@ -761,7 +763,8 @@ class BatchedSinkhorn:
         if f_init is not None:
             f_init, g_init = _stacked(f_init, dev), _stacked(g_init, dev)
         return self._solve(ka, kb, a, b, f_init, g_init, eps=self.eps,
-                           tol=self.tol, max_iter=self.max_iter)
+                           tol=self.tol, max_iter=self.max_iter,
+                           runners=runners)
 
     def solve_point_clouds(self, x, y, anchors, a=None, b=None, *,
                            R: Optional[float] = None) -> SinkhornResult:
@@ -1010,6 +1013,29 @@ def _refuse_mesh(inits: bool) -> None:
         "ported to repro_torch yet (ROADMAP.md, queue A: distributed)")
 
 
+def _host(x) -> Optional[torch.Tensor]:
+    return None if x is None else x.detach().cpu()
+
+
+def _recover_lanes(specs, results, f_inits, g_inits) -> None:
+    """Send each failed lane of a batched ``solve_many(specs)`` up the
+    recovery ladder alone, seeded with its batched result (lanes are
+    independent, so a failed lane never touched its siblings and only the
+    failures pay for retries)."""
+    from ..resilience.health import classify
+    from ..resilience.ladder import solve_with_recovery
+
+    accept = specs[0].recovery.accept
+    for i, res in enumerate(results):
+        p = specs[i].problem()
+        h = classify(res, f_init=_host(f_inits[i] if f_inits else None),
+                     g_init=_host(g_inits[i] if g_inits else None),
+                     a=_host(p.a), b=_host(p.b))
+        if h.verdict not in accept:
+            results[i] = solve_with_recovery(specs[i],
+                                             first_attempt=res).result
+
+
 def solve_many(problems, *, method: str = "log_factored",
                eps: Optional[float] = None, tol: float = 1e-6,
                max_iter: int = 2000, momentum: float = 1.0,
@@ -1032,7 +1058,9 @@ def solve_many(problems, *, method: str = "log_factored",
     :class:`~repro_torch.core.spec.SolveSpec`: they must share one method,
     tol, max_iter, momentum, policy and recovery (engines are
     per-configuration), and take no schedule, rank or key; the solver
-    kwargs above are then ignored except ``f_inits``/``g_inits``. The
+    kwargs above are then ignored except ``f_inits``/``g_inits``. With
+    ``recovery`` set, each lane whose verdict the policy does not accept
+    climbs the ladder alone, from its batched result. The
     execution kwargs with bare problems emit a ``DeprecationWarning``.
     ``mesh=`` (sharded solves) is not ported and raises."""
     if not problems:
@@ -1060,7 +1088,6 @@ def solve_many(problems, *, method: str = "log_factored",
                 raise ValueError(
                     "solve_many(specs) does not support schedule/rank/"
                     "key; call solve(spec) per problem")
-        _refuse_recovery(head)
         pol = head.policy
         eps_set = {float(s_.eps) for s_ in specs}
         if len(eps_set) != 1:
@@ -1074,8 +1101,11 @@ def solve_many(problems, *, method: str = "log_factored",
                 max_iter=head.max_iter, momentum=head.momentum,
                 use_pallas=pol.use_pallas, inner_steps=pol.inner_steps,
                 check_every=pol.check_every, precision=pol.precision)
-            return engine.solve_many([s_.problem() for s_ in specs],
-                                     f_inits=f_inits, g_inits=g_inits)
+            results = engine.solve_many([s_.problem() for s_ in specs],
+                                        f_inits=f_inits, g_inits=g_inits)
+        if head.recovery is not None:
+            _recover_lanes(specs, results, f_inits, g_inits)
+        return results
     _warn_legacy("solve_many", use_pallas, inner_steps, check_every,
                  precision)
     eps_set = {float(p.eps) for p in problems}

@@ -16,9 +16,10 @@ cell's loop as a CUDA graph over static buffers:
 A solve copies its inputs into the buffers and replays the graph until
 the stop flag is set. On the card the first solve of a cell runs its first
 block eagerly on a side stream (which also builds the kernels and runs
-their occupancy queries) and then captures; a capture that fails raises,
-and nothing falls back to the host loop. On the CPU a capture records the
-program for eager replay, so every count below means the same on both.
+their occupancy queries) and then captures; a capture that fails raises
+``KernelError``, and nothing falls back to the host loop. On the CPU a
+capture records the program for eager replay, so every count below means
+the same on both.
 
 :class:`RunnerCache` is an LRU of runners keyed by :class:`CellKey`,
 bounded by ``max_runners`` as the reference's ``StreamingSolver`` bounds
@@ -46,6 +47,7 @@ from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import add_launches, launch_counts, set_launch_counts
+from ..kernels.build import KernelError
 
 __all__ = ["CellKey", "Runner", "RunnerCache", "RUNNERS", "MAX_BYTES"]
 
@@ -111,7 +113,8 @@ class Runner:
         buffers. On a card ``warmup`` runs first, eagerly on a side stream
         (its launches are real and stay counted), and the capture follows
         on that stream, into the cache's pool; returns whether ``warmup``
-        ran (not on the CPU)."""
+        ran (not on the CPU). A capture that fails raises
+        :class:`~repro_torch.kernels.build.KernelError`."""
         device = self.key.device
         warmed = device.type == "cuda"
         if warmed:
@@ -123,11 +126,17 @@ class Runner:
                 with torch.cuda.stream(side):
                     warmup()
                     before = launch_counts()
-                    graph.capture_begin(pool=self._cache.pool(device))
                     try:
-                        program()
+                        graph.capture_begin(pool=self._cache.pool(device))
+                        try:
+                            program()
+                        finally:
+                            graph.capture_end()
+                    except Exception as exc:
+                        raise KernelError(
+                            f"capture of the solve loop of cell {self.key} "
+                            f"failed: {exc}") from exc
                     finally:
-                        graph.capture_end()
                         after = launch_counts()
                         set_launch_counts(before)
                 current.wait_stream(side)

@@ -92,6 +92,17 @@ class SinkhornResult(NamedTuple):
         rather than merely not converging yet."""
         return ~(torch.isfinite(self.marginal_err) & torch.isfinite(self.cost))
 
+    @property
+    def health(self):
+        """The :class:`~repro_torch.resilience.health.SolveHealth` verdict
+        of one problem's result (``ok`` / ``maxed_out`` / ``diverged``),
+        read to the host. ``poisoned_warm_start`` needs the warm start the
+        result does not carry: classify through
+        :func:`repro_torch.resilience.classify` with ``f_init``/``g_init``
+        for it."""
+        from ..resilience.health import classify
+        return classify(self)
+
 
 def _f32(x: float) -> float:
     """``x`` rounded to float32: the solvers compare float32 errors."""

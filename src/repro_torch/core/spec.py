@@ -14,9 +14,10 @@ execution kwargs with a bare problem emit a ``DeprecationWarning``.
 Training code bridges through ``OTObjective.spec``, so a loss's
 configuration and an offline solve of the same problem are one record.
 ``key`` is a ``torch.Generator``, as ``solve``'s. ``recovery`` holds a
-:class:`~repro_torch.resilience.RecoveryPolicy`; its executor is not
-ported yet, so a spec with one set is refused by the solves. Counterpart
-of ``repro.core.spec``.
+:class:`~repro_torch.resilience.RecoveryPolicy`: ``solve(spec)`` then runs
+the ladder (:func:`~repro_torch.resilience.ladder.solve_with_recovery`)
+and ``solve_many(specs)`` sends each failed lane up it alone.
+Counterpart of ``repro.core.spec``.
 """
 from __future__ import annotations
 

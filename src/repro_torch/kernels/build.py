@@ -13,6 +13,12 @@ here runs at import, so importing this module needs no ``nvcc``. The build
 directory is ``build/repro_torch`` at the repository root (listed in
 ``.gitignore``). ``ptxas``'s register and shared-memory report for each
 source is kept beside its library as ``<lib>.log``.
+
+A refused toolchain, a failed build and a failed launch raise
+:class:`KernelError`, which no caller absorbs: the serving layer's
+recovery ladder retries a request after any other exception, but a kernel
+that cannot build or launch stops the program instead of being served by
+the plain operators (:func:`device_fault`).
 """
 from __future__ import annotations
 
@@ -26,7 +32,11 @@ import tempfile
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 __all__ = [
+    "KernelError",
+    "device_fault",
     "SOURCES",
     "BUILD_DIR",
     "NVCC_FLAGS",
@@ -52,6 +62,25 @@ NVCC_FLAGS = (
 )
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel of the port could not be built, launched or captured
+    in a graph."""
+
+
+def device_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is a fault of the kernels or the CUDA runtime (a
+    :class:`KernelError`, torch's accelerator or out-of-memory error, or a
+    ``RuntimeError`` the CUDA runtime reported): the exceptions a recovery
+    path must re-raise rather than retry on other operators."""
+    runtime = (KernelError, torch.cuda.OutOfMemoryError,
+               *((torch.AcceleratorError,)
+                 if hasattr(torch, "AcceleratorError") else ()))
+    if isinstance(exc, runtime):
+        return True
+    return isinstance(exc, RuntimeError) and (
+        "CUDA error" in str(exc) or "CUDA driver error" in str(exc))
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on ``PATH``, or
     ``/usr/local/cuda/bin/nvcc``. Raises when there is none."""
@@ -65,7 +94,7 @@ def nvcc_path() -> str:
     for c in candidates:
         if c.is_file():
             return str(c)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the "
         "repro_torch CUDA kernels are compiled at first use on a machine "
         "with the CUDA toolkit"
@@ -109,7 +138,7 @@ def build_all() -> Dict[str, Path]:
         Path(str(missing[name]) + ".log").write_text(out)
         os.replace(tmp, missing[name])
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failures))
     return paths
 
 
@@ -126,4 +155,4 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code other than 0."""
     if code != 0:
         msg = lib.repro_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
+        raise KernelError(f"{what}: CUDA launch failed ({code}: {msg})")

@@ -10,9 +10,10 @@ may run, in what order, and the attempt and deadline budget.
 Rungs are cumulative: each executed rung adds its degradation on top of
 the previous ones, so the ladder walks a monotone sequence of ever more
 conservative configurations. A poisoned warm start pulls ``cold_restart``
-to the front (``ordered_rungs``). The executor of the ladder is not ported
-yet (ROADMAP.md, queue A: resilience); ``solve(spec)`` with a policy set
-refuses. Counterpart of ``repro.resilience.policy``.
+to the front (``ordered_rungs``). Its executors are
+:func:`~repro_torch.resilience.ladder.solve_with_recovery` (``solve(spec)``
+and ``solve_many(specs)``) and the serving ladder of ``OTService``.
+Counterpart of ``repro.resilience.policy``.
 """
 from __future__ import annotations
 

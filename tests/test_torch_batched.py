@@ -243,14 +243,19 @@ def test_legacy_execution_kwargs_warn_and_spec_path_is_silent():
 
 
 def test_recovery_is_refused_by_both_front_doors():
+    """No front door refuses ``recovery`` any more (the ladder is ported):
+    a healthy spec solves as it does without a policy, through both."""
     xi, zeta = _geom()
     g = convert.factored_positive(xi=xi, zeta=zeta, eps=EPS, device="cpu")
     spec = SolveSpec(geometry=g, method="factored",
                      recovery=RecoveryPolicy())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        solve(spec)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        solve_many([spec, spec])
+    plain = solve(spec.replace(recovery=None))
+    got = solve(spec)
+    assert got.health.ok and got.n_iter == plain.n_iter
+    assert torch.equal(got.f, plain.f)
+    for res in solve_many([spec, spec]):
+        assert res.health.ok
+        assert float(res.cost) == pytest.approx(float(plain.cost), rel=REL)
 
 
 def test_objective_spec_bridge():

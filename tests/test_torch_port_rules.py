@@ -63,6 +63,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert {"repro_torch.core.accelerated", "repro_torch.core.barycenter",
             "repro_torch.core.nystrom",
             "repro_torch.examples.sphere_barycenter"} <= set(MODULES)
+    # so are the serving slice's
+    assert {"repro_torch.serving.service", "repro_torch.serving.runner_cache",
+            "repro_torch.serving.warmstart", "repro_torch.serving.traffic",
+            "repro_torch.resilience.ladder", "repro_torch.resilience.chaos",
+            "repro_torch.launch.ot_service"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
@@ -113,6 +118,20 @@ def test_streaming_stores_default_to_the_card_and_raise_without_one(
     store = PagedFeatureStore(4, 64, device="cpu")
     store.add([0], np.ones((1, 4), np.float32), np.ones(1, np.float32))
     assert store.device_features().device.type == "cpu"
+
+
+def test_ot_service_defaults_to_the_card_and_raises_without_one(
+        monkeypatch):
+    from repro_torch.serving import OTService, make_traffic
+    from repro_torch.serving.traffic import TrafficSpec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OTService(eps=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_traffic(TrafficSpec(n_requests=2, pool_size=2))
+    svc = OTService(eps=0.5, device="cpu")
+    assert svc.device == torch.device("cpu")
 
 
 def test_unsupported_device_is_refused():
