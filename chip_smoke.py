@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -230,6 +230,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    1e-3 of the log-domain truth), each returning 0. A kernel build,
    launch or capture failure is never absorbed by the service, its
    ladder or the driver: it raises and fails the run.
+11. (a) the autotuner (``repro_torch.kernels.autotune``) with tuning on
+   and a fresh cache at ``build/tuning/tuning.json``: six keys (the flat
+   contract at P = 32, n = 1024, r = 256 and at n = 16384, r = 1024, the
+   row kernel, the log contract and the log half-step at n = 16384,
+   r = 1024, float32, and the log megakernel at the OT-GAN shape, bf16),
+   each candidate pinned and held against the plain version at its
+   phase-2 tolerance on real inputs, rerun bit-identical; each key's
+   static plan, winner, both times (phase 3's method) and trials; the
+   memory cache dropped and every key resolved again from the file (zero
+   trials, all disk hits); tuning off again: every plan static and the
+   flat contract's digest the one from before. (b) the sharded solves:
+   phase 4's annealed request (``solve_annealed(..., mesh=)``, auto ->
+   ``sharded_log``), phase 6's feature problem (r = 1024, eps 0.5, 20
+   iterations, auto -> ``sharded``) and the divergence with its
+   gradients in x, y and the anchors (the first 4096 points of phase 4's
+   clouds, eps 0.5), first on one process (the yardstick), then in an
+   NCCL world of 1 and a gloo world of 2 ranks on card 0 (spawned; the
+   kernels are built by phase 1, the ranks only load them; gloo is first
+   checked to take CUDA tensors for MAX and all-gather, and where it does
+   not its lane says so and stops). Gates: cost 1e-4 relative, |d
+   iterations| <= 1 a stage, the feature solve's iterations equal,
+   gradients 1e-3 of max |grad|, every rank's results bit-identical, each
+   rank's counters showing the contract, half-step and feature-map
+   kernels launched, no plain operator built in the solves and no
+   megakernel launch. Per world: ms an iteration, the collectives' ms an
+   iteration (the same all-reduces and host read, timed alone) and their
+   share, and the world's seconds.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -1864,6 +1891,7 @@ def flat_contract_digest(torch, device):
             h.update(t.cpu().numpy().tobytes())
     log(f"  feature_contract       output digest at fixed seeds "
         f"(12 shapes): {h.hexdigest()[:32]}")
+    return h.hexdigest()
 
 
 def time_paged_kernels(torch, np, device):
@@ -4487,6 +4515,469 @@ def run_serving_path(torch, np, device):
     return counts, failures
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the autotuner and the sharded solves
+# ---------------------------------------------------------------------------
+
+TUNE_CACHE = Path(__file__).resolve().parent / "build" / "tuning" / \
+    "tuning.json"
+SHARD_DIV_N = 4096              # the divergence's supports (phase 6's n)
+SHARD_TIMEOUT_S = 240           # a world's spawn, run and join
+SHARD_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
+                      "log_halfstep", "feature_contract",
+                      "sinkhorn_halfstep", "feature_matvec")
+
+
+def tuner_keys(torch, np, device):
+    """Phase 11(a)'s keys on real inputs: (label, kernel, extents, dtype,
+    the wrapper's call, its plain version, the phase-2 tolerance)."""
+    from repro_torch.kernels import kermatvec, logmatvec, ref
+    from repro_torch.kernels.fused_loop import log_sinkhorn_block
+    from repro_torch.kernels.kermatvec import (feature_contract,
+                                               sinkhorn_halfstep)
+    from repro_torch.kernels.logmatvec import (log_feature_contract,
+                                               log_halfstep)
+
+    g = torch.Generator(device=device).manual_seed(11)
+
+    def rand(*shape, lo=0.0):
+        return torch.rand(shape, generator=g, device=device) + lo
+
+    keys = []
+    for P, n, r in ((32, 1024, 256), (1, N, R_ANCHORS)):
+        xi = rand(P, n, r, lo=0.05) if P > 1 else rand(n, r, lo=0.05)
+        u = rand(*xi.shape[:-1], 1)
+        keys.append((f"flat contract P={P} n={n} r={r} f32",
+                     "feature_contract",
+                     kermatvec._contract_extents(
+                         xi, 1, kermatvec._flat_vectorized(xi, 1)),
+                     xi.dtype, lambda xi=xi, u=u: feature_contract(xi, u),
+                     lambda xi=xi, u=u: ref.feature_contract_ref(xi, u),
+                     dict(rel_to_max=SCALING_REL_TOL)))
+    xi = rand(N, R_ANCHORS, lo=0.05)
+    t = rand(R_ANCHORS, 1) / R_ANCHORS
+    marg = rand(N, 1, lo=0.5) / N
+    keys.append((f"row kernel (half-step) n={N} r={R_ANCHORS} f32",
+                 "feature_rows",
+                 kermatvec._rows_extents(xi, 1, kermatvec._vectorized(xi, 1),
+                                         True),
+                 xi.dtype, lambda: sinkhorn_halfstep(xi, t, marg),
+                 lambda: ref.sinkhorn_halfstep_ref(xi, t, marg),
+                 dict(rel_to_max=SCALING_REL_TOL)))
+    lw = -4.0 * rand(N, R_ANCHORS)
+    s = -rand(N, 1)
+    keys.append((f"log contract n={N} r={R_ANCHORS} f32", "log_contract",
+                 logmatvec._contract_extents(lw, 1,
+                                             logmatvec._vectorized(lw, 1)),
+                 lw.dtype, lambda: log_feature_contract(lw, s),
+                 lambda: ref.log_feature_contract_ref(lw, s),
+                 dict(atol=LSE_ATOL, rtol=LSE_RTOL)))
+    lt = -rand(R_ANCHORS, 1)
+    lm = -rand(N, 1)
+    keys.append((f"log half-step n={N} r={R_ANCHORS} f32", "log_halfstep",
+                 logmatvec._halfstep_extents(lw, 1,
+                                             logmatvec._vectorized(lw, 1)),
+                 lw.dtype, lambda: log_halfstep(lw, lt, lm, scale=0.1),
+                 lambda: ref.log_halfstep_ref(lw, lt, lm, scale=0.1),
+                 dict(atol=LSE_ATOL, rtol=LSE_RTOL)))
+    args = block_inputs(torch, np, GAN_BATCH, GAN_BATCH, 128, D, 0.5,
+                        torch.bfloat16, 0, 7, device)
+    keys.append((f"log megakernel n=m={GAN_BATCH} r=128 bf16 8 iterations",
+                 "log_sinkhorn_block",
+                 dict(n=GAN_BATCH, m=GAN_BATCH, r=128, esize=2),
+                 torch.bfloat16,
+                 lambda: log_sinkhorn_block(*args, inner_steps=8, eps=0.5),
+                 lambda: ref.log_sinkhorn_block_ref(*args, inner_steps=8,
+                                                    eps=0.5),
+                 dict(atol=LSE_ATOL, rtol=LSE_RTOL)))
+    return keys
+
+
+def held_within(torch, got, want, tol):
+    """``got`` against ``want`` (a tensor, or the megakernel's (f, g, t,
+    err)) at ``tol``: (max abs error, ok)."""
+    if isinstance(got, tuple):
+        worst, ok = 0.0, True
+        for x, y in zip(got[:3], want[:3]):
+            err, good = compare(torch, x, y, **tol)
+            worst, ok = max(worst, err), ok and good
+        e, w = float(got[3]), float(want[3])
+        return worst, ok and abs(e - w) <= 1e-4 * abs(w) + 1e-6
+    return compare(torch, got, want, **tol)
+
+
+def same_bits(torch, x, y):
+    if isinstance(x, tuple):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+    return torch.equal(x, y)
+
+
+def run_tuner(torch, np, device):
+    """Phase 11(a): tune the keys into a fresh cache with tuning on; hold
+    every candidate against the plain version (reruns bit-identical); time
+    the static plan and the winner; resolve again from the file alone
+    (zero trials); with tuning off every plan is static and the flat
+    contract's digest is unchanged."""
+    from repro_torch.kernels import autotune
+
+    failures = []
+    if SLEEP_MS[0] == 0.0:
+        calibrate_sleep(torch)
+    digest0 = flat_contract_digest(torch, device)
+    keys = tuner_keys(torch, np, device)
+    TUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    TUNE_CACHE.unlink(missing_ok=True)
+    autotune.clear_cache()
+    winners = {}
+    with autotune.tuning(cache_path=str(TUNE_CACHE)):
+        for label, kernel, ext, dtype, call, plain, tol in keys:
+            static = autotune.static_plan(kernel, ext)
+            cands = autotune.candidates(kernel, ext)
+            want = plain()
+            for cand in cands:
+                with autotune.pinned(kernel, **cand):
+                    got, again = call(), call()
+                torch.cuda.synchronize()
+                err, ok = held_within(torch, got, want, tol)
+                same = same_bits(torch, got, again)
+                if not (ok and same):
+                    failures.append(f"{label} {cand}: err {err:.3e} "
+                                    f"repeat identical {same}")
+            autotune.reset_stats()
+            t0 = time.perf_counter()
+            win = autotune.resolve(kernel, ext, dtype, device)
+            tune_s = time.perf_counter() - t0
+            trials = autotune.stats()["trials"]
+            winners[label] = win
+            times = {}
+            for name, knobs in (("static", static), ("winner", win)):
+                with autotune.pinned(kernel, **knobs):
+                    times[name] = time_ms(torch, call)
+            log(f"  tune {label}: candidates {list(cands)}; static {static}"
+                f" {times['static']:.4f} ms, winner {win} "
+                f"{times['winner']:.4f} ms (winner/static "
+                f"{times['winner'] / times['static']:.3f}); {trials} trials "
+                f"in {tune_s:.2f} s; every candidate within its phase-2 "
+                f"tolerance, reruns bit-identical")
+            if len(cands) > 1 and trials != len(cands):
+                failures.append(f"{label}: {trials} trials for "
+                                f"{len(cands)} candidates")
+        autotune.clear_cache()
+        autotune.reset_stats()
+        again = {label: autotune.resolve(kernel, ext, dtype, device)
+                 for label, kernel, ext, dtype, *_ in keys}
+        warm = autotune.stats()
+    log(f"  warm cache ({TUNE_CACHE.name}, {len(keys)} keys): {warm}")
+    if warm["trials"] or warm["disk_hits"] != len(keys) or again != winners:
+        failures.append(f"warm cache: {warm}, plans equal "
+                        f"{again == winners}")
+    autotune.reset_stats()
+    static_ok = all(autotune.resolve(kernel, ext, dtype, device)
+                    == autotune.static_plan(kernel, ext)
+                    for _, kernel, ext, dtype, *_ in keys)
+    digest1 = flat_contract_digest(torch, device)
+    log(f"  tuning off: every plan static {static_ok}, trials "
+        f"{autotune.stats()['trials']}; flat contract digest unchanged "
+        f"{digest1 == digest0}")
+    if not static_ok or digest1 != digest0 or autotune.stats()["trials"]:
+        failures.append("tuning off: plans or digest changed")
+    return failures
+
+
+def shard_inputs(torch, np, device):
+    """Phase 11(b)'s requests, built alike in every process: phase 4's
+    annealed request, phase 6's feature problem (r = 1024, eps 0.5) and
+    the divergence's clouds (the first 4096 points of phase 4's, r = 1024
+    anchors, eps 0.5)."""
+    from repro_torch.core import GaussianPointCloud, OTProblem
+    main = build_problem(torch, np, 0, device)
+    feats = OTProblem.from_features(
+        explicit_features(np, N, R_ANCHORS, 2 * R_ANCHORS),
+        explicit_features(np, M, R_ANCHORS, 2 * R_ANCHORS + 1),
+        eps=SCALING_EPS)
+    x, y = clouds(np, 0)
+    x, y = x[:SHARD_DIV_N], y[:SHARD_DIV_N]
+    R = float(np.max(np.linalg.norm(np.concatenate([x, y]), axis=1)))
+    u, _ = anchors_for(torch, np, R_ANCHORS, D, SCALING_EPS, R, 0, "cpu")
+    leaves = [torch.as_tensor(v, device=device) for v in (x, y, u.numpy())]
+    return main, feats, leaves, R, GaussianPointCloud
+
+
+def shard_requests(torch, np, device, mesh=None):
+    """The three requests, on ``mesh`` or on one device: the annealed
+    solve's result and stage iterations, the feature solve's, and the
+    divergence with its gradients in x, y and the anchors. Returns
+    (results, {name: (wall s, iterations)})."""
+    from repro_torch.core import (EpsSchedule, sinkhorn_divergence_geometry,
+                                  solve, solve_annealed)
+    main, feats, leaves, R, cls = shard_inputs(torch, np, device)
+    out, walls = {}, {}
+    sync(torch)
+    t0 = time.perf_counter()
+    ann = solve_annealed(main, schedule=EpsSchedule(eps_init=1.0, decay=0.5),
+                         tol=TOL, mesh=mesh)
+    sync(torch)
+    walls["main"] = (time.perf_counter() - t0, ann.result.n_iter)
+    out["main"] = (ann.result, [int(k) for k in ann.stage_iters])
+    t0 = time.perf_counter()
+    res = solve(feats, tol=0.0, max_iter=SCALING_ITERS, mesh=mesh)
+    sync(torch)
+    walls["feats"] = (time.perf_counter() - t0, res.n_iter)
+    out["feats"] = res
+    leaves = [v.clone().requires_grad_(True) for v in leaves]
+    t0 = time.perf_counter()
+    val = sinkhorn_divergence_geometry(
+        cls.build(*leaves, eps=SCALING_EPS, R=R), tol=TOL, mesh=mesh)
+    grads = torch.autograd.grad(val, leaves)
+    sync(torch)
+    walls["div"] = (time.perf_counter() - t0, 0)
+    out["div"] = (val.detach(), grads)
+    return out, walls
+
+
+def sync(torch):
+    """Wait for the card (a no-op in a CPU rehearsal)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _shard_rank(rank, world, backend, port, src, queue, device="cuda"):
+    """One rank of a phase-11 world (a spawned process): join the world,
+    run the three requests through the sharded front door with the launch
+    counters set to 0 just before and read just after, time the
+    collectives of an iteration, and send back what the parent holds."""
+    import hashlib
+    import traceback
+    from datetime import timedelta
+
+    try:
+        sys.path.insert(0, src)
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.kernels import backend as kbackend
+        if device == "cuda":
+            torch.cuda.set_device(0)
+            device = torch.device("cuda", 0)
+        else:
+            device = torch.device(device)
+        kbackend.DEFAULT_DEVICE = str(device)
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=60))
+        if backend == "gloo":
+            # gloo must take CUDA tensors for MAX and for all-gather; where
+            # it does not, the lane reports it and stops (the run is never
+            # staged onto the host)
+            try:
+                t = torch.full((4,), float(rank), device=device)
+                dist.all_reduce(t, op=dist.ReduceOp.MAX)
+                parts = [torch.empty(2, device=device) for _ in range(world)]
+                dist.all_gather(parts, torch.full((2,), float(rank),
+                                                  device=device))
+                got = (float(t[0]), [float(p[0]) for p in parts])
+            except RuntimeError as exc:
+                got = f"{type(exc).__name__}: {exc}"
+            if got != (world - 1.0, [float(r) for r in range(world)]):
+                queue.put(dict(rank=rank, refused=str(got)))
+                return
+        from repro_torch.core import sharded
+        from repro_torch.distributed import MeshAxis
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.launch.mesh import make_local_mesh
+
+        mesh = make_local_mesh(world, device=device)
+        plain = {"operators": 0, "log_operators": 0}
+        for name in plain:
+            orig = getattr(sharded._PsumOps, name)
+
+            def counted(self, *a, _orig=orig, _name=name, **kw):
+                plain[_name] += 1
+                return _orig(self, *a, **kw)
+            setattr(sharded._PsumOps, name, counted)
+        shard_requests(torch, np, device, mesh)          # warm: builds, plans
+        reset_launch_counts()
+        plain.update(operators=0, log_operators=0)
+        out, walls = shard_requests(torch, np, device, mesh)
+        counts = launch_counts()
+        # the envelope VJP's backward applies the log operator, three terms
+        solve_plain = dict(plain, log_operators=plain["log_operators"] - 3)
+        # the collectives of one iteration: log 2 (MAX, SUM) per combine x 2
+        # and the error's SUM; scaling 2 r-vector SUMs and the error's
+        axis = MeshAxis(mesh, "data")
+        vec = torch.zeros((R_ANCHORS, 1), device=device)
+        one = torch.zeros((), device=device)
+        coll = {}
+        for mode, ops in (("log", (axis.max_, axis.sum_, axis.max_,
+                                   axis.sum_)),
+                          ("scaling", (axis.sum_, axis.sum_))):
+            reps = 200
+            sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for op in ops:
+                    op(vec)
+                axis.sum_(one)
+                float(one)          # the check block's host read
+            sync(torch)
+            coll[mode] = (time.perf_counter() - t0) / reps * 1e3
+        (res, stages), fres = out["main"], out["feats"]
+        val, grads = out["div"]
+        arrays = [res.f, res.g, fres.f, fres.g, val, *grads]
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(a.detach().cpu().numpy().tobytes())
+        queue.put(dict(
+            rank=rank, counts=counts, plain=solve_plain,
+            walls=walls, coll=coll, digest=h.hexdigest(),
+            main=(float(res.cost), stages, res.f.cpu().numpy()),
+            feats=(float(fres.cost), fres.n_iter),
+            div=(float(val), [g_.cpu().numpy() for g_ in grads])))
+        dist.barrier(**({"device_ids": [0]} if backend == "nccl" else {}))
+        dist.destroy_process_group()
+    except Exception:
+        queue.put(dict(rank=rank, error=traceback.format_exc()))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_world(world, backend, src, device="cuda"):
+    """Spawn a world of ``world`` ranks on card 0 and collect each rank's
+    report, or the failure; every process is joined or killed."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, world, backend, port, str(src), q,
+                               device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports, deadline = [], time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        while len(reports) < world:
+            try:
+                rep = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if time.monotonic() > deadline:
+                    return None, f"{backend} world of {world} timed out"
+                dead = [p.exitcode for p in procs if p.exitcode not in
+                        (None, 0)]
+                if dead:
+                    return None, f"{backend} world: a rank exited {dead}"
+                continue
+            if "error" in rep:
+                return None, (f"{backend} world rank {rep['rank']}:\n"
+                              f"{rep['error']}")
+            if "refused" in rep:
+                return None, rep
+            reports.append(rep)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return sorted(reports, key=lambda r: r["rank"]), None
+
+
+def run_sharded_path(torch, np, device, src):
+    """Phase 11(b): the single-process requests on the card (after a warm
+    run, as each rank does), then an NCCL world of 1 and a gloo world of 2
+    ranks on the same card, each held against them. Returns (rank 0's
+    launch counts of the NCCL world, failures)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    failures = []
+    shard_requests(torch, np, device)           # warm: captures, plans
+    reset_launch_counts()
+    want, walls = shard_requests(torch, np, device)
+    single = launch_counts()
+    (wres, wstages), wfeats = want["main"], want["feats"]
+    wval, wgrads = want["div"]
+    log(f"  one process: annealed cost={float(wres.cost):.7f} stages "
+        f"{wstages} ({walls['main'][0] / wres.n_iter * 1e3:.4f} ms/iteration"
+        f"); features cost={float(wfeats.cost):.7f} "
+        f"({walls['feats'][0] / wfeats.n_iter * 1e3:.4f} ms/iteration); "
+        f"divergence {float(wval):.7f} ({walls['div'][0]:.3f} s) "
+        f"launches={single}")
+    nccl_counts = None
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        t0 = time.perf_counter()
+        reports, err = run_world(world, backend, src, device.type)
+        secs = time.perf_counter() - t0
+        if isinstance(err, dict):
+            log(f"  gloo refuses CUDA tensors for MAX or all-gather "
+                f"({err['refused']}): the gloo lane stops here, the NCCL "
+                "lane stands")
+            continue
+        if err:
+            failures.append(err)
+            log(f"  {backend} world of {world}: FAILED\n{err}")
+            continue
+        r0 = reports[0]
+        (cost, stages, f) = r0["main"]
+        fcost, fiters = r0["feats"]
+        val, grads = r0["div"]
+        same = len({r["digest"] for r in reports}) == 1
+        gerr = max(float(np.abs(g - w.cpu().numpy()).max()
+                         / max(float(w.abs().max()), 1e-30))
+                   for g, w in zip(grads, wgrads))
+        fdiff = float(np.abs(f - wres.f.cpu().numpy()).max())
+        ok = (abs(cost - float(wres.cost)) <= COST_RTOL * abs(float(wres.cost))
+              and len(stages) == len(wstages)
+              and all(abs(a - b) <= 1 for a, b in zip(stages, wstages))
+              and abs(fcost - float(wfeats.cost))
+              <= COST_RTOL * abs(float(wfeats.cost))
+              and fiters == wfeats.n_iter
+              and abs(val - float(wval)) <= COST_RTOL * abs(float(wval))
+              and gerr <= GRAD_REL_TOL and same)
+        for r in reports:
+            c = r["counts"]
+            missing = [k for k in SHARD_PATH_KERNELS if c[k] <= 0]
+            mega = c["sinkhorn_block"] + c["log_sinkhorn_block"]
+            plain_ops = sum(r["plain"].values())
+            log(f"  {backend} rank {r['rank']}/{world}: launches {c}; plain "
+                f"operators built in the solves {r['plain']}; megakernel "
+                f"launches {mega}")
+            if missing or mega or plain_ops:
+                failures.append(f"{backend} rank {r['rank']}: kernels "
+                                f"missing {missing}, megakernels {mega}, "
+                                f"plain operators {r['plain']}")
+        wm, wf = r0["walls"]["main"], r0["walls"]["feats"]
+        ms_log = wm[0] / wm[1] * 1e3
+        ms_sc = wf[0] / wf[1] * 1e3
+        log(f"  {backend} world of {world} (card 0): annealed cost={cost:.7f} "
+            f"(one process {float(wres.cost):.7f}) stages {stages} (one "
+            f"process {wstages}) max |d f| {fdiff:.2e}; features "
+            f"cost={fcost:.7f} n_iter {fiters}; divergence {val:.7f} "
+            f"(one process {float(wval):.7f}), gradients within "
+            f"{gerr:.2e} of max |grad|; every rank equal {same}; "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"  {backend} world of {world}: log {ms_log:.4f} ms/iteration, "
+            f"its collectives {r0['coll']['log']:.4f} ms (share "
+            f"{r0['coll']['log'] / ms_log:.3f}); scaling {ms_sc:.4f} "
+            f"ms/iteration, collectives {r0['coll']['scaling']:.4f} ms "
+            f"(share {r0['coll']['scaling'] / ms_sc:.3f}); divergence "
+            f"{r0['walls']['div'][0]:.3f} s; the world {secs:.1f} s")
+        if not ok:
+            failures.append(f"{backend} world of {world} disagrees with the "
+                            "single-process solves")
+        if backend == "nccl":
+            nccl_counts = r0["counts"]
+    return nccl_counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -4498,7 +4989,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 
 
 def main(argv=None) -> int:
@@ -4507,7 +4998,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all ten)")
+                    "result lines need all eleven)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -4786,10 +5277,27 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 10 FAILED: {failures}")
             return 1
+    if 11 in phases:
+        log("== phase 11: the autotuner (a fresh cache under build/, tuning "
+            "on: the flat contract, the row kernel, the log contract, the "
+            "log half-step and the log megakernel) and the sharded solves "
+            f"(an NCCL world of 1 and a gloo world of 2 on card 0: phase 4's"
+            f" annealed request, phase 6's feature solve, the divergence "
+            f"with gradients at n=m={SHARD_DIV_N})")
+        t11 = time.perf_counter()
+        failures = run_tuner(torch, np, device)
+        c11, more = run_sharded_path(torch, np, device, src)
+        failures += more
+        if c11 is not None:
+            counts["sharded"] = c11
+        log(f"  phase 11: {time.perf_counter() - t11:.1f} s")
+        if failures:
+            log(f"phase 11 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "ten")
+            "eleven")
         return 0
 
     kernels = []

@@ -12,10 +12,10 @@ An :class:`OTProblem` is a thin ``(geometry, a, b)`` record; a ``method``
 names an algorithm and the geometry supplies the kernel operators. The
 constructors take tensors or numpy arrays and put them on ``device``,
 which defaults to the card (``device="cpu"`` runs the plain PyTorch
-versions of the kernels). Every single-problem method is ported:
-``factored``, ``log_factored``, ``accelerated``, ``quadratic``,
-``log_quadratic``, ``arccos`` and ``nystrom``; ``sharded`` /
-``sharded_log`` raise ``NotImplementedError``.
+versions of the kernels). Every method is ported: ``factored``,
+``log_factored``, ``accelerated``, ``quadratic``, ``log_quadratic``,
+``arccos``, ``nystrom`` and, over a ``DeviceMesh`` (``mesh=``), the sharded
+twins ``sharded`` / ``sharded_log`` (``core.sharded``).
 
 The batched engine solves P independent problems of one padded shape in
 one loop: their factors are stacked on a leading axis and every kernel
@@ -29,6 +29,7 @@ solve's. Counterpart of ``repro.core.api``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from collections import OrderedDict
@@ -285,6 +286,21 @@ def _run_accelerated(geom, a, b, *, tol, max_iter, momentum, f_init, g_init,
         check_every=1 if check_every is None else check_every)
 
 
+def _run_sharded(geom, a, b, *, tol, max_iter, momentum, f_init, g_init,
+                 mesh, mesh_axis, use_pallas=None, inner_steps=None,
+                 check_every=None, precision="highest", mode="scaling"):
+    from .sharded import sharded_sinkhorn_geometry
+
+    if mesh is None:
+        raise ValueError(f"method='sharded{'_log' * (mode == 'log')}' "
+                         "requires a mesh=...")
+    return sharded_sinkhorn_geometry(
+        mesh, geom, a, b, axis=mesh_axis, mode=mode, tol=tol,
+        max_iter=max_iter, momentum=momentum, f_init=f_init, g_init=g_init,
+        inner_steps=inner_steps, check_every=check_every,
+        precision=precision, use_pallas=use_pallas)
+
+
 def _default_generator(key: Optional[torch.Generator]) -> torch.Generator:
     """``key``, or a CPU generator seeded 0 (the JAX package's
     ``PRNGKey(0)`` default)."""
@@ -343,8 +359,19 @@ _SOLVERS: Dict[str, Tuple[Callable, Callable]] = {
     "log_quadratic": (_coerce_densify, _run_log),
     "arccos": (_coerce_arccos, _run_log),
     "nystrom": (_coerce_nystrom, _run_scaling),
+    "sharded": (_coerce_native_factored,
+                functools.partial(_run_sharded, mode="scaling")),
+    "sharded_log": (_coerce_native_factored,
+                    functools.partial(_run_sharded, mode="log")),
 }
 PORTED_METHODS = ("auto", *_SOLVERS)
+
+# a local method's sharded twin under a mesh ("auto" picks one itself)
+_SHARDED_TWIN = {
+    "factored": "sharded", "sharded": "sharded",
+    "log_factored": "sharded_log", "sharded_log": "sharded_log",
+    "auto": "auto",
+}
 
 # auto dispatch: the first matching geometry type wins; other geometries
 # take "factored" on linear features, else "log_factored" (grids and
@@ -356,20 +383,29 @@ _AUTO_METHODS: Tuple[Tuple[type, str], ...] = (
 )
 
 
-def _auto_method(problem: OTProblem) -> str:
+def _auto_method(problem: OTProblem, mesh=None) -> str:
     g = problem.geometry
+    local = None
     for typ, method in _AUTO_METHODS:
         if isinstance(g, typ):
-            return method
-    if isinstance(g, FactoredPositive) and g.xi is not None:
-        return "factored"
-    return "log_factored"
+            local = method
+            break
+    if local is None:
+        local = ("factored" if isinstance(g, FactoredPositive)
+                 and g.xi is not None else "log_factored")
+    if mesh is None:
+        return local
+    # a mesh selects the sharded mode as the local table does: explicit
+    # linear factors keep the scaling iteration, every other family the
+    # all-reduced log domain (safe at small eps)
+    return "sharded" if local == "factored" else "sharded_log"
 
 
 def _solve_stage(problem: OTProblem, method: str, eps: float, *, tol: float,
                  max_iter: int, momentum: float,
                  f_init: Optional[torch.Tensor],
                  g_init: Optional[torch.Tensor],
+                 mesh=None, mesh_axis: str = "data",
                  rank: Optional[int] = None,
                  key: Optional[torch.Generator] = None,
                  use_pallas: Optional[bool] = None,
@@ -378,23 +414,32 @@ def _solve_stage(problem: OTProblem, method: str, eps: float, *, tol: float,
                  precision: str = "highest") -> SinkhornResult:
     """One solve at a fixed eps with optional warm-started potentials."""
     if method not in _SOLVERS:
-        if method in METHODS:
-            raise NotImplementedError(
-                f"method={method!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md, queue A); ported: {PORTED_METHODS}")
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{METHODS}")
+    if mesh is not None and not method.startswith("sharded"):
+        # a mesh is never dropped: a local method with a sharded twin is
+        # promoted to it (as solve_many maps it), any other is refused
+        twin = _SHARDED_TWIN.get(method)
+        if twin is None or twin == "auto":
+            raise ValueError(
+                f"method={method!r} does not run on a mesh; with mesh= use "
+                "method='auto', 'factored'/'sharded', or "
+                "'log_factored'/'sharded_log'")
+        method = twin
     coerce, run = _SOLVERS[method]
     geom = coerce(problem.geometry.rebuild_at(eps), eps, rank=rank, key=key)
-    return run(geom, problem.a, problem.b, tol=tol, max_iter=max_iter,
-               momentum=momentum, f_init=f_init, g_init=g_init,
-               use_pallas=use_pallas, inner_steps=inner_steps,
-               check_every=check_every, precision=precision)
+    kw = dict(tol=tol, max_iter=max_iter, momentum=momentum, f_init=f_init,
+              g_init=g_init, use_pallas=use_pallas, inner_steps=inner_steps,
+              check_every=check_every, precision=precision)
+    if method.startswith("sharded"):
+        kw.update(mesh=mesh, mesh_axis=mesh_axis)
+    return run(geom, problem.a, problem.b, **kw)
 
 
 def solve_annealed(problem: OTProblem, *, method: str = "auto",
                    schedule: EpsSchedule, tol: float = 1e-6,
                    max_iter: int = 2000, momentum: float = 1.0,
+                   mesh=None, mesh_axis: str = "data",
                    rank: Optional[int] = None,
                    key: Optional[torch.Generator] = None,
                    use_pallas: Optional[bool] = None,
@@ -406,9 +451,10 @@ def solve_annealed(problem: OTProblem, *, method: str = "auto",
     ``result.n_iter`` is the total across stages. On the fused plan each
     stage eps has its own runner (``core.runners``, the counterpart of the
     JAX package's per-stage jit runner), reused across calls; a stage's
-    potentials go into the next stage's static buffers on the device."""
+    potentials go into the next stage's static buffers on the device. With
+    ``mesh=`` every stage is a sharded solve (see :func:`solve`)."""
     if method == "auto":
-        method = _auto_method(problem)
+        method = _auto_method(problem, mesh)
     if not problem.geometry.anneal_capable:
         raise ValueError(
             "eps-annealing needs a geometry whose kernel is re-derivable at "
@@ -426,8 +472,8 @@ def solve_annealed(problem: OTProblem, *, method: str = "auto",
         res = _solve_stage(
             problem, method, e, tol=tol_k,
             max_iter=max_iter if last else schedule.stage_iters,
-            momentum=momentum, f_init=f, g_init=g, rank=rank, key=key,
-            use_pallas=use_pallas,
+            momentum=momentum, f_init=f, g_init=g, mesh=mesh,
+            mesh_axis=mesh_axis, rank=rank, key=key, use_pallas=use_pallas,
             inner_steps=inner_steps, check_every=check_every,
             precision=precision)
         prev_err = float(res.marginal_err)
@@ -455,6 +501,7 @@ def _warn_legacy(where: str, use_pallas, inner_steps, check_every,
 def solve(problem, *, method: str = "auto",
           schedule: Optional[EpsSchedule] = None, tol: float = 1e-6,
           max_iter: int = 2000, momentum: float = 1.0,
+          mesh=None, mesh_axis: str = "data",
           rank: Optional[int] = None,
           key: Optional[torch.Generator] = None,
           use_pallas: Optional[bool] = None,
@@ -486,8 +533,17 @@ def solve(problem, *, method: str = "auto",
     "log_quadratic", "arccos" (the log plan on Lemma-3 features; a
     Gaussian problem's clouds get ``rank`` fresh anchors drawn by ``key``)
     or "nystrom" (signed low-rank factors of ``rank`` landmarks drawn by
-    ``key``, scaling space). ``key`` is a ``torch.Generator`` (a CPU one
-    seeded 0 by default).
+    ``key``, scaling space), "sharded" / "sharded_log" (both need
+    ``mesh``). ``key`` is a ``torch.Generator`` (a CPU one seeded 0 by
+    default).
+    ``mesh``/``mesh_axis``: solve on a ``DeviceMesh`` (every rank calls
+    with the same global problem): "auto" takes the sharded mode of the
+    local table (scaling for explicit linear factors, the all-reduced log
+    domain otherwise), "factored" / "log_factored" are promoted to their
+    twins and other methods refused. Supports shard over ``mesh_axis``
+    (padded with inert zero-weight atoms); an iteration moves one r-vector
+    a half-step; the result is the same on every rank
+    (``core.sharded.sharded_sinkhorn_geometry``).
     ``schedule``: optional :class:`EpsSchedule` (anneal-capable
     geometries; scaling stages warm-start from ``u = exp(f / eps)``).
     ``use_pallas``: ``None``/``True`` run the fused plan of the method's
@@ -510,7 +566,7 @@ def solve(problem, *, method: str = "auto",
         with spec.policy.scope():
             prob = spec.problem()
             if meth == "auto":
-                meth = _auto_method(prob)
+                meth = _auto_method(prob, kw["mesh"])
             if sched is not None:
                 return solve_annealed(prob, method=meth, schedule=sched,
                                       **kw).result
@@ -518,10 +574,11 @@ def solve(problem, *, method: str = "auto",
                                 g_init=None, **kw)
     _warn_legacy("solve", use_pallas, inner_steps, check_every, precision)
     if method == "auto":
-        method = _auto_method(problem)
-    kw = dict(tol=tol, max_iter=max_iter, momentum=momentum, rank=rank,
-              key=key, use_pallas=use_pallas, inner_steps=inner_steps,
-              check_every=check_every, precision=precision)
+        method = _auto_method(problem, mesh)
+    kw = dict(tol=tol, max_iter=max_iter, momentum=momentum, mesh=mesh,
+              mesh_axis=mesh_axis, rank=rank, key=key, use_pallas=use_pallas,
+              inner_steps=inner_steps, check_every=check_every,
+              precision=precision)
     if schedule is not None:
         return solve_annealed(problem, method=method, schedule=schedule,
                               **kw).result
@@ -1002,15 +1059,20 @@ def get_engine(*, eps: float, method: str = "log_factored",
     return engine
 
 
-def _refuse_mesh(inits: bool) -> None:
+def _sharded_twin(method: str, inits: bool) -> str:
+    """The sharded method ``solve_many(mesh=...)`` runs for ``method``;
+    warm starts (a batched-engine feature) and a method with no twin are
+    refused."""
     if inits:
         raise ValueError(
-            "solve_many(mesh=...) dispatches problems one at a time; "
-            "per-problem warm starts are a batched-engine feature: drop "
-            "mesh= or the inits")
-    raise NotImplementedError(
-        "solve_many(mesh=...) runs the sharded methods, which are not "
-        "ported to repro_torch yet (ROADMAP.md, queue A: distributed)")
+            "solve_many(mesh=...) dispatches problems one at a time "
+            "through solve(); per-problem warm starts are a batched-engine "
+            "feature: drop mesh= or the inits")
+    twin = _SHARDED_TWIN.get(method)
+    if twin is None:
+        raise ValueError(f"solve_many(mesh=...) supports methods "
+                         f"{sorted(_SHARDED_TWIN)}, got {method!r}")
+    return twin
 
 
 def _host(x) -> Optional[torch.Tensor]:
@@ -1043,6 +1105,7 @@ def solve_many(problems, *, method: str = "log_factored",
                inner_steps: Optional[int] = None,
                check_every: Optional[int] = None,
                precision: str = "highest", mesh=None,
+               mesh_axis: str = "data",
                f_inits: Optional[Sequence[Optional[torch.Tensor]]] = None,
                g_inits: Optional[Sequence[Optional[torch.Tensor]]] = None
                ) -> List[SinkhornResult]:
@@ -1062,7 +1125,11 @@ def solve_many(problems, *, method: str = "log_factored",
     ``recovery`` set, each lane whose verdict the policy does not accept
     climbs the ladder alone, from its batched result. The
     execution kwargs with bare problems emit a ``DeprecationWarning``.
-    ``mesh=`` (sharded solves) is not ported and raises."""
+
+    With ``mesh=`` (or specs whose policy has a mesh) each problem runs
+    through :func:`solve` with the sharded twin of ``method`` (scaling or
+    the all-reduced log domain), one problem at a time: each solve
+    already occupies the whole mesh."""
     if not problems:
         return []
     from .spec import SolveSpec     # spec imports this module
@@ -1089,6 +1156,10 @@ def solve_many(problems, *, method: str = "log_factored",
                     "solve_many(specs) does not support schedule/rank/"
                     "key; call solve(spec) per problem")
         pol = head.policy
+        if pol.mesh is not None:
+            twin = _sharded_twin(head.method, f_inits is not None
+                                 or g_inits is not None)
+            return [solve(s_.replace(method=twin)) for s_ in specs]
         eps_set = {float(s_.eps) for s_ in specs}
         if len(eps_set) != 1:
             raise ValueError(
@@ -1114,7 +1185,17 @@ def solve_many(problems, *, method: str = "log_factored",
             raise ValueError(f"mixed problem eps {sorted(eps_set)}; pass eps=")
         eps = eps_set.pop()
     if mesh is not None:
-        _refuse_mesh(f_inits is not None or g_inits is not None)
+        # use_pallas picks the sharded plan or the all-reduced plain
+        # operators; inner_steps passes through so the sharded runner
+        # refuses the megakernel rather than drop the knob
+        twin = _sharded_twin(method, f_inits is not None
+                             or g_inits is not None)
+        return [solve(OTProblem(p.geometry.rebuild_at(eps), p.a, p.b),
+                      method=twin, tol=tol, max_iter=max_iter,
+                      momentum=momentum, mesh=mesh, mesh_axis=mesh_axis,
+                      use_pallas=use_pallas, inner_steps=inner_steps,
+                      check_every=check_every, precision=precision)
+                for p in problems]
     engine = get_engine(
         eps=eps, method=method, tol=tol, max_iter=max_iter,
         momentum=momentum, use_pallas=use_pallas, inner_steps=inner_steps,

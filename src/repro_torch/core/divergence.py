@@ -45,13 +45,25 @@ def sinkhorn_divergence_geometry(geom: Geometry,
                                  a: Optional[torch.Tensor] = None,
                                  b: Optional[torch.Tensor] = None, *,
                                  tol: float = 1e-6, max_iter: int = 2000,
+                                 mesh=None, mesh_axis: str = "data",
                                  use_pallas=None, inner_steps=None,
                                  check_every=None,
                                  precision: str = "highest") -> torch.Tensor:
     """Wbar on a log-capable Geometry with per-measure parametrization
     (factored and point-cloud families), a 0-d tensor, differentiable in
     the geometry's tensors and the weights. ``a``/``b`` default to uniform
-    weights on the geometry's device."""
+    weights on the geometry's device.
+
+    With ``mesh=`` (a ``DeviceMesh``) the three solves run sharded over
+    ``mesh_axis`` on the all-reduced log operators
+    (``core.sharded.sharded_sinkhorn_divergence``), differentiable in the
+    same tensors, shared anchors included; the execution knobs do not
+    apply there."""
+    if mesh is not None:
+        from .sharded import sharded_sinkhorn_divergence
+
+        return sharded_sinkhorn_divergence(mesh, geom, a, b, axis=mesh_axis,
+                                           tol=tol, max_iter=max_iter)
     n, m = geom.shape
     dev = geom.device
     a = torch.full((n,), 1.0 / n, device=dev) if a is None else a

@@ -131,9 +131,15 @@ class Geometry(abc.ABC):
 
     ``anneal_capable`` — ``rebuild_at(eps)`` re-derives the kernel at any
     eps.
+    ``supports_log`` — log-domain operators exist (an entrywise POSITIVE
+    kernel; signed Nystrom factors do not qualify).
+    ``supports_features`` — ``features()`` materializes strictly positive
+    factors (what a sharded solve and the fused plans consume).
     """
 
     anneal_capable: bool = False
+    supports_log: bool = True
+    supports_features: bool = False
 
     @property
     @abc.abstractmethod
@@ -360,6 +366,8 @@ class FactoredPositive(_FeatureKernelOps, Geometry):
     """K = Xi Zeta^T from explicit positive features or log-features; the
     kernel is pinned to the eps the features were drawn at."""
 
+    supports_features = True
+
     xi: Optional[torch.Tensor] = None
     zeta: Optional[torch.Tensor] = None
     log_xi: Optional[torch.Tensor] = None
@@ -417,6 +425,8 @@ class GaussianPointCloud(_FeatureKernelOps, Geometry):
     """Point clouds + Lemma-1 anchors: features re-derived at any eps, so
     the family composes with an ``EpsSchedule``. ``cost_matrix`` is the
     true squared-Euclidean cost."""
+
+    supports_features = True
 
     x: torch.Tensor                     # (n, d)
     y: torch.Tensor                     # (m, d)
@@ -489,6 +499,8 @@ class ArcCosinePointCloud(_FeatureKernelOps, Geometry):
     -inf. The kernel does not depend on eps (the cost is -eps log(k_s +
     kappa)), so the family is not anneal-capable."""
 
+    supports_features = True
+
     x: torch.Tensor                     # (n, d)
     y: torch.Tensor                     # (m, d)
     anchors: torch.Tensor               # (r, d), u ~ N(0, sigma^2 I)
@@ -538,6 +550,8 @@ class NystromLowRank(Geometry):
     cross zero and the iteration diverges at small eps (paper Figs. 1/3/5),
     which a solve reports as ``SinkhornResult.diverged``. No log-domain
     operators and no induced cost."""
+
+    supports_log = False
 
     L: torch.Tensor                     # (n, l)
     Rt: torch.Tensor                    # (l, m)

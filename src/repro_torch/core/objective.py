@@ -12,8 +12,9 @@
   with no backprop through the loop.
 
 Counterpart of ``repro.core.objective``. The JAX ``backend`` field is a
-``device`` here. Sharded solves (``mesh``) are not ported and raise;
-``from_config`` waits for the config module.
+``device`` here; ``mesh`` is a ``DeviceMesh``, and a policy with one runs
+the divergence sharded (``core.sharded``). ``from_config`` waits for the
+config module.
 """
 from __future__ import annotations
 
@@ -48,7 +49,9 @@ class ExecutionPolicy:
                  the card where the megakernel is admitted).
     check_every  convergence-check cadence in iterations (a multiple of
                  ``inner_steps``; ``None`` = auto).
-    mesh         sharded solves; not ported (must be ``None``).
+    mesh         optional ``DeviceMesh``: divergences run sharded over its
+                 dimension ``mesh_axis``, the all-reduced log operators on
+                 each rank's rows (the other knobs do not apply there).
     """
 
     device: Optional[str] = None
@@ -57,13 +60,10 @@ class ExecutionPolicy:
     inner_steps: Optional[int] = None
     check_every: Optional[int] = None
     mesh: Optional[Any] = None
+    mesh_axis: str = "data"
 
     def __post_init__(self):
         check_precision(self.precision)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded solves (ExecutionPolicy.mesh) are not ported yet "
-                "(ROADMAP.md, queue A: distributed)")
 
     @classmethod
     def training(cls, **overrides) -> "ExecutionPolicy":
@@ -99,9 +99,12 @@ class ExecutionPolicy:
         cadence = ("auto" if self.inner_steps is None
                    and self.check_every is None
                    else f"{self.inner_steps or 1}/{self.check_every or 1}")
+        mesh = "-" if self.mesh is None else (
+            f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}"
+            f"@{self.mesh_axis}")
         return (f"device={self.device or 'geometry'} "
                 f"precision={self.precision} pallas={pallas} "
-                f"cadence={cadence} mesh=-")
+                f"cadence={cadence} mesh={mesh}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,11 +151,17 @@ class OTObjective:
     def divergence(self, geom: Geometry, a: Optional[torch.Tensor] = None,
                    b: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Debiased divergence Wbar(mu, nu) = W(mu,nu) - (W(mu,mu) +
-        W(nu,nu))/2: three envelope solves under this policy."""
+        W(nu,nu))/2: three envelope solves under this policy (sharded over
+        the policy's mesh where it has one)."""
         self._check(geom)
+        p = self.policy
+        if p.mesh is not None:
+            return sinkhorn_divergence_geometry(
+                geom, a, b, tol=self.tol, max_iter=self.max_iter,
+                mesh=p.mesh, mesh_axis=p.mesh_axis)
         return sinkhorn_divergence_geometry(
             geom, a, b, tol=self.tol, max_iter=self.max_iter,
-            **self.policy.solver_kwargs())
+            **p.solver_kwargs())
 
     def __call__(self, geom: Geometry, a: Optional[torch.Tensor] = None,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:

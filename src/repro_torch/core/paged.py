@@ -36,6 +36,8 @@ class PagedFactored(_FeatureKernelOps, Geometry):
     were drawn at: streaming updates mutate supports, not the
     regularization."""
 
+    supports_features = True
+
     xi: Optional[torch.Tensor] = None
     zeta: Optional[torch.Tensor] = None
     log_xi: Optional[torch.Tensor] = None

@@ -35,6 +35,11 @@ when no lane runs. That is the JAX package's ``vmap`` of its
 ``while_loop``: a stopped lane is frozen, and its result equals its own
 solve. :func:`run_lane_loop` is the eager host loop of stacked problems
 (one block and one read at a time).
+
+A sharded geometry (``core.sharded``, ``geom.spmd`` set) runs the same
+solvers: its plan's collectives and :func:`geometry_reduce`'s all-reduced
+error and dual value make every rank leave the loop together; its loop is
+the eager host loop (a graph cannot hold a gloo collective).
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ from .runners import RUNNERS, CellKey, RunnerCache
 __all__ = [
     "SinkhornResult",
     "masked_dual_value",
+    "geometry_reduce",
     "make_scaling_step",
     "make_log_step",
     "LoopState",
@@ -133,20 +139,38 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x) if x.dim() <= 1 else torch.sum(x, dim=-1)
 
 
-def masked_dual_value(a, b, f, g):
+def masked_dual_value(a, b, f, g, reduce=lane_sum):
     """W_hat = <a, f> + <b, g> with zero-weight atoms excluded (their
     potentials are -inf, and 0 * -inf would be NaN); one value a problem
-    for stacked problems."""
-    ta = lane_sum(torch.where(a > 0, a * f, torch.zeros_like(f)))
-    tb = lane_sum(torch.where(b > 0, b * g, torch.zeros_like(g)))
+    for stacked problems. ``reduce`` sums a term (:func:`geometry_reduce`:
+    over every rank's atoms for a sharded geometry)."""
+    ta = reduce(torch.where(a > 0, a * f, torch.zeros_like(f)))
+    tb = reduce(torch.where(b > 0, b * g, torch.zeros_like(g)))
     return ta + tb
 
 
-def make_scaling_step(matvec, rmatvec, a, b, *, momentum: float = 1.0):
+def geometry_reduce(geom: Geometry):
+    """The sum over a problem's atoms that a geometry's execution implies:
+    :func:`lane_sum` on one device; for a sharded geometry (``geom.spmd``
+    set) its local sum all-reduced over the mesh axis, so the marginal
+    error and the dual value are the same on every rank and every rank
+    leaves the loop together."""
+    return _sum_over(getattr(geom, "spmd", None))
+
+
+def _sum_over(spmd):
+    if spmd is None:
+        return lane_sum
+    return lambda x: spmd.sum_(lane_sum(x))
+
+
+def make_scaling_step(matvec, rmatvec, a, b, *, momentum: float = 1.0,
+                      err_reduce=lane_sum):
     """One full Alg.-1 iteration in scaling space:
     ``step((u, v, s)) -> ((u', v', s'), err)`` with ``s = K^T u`` carried.
     Dead (zero-mass) atoms are pinned to scaling 0, so a 0/0 under a dead
-    slot never rides the next matvec into the live lanes."""
+    slot never rides the next matvec into the live lanes. ``err_reduce``
+    sums the error (:func:`geometry_reduce`)."""
     zero_b, zero_a = torch.zeros_like(b), torch.zeros_like(a)
 
     def step(carry):
@@ -155,15 +179,16 @@ def make_scaling_step(matvec, rmatvec, a, b, *, momentum: float = 1.0):
         u_new = relax_scaling(
             torch.where(a > 0, a / matvec(v_new), zero_a), u, momentum)
         s_new = rmatvec(u_new)
-        err = lane_sum(torch.abs(v_new * s_new - b))
+        err = err_reduce(torch.abs(v_new * s_new - b))
         return (u_new, v_new, s_new), err
 
     return step
 
 
 def make_log_step(log_matvec, log_rmatvec, a, b, *, eps: float,
-                  momentum: float = 1.0):
-    """One full log-domain iteration: ``step((f, g)) -> ((f', g'), err)``."""
+                  momentum: float = 1.0, err_reduce=lane_sum):
+    """One full log-domain iteration: ``step((f, g)) -> ((f', g'), err)``;
+    ``err_reduce`` as in :func:`make_scaling_step`."""
     loga, logb = _masked_log(a), _masked_log(b)
 
     def step(carry):
@@ -171,7 +196,7 @@ def make_log_step(log_matvec, log_rmatvec, a, b, *, eps: float,
         g = relax_log(eps * (logb - log_rmatvec(f)), g, momentum)
         f = relax_log(eps * (loga - log_matvec(g)), f, momentum)
         log_col = log_rmatvec(f) + g / eps
-        err = lane_sum(torch.abs(torch.exp(log_col) - b))
+        err = err_reduce(torch.abs(torch.exp(log_col) - b))
         return (f, g), err
 
     return step
@@ -486,7 +511,8 @@ def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
             return p.make_step(a_, b_, momentum=momentum)
     kw = dict(tol=tol, max_iter=max_iter, steps_per_check=steps_per_check,
               iters_per_step=iters_per_step)
-    if not _FORCE["graphs"]:
+    if not _FORCE["graphs"] or plan.spmd is not None:
+        # a sharded plan's collectives run eagerly, one host read a block
         step, init = make(plan, a, b)
         if lanes is not None:
             return run_lane_loop(step, init(*carry0), lanes=lanes, **kw)
@@ -513,24 +539,29 @@ def _converged(err: torch.Tensor, tol) -> torch.Tensor:
     return err <= (tol if isinstance(tol, torch.Tensor) else _f32(tol))
 
 
-def _finish_scaling(a, b, u, v, it, err, *, eps, tol) -> SinkhornResult:
+def _finish_scaling(a, b, u, v, it, err, *, eps, tol,
+                    reduce=lane_sum) -> SinkhornResult:
     f, g = eps * _masked_log(u), eps * _masked_log(v)
-    cost = masked_dual_value(a, b, f, g)
+    cost = masked_dual_value(a, b, f, g, reduce)
     return SinkhornResult(u, v, f, g, cost, it, err, _converged(err, tol))
 
 
 def sinkhorn_operator(matvec, rmatvec, a, b, *, eps: float, tol: float = 1e-6,
                       max_iter: int = 2000, momentum: float = 1.0,
                       u_init: Optional[torch.Tensor] = None,
-                      check_every: int = 1) -> SinkhornResult:
-    """Algorithm 1 on an abstract positive kernel operator."""
+                      check_every: int = 1,
+                      reduce=lane_sum) -> SinkhornResult:
+    """Algorithm 1 on an abstract positive kernel operator; ``reduce`` sums
+    over the atoms (:func:`geometry_reduce`)."""
     u0 = torch.ones_like(a) if u_init is None else u_init
     v0 = torch.ones_like(b)
-    step = make_scaling_step(matvec, rmatvec, a, b, momentum=momentum)
+    step = make_scaling_step(matvec, rmatvec, a, b, momentum=momentum,
+                             err_reduce=reduce)
     it, (u, v, _), err = run_marginal_loop(
         step, (u0, v0, rmatvec(u0)), tol=tol, max_iter=max_iter,
         steps_per_check=int(check_every))
-    return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol)
+    return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol,
+                           reduce=reduce)
 
 
 def _solve_scaling_plan(plan, a, b, *, eps, tol, max_iter, momentum,
@@ -548,7 +579,8 @@ def _solve_scaling_plan(plan, a, b, *, eps, tol, max_iter, momentum,
                                     inner_steps=inner_steps,
                                     check_every=check_every,
                                     momentum=momentum, runners=runners)
-    return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol)
+    return _finish_scaling(a, b, u, v, it, err, eps=eps, tol=tol,
+                           reduce=_sum_over(plan.spmd))
 
 
 def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
@@ -587,7 +619,8 @@ def sinkhorn_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     matvec, rmatvec = geom.operators(precision=precision)
     return sinkhorn_operator(matvec, rmatvec, a, b, eps=geom.eps, tol=tol,
                              max_iter=max_iter, momentum=momentum,
-                             u_init=u_init, check_every=check)
+                             u_init=u_init, check_every=check,
+                             reduce=geometry_reduce(geom))
 
 
 def sinkhorn_factored(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
@@ -637,8 +670,9 @@ def _log_init(a, b, f_init, g_init):
     return f0, g0
 
 
-def _finish_log(a, b, f, g, it, err, *, eps, tol) -> SinkhornResult:
-    cost = masked_dual_value(a, b, f, g)
+def _finish_log(a, b, f, g, it, err, *, eps, tol,
+                reduce=lane_sum) -> SinkhornResult:
+    cost = masked_dual_value(a, b, f, g, reduce)
     u, v = torch.exp(f / eps), torch.exp(g / eps)
     return SinkhornResult(u, v, f, g, cost, it, err, _converged(err, tol))
 
@@ -653,7 +687,8 @@ def _solve_log_plan(plan, a, b, *, eps, tol, max_iter, momentum, f_init,
                                 max_iter=max_iter, inner_steps=inner_steps,
                                 check_every=check_every, momentum=momentum,
                                 runners=runners)
-    return _finish_log(a, b, carry[0], carry[1], it, err, eps=eps, tol=tol)
+    return _finish_log(a, b, carry[0], carry[1], it, err, eps=eps, tol=tol,
+                       reduce=_sum_over(plan.spmd))
 
 
 def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
@@ -689,13 +724,14 @@ def sinkhorn_log_geometry(geom: Geometry, a: torch.Tensor, b: torch.Tensor, *,
     f0, g0 = _log_init(a, b, f_init, g_init)
     _, check, _ = _resolve_cadence(None, inner_steps, check_every)
     log_matvec, log_rmatvec = geom.log_operators(precision=precision)
+    reduce = geometry_reduce(geom)
     step = make_log_step(log_matvec, log_rmatvec, a, b, eps=geom.eps,
-                         momentum=momentum)
+                         momentum=momentum, err_reduce=reduce)
     it, carry, err = run_marginal_loop(step, (f0, g0), tol=tol,
                                        max_iter=max_iter,
                                        steps_per_check=check)
     return _finish_log(a, b, carry[0], carry[1], it, err, eps=geom.eps,
-                       tol=tol)
+                       tol=tol, reduce=reduce)
 
 
 def sinkhorn_log_factored(log_xi: torch.Tensor, log_zeta: torch.Tensor,

@@ -6,7 +6,7 @@ A :class:`SolveSpec` holds, in one frozen record,
     TARGET — ``tol`` / ``max_iter`` / ``momentum`` / an optional eps
              ``schedule``
     HOW    — ``method`` and an ``ExecutionPolicy`` (device, precision,
-             fused-plan switch, megakernel cadence)
+             fused-plan switch, megakernel cadence, mesh)
 
 and the front doors take it: ``solve(spec)`` and ``solve_many([spec,
 ...])`` (``core.api``). The keyword forms stay as wrappers; their
@@ -95,9 +95,11 @@ class SolveSpec:
         return dataclasses.replace(self, **changes)
 
     def solver_kwargs(self) -> dict:
-        """Every keyword ``api.solve`` takes, in one dict."""
+        """Every keyword ``api.solve`` takes, in one dict; the policy's
+        ``mesh`` / ``mesh_axis`` are the spec's only mesh knobs."""
         return dict(method=self.method, schedule=self.schedule, tol=self.tol,
                     max_iter=self.max_iter, momentum=self.momentum,
+                    mesh=self.policy.mesh, mesh_axis=self.policy.mesh_axis,
                     rank=self.rank, key=self.key,
                     **self.policy.solver_kwargs())
 

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import autotune, build
 from .backend import check_operand, l2_bytes, sm_count
 from .ref import gaussian_feature_map_ref
 
@@ -84,18 +84,25 @@ def _map_shape(r: int, d: int):
     return kernel, cols4, reps, smem, in_smem
 
 
-def _map_plan(n: int, r: int, d: int, sms: int,
-              blocks_per_sm: int) -> MapPlan:
+def _map_plan(n: int, r: int, d: int, sms: int, blocks_per_sm: int, *,
+              row_ctas: int = 0) -> MapPlan:
     """The launch geometry for an (n, d) x (r, d) map on a card of ``sms``
-    SMs where ``blocks_per_sm`` CTAs of the chosen kernel are resident."""
+    SMs where ``blocks_per_sm`` CTAs of the chosen kernel are resident: a
+    wave of CTAs over the row tiles, or ``row_ctas`` (the autotuner's
+    knob, at most the row tiles) per column tile."""
     kernel, cols4, reps, smem, in_smem = _map_shape(r, d)
     tile_rows = _THREADS // cols4 * reps
     col_tiles = -(-(-(-r // 4)) // cols4)     # ceil(ceil(r / 4) / cols4)
     row_tiles = -(-n // tile_rows)
     wave = max(1, sms * blocks_per_sm)
-    row_ctas = max(1, min(row_tiles, wave // col_tiles))
+    row_ctas = max(1, min(row_tiles, row_ctas or wave // col_tiles))
     return MapPlan(kernel, cols4, reps, tile_rows, col_tiles, row_tiles,
                    row_ctas, smem, in_smem)
+
+
+def _map_of(ext: dict, row_ctas: int = 0) -> MapPlan:
+    return _map_plan(ext["n"], ext["r"], ext["d"], ext["sms"], ext["bps"],
+                     row_ctas=row_ctas)
 
 
 @functools.cache
@@ -146,12 +153,25 @@ def gaussian_feature_map(x: torch.Tensor, anchors: torch.Tensor,
     if min(n, r, d) < 1 or n >= 2**31 or r >= 2**31:
         raise ValueError(f"gaussian_feature_map kernel takes 1 <= n, r < "
                          f"2**31 and d >= 1; got n={n}, r={r}, d={d}")
+    kernel, _, _, smem, _ = _map_shape(r, d)
+    ext = dict(n=n, r=r, d=d, sms=sm_count(dev),
+               bps=_blocks_per_sm(dev.index, kernel, smem))
+    knobs = autotune.resolve("feature_map", ext, x.dtype, dev)
+    out = _launch_map(x, anchors, log_const, inv_eps, log_space,
+                      _map_of(ext, knobs["row_ctas"]))
+    gaussian_feature_map.launches += 1
+    return out
+
+
+def _launch_map(x, anchors, log_const, inv_eps: float, log_space: bool,
+                plan: MapPlan) -> torch.Tensor:
+    """Launch the feature map at ``plan``; returns its (n, r) output."""
+    dev = x.device
+    n, d = x.shape
+    r = anchors.shape[0]
     out = torch.empty((n, r), dtype=torch.float32, device=dev)
     stream_store = (4.0 * n * r > l2_bytes(dev) if _FORCE["stream"] is None
                     else _FORCE["stream"])
-    kernel, _, _, smem, _ = _map_shape(r, d)
-    plan = _map_plan(n, r, d, sm_count(dev),
-                     _blocks_per_sm(dev.index, kernel, smem))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().gaussian_feature_map_launch(
@@ -162,8 +182,25 @@ def gaussian_feature_map(x: torch.Tensor, anchors: torch.Tensor,
             int(bool(log_space)), int(r % 4 == 0), int(bool(stream_store)),
             stream)
     build.check_launch(_lib(), code, "gaussian_feature_map")
-    gaussian_feature_map.launches += 1
     return out
 
+
+def _map_runner(ext, dtype, device):
+    x = torch.full((ext["n"], ext["d"]), 0.1, device=device)
+    anchors = torch.full((ext["r"], ext["d"]), -0.1, device=device)
+    log_const = torch.zeros((ext["r"],), device=device)
+    return lambda knobs: _launch_map(x, anchors, log_const, 1.0, True,
+                                     _map_of(ext, knobs["row_ctas"]))
+
+
+def _map_neighbours(ext, prior):
+    return autotune.halved_doubled(prior, "row_ctas", 1,
+                                   _map_of(ext).row_tiles)
+
+
+autotune.register_planner("feature_map", autotune.Planner(
+    ("row_ctas",), lambda ext: {"row_ctas": _map_of(ext).row_ctas},
+    _map_neighbours))
+autotune.register_runner("feature_map", _map_runner)
 
 gaussian_feature_map.launches = 0

@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import build
+from . import autotune, build
 from .backend import MEGAKERNEL_BUDGET, check_operand
 from .ref import log_sinkhorn_block_ref, sinkhorn_block_ref
 
@@ -121,7 +121,7 @@ _LAYOUTS = {"log": _log_layout, "scaling": _scaling_layout}
 
 
 def _block_plan(n: int, m: int, r: int, feature_dtype: torch.dtype,
-                mode: str = "log") -> BlockPlan:
+                mode: str = "log", *, cluster: int = 0) -> BlockPlan:
     """The megakernels' geometry, from the shape alone (the ``mode``, "log"
     or "scaling", sets only the shared memory's layout): C = ceil(max(n, m)
     / 16) CTAs up to 8, each holding at most ceil(n / C) rows of the first
@@ -135,9 +135,10 @@ def _block_plan(n: int, m: int, r: int, feature_dtype: torch.dtype,
     column pass read different banks. At the OT-GAN shape on an H100, C = 4
     and 16, 4 rows a lane (512 threads) and 8 lanes a row at 512 threads
     all read the log kernel slower than this plan or within 1% of it
-    (PERF.md, Findings)."""
+    (PERF.md, Findings). ``cluster`` (the autotuner's knob, 1-8) fixes C
+    instead; the rest of the plan follows from it."""
     esize = 2 if feature_dtype == torch.bfloat16 else 4
-    C = min(_MAX_CLUSTER, -(-max(n, m) // _CLUSTER_ROWS))
+    C = cluster or min(_MAX_CLUSTER, -(-max(n, m) // _CLUSTER_ROWS))
     rows_x, rows_z = -(-n // C), -(-m // C)
     R = max(rows_x, rows_z, 1)
     words = -(-r * esize // 4)
@@ -197,32 +198,63 @@ def _check_block_shape(what, n, m, r, dtype, mode):
             f"memory; got n={n}, m={m}, r={r} ({dtype}), {smem} bytes")
 
 
-def _checked_plan(what, mode, n, m, r, dtype) -> BlockPlan:
-    """The plan the ``mode`` wrapper launches, refused where
-    :func:`block_plan_fits` does not admit the shape (the cluster's
-    shared memory would hold more, but the plans' admission stays the JAX
-    package's) or the kernel cannot run it."""
+def _runs(plan: BlockPlan) -> bool:
+    """Whether the kernel runs ``plan``: a portable cluster, at most 8 rows
+    a lane in a column pass, 512 threads and one CTA's shared memory."""
+    R = max(plan.rows_x, plan.rows_z)
+    return (1 <= plan.cluster <= _MAX_CLUSTER
+            and -(-R // plan.groups) <= _GROUP_ROWS
+            and plan.threads <= 32 * _MAX_WARPS
+            and plan.smem <= _MAX_SMEM)
+
+
+def _checked_plan(what, mode, n, m, r, dtype, device=None) -> BlockPlan:
+    """The plan the ``mode`` wrapper launches (its cluster size the
+    autotuner's, ``what``), refused where :func:`block_plan_fits` does not
+    admit the shape (the cluster's shared memory would hold more, but the
+    plans' admission stays the JAX package's) or the kernel cannot run
+    it."""
     _check_block_shape(what, n, m, r, dtype, mode)
     if not block_plan_fits(n, m, r, 1, dtype):
         raise ValueError(f"{what} kernel takes the shapes block_plan_fits "
                          f"admits; got n={n}, m={m}, r={r} ({dtype})")
-    plan = _block_plan(n, m, r, dtype, mode)
-    R = max(plan.rows_x, plan.rows_z)
-    if (not 1 <= plan.cluster <= _MAX_CLUSTER
-            or -(-R // plan.groups) > _GROUP_ROWS
-            or plan.threads > 32 * _MAX_WARPS
-            or plan.smem > _MAX_SMEM):
+    ext = dict(n=n, m=m, r=r, esize=torch.finfo(dtype).bits // 8)
+    knobs = autotune.resolve(what, ext, dtype, device)
+    plan = _block_plan(n, m, r, dtype, mode, cluster=knobs["cluster"])
+    if not _runs(plan):
         raise ValueError(f"{what} kernel cannot run the plan {plan} for "
                          f"n={n}, m={m}, r={r} ({dtype})")
     return plan
 
 
-def _log_block_plan(n, m, r, dtype) -> BlockPlan:
-    return _checked_plan("log_sinkhorn_block", "log", n, m, r, dtype)
+def _log_block_plan(n, m, r, dtype, device=None) -> BlockPlan:
+    return _checked_plan("log_sinkhorn_block", "log", n, m, r, dtype, device)
 
 
-def _scaling_block_plan(n, m, r, dtype) -> BlockPlan:
-    return _checked_plan("sinkhorn_block", "scaling", n, m, r, dtype)
+def _scaling_block_plan(n, m, r, dtype, device=None) -> BlockPlan:
+    return _checked_plan("sinkhorn_block", "scaling", n, m, r, dtype,
+                         device)
+
+
+def _ext_dtype(ext: dict) -> torch.dtype:
+    return torch.bfloat16 if ext["esize"] == 2 else torch.float32
+
+
+def _block_planner(mode: str) -> "autotune.Planner":
+    """The megakernel's cluster size as a tuner knob: its neighbours the
+    size halved and doubled (within 1-8) where the kernel runs the plan."""
+    def plan_of(ext, cluster=0):
+        return _block_plan(ext["n"], ext["m"], ext["r"], _ext_dtype(ext),
+                           mode, cluster=cluster)
+
+    def neighbours(ext, prior):
+        for k in autotune.halved_doubled(prior, "cluster", 1, _MAX_CLUSTER):
+            if _runs(plan_of(ext, k["cluster"])):
+                yield k
+
+    return autotune.Planner(("cluster",),
+                            lambda ext: {"cluster": plan_of(ext).cluster},
+                            neighbours)
 
 
 @functools.cache
@@ -279,7 +311,19 @@ def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
                                   inner_steps=inner_steps, momentum=momentum)
     if B != 1:
         raise ValueError(f"sinkhorn_block kernel takes B = 1 column, got {B}")
-    plan = _scaling_block_plan(n, m, r, xi.dtype)
+    out = _launch_scaling_block(
+        xi, zeta, a, b, u0, v0, s0, inner_steps, momentum,
+        _scaling_block_plan(n, m, r, xi.dtype, dev))
+    sinkhorn_block.launches += 1
+    return out
+
+
+def _launch_scaling_block(xi, zeta, a, b, u0, v0, s0, inner_steps: int,
+                          momentum: float, plan: BlockPlan):
+    """Launch the scaling megakernel at ``plan``: ``(u, v, s, err)``."""
+    dev = xi.device
+    n, r = xi.shape
+    m = zeta.shape[0]
     bf16 = xi.dtype == torch.bfloat16
     _clusters(dev.index, "scaling", n, m, r, bf16, plan)
     u = torch.empty((n, 1), dtype=torch.float32, device=dev)
@@ -297,7 +341,6 @@ def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
             plan.cluster, plan.threads, plan.groups, plan.lanes, plan.ldw,
             stream)
     build.check_launch(_lib(), code, "sinkhorn_block")
-    sinkhorn_block.launches += 1
     return u, v, s, err[0]
 
 
@@ -342,7 +385,20 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     if B != 1:
         raise ValueError(f"log_sinkhorn_block kernel takes B = 1 column, "
                          f"got {B}")
-    plan = _log_block_plan(n, m, r, log_xi.dtype)
+    out = _launch_log_block(
+        log_xi, log_zeta, loga, logb, b, f0, g0, t0, inner_steps, eps,
+        momentum, _log_block_plan(n, m, r, log_xi.dtype, dev))
+    log_sinkhorn_block.launches += 1
+    return out
+
+
+def _launch_log_block(log_xi, log_zeta, loga, logb, b, f0, g0, t0,
+                      inner_steps: int, eps: float, momentum: float,
+                      plan: BlockPlan):
+    """Launch the log megakernel at ``plan``: ``(f, g, t, err)``."""
+    dev = log_xi.device
+    n, r = log_xi.shape
+    m = log_zeta.shape[0]
     bf16 = log_xi.dtype == torch.bfloat16
     _clusters(dev.index, "log", n, m, r, bf16, plan)
     f = torch.empty((n, 1), dtype=torch.float32, device=dev)
@@ -360,9 +416,38 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
             float(eps), mom, 1.0 - mom, int(mom != 1.0), plan.cluster,
             plan.threads, plan.groups, plan.lanes, plan.ldw, stream)
     build.check_launch(_lib(), code, "log_sinkhorn_block")
-    log_sinkhorn_block.launches += 1
     return f, g, t, err[0]
 
+
+def _block_runner(mode: str):
+    """The megakernels' tuner runs: 8 iterations at the key's shape on
+    uniform synthetic factors."""
+    def factory(ext, dtype, device):
+        n, m, r = ext["n"], ext["m"], ext["r"]
+
+        def col(rows, fill=0.0):
+            return torch.full((rows, 1), fill, device=device)
+
+        fx = torch.full((n, r), -0.5, dtype=dtype, device=device)
+        fz = torch.full((m, r), -0.5, dtype=dtype, device=device)
+        if mode == "log":
+            args = (fx, fz, col(n), col(m), col(m, 1.0 / m), col(n), col(m),
+                    torch.full((r, 1), -0.5, device=device))
+            return lambda knobs: _launch_log_block(
+                *args, 8, 0.5, 1.0, _block_plan(n, m, r, dtype, mode,
+                                                cluster=knobs["cluster"]))
+        args = (fx.exp(), fz.exp(), col(n, 1.0 / n), col(m, 1.0 / m),
+                col(n, 1.0), col(m, 1.0), col(m, 1.0))
+        return lambda knobs: _launch_scaling_block(
+            *args, 8, 1.0, _block_plan(n, m, r, dtype, mode,
+                                       cluster=knobs["cluster"]))
+    return factory
+
+
+for _mode, _name in (("log", "log_sinkhorn_block"),
+                     ("scaling", "sinkhorn_block")):
+    autotune.register_planner(_name, _block_planner(_mode))
+    autotune.register_runner(_name, _block_runner(_mode))
 
 sinkhorn_block.launches = 0
 log_sinkhorn_block.launches = 0

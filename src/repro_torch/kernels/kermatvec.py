@@ -39,7 +39,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from . import build
+from . import autotune, build
 from .backend import check_operand, sm_count, stacked_dims
 from .logmatvec import MAX_COLS, _vectorized
 from .ref import (
@@ -80,7 +80,8 @@ class ContractPlan(NamedTuple):
 
 def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
                    sms: int, blocks_per_sm: int, *,
-                   max_splits: int = 0, P: int = 1) -> ContractPlan:
+                   max_splits: int = 0, P: int = 1,
+                   splits: int = 0) -> ContractPlan:
     """The flat contract's geometry for an (n, r) factor of
     ``element_size`` bytes and B columns of u, on a card of ``sms`` SMs
     with ``blocks_per_sm`` contract CTAs resident on each: two slabs an
@@ -93,7 +94,9 @@ def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     P problems alone fill more than a wave each takes one slab and the
     grid needs no barrier. The plan is a function of (P, n, r, B) and the
     element size only, never of the values. The log contract
-    (``logmatvec._contract_plan``) shares it."""
+    (``logmatvec._contract_plan``) shares it. An explicit ``splits`` (the
+    autotuner's knob) takes that many slabs instead, clamped to one wave
+    and to slabs of at least 16 rows."""
     width = 16 // element_size if vec else 1
     if vec and (B != 1 or r % width):
         raise ValueError(f"the 16-byte path takes B = 1 and rows of a "
@@ -104,8 +107,11 @@ def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     groups = _FLAT_THREADS // tile
     chunks = 1 if vec else -(-B // MAX_COLS)
     per_tile = max(1, (sms * blocks_per_sm) // (col_tiles * chunks * P))
-    splits = max(1, min(per_tile, _SLABS_PER_SM * sms, n // _MIN_SLAB_ROWS,
-                        max_splits or n))
+    if splits:
+        splits = max(1, min(splits, per_tile, n // _MIN_SLAB_ROWS))
+    else:
+        splits = max(1, min(per_tile, _SLABS_PER_SM * sms,
+                            n // _MIN_SLAB_ROWS, max_splits or n))
     rows = -(-n // splits)
     splits = -(-n // rows)
     return ContractPlan(vec, width, tile, groups, col_tiles, chunks, splits,
@@ -159,7 +165,8 @@ def _rows_kernel(r: int, B: int, vec: bool,
 
 
 def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
-               sms: int, blocks_per_sm: int, *, P: int = 1) -> RowsPlan:
+               sms: int, blocks_per_sm: int, *, P: int = 1,
+               per_sm: int = 0) -> RowsPlan:
     """The row kernel's geometry on a card of ``sms`` SMs where
     ``blocks_per_sm`` CTAs of the chosen kernel (``_rows_kernel``) are
     resident: at most one wave, and never more CTAs than batches of R rows
@@ -169,31 +176,41 @@ def _rows_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     (the most CTAs among equals): at n = 16384, bf16 r = 1024, three an SM
     would run 3 rounds, the last 59% full, two an SM 4 rounds 97% full.
     ``grid`` is a problem's CTAs: P stacked problems share the wave
-    (``_rows_grid``) and the launch runs P * grid CTAs."""
+    (``_rows_grid``) and the launch runs P * grid CTAs. ``per_sm`` (the
+    autotuner's knob) fixes the CTAs an SM instead."""
     nv, rows, smem = _rows_kernel(r, B, vec, element_size)
-    return RowsPlan(nv, rows, smem,
-                    _rows_grid(-(-n // rows), sms, blocks_per_sm, P=P))
+    return RowsPlan(nv, rows, smem, _rows_grid(-(-n // rows), sms,
+                                               blocks_per_sm, P=P,
+                                               per_sm=per_sm))
+
+
+def _rows_per_sm(batches: int, sms: int, blocks_per_sm: int, *,
+                 P: int = 1) -> int:
+    """The CTAs an SM of :func:`_rows_grid`'s own choice."""
+    def slots(per_sm):
+        warps = _grid_of(per_sm, batches, sms, P) * _ROW_WARPS
+        return -(-batches // warps) * warps
+
+    return min(range(1, max(1, blocks_per_sm) + 1),
+               key=lambda b: (slots(b), -b))
+
+
+def _grid_of(per_sm: int, batches: int, sms: int, P: int) -> int:
+    return max(1, min(sms * per_sm // P, -(-batches // _ROW_WARPS)))
 
 
 def _rows_grid(batches: int, sms: int, blocks_per_sm: int, *,
-               P: int = 1) -> int:
+               P: int = 1, per_sm: int = 0) -> int:
     """CTAs of ``_ROW_WARPS`` warps that take ``batches`` batches (of one
     problem) in turn: with the P problems' CTAs, at most one wave
     (``blocks_per_sm`` an SM; at least one CTA a problem where P alone
     fill more) and never more than the batches fill; of the CTAs an SM
     that fit, the count that leaves the fewest warp-batch slots of the
     last round idle (the most among equals). The log half-step
-    (``logmatvec._halfstep_plan``) shares it."""
-    def grid_of(per_sm):
-        return max(1, min(sms * per_sm // P, -(-batches // _ROW_WARPS)))
-
-    def slots(per_sm):
-        warps = grid_of(per_sm) * _ROW_WARPS
-        return -(-batches // warps) * warps
-
-    per_sm = min(range(1, max(1, blocks_per_sm) + 1),
-                 key=lambda b: (slots(b), -b))
-    return grid_of(per_sm)
+    (``logmatvec._halfstep_plan``) shares it. An explicit ``per_sm`` (the
+    autotuner's knob) takes that many CTAs an SM."""
+    per_sm = per_sm or _rows_per_sm(batches, sms, blocks_per_sm, P=P)
+    return _grid_of(per_sm, batches, sms, P)
 
 
 @functools.cache
@@ -272,10 +289,40 @@ def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if min(P, n, r, B) < 1:
         raise ValueError(f"feature_contract kernel takes P, n, r, B >= 1, "
                          f"got P={P}, n={n}, r={r}, B={B}")
-    bf16 = xi.dtype == torch.bfloat16
     vec = _flat_vectorized(xi, B)
-    plan = _contract_plan(n, r, B, vec, xi.element_size(), sm_count(dev),
-                          _blocks_per_sm(dev.index, bf16, vec), P=P)
+    ext = _contract_extents(xi, B, vec)
+    knobs = autotune.resolve("feature_contract", ext, xi.dtype, dev)
+    t = _launch_contract(xi, u, _contract_of(ext, knobs["splits"]), vec)
+    feature_contract.launches += 1
+    return t
+
+
+def _contract_extents(xi: torch.Tensor, B: int, vec: bool) -> dict:
+    """What the contract's planner reads, the autotuner's extents."""
+    dev = xi.device
+    n, r = xi.shape[-2:]
+    return dict(P=xi.shape[0] if xi.dim() == 3 else 1, n=n, r=r, B=B,
+                vec=int(vec), esize=xi.element_size(), sms=sm_count(dev),
+                bps=_blocks_per_sm(dev.index, xi.dtype == torch.bfloat16,
+                                   vec))
+
+
+def _contract_of(ext: dict, splits: int = 0) -> ContractPlan:
+    """The contract's plan at ``ext``: the planner's own, or ``splits``
+    slabs (clamped)."""
+    return _contract_plan(ext["n"], ext["r"], ext["B"], bool(ext["vec"]),
+                          ext["esize"], ext["sms"], ext["bps"], P=ext["P"],
+                          splits=splits)
+
+
+def _launch_contract(xi, u, plan: ContractPlan, vec: bool) -> torch.Tensor:
+    """Launch the flat contract at ``plan``; returns t."""
+    dev = xi.device
+    n, r = xi.shape[-2:]
+    lead = tuple(xi.shape[:-2])
+    P = lead[0] if lead else 1
+    B = u.shape[-1]
+    bf16 = xi.dtype == torch.bfloat16
     t = torch.empty(lead + (r, B), dtype=torch.float32, device=dev)
     partial = (torch.empty((P, plan.splits, r, B), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else t)
@@ -287,8 +334,23 @@ def feature_contract(xi: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
             plan.tile, plan.groups, plan.col_tiles, plan.chunks, int(vec),
             int(_FORCE["combine"]), stream)
     build.check_launch(_lib(), code, "feature_contract")
-    feature_contract.launches += 1
     return t
+
+
+def _synthetic(ext: dict, rows: int, dtype, device, fill: float = 0.5):
+    """The tuner's buffers: a (P, rows, r) factor of ``dtype`` and (P, rows,
+    B) columns, filled with ``fill`` (values do not change a launch's
+    time)."""
+    P, r, B = ext["P"], ext["r"], ext["B"]
+    return (torch.full((P, rows, r), fill, dtype=dtype, device=device),
+            torch.full((P, rows, B), fill, dtype=torch.float32,
+                       device=device))
+
+
+def _contract_runner(ext, dtype, device):
+    xi, u = _synthetic(ext, ext["n"], dtype, device)
+    return lambda knobs: _launch_contract(
+        xi, u, _contract_of(ext, knobs["splits"]), bool(ext["vec"]))
 
 
 def _check_rows(xi, t, what):
@@ -320,9 +382,39 @@ def _rows_shapes(xi, t, marg):
                              f"{tuple(t.shape)}, marg {tuple(marg.shape)}")
 
 
-def _launch_rows(xi, t, marg, what):
-    """Plan and launch the row kernel (the half-step where ``marg`` is
-    given, else the matvec); returns out (n, B), or (P, n, B)."""
+def _rows_extents(xi: torch.Tensor, B: int, vec: bool, divide: bool) -> dict:
+    """What the row kernel's planner reads, the autotuner's extents."""
+    dev = xi.device
+    n, r = xi.shape[-2:]
+    es = xi.element_size()
+    nv, _, smem = _rows_kernel(r, B, vec, es)
+    return dict(P=xi.shape[0] if xi.dim() == 3 else 1, n=n, r=r, B=B,
+                vec=int(vec), esize=es, divide=int(divide),
+                sms=sm_count(dev),
+                bps=_rows_blocks_per_sm(dev.index, xi.dtype == torch.bfloat16,
+                                        divide, nv, smem))
+
+
+def _rows_of(ext: dict, per_sm: int = 0) -> RowsPlan:
+    """The row kernel's plan at ``ext``: the planner's own, or ``per_sm``
+    CTAs an SM."""
+    return _rows_plan(ext["n"], ext["r"], ext["B"], bool(ext["vec"]),
+                      ext["esize"], ext["sms"], ext["bps"], P=ext["P"],
+                      per_sm=per_sm)
+
+
+def _rows_prior(ext: dict) -> dict:
+    _, rows, _ = _rows_kernel(ext["r"], ext["B"], bool(ext["vec"]),
+                              ext["esize"])
+    return {"per_sm": _rows_per_sm(-(-ext["n"] // rows), ext["sms"],
+                                   ext["bps"], P=ext["P"])}
+
+
+def _launch_rows(xi, t, marg, what, plan=None, vec=None):
+    """Launch the row kernel (the half-step where ``marg`` is given, else
+    the matvec) at ``plan`` and ``vec`` (by default the tuner's plan,
+    ``feature_rows``, and the operand's path); returns out (n, B), or (P,
+    n, B)."""
     _check_rows(xi, t, what)
     dev = xi.device
     n, r = xi.shape[-2:]
@@ -330,11 +422,11 @@ def _launch_rows(xi, t, marg, what):
     P = lead[0] if lead else 1
     B = t.shape[-1]
     bf16 = xi.dtype == torch.bfloat16
-    vec = _vectorized(xi, B)
-    nv, _, smem = _rows_kernel(r, B, vec, xi.element_size())
-    plan = _rows_plan(n, r, B, vec, xi.element_size(), sm_count(dev),
-                      _rows_blocks_per_sm(dev.index, bf16, marg is not None,
-                                          nv, smem), P=P)
+    vec = _vectorized(xi, B) if vec is None else vec
+    if plan is None:
+        ext = _rows_extents(xi, B, vec, marg is not None)
+        knobs = autotune.resolve("feature_rows", ext, xi.dtype, dev)
+        plan = _rows_of(ext, knobs["per_sm"])
     out = torch.empty(lead + (n, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -381,6 +473,29 @@ def feature_matvec(xi: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     feature_matvec.launches += 1
     return out
 
+
+def _rows_runner(ext, dtype, device):
+    xi, marg = _synthetic(ext, ext["n"], dtype, device)
+    t = torch.full((ext["P"], ext["r"], ext["B"]), 0.5 / ext["r"],
+                   device=device)
+    divide = bool(ext["divide"])
+    return lambda knobs: _launch_rows(
+        xi, t, marg if divide else None, "feature_rows",
+        _rows_of(ext, knobs["per_sm"]), bool(ext["vec"]))
+
+
+def _rows_neighbours(ext, prior):
+    for k in autotune.halved_doubled(prior, "per_sm", 1, ext["bps"]):
+        yield k
+
+
+autotune.register_planner("feature_contract", autotune.Planner(
+    ("splits",), lambda ext: {"splits": _contract_of(ext).splits},
+    autotune.slab_neighbours(_contract_of)))
+autotune.register_runner("feature_contract", _contract_runner)
+autotune.register_planner("feature_rows", autotune.Planner(
+    ("per_sm",), _rows_prior, _rows_neighbours))
+autotune.register_runner("feature_rows", _rows_runner)
 
 feature_contract.launches = 0
 sinkhorn_halfstep.launches = 0

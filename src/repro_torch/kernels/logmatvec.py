@@ -39,7 +39,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from . import build
+from . import autotune, build
 from .backend import check_operand, sm_count, stacked_dims
 from .ref import log_feature_contract_ref, log_halfstep_ref, log_matvec_ref
 
@@ -96,7 +96,8 @@ def _vectorized(log_w: torch.Tensor, B: int) -> bool:
 
 
 def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
-                   sms: int, blocks_per_sm: int, *, P: int = 1):
+                   sms: int, blocks_per_sm: int, *, P: int = 1,
+                   splits: int = 0):
     """The log contract's geometry: the flat contract's
     (``kermatvec._contract_plan``: row groups that fill a 256-thread CTA
     at any r, at most one wave, two slabs an SM, none under 16 rows), with
@@ -106,11 +107,13 @@ def _contract_plan(n: int, r: int, B: int, vec: bool, element_size: int,
     32 in float32 (on an H100 as fast as 8 KiB slabs and 4-5% faster
     than 32 KiB ones, PERF.md); the solve shape's 64
     MiB factor is cut by the wave, as the flat contract's. P stacked
-    problems share the wave as in the flat contract's plan."""
+    problems share the wave as in the flat contract's plan. An explicit
+    ``splits`` (the autotuner's knob) is clamped as the flat contract
+    clamps it."""
     from .kermatvec import _contract_plan as flat_plan
     slabs = max(1, n * r * element_size // _MIN_SLAB_BYTES)
     return flat_plan(n, r, B, vec, element_size, sms, blocks_per_sm,
-                     max_splits=slabs, P=P)
+                     max_splits=slabs, P=P, splits=splits)
 
 
 @functools.cache
@@ -164,18 +167,19 @@ def _halfstep_kernel(m: int, r: int, B: int, vec: bool, element_size: int,
 
 def _halfstep_plan(m: int, r: int, B: int, vec: bool, element_size: int,
                    sms: int, blocks_per_sm: int, *,
-                   P: int = 1) -> HalfstepPlan:
+                   P: int = 1, per_sm: int = 0) -> HalfstepPlan:
     """The log half-step's geometry: its kernel (:func:`_halfstep_kernel`)
     on the row kernel's grid (``kermatvec._rows_grid``: at most one wave
     of the ``blocks_per_sm`` CTAs of that kernel an SM, shared by P stacked
     problems, a problem's warps taking its batches of R = (32 / L) Q rows
-    in turn)."""
+    in turn); ``per_sm`` (the autotuner's knob) fixes the CTAs an SM."""
     from .kermatvec import _rows_grid
     nv, lanes, q, smem = _halfstep_kernel(m, r, B, vec, element_size, sms,
                                           P=P)
     rows = 32 // lanes * q
     return HalfstepPlan(nv, lanes, q, rows, smem,
-                        _rows_grid(-(-m // rows), sms, blocks_per_sm, P=P))
+                        _rows_grid(-(-m // rows), sms, blocks_per_sm, P=P,
+                                   per_sm=per_sm))
 
 
 @functools.cache
@@ -212,10 +216,38 @@ def log_feature_contract(log_w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if min(P, n, r) < 1:
         raise ValueError(f"log_feature_contract kernel takes P, n, r >= 1, "
                          f"got P={P}, n={n}, r={r}")
-    bf16 = log_w.dtype == torch.bfloat16
     vec = _vectorized(log_w, B)
-    plan = _contract_plan(n, r, B, vec, log_w.element_size(), sm_count(dev),
-                          _blocks_per_sm(dev.index, bf16, vec), P=P)
+    ext = _contract_extents(log_w, B, vec)
+    knobs = autotune.resolve("log_contract", ext, log_w.dtype, dev)
+    t = _launch_contract(log_w, s, _contract_of(ext, knobs["splits"]), vec)
+    log_feature_contract.launches += 1
+    return t
+
+
+def _contract_extents(log_w: torch.Tensor, B: int, vec: bool) -> dict:
+    """What the log contract's planner reads, the autotuner's extents."""
+    dev = log_w.device
+    n, r = log_w.shape[-2:]
+    return dict(P=log_w.shape[0] if log_w.dim() == 3 else 1, n=n, r=r, B=B,
+                vec=int(vec), esize=log_w.element_size(), sms=sm_count(dev),
+                bps=_blocks_per_sm(dev.index, log_w.dtype == torch.bfloat16,
+                                   vec))
+
+
+def _contract_of(ext: dict, splits: int = 0):
+    return _contract_plan(ext["n"], ext["r"], ext["B"], bool(ext["vec"]),
+                          ext["esize"], ext["sms"], ext["bps"], P=ext["P"],
+                          splits=splits)
+
+
+def _launch_contract(log_w, s, plan, vec: bool) -> torch.Tensor:
+    """Launch the log contract at ``plan``; returns t."""
+    dev = log_w.device
+    n, r = log_w.shape[-2:]
+    lead = tuple(log_w.shape[:-2])
+    P = lead[0] if lead else 1
+    B = s.shape[-1]
+    bf16 = log_w.dtype == torch.bfloat16
     t = torch.empty(lead + (r, B), dtype=torch.float32, device=dev)
     partial = (torch.empty((P, plan.splits, r, B, 2), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else t)
@@ -227,7 +259,6 @@ def log_feature_contract(log_w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
             plan.tile, plan.groups, plan.col_tiles, plan.chunks, int(vec),
             stream)
     build.check_launch(_lib(), code, "log_feature_contract")
-    log_feature_contract.launches += 1
     return t
 
 
@@ -258,12 +289,50 @@ def log_halfstep(log_w: torch.Tensor, t: torch.Tensor, lmarg: torch.Tensor,
         raise ValueError(f"log_halfstep kernel takes P, m, r >= 1 and r * B "
                          f"* 4 <= {_MAX_SMEM} bytes of t a problem; got P={P},"
                          f" m={m}, r={r}, B={B}")
-    bf16 = log_w.dtype == torch.bfloat16
     vec = _vectorized(log_w, B)
+    ext = _halfstep_extents(log_w, B, vec)
+    knobs = autotune.resolve("log_halfstep", ext, log_w.dtype, dev)
+    plan = _halfstep_plan(m, r, B, vec, ext["esize"], ext["sms"], ext["bps"],
+                          P=P, per_sm=knobs["per_sm"])
+    out = _launch_halfstep(log_w, t, lmarg, scale, plan, vec)
+    log_halfstep.launches += 1
+    return out
+
+
+def _halfstep_extents(log_w: torch.Tensor, B: int, vec: bool) -> dict:
+    """What the log half-step's planner reads, the autotuner's extents."""
+    dev = log_w.device
+    m, r = log_w.shape[-2:]
+    P = log_w.shape[0] if log_w.dim() == 3 else 1
     es, sms = log_w.element_size(), sm_count(dev)
     nv, _, q, smem = _halfstep_kernel(m, r, B, vec, es, sms, P=P)
-    plan = _halfstep_plan(m, r, B, vec, es, sms, _halfstep_blocks_per_sm(
-        dev.index, bf16, nv, q, smem), P=P)
+    return dict(P=P, m=m, r=r, B=B, vec=int(vec), esize=es, sms=sms,
+                bps=_halfstep_blocks_per_sm(
+                    dev.index, log_w.dtype == torch.bfloat16, nv, q, smem))
+
+
+def _halfstep_of(ext: dict, per_sm: int = 0) -> HalfstepPlan:
+    return _halfstep_plan(ext["m"], ext["r"], ext["B"], bool(ext["vec"]),
+                          ext["esize"], ext["sms"], ext["bps"], P=ext["P"],
+                          per_sm=per_sm)
+
+
+def _halfstep_prior(ext: dict) -> dict:
+    from .kermatvec import _rows_per_sm
+    plan = _halfstep_of(ext)
+    return {"per_sm": _rows_per_sm(-(-ext["m"] // plan.rows), ext["sms"],
+                                   ext["bps"], P=ext["P"])}
+
+
+def _launch_halfstep(log_w, t, lmarg, scale: float, plan: HalfstepPlan,
+                     vec: bool) -> torch.Tensor:
+    """Launch the log half-step at ``plan``; returns out."""
+    dev = log_w.device
+    m, r = log_w.shape[-2:]
+    lead = tuple(log_w.shape[:-2])
+    P = lead[0] if lead else 1
+    B = t.shape[-1]
+    bf16 = log_w.dtype == torch.bfloat16
     out = torch.empty(lead + (m, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -272,7 +341,6 @@ def log_halfstep(log_w: torch.Tensor, t: torch.Tensor, lmarg: torch.Tensor,
             out.data_ptr(), P, m, r, B, float(scale), int(vec), plan.nv,
             plan.lanes, plan.group_rows, plan.grid, stream)
     build.check_launch(_lib(), code, "log_halfstep")
-    log_halfstep.launches += 1
     return out
 
 
@@ -306,6 +374,41 @@ def log_matvec(log_m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     log_matvec.launches += 1
     return out
 
+
+def _log_synthetic(ext: dict, rows: int, dtype, device):
+    """The tuner's buffers: a (P, rows, r) log-factor of ``dtype`` and (P,
+    rows, B) columns (values do not change a launch's time)."""
+    P, r, B = ext["P"], ext["r"], ext["B"]
+    return (torch.full((P, rows, r), -0.5, dtype=dtype, device=device),
+            torch.full((P, rows, B), -0.5, dtype=torch.float32,
+                       device=device))
+
+
+def _contract_runner(ext, dtype, device):
+    log_w, s = _log_synthetic(ext, ext["n"], dtype, device)
+    return lambda knobs: _launch_contract(
+        log_w, s, _contract_of(ext, knobs["splits"]), bool(ext["vec"]))
+
+
+def _halfstep_runner(ext, dtype, device):
+    log_w, lmarg = _log_synthetic(ext, ext["m"], dtype, device)
+    t = torch.full((ext["P"], ext["r"], ext["B"]), -0.5, device=device)
+    return lambda knobs: _launch_halfstep(
+        log_w, t, lmarg, 0.5, _halfstep_of(ext, knobs["per_sm"]),
+        bool(ext["vec"]))
+
+
+def _halfstep_neighbours(ext, prior):
+    return autotune.halved_doubled(prior, "per_sm", 1, ext["bps"])
+
+
+autotune.register_planner("log_contract", autotune.Planner(
+    ("splits",), lambda ext: {"splits": _contract_of(ext).splits},
+    autotune.slab_neighbours(_contract_of)))
+autotune.register_runner("log_contract", _contract_runner)
+autotune.register_planner("log_halfstep", autotune.Planner(
+    ("per_sm",), _halfstep_prior, _halfstep_neighbours))
+autotune.register_runner("log_halfstep", _halfstep_runner)
 
 log_feature_contract.launches = 0
 log_halfstep.launches = 0

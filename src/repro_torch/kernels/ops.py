@@ -56,6 +56,15 @@ shared anchors, whose Lemma-1 features are per point and so need no
 problem axis in the feature map. The megakernels take no problem axis:
 ``block_admits`` refuses P > 1.
 
+A spec carrying a mesh axis (``spmd``: ``distributed.sharding.MeshAxis``,
+from ``core.sharded``'s geometries) gives the SHARDED plan: the factors
+are this rank's rows, and the plan's iteration holds one collective
+between the stage that sums over the support and the stage that does not
+(the scaling contract's r-vector all-reduced, the log contract's combined
+by MAX and SUM), with the marginal error all-reduced. It has no
+megakernel (its block would drop the collective) and no stacked or paged
+form.
+
 ``observe_plan_selection`` is the test hook: while it is active every plan
 installed on a solve path appends an event dict.
 """
@@ -208,6 +217,9 @@ class GeometryOps(NamedTuple):
                     runner's static buffers, ``core.runners``).
     ``page_size`` — the page of a paged geometry's plan (either mode), 0
                     otherwise.
+    ``spmd``      — the mesh axis (``distributed.sharding.MeshAxis``) of a
+                    sharded plan, whose factors are this rank's rows; None
+                    for a plan on one device.
 
     A plan's steps read no value to the host, so a runner can capture
     them in a CUDA graph.
@@ -225,6 +237,7 @@ class GeometryOps(NamedTuple):
     operands: Tuple[torch.Tensor, ...] = ()
     bind: Optional[Callable] = None
     page_size: int = 0
+    spmd: Optional[object] = None
 
     def block_admits(self, n: int, m: int, P: int = 1) -> bool:
         """Whether ``make_block_step`` gives a megakernel step at n x m for
@@ -254,16 +267,34 @@ def _one_problem_block_step(plan_of, operands, a, b, **kw):
     return step
 
 
+def _identity(x):
+    return x
+
+
 def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
-                  eps: float, precision: str = "highest") -> GeometryOps:
+                  eps: float, precision: str = "highest",
+                  spmd=None) -> GeometryOps:
+    """The scaling plan. With ``spmd`` (a mesh axis) the factors are this
+    rank's rows and each contract's r-vector is summed over the ranks
+    before the stage that does not sum over the support, as is the
+    marginal error: the reference's psum'd iteration, each rank running
+    the kernels on its rows. No megakernel then (its block would drop the
+    collective)."""
     xi, zeta = _store_features(xi.contiguous(), zeta.contiguous(), precision)
+    psum = _identity if spmd is None else spmd.sum_
+
+    def contract(w, x):
+        """``t = W^T x`` over every rank's rows."""
+        return psum(feature_contract(w, x))
 
     def iteration(a, b, u):
-        return fused_sinkhorn_iteration(xi, zeta, a, b, u)
+        """``fused_sinkhorn_iteration`` over every rank's rows."""
+        v = sinkhorn_halfstep(zeta, contract(xi, u), b)
+        return sinkhorn_halfstep(xi, contract(zeta, v), a), v
 
     def apply_kt(u):
         """``u (n,) -> K^T u (m,)`` (a problem axis first where stacked)."""
-        t = feature_contract(xi, u[..., None].contiguous())
+        t = contract(xi, u[..., None].contiguous())
         return feature_matvec(zeta, t)[..., 0]
 
     def init(u0, v0):
@@ -276,16 +307,16 @@ def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
         def step(carry):
             u, v, s = carry
             v_new = relax_scaling(b / s, v, momentum)
-            t = feature_contract(zeta, v_new[..., None].contiguous())
+            t = contract(zeta, v_new[..., None].contiguous())
             if momentum == 1.0:
                 # matvec and marginal divide fused in one pass
                 u_new = sinkhorn_halfstep(xi, t, ac)[..., 0]
             else:
                 kv = feature_matvec(xi, t)[..., 0]
                 u_new = relax_scaling(a / kv, u, momentum)
-            t2 = feature_contract(xi, u_new[..., None].contiguous())
+            t2 = contract(xi, u_new[..., None].contiguous())
             s_new = feature_matvec(zeta, t2)[..., 0]
-            err = _lane_sum(torch.abs(v_new * s_new - b))
+            err = psum(_lane_sum(torch.abs(v_new * s_new - b)))
             return (u_new, v_new, s_new), err
 
         return step, init
@@ -316,27 +347,42 @@ def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
 
     return GeometryOps(mode="scaling", kind=kind, features=(xi, zeta),
                        iteration=iteration, make_step=make_step, eps=eps,
-                       make_block_step=make_block_step, precision=precision,
-                       init=init, operands=(xi, zeta),
+                       make_block_step=(make_block_step if spmd is None
+                                        else None),
+                       precision=precision, init=init, operands=(xi, zeta),
                        bind=lambda ops: _scaling_plan(kind, *ops, eps,
-                                                      precision))
+                                                      precision, spmd),
+                       spmd=spmd)
 
 
 def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
-              eps: float, precision: str = "highest") -> GeometryOps:
+              eps: float, precision: str = "highest",
+              spmd=None) -> GeometryOps:
+    """The log plan. With ``spmd`` (a mesh axis) the log-factors are this
+    rank's rows, each log contract's r-vector is combined over the ranks
+    as ``distributed.psum_logsumexp`` combines it (MAX, then the SUM of
+    the shifted exponentials, an all ``-inf`` slice pinned) before the
+    local half-step, and the marginal error is summed over the ranks. No
+    megakernel then."""
     log_xi, log_zeta = _store_features(log_xi.contiguous(),
                                        log_zeta.contiguous(), precision)
+    psum = _identity if spmd is None else spmd.sum_
+    combine = _identity if spmd is None else spmd.combine_lse
+
+    def log_contract(log_w, s):
+        """Stage 1 over every rank's rows."""
+        return combine(log_feature_contract(log_w, s))
 
     def iteration(loga, logb, f):
-        t = log_feature_contract(log_xi, f / eps)
+        t = log_contract(log_xi, f / eps)
         g = log_halfstep(log_zeta, t, logb, scale=eps)
-        s = log_feature_contract(log_zeta, g / eps)
+        s = log_contract(log_zeta, g / eps)
         return log_halfstep(log_xi, s, loga, scale=eps), g
 
     def contract_f(f):
         """Stage-1 LSE over logXi: computed once per iteration, it serves
         both the convergence check and the next iteration's g-update."""
-        return log_feature_contract(log_xi, f[..., None] / eps)
+        return log_contract(log_xi, f[..., None] / eps)
 
     def init(f0, g0):
         """The carry ``(f, g, t1)`` both step kinds advance."""
@@ -352,14 +398,14 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
             g_new = relax_log(
                 log_halfstep(log_zeta, t1, logb, scale=eps)[..., 0], g,
                 momentum)
-            t2 = log_feature_contract(log_zeta, g_new[..., None] / eps)
+            t2 = log_contract(log_zeta, g_new[..., None] / eps)
             f_new = relax_log(
                 log_halfstep(log_xi, t2, loga, scale=eps)[..., 0], f,
                 momentum)
             t3 = contract_f(f_new)
             lse = log_halfstep(log_zeta, t3, zero, scale=-1.0)[..., 0]
             log_col = lse + g_new / eps
-            err = _lane_sum(torch.abs(torch.exp(log_col) - b))
+            err = psum(_lane_sum(torch.abs(torch.exp(log_col) - b)))
             return (f_new, g_new, t3), err
 
         return step, init
@@ -392,10 +438,13 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
 
     return GeometryOps(mode="log", kind=kind, features=(log_xi, log_zeta),
                        iteration=iteration, make_step=make_step, eps=eps,
-                       make_block_step=make_block_step, precision=precision,
-                       init=init, operands=(log_xi, log_zeta),
+                       make_block_step=(make_block_step if spmd is None
+                                        else None),
+                       precision=precision, init=init,
+                       operands=(log_xi, log_zeta),
                        bind=lambda ops: _log_plan(kind, *ops, eps,
-                                                  precision))
+                                                  precision, spmd),
+                       spmd=spmd)
 
 
 def _paged_scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
@@ -498,6 +547,10 @@ def _spec_ops(spec: dict, eps: float, mode: str, precision: str,
     kind = spec["kind"]
     if kind not in ("factored", "log_factored", "gaussian", "paged"):
         raise ValueError(f"unknown pallas_ops spec kind {kind!r}")
+    spmd = spec.get("spmd")
+    if spmd is not None and (kind == "paged" or problems):
+        raise ValueError(f"no sharded plan for kind {kind!r} with "
+                         f"{problems} stacked problems")
     if kind == "paged":
         if "xi" in spec:
             xi, zeta = spec["xi"], spec["zeta"]
@@ -516,15 +569,16 @@ def _spec_ops(spec: dict, eps: float, mode: str, precision: str,
     if kind == "factored":
         xi, zeta = spec["xi"], spec["zeta"]
         if mode == "scaling":
-            return _scaling_plan(kind, xi, zeta, eps, precision)
+            return _scaling_plan(kind, xi, zeta, eps, precision, spmd)
         return _log_plan(kind, _masked_log(xi), _masked_log(zeta), eps,
-                         precision)
+                         precision, spmd)
     if kind == "log_factored":
         lxi, lzt = spec["log_xi"], spec["log_zeta"]
         if mode == "log":
-            return _log_plan(kind, lxi, lzt, float(spec["eps"]), precision)
+            return _log_plan(kind, lxi, lzt, float(spec["eps"]), precision,
+                             spmd)
         return _scaling_plan(kind, torch.exp(lxi), torch.exp(lzt), eps,
-                             precision)
+                             precision, spmd)
     kw = dict(anchors=spec["anchors"], log_const=spec["log_const"],
               inv_eps=spec["inv_eps"], log_space=mode == "log")
     xi = gaussian_feature_map(spec["x"], **kw)
@@ -533,8 +587,8 @@ def _spec_ops(spec: dict, eps: float, mode: str, precision: str,
         xi = xi.view(problems, -1, xi.shape[-1])
         zeta = zeta.view(problems, -1, zeta.shape[-1])
     if mode == "scaling":
-        return _scaling_plan(kind, xi, zeta, eps, precision)
-    return _log_plan(kind, xi, zeta, eps, precision)
+        return _scaling_plan(kind, xi, zeta, eps, precision, spmd)
+    return _log_plan(kind, xi, zeta, eps, precision, spmd)
 
 
 # ---------------------------------------------------------------------------

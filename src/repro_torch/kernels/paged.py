@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from . import build
+from . import autotune, build
 from .backend import check_operand, l2_bytes, sm_count
 from .kermatvec import (
     _ROW_WARPS,
@@ -88,15 +88,23 @@ def _check_paged(xi: torch.Tensor, page_live: torch.Tensor,
 
 
 def _paged_plan(n_pages: int, page_size: int, r: int, B: int, vec: bool,
-                element_size: int, sms: int,
-                blocks_per_sm: int) -> ContractPlan:
+                element_size: int, sms: int, blocks_per_sm: int, *,
+                splits: int = 0) -> ContractPlan:
     """The paged contract's geometry: the flat contract's
     (``kermatvec._contract_plan``) over the capacity's rows, with no more
     slabs than pages. The kernel splits the live rows, not the capacity,
-    over the slabs, so the plan fixes no ``rows_per_split`` (0)."""
+    over the slabs, so the plan fixes no ``rows_per_split`` (0). An
+    explicit ``splits`` (the autotuner's knob) is clamped as the flat
+    contract clamps it."""
     plan = _contract_plan(n_pages * page_size, r, B, vec, element_size, sms,
-                          blocks_per_sm)
+                          blocks_per_sm, splits=splits)
     return plan._replace(splits=min(plan.splits, n_pages), rows_per_split=0)
+
+
+def _paged_of(ext: dict, splits: int = 0) -> ContractPlan:
+    return _paged_plan(ext["pages"], ext["page_size"], ext["r"], ext["B"],
+                       bool(ext["vec"]), ext["esize"], ext["sms"],
+                       ext["bps"], splits=splits)
 
 
 @functools.cache
@@ -154,8 +162,24 @@ def paged_feature_contract(xi: torch.Tensor, u: torch.Tensor,
                          f" got C={C}, r={r}, B={B}")
     bf16 = xi.dtype == torch.bfloat16
     vec = _flat_vectorized(xi, B)
-    plan = _paged_plan(n_pages, page_size, r, B, vec, xi.element_size(),
-                       sm_count(dev), _blocks_per_sm(dev.index, bf16, vec))
+    ext = dict(pages=n_pages, page_size=page_size, r=r, B=B, vec=int(vec),
+               esize=xi.element_size(), sms=sm_count(dev),
+               bps=_blocks_per_sm(dev.index, bf16, vec))
+    knobs = autotune.resolve("paged_contract", ext, xi.dtype, dev)
+    t = _launch_paged_contract(xi, u, page_live, page_size,
+                               _paged_of(ext, knobs["splits"]), vec)
+    paged_feature_contract.launches += 1
+    return t
+
+
+def _launch_paged_contract(xi, u, page_live, page_size: int,
+                           plan: ContractPlan, vec: bool) -> torch.Tensor:
+    """Launch the paged contract at ``plan``; returns t."""
+    dev = xi.device
+    C, r = xi.shape
+    B = u.shape[1]
+    n_pages = page_live.shape[0]
+    bf16 = xi.dtype == torch.bfloat16
     evict = _streams(xi) if _FORCE["stream"] is None else _FORCE["stream"]
     t = torch.empty((r, B), dtype=torch.float32, device=dev)
     partial = (torch.empty((plan.splits, r, B), dtype=torch.float32,
@@ -168,7 +192,6 @@ def paged_feature_contract(xi: torch.Tensor, u: torch.Tensor,
             plan.splits, plan.tile, plan.groups, plan.col_tiles, plan.chunks,
             int(vec), int(_FORCE["combine"]), int(bool(evict)), stream)
     build.check_launch(_lib(), code, "paged_feature_contract")
-    paged_feature_contract.launches += 1
     return t
 
 
@@ -235,6 +258,23 @@ def paged_feature_matvec(xi: torch.Tensor, t: torch.Tensor,
     paged_feature_matvec.launches += 1
     return out
 
+
+def _paged_runner(ext, dtype, device):
+    """Every page live: the plan's slabs then cover every row."""
+    C = ext["pages"] * ext["page_size"]
+    xi = torch.full((C, ext["r"]), 0.5, dtype=dtype, device=device)
+    u = torch.full((C, ext["B"]), 0.5, device=device)
+    live = torch.full((ext["pages"],), ext["page_size"], dtype=torch.int32,
+                      device=device)
+    return lambda knobs: _launch_paged_contract(
+        xi, u, live, ext["page_size"], _paged_of(ext, knobs["splits"]),
+        bool(ext["vec"]))
+
+
+autotune.register_planner("paged_contract", autotune.Planner(
+    ("splits",), lambda ext: {"splits": _paged_of(ext).splits},
+    autotune.slab_neighbours(_paged_of)))
+autotune.register_runner("paged_contract", _paged_runner)
 
 paged_feature_contract.launches = 0
 paged_halfstep.launches = 0

@@ -1,3 +1,3 @@
 """Drivers of the port: ``ot_service`` (the serving, streaming and chaos
-lanes). The JAX package's mesh helpers and LM drivers are not ported yet
-(ROADMAP.md, queue A)."""
+lanes) and the mesh builders (``mesh``). The JAX package's LM drivers are
+not ported yet (ROADMAP.md, queue A)."""

@@ -168,8 +168,8 @@ def test_spec_validation_and_bridges():
         SolveSpec(geometry=g, policy="cpu")
     with pytest.raises(TypeError, match="RecoveryPolicy"):
         SolveSpec(geometry=g, recovery="ladder")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ExecutionPolicy(mesh=object())
+    with pytest.raises(ValueError, match="no axis named"):
+        solve(SolveSpec(geometry=g, policy=ExecutionPolicy(mesh=object())))
     spec = SolveSpec(geometry=g, method="factored")
     assert spec.eps == EPS and "FactoredPositive" in spec.describe()
     assert spec.replace(tol=1e-4).tol == 1e-4
@@ -178,8 +178,7 @@ def test_spec_validation_and_bridges():
     back = SolveSpec.from_problem(prob, method="factored", tol=1e-5)
     assert back.method == "factored" and back.tol == 1e-5
     assert set(spec.solver_kwargs()) == set(
-        jspec.SolveSpec(geometry=_jfactored(xi, zeta)).solver_kwargs()
-    ) - {"mesh", "mesh_axis"}
+        jspec.SolveSpec(geometry=_jfactored(xi, zeta)).solver_kwargs())
 
 
 def _jfactored(xi, zeta):
@@ -542,7 +541,10 @@ def _refusal_cases():
                                           g_inits=[g]),
                        ValueError, "warm starts"),
         "mesh": (lambda: solve_many(port, mesh=object()),
-                 NotImplementedError, "not ported"),
+                 ValueError, "no axis named"),
+        "mesh-method": (lambda: solve_many(port, method="nystrom",
+                                           mesh=object()),
+                        ValueError, "supports methods"),
         "mixed-eps": (lambda: solve_many(port + [OTProblem.from_features(
             xi, zeta, eps=0.7, device="cpu")]), ValueError, "mixed"),
         "engine-eps": (lambda: get_engine(eps=0.7).solve_many(port),

@@ -1,7 +1,6 @@
 """The rules the port keeps: no JAX and nothing of ``repro`` inside it, the
 card by default with no silent CPU fallback, a fused plan for every
-factored kind in both modes, and explicit refusals for what is not ported
-yet."""
+factored kind in both modes, and every method of ``solve`` ported."""
 import ast
 import os
 import re
@@ -16,6 +15,8 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.core import (
+    METHODS,
+    PORTED_METHODS,
     ArcCosineFeatureMap,
     GridSeparable,
     OTProblem,
@@ -25,6 +26,8 @@ from repro_torch.core import (
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ops import geometry_ops, observe_plan_selection
 from repro_torch.streaming import PagedFeatureStore, StreamingDistribution
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PKG = Path(repro_torch.__file__).resolve().parent
 SOURCES = sorted(PKG.rglob("*.py"))
@@ -68,6 +71,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.serving.warmstart", "repro_torch.serving.traffic",
             "repro_torch.resilience.ladder", "repro_torch.resilience.chaos",
             "repro_torch.launch.ot_service"} <= set(MODULES)
+    # and the tuner's and the sharded solves'
+    assert {"repro_torch.kernels.autotune", "repro_torch.distributed",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.core.sharded"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
@@ -209,10 +216,23 @@ def test_requires_grad_input_raises_not_implemented():
 
 
 @pytest.mark.parametrize("method", ["sharded", "sharded_log"])
-def test_unported_methods_raise_not_implemented(method):
+def test_unported_methods_raise_not_implemented(method, tmp_path):
+    """The sharded methods run: a small sharded solve in a gloo world of
+    this process alone matches the single-device solve of the same mode,
+    and no method of ``solve`` raises ``NotImplementedError`` any more
+    (without a mesh they refuse with the JAX package's ``ValueError``)."""
+    import torch_sharded_worker as W
     prob = convert.ot_problem(_geometries()["gaussian"], device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    assert set(PORTED_METHODS) == set(METHODS)
+    with pytest.raises(ValueError, match="requires a mesh"):
         solve(prob, method=method)
+    with W.world_of_one(tmp_path / "init") as mesh:
+        res = solve(prob, method=method, mesh=mesh)
+    local = solve(prob, method="factored" if method == "sharded"
+                  else "log_factored")
+    assert abs(res.n_iter - local.n_iter) <= 1
+    assert float(res.cost) == pytest.approx(float(local.cost), rel=1e-5)
+    torch.testing.assert_close(res.f, local.f, rtol=0, atol=1e-5)
 
 
 def test_build_imports_without_nvcc_and_refuses_to_build(monkeypatch,

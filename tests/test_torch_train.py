@@ -268,9 +268,26 @@ def test_objective_divergence_and_gradient_match_jax(kind, zero_weight,
                                    atol=1e-7)
 
 
-def test_objective_refuses_mesh_and_a_foreign_device():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecutionPolicy(mesh=object())
+def test_objective_refuses_mesh_and_a_foreign_device(tmp_path):
+    """A policy's mesh must have the axis (the JAX package's ValueError);
+    one that has it runs the divergence sharded, here over a gloo world
+    of this process alone, equal to the single-device divergence."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_sharded_worker as W
+    bad = OTObjective(eps=0.5, policy=ExecutionPolicy(mesh=object()))
+    cx, cy, cu, R = _clouds(3, 12, 10, 2, 6, 0.5)
+    x, y, u = _t(cx), _t(cy), _t(cu)
+    with pytest.raises(ValueError, match="no axis named"):
+        bad.divergence(bad.gaussian(x, y, u, R=R))
+    local = OTObjective(eps=0.5, tol=1e-6, max_iter=500)
+    with W.world_of_one(tmp_path / "init") as mesh:
+        obj = OTObjective(eps=0.5, tol=1e-6, max_iter=500,
+                          policy=ExecutionPolicy(mesh=mesh, device="cpu"))
+        assert "mesh={'data': 1}@data" in obj.policy.describe()
+        got = obj.divergence(obj.gaussian(x, y, u, R=R))
+    want = local.divergence(local.gaussian(x, y, u, R=R))
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
     obj = OTObjective(eps=0.5, policy=ExecutionPolicy(device="cuda"))
     geom = obj.gaussian(torch.zeros(3, 2), torch.ones(4, 2),
                         torch.zeros(5, 2), R=2.0)
