@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -257,6 +257,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    megakernel launch. Per world: ms an iteration, the collectives' ms an
    iteration (the same all-reduces and host read, timed alone) and their
    share, and the world's seconds.
+12. the LM surfaces (``repro_torch.models``, ``optim``, ``checkpoint``,
+   ``launch.train`` / ``serve``, ``examples.train_lm``) at smollm-135m's
+   full width and depth (30 layers, d_model 576, 9 heads over 3 KV heads,
+   d_ff 1536, vocab 49152, float32): (a) the OT prototype loss on batch-8
+   x seq-256 hidden states (512 tokens against 512 prototypes, r = 257,
+   eps 2.0, 30 iterations, bf16 factors) on the fused plan against the
+   plain operators on the card (loss 1e-4 relative, gradients 1e-3 of max
+   |grad|), its launches forward and backward, its ms, and its loop's stop
+   at exactly 30 iterations, bit-identical to the eager host loop; (b) one
+   full step at batch 2 x 256 on the card against the port on the CPU
+   (``ce`` 1e-5, ``ot`` 1e-4 relative, gradients 1e-3 of each leaf's max
+   |grad|); (c) the counted run: 40 ``make_train_step`` steps at 8 x 256,
+   saved after step 19, restored bit-identical, steps 20-39 resumed within
+   1e-4 relative of the uninterrupted losses; ce falls, all metrics
+   finite, 0 captures after the first step; ms a step, tokens/s, the OT
+   loss's share, the busy share of 5 steps under the profiler and the
+   peak memory; (d) ``launch.serve`` at its defaults (batch 4, prompt 32,
+   16 generated) and at batch 32, each decode step's logits within 1e-4 of
+   max |logit| of ``prefill`` of the same prefix; (e) ``launch.train
+   --steps 20 --ckpt-dir``, its ``--resume`` and ``examples.train_lm
+   --strict --steps 40`` as subprocesses, each rc 0.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -278,6 +299,7 @@ The line before the last is a JSON object listing the kernels; the last is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -2187,12 +2209,23 @@ def run_main_path(torch, np, device):
     return problems, results, div, counts, failures
 
 
+KernelRow = collections.namedtuple("KernelRow",
+                                   "key count self_device_time_total")
+
+
 def kernel_rows(torch, prof):
-    """The profiler's rows that are device kernels. A CPU-side row (an aten
-    op, the autograd Function around a solve) also reports the device time
-    of the kernels it launched, so summing every row counts them twice."""
+    """The profiler's device rows (kernels, copies, sets) by name, summed
+    from its raw events. A CPU-side row (an aten op, the autograd Function
+    around a solve) also reports the device time of the kernels it
+    launched, so summing every row would count them twice; and building
+    the rows of every op (``key_averages``) takes ~40 s for 5 LM steps."""
     cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.key_averages() if e.device_type == cuda]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return [KernelRow(k, n, us) for k, (n, us) in by_name.items()]
 
 
 def profile_solve(torch, problem, schedule):
@@ -4978,6 +5011,491 @@ def run_sharded_path(torch, np, device, src):
     return nccl_counts, failures
 
 
+LM_ARCH = "smollm-135m"         # the repo's LM example: 30 layers, d 576
+LM_BATCH, LM_SEQ = 8, 256       # the drivers' defaults: 2048 tokens a step
+LM_STEPS, LM_SAVE_AT = 40, 20   # steps of (c), and the step it saves after
+LM_CHECK_BATCH = 2              # (b): 2 x 256 = 512 tokens, the OT loss's n
+LM_CE_RTOL = 1e-5
+LM_OT_RTOL = 1e-4
+LM_GRAD_TOL = 1e-3              # of each leaf's max |grad|
+LM_RESUME_RTOL = 1e-4           # resumed losses against the uninterrupted run
+LM_PROFILED = 5                 # the last resumed steps, under the profiler
+LM_SHARE_PAIRS = 9              # steps with the OT loss on, then off
+LM_SERVE_BATCHES = (4, 32)      # launch.serve's default batch, then 32
+LM_DECODE_TOL = 1e-4            # decode against prefill, of max |logit|
+LM_PATH_KERNELS = ("log_feature_contract", "log_halfstep")
+
+
+def lm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def lm_grads(torch, params, cfg, batch, policy):
+    """(loss metrics as floats, gradients) of one train_loss."""
+    from repro_torch.launch.steps import loss_and_grads
+    grads, metrics = loss_and_grads(params, cfg, batch, policy)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def leaves_within(torch, got, want, tol, label):
+    """Names of leaves of ``got`` off ``want`` by more than ``tol`` of the
+    leaf's max |value| (``want`` on any device), with the worst ratio."""
+    from repro_torch.tree import named_leaves
+    want = dict(named_leaves(want))
+    bad, worst = [], 0.0
+    for name, g in named_leaves(got):
+        w = want[name].to(g.device).double()
+        err = float((g.double() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= tol:
+            bad.append(f"{label} {name}: {err:.3g}")
+    return bad, worst
+
+
+def lm_ot_inputs(torch, cfg, device):
+    """Phase 12 (a)'s inputs: the OT loss's parameters and batch-8 x
+    seq-256 hidden states of width d_model, from seeds."""
+    from repro_torch.models.ot_loss import init_ot_loss
+    gen = torch.Generator().manual_seed(12)
+    p_ot = init_ot_loss(gen, cfg.d_model, ot_dim=cfg.ot_dim,
+                        n_protos=cfg.ot_protos, n_features=cfg.ot_features,
+                        eps=cfg.ot_eps, device=device)
+    h = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), generator=gen)
+    return p_ot, h.to(device)
+
+
+def lm_ot_loss(torch, cfg, p_ot, h, policy, between=None):
+    """(loss, gradients in h and the three OT leaves) of the OT loss;
+    ``between()`` runs after the forward, before the backward."""
+    from repro_torch.models.ot_loss import ot_prototype_loss
+    leaves = {k: v.detach().requires_grad_(True) for k, v in p_ot.items()}
+    hh = h.detach().requires_grad_(True)
+    loss = ot_prototype_loss(leaves, hh, eps=cfg.ot_eps,
+                             n_tokens=cfg.ot_tokens, n_iter=cfg.ot_iters,
+                             policy=policy)
+    if between is not None:
+        between()
+    grads = torch.autograd.grad(loss, [hh] + list(leaves.values()))
+    return loss.detach(), dict(zip(["h"] + list(leaves), grads))
+
+
+def check_lm_ot_loss(torch, np, device, cfg):
+    """Phase 12 (a): the OT loss at full width on the fused plan (graphs
+    on) against the plain operators on the card; launches of rows 6 and 7
+    per loss, forward and backward; the loss's ms; the loop's exact stop
+    at ``ot_iters``. Returns (failures, ms of one forward + backward)."""
+    from repro_torch.core.geometry import FactoredPositive
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.core.sinkhorn import sinkhorn_log_geometry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ot_loss import prototype_log_features
+
+    failures = []
+    p_ot, h = lm_ot_inputs(torch, cfg, device)
+    fused = ExecutionPolicy.from_config(cfg, device=device)
+    plain = dataclasses.replace(fused, use_pallas=False)
+    with torch.no_grad():
+        lx, lz = prototype_log_features(p_ot, h, eps=cfg.ot_eps,
+                                        n_tokens=cfg.ot_tokens)
+    geom = FactoredPositive(log_xi=lx, log_zeta=lz, eps=cfg.ot_eps)
+    n, m = geom.shape
+    log(f"  (a) OT loss: {n} tokens of {LM_BATCH} x {LM_SEQ} against "
+        f"{m} prototypes, r = {geom.log_xi.shape[1]} (ot_features + the "
+        f"kappa column), eps {cfg.ot_eps}, {cfg.ot_iters} iterations, "
+        f"tol 0, precision {fused.precision}; policy {fused.describe()}")
+    lm_ot_loss(torch, cfg, p_ot, h, fused)          # captures the runner
+    torch.cuda.synchronize()
+    loop0 = loop_stats()
+    fwd = {}
+
+    def read_forward():
+        torch.cuda.synchronize()
+        fwd.update({k: v for k, v in launch_counts().items() if v})
+        reset_launch_counts()
+
+    reset_launch_counts()
+    loss_k, grads_k = lm_ot_loss(torch, cfg, p_ot, h, fused, read_forward)
+    torch.cuda.synchronize()
+    bwd = {k: v for k, v in launch_counts().items() if v}
+    loop = loop_delta(loop0, loop_stats())
+    log(f"  (a) launches per loss: forward {fwd}, backward {bwd or 0} (the "
+        "envelope VJP differentiates the log operator once, in plain "
+        f"torch); loop {loop}")
+    for k in LM_PATH_KERNELS:
+        if fwd.get(k, 0) <= 0:
+            failures.append(f"(a) {k} not launched by the OT loss")
+    if loop["captures"] != 0:
+        failures.append(f"(a) OT loss captured {loop['captures']} loops "
+                        "after its first call")
+    loss_p, grads_p = lm_ot_loss(torch, cfg, p_ot, h, plain)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    bad, worst = leaves_within(torch, grads_k, grads_p, LM_GRAD_TOL, "(a)")
+    log(f"  (a) loss: kernels {float(loss_k):.7f}, plain operators "
+        f"{float(loss_p):.7f} (rel {rel:.3g}, bar {LM_OT_RTOL}); gradients "
+        f"worst {worst:.3g} of max |grad| (bar {LM_GRAD_TOL})")
+    if not rel <= LM_OT_RTOL:
+        failures.append(f"(a) OT loss kernels vs plain rel {rel:.3g}")
+    failures += bad
+    # the loop stops at exactly ot_iters, the graph path bit for bit the
+    # eager host loop's
+    a = torch.full((n,), 1.0 / n, device=device)
+    b = torch.full((m,), 1.0 / m, device=device)
+    kw = dict(tol=0.0, max_iter=cfg.ot_iters, precision=fused.precision)
+    res_g = sinkhorn_log_geometry(geom, a, b, **kw)
+    with eager_loop():
+        res_e = sinkhorn_log_geometry(geom, a, b, **kw)
+    same = torch.equal(res_g.f, res_e.f) and torch.equal(res_g.g, res_e.g)
+    log(f"  (a) solve: n_iter {int(res_g.n_iter)} graphs, "
+        f"{int(res_e.n_iter)} eager; potentials bit-identical: {same}")
+    if int(res_g.n_iter) != cfg.ot_iters or int(res_e.n_iter) != \
+            cfg.ot_iters or not same:
+        failures.append("(a) the loop's stop at ot_iters")
+
+    def fwd_bwd():
+        lm_ot_loss(torch, cfg, p_ot, h, fused)
+
+    ms = time_ms(torch, fwd_bwd, batches=7, per_batch=3, warmup=1)
+    ms_plain = time_ms(torch, lambda: lm_ot_loss(torch, cfg, p_ot, h, plain),
+                       batches=7, per_batch=3, warmup=1)
+    log(f"  (a) OT loss forward + backward: {ms:.4f} ms on the kernels, "
+        f"{ms_plain:.4f} ms on the plain operators")
+    return failures, ms
+
+
+def check_lm_step_card_vs_cpu(torch, np, device, cfg):
+    """Phase 12 (b): one full smollm-135m step's loss and gradients on the
+    card against the port on the CPU, from one set of weights and one
+    batch of 2 x 256."""
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    failures = []
+    cpu = torch.device("cpu")
+    params_cpu = init_params(cfg, seed=0, device=cpu)
+    params = tree_map(lambda t: t.to(device), params_cpu)
+    batch_cpu = DataPipeline(DataConfig(0, LM_CHECK_BATCH, LM_SEQ,
+                                        cfg.vocab), device=cpu).batch_at(0)
+    batch = {k: v.to(device) for k, v in batch_cpu.items()}
+    t0 = time.perf_counter()
+    m_card, g_card = lm_grads(torch, params, cfg, batch,
+                              ExecutionPolicy.from_config(cfg))
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = lm_grads(torch, params_cpu, cfg, batch_cpu,
+                            ExecutionPolicy.from_config(cfg))
+    t_cpu = time.perf_counter() - t0
+    ce = abs(m_card["ce"] - m_cpu["ce"]) / abs(m_cpu["ce"])
+    ot = abs(m_card["ot"] - m_cpu["ot"]) / abs(m_cpu["ot"])
+    bad, worst = leaves_within(torch, g_card, g_cpu, LM_GRAD_TOL, "(b)")
+    log(f"  (b) one step, {cfg.n_layers} layers, batch {LM_CHECK_BATCH} x "
+        f"{LM_SEQ}: ce {m_card['ce']:.7f} card / {m_cpu['ce']:.7f} cpu "
+        f"(rel {ce:.3g}, bar {LM_CE_RTOL}); ot {m_card['ot']:.7f} / "
+        f"{m_cpu['ot']:.7f} (rel {ot:.3g}, bar {LM_OT_RTOL}); gradients "
+        f"worst {worst:.3g} of a leaf's max |grad| (bar {LM_GRAD_TOL}); "
+        f"{t_card:.2f} s card (first call), {t_cpu:.2f} s cpu")
+    if not ce <= LM_CE_RTOL:
+        failures.append(f"(b) ce card vs cpu rel {ce:.3g}")
+    if not ot <= LM_OT_RTOL:
+        failures.append(f"(b) ot card vs cpu rel {ot:.3g}")
+    return failures + bad
+
+
+def run_lm_training(torch, np, device, cfg, ckpt_dir):
+    """Phase 12 (c), the counted run: LM_STEPS steps of smollm-135m at
+    LM_BATCH x LM_SEQ through ``make_train_step``, saving (params, AdamW
+    state) after step LM_SAVE_AT - 1; then the restore (bit-identical) and
+    the resumed steps, the last LM_PROFILED of them under the profiler;
+    then LM_SHARE_PAIRS pairs of steps with the OT loss on and off, one
+    after the other, for the OT loss's share of a step. Returns (counts,
+    failures, summary)."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_count
+    from repro_torch.optim import AdamWConfig, init_adamw
+    from repro_torch.tree import named_leaves
+
+    failures, parts, mark = [], {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        parts[name] = parts.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shape = ShapeSpec("phase12", LM_SEQ, LM_BATCH, "train")
+    step_fn, _ = make_train_step(cfg, None, shape, AdamWConfig(),
+                                 total_steps=LM_STEPS)
+    params = init_params(cfg, seed=0, device=device)
+    state = (params, init_adamw(params, step_fn.opt))
+    data = DataPipeline(DataConfig(0, LM_BATCH, LM_SEQ, cfg.vocab),
+                        device=device)
+    mgr = CheckpointManager(str(ckpt_dir), keep=2)
+
+    def one(state, step, fn=step_fn):
+        p, o, m = fn(state[0], state[1], data.batch_at(step))
+        return (p, o), {k: float(v) for k, v in m.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    clear_runners()
+    loop0 = loop_stats()
+    reset_launch_counts()
+    lap("set-up")
+    hist, walls, saved = [], [], None
+    for step in range(LM_STEPS):
+        t0 = time.perf_counter()
+        state, m = one(state, step)            # the floats wait for the card
+        walls.append((time.perf_counter() - t0) * 1e3)
+        hist.append(m)
+        if step == 0:
+            loop1 = loop_stats()
+            lap("step 0")
+        if step == LM_SAVE_AT - 1:
+            lap("steps 1-39")
+            mgr.save(step, state)
+            saved = state
+            lap("save")
+    lap("steps 1-39")
+    counts = launch_counts()
+    loop = loop_delta(loop1, loop_stats())
+    first = loop_delta(loop0, loop1)
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = statistics.median(walls[-20:])
+    tok_s = LM_BATCH * LM_SEQ / (ms / 1e3)
+    log(f"  (c) {LM_STEPS} steps of {cfg.name} ({param_count(params)} "
+        f"parameters, {cfg.n_layers} layers) at {LM_BATCH} x {LM_SEQ}: "
+        f"{ms:.3f} ms a step (median of the last 20), {tok_s:.1f} tokens/s, "
+        f"peak memory {peak / 2**30:.3f} GiB; first step "
+        f"{walls[0]:.1f} ms")
+    log(f"  (c) ce {hist[0]['ce']:.4f} -> {hist[-1]['ce']:.4f}, ot "
+        f"{hist[0]['ot']:.4f} -> {hist[-1]['ot']:.4f}, grad norm "
+        f"{hist[0]['grad_norm']:.3f} -> {hist[-1]['grad_norm']:.3f}; loops: "
+        f"{first} in step 0, {loop} after it; launches {counts}")
+    if loop["captures"] != 0:
+        failures.append(f"(c) {loop['captures']} captures after step 0")
+    if not all(math.isfinite(v) for m in hist for v in m.values()):
+        failures.append("(c) non-finite metrics")
+    head = statistics.mean(m["ce"] for m in hist[:5])
+    tail = statistics.mean(m["ce"] for m in hist[-5:])
+    if not tail < head:
+        failures.append(f"(c) ce did not fall: {head:.4f} -> {tail:.4f}")
+    # the restore is bit-identical to what was saved, and the resumed
+    # steps give the uninterrupted run's losses
+    restored, man = mgr.restore(None, saved)
+    diff = [name for (name, a), (_, b) in zip(named_leaves(saved),
+                                              named_leaves(restored))
+            if not torch.equal(a, b)]
+    log(f"  (c) restore of step {man['step']}: "
+        f"{len(named_leaves(saved))} tensors, "
+        f"{'bit-identical' if not diff else f'{len(diff)} differ'}")
+    if diff or man["step"] != LM_SAVE_AT - 1:
+        failures.append(f"(c) restore differs: {diff[:4]}")
+    del saved
+    lap("restore")
+    loop2 = loop_stats()
+    state, resumed_m = restored, {}
+    for step in range(LM_SAVE_AT, LM_STEPS - LM_PROFILED):
+        state, resumed_m[step] = one(state, step)
+    lap("resumed steps")
+
+    def profiled():
+        nonlocal state
+        for step in range(LM_STEPS - LM_PROFILED, LM_STEPS):
+            state, resumed_m[step] = one(state, step)
+
+    share, wall, top = busy_share(torch, profiled)
+    lap("profiled steps")
+    worst = max(abs(m[k] - hist[step][k]) / abs(hist[step][k])
+                for step, m in resumed_m.items() for k in ("loss", "ce", "ot"))
+    resumed = loop_delta(loop2, loop_stats())
+    log(f"  (c) resumed steps {LM_SAVE_AT}-{LM_STEPS - 1}: worst loss / ce "
+        f"/ ot rel {worst:.3g} against the uninterrupted run (bar "
+        f"{LM_RESUME_RTOL}); loops {resumed}")
+    if not worst <= LM_RESUME_RTOL:
+        failures.append(f"(c) resumed losses rel {worst:.3g}")
+    if resumed["captures"] != 0:
+        failures.append("(c) the resumed run captured")
+    log(f"  (c) profiled steps {LM_STEPS - LM_PROFILED}-{LM_STEPS - 1}: "
+        f"{wall * 1e3:.1f} ms, device busy share "
+        f"{'not measured' if share is None else f'{share:.4f}'}; top "
+        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms"
+                    for e in top[:4]))
+    # the OT loss's share of a step: steps with the loss on and off, in
+    # turn, from the same state (so under the same load of the host), the
+    # side that runs first alternating pair by pair
+    off_fn, _ = make_train_step(dataclasses.replace(cfg, ot_loss_weight=0.0),
+                                None, shape, AdamWConfig(),
+                                total_steps=LM_STEPS)
+    loop3 = loop_stats()
+    on_ms, off_ms = [], []
+    for pair in range(LM_SHARE_PAIRS):
+        sides = ((step_fn, on_ms), (off_fn, off_ms))
+        for fn, out in sides[::1 if pair % 2 else -1]:   # alternate the lead
+            t0 = time.perf_counter()
+            one(state, pair, fn)
+            out.append((time.perf_counter() - t0) * 1e3)
+    paired = loop_delta(loop3, loop_stats())
+    if paired["captures"] != 0:
+        failures.append("(c) the paired steps captured")
+    ms_on = statistics.median(on_ms[1:])
+    ms_off = statistics.median(off_ms[1:])
+    diffs = [a - b for a, b in zip(on_ms[1:], off_ms[1:])]
+    ot_share = statistics.median(diffs) / ms_on
+    log(f"  (c) OT loss on / off, {LM_SHARE_PAIRS - 1} pairs of steps after "
+        f"one discarded: {ms_on:.3f} / {ms_off:.3f} ms a step (medians); "
+        f"on - off by pair {[round(d, 1) for d in diffs]} ms; the OT loss's "
+        f"share of a step {ot_share:.4f} (the median difference over the "
+        f"median step); loops {paired}")
+    lap("paired steps")
+    log("  (c) parts (s): " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in parts.items()))
+    return counts, failures, dict(ms=ms, tok_s=tok_s, peak=peak,
+                                  share=share, ot_share=ot_share)
+
+
+def check_lm_serving(torch, np, device, cfg):
+    """Phase 12 (d): ``launch.serve`` at its defaults (batch 4, prompt 32,
+    generate 16) and at batch 32; each decode step's logits against
+    ``prefill`` of the same prefix."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_caches, prefill
+    from repro_torch.models.model import effective_window
+
+    failures = []
+    params = None
+    for batch in LM_SERVE_BATCHES:
+        out = serve.main(["--arch", LM_ARCH, "--batch", str(batch)],
+                         params=params)
+        params = out["params"]
+        seq = torch.cat([out["prompt"], out["generated"]], dim=1)
+        T = seq.shape[1]
+        caches = init_caches(cfg, batch, T, device=device)
+        win = effective_window(cfg, T)
+        worst = 0.0
+        with torch.no_grad():
+            for i in range(T):
+                logits, caches = decode_step(params, cfg,
+                                             {"tokens": seq[:, i:i + 1]},
+                                             caches, window=win)
+                ref = prefill(params, cfg, {"tokens": seq[:, :i + 1]})
+                err = float((logits - ref).abs().max()) / float(
+                    ref.abs().max())
+                worst = max(worst, err)
+        log(f"  (d) serve batch {batch}: prefill {out['prefill_ms']:.3f} ms "
+            f"a token step, decode {out['decode_tok_s']:.1f} tok/s; decode "
+            f"vs prefill over {T} prefixes: worst {worst:.3g} of max |logit|"
+            f" (bar {LM_DECODE_TOL})")
+        if not worst <= LM_DECODE_TOL:
+            failures.append(f"(d) batch {batch} decode vs prefill "
+                            f"{worst:.3g}")
+    return failures
+
+
+def run_lm_drivers(src, build_dir):
+    """Phase 12 (e): the train driver then its resume, and beside them the
+    example's --strict run, as subprocesses (each host-bound, so the two
+    lanes share the card); each must exit 0."""
+    import os
+    import shutil
+    ckpt = build_dir / "lm_driver_ckpt"
+    example = build_dir / "lm_example_ckpt"
+    for d in (ckpt, example):
+        shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(src))
+    train = ["-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--steps",
+             "20", "--ckpt-dir", str(ckpt)]
+    strict = ["-m", "repro_torch.examples.train_lm", "--strict", "--steps",
+              "40", "--ckpt-dir", str(example)]
+
+    def start(args):
+        """Start the driver; a thread waits for it (at most 300 s, then
+        kills it) and takes the time at which it exited."""
+        import threading
+        run = dict(args=args, t0=time.perf_counter())
+        proc = run["proc"] = subprocess.Popen(
+            [sys.executable] + args, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+        def wait():
+            try:
+                run["out"], run["err"] = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                run["out"], run["err"] = proc.communicate()
+            run["secs"] = time.perf_counter() - run["t0"]
+
+        run["thread"] = threading.Thread(target=wait)
+        run["thread"].start()
+        return run
+
+    def finish(run):
+        run["thread"].join()
+        args, proc = run["args"], run["proc"]
+        lines = [ln for ln in run["out"].splitlines() if ln.strip()]
+        name = " ".join(args[1:2] + args[-1:] if "--resume" in args
+                        else args[1:2])
+        log(f"  (e) {name}: rc {proc.returncode} in {run['secs']:.1f} s "
+            "(start to exit); its output:")
+        for line in lines:
+            log(f"      {line[:300]}")
+        if proc.returncode != 0:
+            log("      " + run["err"].strip().replace("\n", "\n      ")[-2000:])
+            return [f"(e) {' '.join(args)} rc {proc.returncode}"]
+        return []
+
+    side = start(strict)
+    failures = []
+    try:
+        failures += finish(start(train))
+        failures += finish(start(train + ["--resume"]))
+    finally:
+        failures += finish(side)
+    return failures
+
+
+def run_lm_path(torch, np, device, src):
+    """Phase 12: the LM surfaces on the card. Returns (the counted run's
+    launches, failures)."""
+    cfg = lm_config()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    failures, ot_ms = timed("a", check_lm_ot_loss, torch, np, device, cfg)
+    failures += timed("b", check_lm_step_card_vs_cpu, torch, np, device,
+                      cfg)
+    build_dir = Path(__file__).resolve().parent / "build"
+    counts, more, summary = timed("c", run_lm_training, torch, np, device,
+                                  cfg, build_dir / "lm_ckpt")
+    failures += more
+    missing = [k for k in LM_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    log(f"  (c) the OT loss's share of a step, an estimate from (a)'s loss "
+        f"alone: {ot_ms:.4f} / {summary['ms']:.3f} ms = "
+        f"{ot_ms / summary['ms']:.4f} (in the step, on / off: "
+        f"{summary['ot_share']:.4f})")
+    failures += timed("d", check_lm_serving, torch, np, device, cfg)
+    failures += timed("e", run_lm_drivers, src, build_dir)
+    log("  phase 12 parts (s): " + ", ".join(f"({k}) {v:.1f}"
+                                            for k, v in walls.items()))
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -4989,7 +5507,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 
 
 def main(argv=None) -> int:
@@ -4998,7 +5516,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all eleven)")
+                    "result lines need all twelve)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -5294,10 +5812,26 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 11 FAILED: {failures}")
             return 1
+    if 12 in phases:
+        log(f"== phase 12: the LM surfaces ({LM_ARCH} at full width and "
+            f"depth: (a) the OT loss at {LM_BATCH} x {LM_SEQ}, kernels vs "
+            f"plain operators; (b) one step at {LM_CHECK_BATCH} x {LM_SEQ}, "
+            f"card vs CPU; (c) {LM_STEPS} steps at {LM_BATCH} x {LM_SEQ} "
+            f"with a checkpoint after step {LM_SAVE_AT - 1} and a resume; "
+            f"(d) launch.serve at batch {LM_SERVE_BATCHES}; (e) the drivers "
+            "as subprocesses)")
+        t12 = time.perf_counter()
+        c12, failures = run_lm_path(torch, np, device, src)
+        log(f"  launches on the LM path: {c12}")
+        counts["lm"] = c12
+        log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
+        if failures:
+            log(f"phase 12 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "eleven")
+            "twelve")
         return 0
 
     kernels = []

@@ -1,19 +1,58 @@
-"""OT support-size buckets: the capacities the streaming stores and the
+"""The four input shapes of the LM cells and their applicability to an
+architecture; the OT support-size buckets the streaming stores and the
 batched engine pad a support to, the batch-count buckets of a serving
 layer, and the bucket cell a batched solve is grouped and cached by.
 
-Powers of two bound padding waste at < 2x. Counterpart of the OT bucket
-part of ``repro.configs.shapes``; the architecture shapes wait for the LM
-surfaces.
+Powers of two bound padding waste at < 2x. Counterpart of
+``repro.configs.shapes``.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
-__all__ = ["OT_SUPPORT_BUCKETS", "ot_bucket", "ot_batch_bucket",
+from .base import ArchConfig
+
+__all__ = ["ShapeSpec", "SHAPES", "get_shape", "cell_applicable",
+           "all_cells", "OT_SUPPORT_BUCKETS", "ot_bucket", "ot_batch_bucket",
            "OTBatchShape"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeSpec:
+    return SHAPES[name]
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(runs?, reason). long_500k needs a sub-quadratic serving path."""
+    if shape.name == "long_500k" and not cfg.supports_long_context():
+        return False, (
+            "skip: pure full-attention arch — 500k decode would need the "
+            "entire quadratic-cost KV cache")
+    if shape.mode == "decode" and not cfg.supports_decode():
+        return False, "skip: encoder-only arch has no decode step"
+    return True, "run"
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    from .base import list_archs
+    return [(a, s) for a in list_archs() for s in SHAPES]
 
 OT_SUPPORT_BUCKETS: Tuple[int, ...] = (
     64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,

@@ -13,7 +13,10 @@ one set of arrays can be handed to both packages. :func:`mlp_stack` and
 :func:`paged_factored` and :func:`streaming_distribution` carry a paged
 geometry and a streaming store's state, slot for slot;
 :func:`solve_spec` and :func:`recovery_policy` carry a ``SolveSpec`` and
-its ``RecoveryPolicy`` field by field. Stacked inputs of the batched
+its ``RecoveryPolicy`` field by field; :func:`lm_params` and
+:func:`adamw_state` carry an LM's parameter pytree and its AdamW state
+leaf by leaf (the port keeps the JAX layouts, stacked layer groups and
+``x @ w`` weights, so no leaf is transposed). Stacked inputs of the batched
 engine are carried one problem at a time through :func:`factored_positive`
 and :func:`ot_problem`, then stacked.
 """
@@ -38,8 +41,12 @@ from .core.paged import PagedFactored
 from .core.spec import SolveSpec
 from .examples.ot_gan import MLP, OTGAN
 from .kernels.backend import as_f32, resolve_device
+from .models import init_params
+from .models.layers import init_device
+from .optim.adamw import AdamWState
 from .resilience.policy import RUNGS, RecoveryPolicy
 from .streaming import PagedFeatureStore, StreamingDistribution
+from .tree import named_leaves, tree_unflatten
 
 __all__ = [
     "gaussian_point_cloud",
@@ -55,6 +62,8 @@ __all__ = [
     "streaming_distribution",
     "recovery_policy",
     "solve_spec",
+    "lm_params",
+    "adamw_state",
 ]
 
 
@@ -223,3 +232,57 @@ def solve_spec(geometry, a=None, b=None, *, method: str = "auto",
         key=None if seed is None else torch.Generator().manual_seed(
             int(seed)),
         recovery=None if recovery is None else recovery_policy(**recovery))
+
+
+def _leaf(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """One numpy leaf as a tensor of ``dtype``: bfloat16 arrays (numpy's
+    ``ml_dtypes`` extension type) go through float32, exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind not in "fiub":
+        arr = arr.astype(np.float32)
+    return torch.tensor(arr).to(device=device, dtype=dtype).contiguous()
+
+
+def _like(template, tree_np, device, *, moments: bool = False):
+    """``tree_np``'s leaves as tensors in the structure and shapes of the
+    port's tree ``template``, each in the template leaf's dtype (for
+    ``moments``, in its own: bfloat16 or float32); the names must match."""
+    want = named_leaves(template)
+    have = dict(named_leaves(tree_np))
+    names = {name for name, _ in want}
+    if set(have) != names:
+        raise ValueError(f"names differ: only in the port "
+                         f"{sorted(names - set(have))}, only in the input "
+                         f"{sorted(set(have) - names)}")
+    leaves = []
+    for name, like in want:
+        arr = np.asarray(have[name])
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, the port's is "
+                             f"{tuple(like.shape)}")
+        dtype = like.dtype if not moments else (
+            torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32)
+        leaves.append(_leaf(arr, dtype, device))
+    return tree_unflatten(template, leaves)
+
+
+def lm_params(params_np, cfg, *, device=None):
+    """The port's LM parameters from the JAX ``init_params`` pytree with
+    numpy leaves (``jax.tree.map(np.asarray, params)``): the same nested
+    dicts and lists, names and shapes checked against the port's own
+    ``init_params(cfg)``, each leaf in its dtype there, on ``device``."""
+    dev = init_device(device)
+    return _like(init_params(cfg, device="meta"), params_np, dev)
+
+
+def adamw_state(state_np, params, *, device=None) -> AdamWState:
+    """The port's :class:`~repro_torch.optim.adamw.AdamWState` from the JAX
+    state with numpy leaves ``(step, m, v)``; ``params`` are the port's
+    parameters (their structure and shapes; the moments keep the dtypes of
+    ``state_np``)."""
+    dev = init_device(device)
+    step, m, v = state_np
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32, device=dev),
+                      m=_like(params, m, dev, moments=True),
+                      v=_like(params, v, dev, moments=True))

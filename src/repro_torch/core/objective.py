@@ -13,8 +13,8 @@
 
 Counterpart of ``repro.core.objective``. The JAX ``backend`` field is a
 ``device`` here; ``mesh`` is a ``DeviceMesh``, and a policy with one runs
-the divergence sharded (``core.sharded``). ``from_config`` waits for the
-config module.
+the divergence sharded (``core.sharded``). ``from_config`` builds the
+run-wide policy of an LM run from its ``ArchConfig``.
 """
 from __future__ import annotations
 
@@ -72,6 +72,23 @@ class ExecutionPolicy:
         kw: Dict[str, Any] = dict(precision="bf16")
         kw.update(overrides)
         return cls(**kw)
+
+    @classmethod
+    def from_config(cls, cfg, mesh: Optional[Any] = None, *,
+                    device=None) -> "ExecutionPolicy":
+        """The run-wide policy from an ``ArchConfig``'s ``ot_*`` execution
+        fields (missing fields fall back to the training defaults), on
+        ``device`` (``None``: the geometry's). The JAX package's
+        ``ot_backend`` pin names a Pallas backend and has no counterpart:
+        the port's one compiled route is the card's CUDA kernels."""
+        return cls(
+            device=None if device is None else str(device),
+            precision=getattr(cfg, "ot_precision", "bf16"),
+            use_pallas=getattr(cfg, "ot_use_pallas", None),
+            inner_steps=getattr(cfg, "ot_inner_steps", None),
+            check_every=getattr(cfg, "ot_check_every", None),
+            mesh=mesh,
+        )
 
     def solver_kwargs(self) -> Dict[str, Any]:
         """The knobs threaded into ``sinkhorn_*`` / ``rot_geometry`` calls."""

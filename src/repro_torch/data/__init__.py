@@ -1,6 +1,22 @@
-"""Deterministic synthetic data of the port: the paper's point clouds."""
+"""Deterministic synthetic data of the port: the LM token streams, their
+pipeline, and the paper's point clouds. Counterpart of ``repro.data``."""
 from __future__ import annotations
 
-from .synthetic import gaussian_clouds, highdim_clouds, sphere_clouds
+from .pipeline import DataConfig, DataPipeline
+from .synthetic import (
+    gaussian_clouds,
+    highdim_clouds,
+    lm_batch,
+    sphere_clouds,
+    token_batch,
+)
 
-__all__ = ["gaussian_clouds", "sphere_clouds", "highdim_clouds"]
+__all__ = [
+    "DataConfig",
+    "DataPipeline",
+    "gaussian_clouds",
+    "highdim_clouds",
+    "lm_batch",
+    "sphere_clouds",
+    "token_batch",
+]

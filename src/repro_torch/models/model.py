@@ -1,0 +1,409 @@
+"""Model assembly: configs -> init / forward / loss / prefill / decode, for
+the ``dense`` and ``vlm`` families.
+
+The layer plan (``configs.base.ArchConfig.layer_plan``) is grouped into
+runs of one block kind; each run's parameters are stacked on a leading
+layer axis, as the JAX package stacks them for its ``lax.scan``, so the
+two packages' parameters line up leaf for leaf and AdamW's weight-decay
+mask (every leaf of more than one dimension) decays a group's norm scales
+and biases as the reference does. The forward unbinds each stacked leaf
+once and runs the layers in order, each under
+``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set.
+
+Parameters are a nested dict of tensors (``tree.named_leaves`` names
+them). The OT prototype loss (``models.ot_loss``) is part of
+:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. The MoE, SSM,
+hybrid and encoder-decoder families (and MLA, MTP and learned positions)
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Counterpart of ``repro.models.model``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import ArchConfig
+from ..core.objective import ExecutionPolicy
+from ..tree import tree_leaves, tree_unflatten
+from .attention import GQACache, gqa_attend_step, gqa_train, init_gqa, \
+    init_gqa_cache
+from .layers import (
+    init_device,
+    init_embedding,
+    init_linear,
+    init_mlp,
+    layernorm,
+    linear,
+    mlp,
+    rmsnorm,
+)
+from .ot_loss import init_ot_loss, ot_prototype_loss
+
+__all__ = [
+    "check_ported",
+    "init_params",
+    "forward",
+    "train_loss",
+    "prefill",
+    "decode_step",
+    "init_caches",
+    "group_plan",
+    "effective_window",
+    "param_count",
+]
+
+PORTED_FAMILIES = ("dense", "vlm")
+
+_WAITS = {
+    "moe": "ROADMAP.md §A item 8a (MoE with the Sinkhorn router, MLA and "
+           "MTP)",
+    "ssm": "ROADMAP.md §A item 8b (SSM and hybrid)",
+    "hybrid": "ROADMAP.md §A item 8b (SSM and hybrid)",
+    "encdec": "ROADMAP.md §A item 8c (encoder-decoder)",
+}
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot run yet,
+    naming the ROADMAP item that ports it."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
+            f"{_WAITS.get(cfg.family, 'ROADMAP.md §A item 8')} ports it")
+    if cfg.attention != "gqa" or cfg.n_experts or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA, MoE and MTP are not ported yet; "
+            f"{_WAITS['moe']} ports them")
+    if cfg.pos != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: learned positions are not ported yet; "
+            f"{_WAITS['encdec']} ports them")
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+def _init_norm(cfg: ArchConfig, device, lead=()) -> Dict[str, torch.Tensor]:
+    shape = lead + (cfg.d_model,)
+    p = {"w": torch.ones(shape, dtype=cfg.dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    return p
+
+
+def group_plan(plan: List[str]) -> List[Tuple[str, int]]:
+    groups: List[Tuple[str, int]] = []
+    for kind in plan:
+        if groups and groups[-1][0] == kind and kind != "shared_attn":
+            groups[-1] = (kind, groups[-1][1] + 1)
+        else:
+            groups.append((kind, 1))
+    return groups
+
+
+def effective_window(cfg: ArchConfig, s_max: int) -> Optional[int]:
+    if cfg.window is not None:
+        return cfg.window
+    if cfg.long_context_window is not None and s_max > 65536:
+        return cfg.long_context_window
+    return None
+
+
+def _unstack(stack: Any, count: int) -> List[Any]:
+    """The per-layer trees of a stacked group: each leaf unbound once, so
+    the backward stacks the layers' gradients in one allocation."""
+    columns = [leaf.unbind(0) for leaf in tree_leaves(stack)]
+    return [tree_unflatten(stack, [c[i] for c in columns])
+            for i in range(count)]
+
+
+# ---------------------------------------------------------------------------
+# per-block init / train / decode
+# ---------------------------------------------------------------------------
+
+
+def _init_block(generator, cfg: ArchConfig, device, lead=()) -> Dict:
+    p: Dict[str, Any] = {"norm1": _init_norm(cfg, device, lead)}
+    p["attn"] = init_gqa(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, qkv_bias=cfg.qkv_bias, dtype=cfg.dtype,
+                         device=device, lead=lead)
+    if cfg.d_ff:
+        p["norm2"] = _init_norm(cfg, device, lead)
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                            gated=cfg.mlp_gated, dtype=cfg.dtype,
+                            device=device, lead=lead)
+    return p
+
+
+def _block_train(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = x + gqa_train(p["attn"], _norm(p["norm1"], x, cfg),
+                      n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                      head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                      window=cfg.window)
+    if "mlp" in p:
+        x = x + mlp(p["mlp"], _norm(p["norm2"], x, cfg), gated=cfg.mlp_gated)
+    return x
+
+
+def _block_decode(p, x: torch.Tensor, k_cache, v_cache, length,
+                  cfg: ArchConfig, window: Optional[int]):
+    """One token through one block; the cache is read only. Returns
+    ``(x, k_new, v_new)``."""
+    h, k_new, v_new = gqa_attend_step(
+        p["attn"], _norm(p["norm1"], x, cfg), k_cache, v_cache, length,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, window=window)
+    x = x + h
+    if "mlp" in p:
+        x = x + mlp(p["mlp"], _norm(p["norm2"], x, cfg), gated=cfg.mlp_gated)
+    return x, k_new, v_new
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0,
+                generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    """Seeded random parameters (truncated normals, unit norms, zero
+    biases) on ``device`` (default: the card; ``"meta"`` for shapes only),
+    drawn from ``generator`` (default: a CPU generator seeded with
+    ``seed``). The weights are not the JAX package's (``convert.lm_params``
+    carries those across); their distributions are."""
+    check_ported(cfg)
+    dev = init_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator().manual_seed(int(seed))
+    params: Dict[str, Any] = {}
+    if cfg.input_kind == "tokens":
+        params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                         dtype=cfg.dtype, device=dev)
+    params["groups"] = [
+        _init_block(gen, cfg, dev, lead=(count,))
+        for _, count in group_plan(cfg.layer_plan())]
+    params["final_norm"] = _init_norm(cfg, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab,
+                                        dtype=cfg.dtype, device=dev)
+    if cfg.ot_loss_weight > 0:
+        params["ot"] = init_ot_loss(
+            gen, cfg.d_model, ot_dim=cfg.ot_dim, n_protos=cfg.ot_protos,
+            n_features=cfg.ot_features, eps=cfg.ot_eps, device=dev)
+    return params
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+    if cfg.input_kind == "embeds":
+        return batch["embeds"].to(cfg.cdtype)
+    return params["embed"]["table"].to(cfg.cdtype)[batch["tokens"]]
+
+
+def _run_decoder_groups(params, cfg: ArchConfig,
+                        x: torch.Tensor) -> torch.Tensor:
+    remat = cfg.remat and torch.is_grad_enabled()
+    for (_, count), stack in zip(group_plan(cfg.layer_plan()),
+                                 params["groups"]):
+        for p_l in _unstack(stack, count):
+            if remat:
+                leaves = tree_leaves(p_l)
+
+                def body(x_, *ls, _tmpl=p_l):
+                    return _block_train(tree_unflatten(_tmpl, list(ls)), x_,
+                                        cfg)
+
+                x = checkpoint(body, x, *leaves, use_reentrant=False)
+            else:
+                x = _block_train(p_l, x, cfg)
+    return x
+
+
+def forward(params, cfg: ArchConfig,
+            batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hidden (B, S, d) after the final norm, aux losses)."""
+    check_ported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    x = _run_decoder_groups(params, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _norm(params["final_norm"], x, cfg), aux
+
+
+def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["table"].to(h.dtype).T
+    return linear(params["lm_head"], h)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def _head_weight(params, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+_XENT_CHUNKS = 16
+
+
+def _xent_chunk(h, wc, labels, m, s, gold, lo: int, V: int):
+    chunk = wc.shape[1]
+    logits = (h @ wc.to(h.dtype)).float()                 # (B, S, chunk)
+    col = lo + torch.arange(chunk, device=h.device)
+    # the padded tail of the last chunk must not contribute
+    logits = torch.where((col < V)[None, None, :], logits, -1e30)
+    m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+    s = s * torch.exp(m - m_new) + torch.sum(
+        torch.exp(logits - m_new[..., None]), dim=-1)
+    local = torch.clamp(labels - lo, 0, chunk - 1)
+    gold_c = torch.gather(logits, -1, local[..., None])[..., 0]
+    in_chunk = (labels >= lo) & (labels < lo + chunk)
+    return m_new, s, torch.where(in_chunk, gold_c, gold)
+
+
+def _xent_chunked(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                  n_chunks: int = _XENT_CHUNKS) -> torch.Tensor:
+    """Streaming cross-entropy over vocab chunks: the (B, S, V) logits are
+    never built, and each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``), so the peak is O(V / n_chunks)."""
+    B, S, _ = h.shape
+    V = w.shape[1]
+    chunk = -(-V // n_chunks)
+    pad = n_chunks * chunk - V
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=h.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    gold = torch.full((B, S), -1e30, dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled()
+    for i in range(n_chunks):
+        wc = w[:, i * chunk:(i + 1) * chunk]
+        if remat:
+            m, s, gold = checkpoint(_xent_chunk, h, wc, labels, m, s, gold,
+                                    i * chunk, V, use_reentrant=False)
+        else:
+            m, s, gold = _xent_chunk(h, wc, labels, m, s, gold, i * chunk, V)
+    lse = m + torch.log(torch.clamp(s, min=1e-30))
+    return torch.mean(lse - gold)
+
+
+def _lm_ce(params, cfg: ArchConfig, h: torch.Tensor,
+           labels: torch.Tensor) -> torch.Tensor:
+    if cfg.padded_vocab >= 32768:
+        return _xent_chunked(h, _head_weight(params, cfg), labels)
+    return _xent(_logits(params, cfg, h), labels)
+
+
+def train_loss(params, cfg: ArchConfig, batch: Dict,
+               policy: Optional[ExecutionPolicy] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training objective: cross-entropy plus ``ot_loss_weight``
+    times the OT prototype loss. ``policy`` is the run-wide OT execution
+    policy (``None``: ``ExecutionPolicy.from_config(cfg)``). Returns
+    ``(loss, {"ce", "aux"[, "ot"], "loss"})``, 0-d tensors."""
+    if policy is None:
+        policy = ExecutionPolicy.from_config(cfg)
+    h, aux = forward(params, cfg, batch)
+    loss_ce = _lm_ce(params, cfg, h, batch["labels"])
+    metrics = {"ce": loss_ce, "aux": aux}
+    loss = loss_ce + 0.01 * aux
+    if cfg.ot_loss_weight > 0:
+        loss_ot = ot_prototype_loss(
+            params["ot"], h, eps=cfg.ot_eps, n_tokens=cfg.ot_tokens,
+            n_iter=cfg.ot_iters, policy=policy)
+        metrics["ot"] = loss_ot
+        loss = loss + cfg.ot_loss_weight * loss_ot
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# serving: caches / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ArchConfig, batch: int, s_max: int, *,
+                device=None) -> List[GQACache]:
+    """One stacked cache a layer group (leading axis: its layers), k and
+    v of (L, B, S_cache, KH, D) in the compute dtype, ``S_cache`` the
+    window where there is one; ``length`` (L,) int64."""
+    check_ported(cfg)
+    dev = init_device(device)
+    win = effective_window(cfg, s_max)
+    caches = []
+    for _, count in group_plan(cfg.layer_plan()):
+        c = init_gqa_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
+                           window=win, dtype=cfg.cdtype, device=dev)
+        caches.append(GQACache(
+            c.k.expand((count,) + c.k.shape).contiguous(),
+            c.v.expand((count,) + c.v.shape).contiguous(),
+            c.length.expand(count).contiguous()))
+    return caches
+
+
+def decode_step(params, cfg: ArchConfig, token_batch: Dict,
+                caches: List[GQACache], *, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, List[GQACache]]:
+    """One-token decode: ``token_batch`` holds ``tokens`` (B, 1) or
+    ``embeds`` (B, 1, d). Returns ``(logits (B, 1, V), caches)``.
+
+    Each group's cache is written once a step, after its layers have read
+    it, and IN PLACE (the JAX package donates its caches): the returned
+    caches are the given ones. ``window`` must be
+    ``effective_window(cfg, s_max)`` of the session (the rolling buffer of
+    a sliding window); without one the write clamps to the last slot."""
+    check_ported(cfg)
+    if cfg.input_kind == "embeds":
+        x = token_batch["embeds"].to(cfg.cdtype)
+    else:
+        x = params["embed"]["table"].to(cfg.cdtype)[token_batch["tokens"]]
+    for (_, count), cache, stack in zip(group_plan(cfg.layer_plan()), caches,
+                                        params["groups"]):
+        k_new, v_new = [], []
+        for layer, p_l in enumerate(_unstack(stack, count)):
+            x, k_l, v_l = _block_decode(p_l, x, cache.k[layer],
+                                        cache.v[layer], cache.length[layer],
+                                        cfg, window)
+            k_new.append(k_l)
+            v_new.append(v_l)
+        s_cache = cache.k.shape[2]
+        pos = cache.length[:1]
+        slot = torch.remainder(pos, s_cache) if window else \
+            torch.clamp(pos, max=s_cache - 1)
+        cache.k.index_copy_(2, slot, torch.stack(k_new)[:, :, None])
+        cache.v.index_copy_(2, slot, torch.stack(v_new)[:, :, None])
+        cache.length.add_(1)
+    h = _norm(params["final_norm"], x, cfg)
+    return _logits(params, cfg, h), caches
+
+
+def prefill(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+    """The serving prefill: the full forward, then the logits of the last
+    position, (B, 1, V)."""
+    h, _ = forward(params, cfg, batch)
+    return _logits(params, cfg, h[:, -1:, :])
+

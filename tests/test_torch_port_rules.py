@@ -75,6 +75,18 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert {"repro_torch.kernels.autotune", "repro_torch.distributed",
             "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
             "repro_torch.core.sharded"} <= set(MODULES)
+    # and the LM slice's: models, optimizer, checkpoints, supervisor, data,
+    # configs, drivers and the example
+    assert {"repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.ot_loss",
+            "repro_torch.models.model", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint.manager",
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.data.pipeline", "repro_torch.configs.base",
+            "repro_torch.configs.smollm_135m", "repro_torch.launch.steps",
+            "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.launch.specs",
+            "repro_torch.examples.train_lm"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
