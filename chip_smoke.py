@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -278,6 +278,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    max |logit| of ``prefill`` of the same prefix; (e) ``launch.train
    --steps 20 --ckpt-dir``, its ``--resume`` and ``examples.train_lm
    --strict --steps 40`` as subprocesses, each rc 0.
+13. the MoE family (``core.routing``, ``models.moe``, MLA, the MTP head)
+   at deepseek-v3-671b's full width (d_model 7168, 128 heads, kv_lora
+   512, q_lora 1536, 256 experts of d_ff 2048, top-8, one shared expert,
+   dense d_ff 18432, vocab 129280, bf16) cut to 2 layers (one dense MLA
+   layer, one MLA + MoE layer) plus the MTP block, its ~14.5 G parameters
+   drawn on the card from a seeded CUDA generator: (a) ``sinkhorn_route``
+   on seeded float32 logits of 1024 tokens at v3's width (E = 256, k = 8)
+   and v2's (d 5120, E = 160, k = 6), eps 0.05, 8 iterations, bf16 and
+   f32 policies, card against CPU: dispatch equal except on tokens whose
+   CPU plan ties its k-th and (k+1)-th values within 1e-6 relative (NaN
+   included; no untied row may differ), combine within 1e-6 on the equal
+   rows, the balance loss 1e-6 relative where the dispatch is equal; the
+   non-finite shares of u, v and the plan's rows, the load's max / mean
+   against softmax top-k's, the ms and host reads of one call; (b)
+   ``launch.steps.make_serve_step``'s prefill at batch 4 x 64, the prompt
+   fed into the MLA caches and 32 greedy decode steps, logits finite, ms
+   a token step, tok/s, host reads a decode step and peak memory (decode
+   is not held to prefill: the router balances over a call's tokens); and
+   one full-width MLA layer in float32, ``mla_attend_step`` and
+   ``mla_decode`` token by token against ``mla_train`` (atol 3e-4 + rtol
+   3e-3, the reference's bars); (c) ``train_loss`` forward and backward
+   at 2 x 256 with the OT loss on the kernels (their launches counted
+   from (b) to here), then with ``use_pallas=False`` (the first
+   gradients parked on the host): ``ce``, ``aux``, ``mtp``, ``ot`` and
+   every gradient finite, the router's gradient not zero, the loss 1e-4
+   relative, gradients 1e-3 of each leaf's max; ms and peak memory; (d)
+   one MoE layer of deepseek-v2-236b in float32 (160 experts of d_ff 1536
+   over d 5120, 14 GiB) on 256 tokens: ``moe_dense`` against an oracle
+   that runs each expert on its dispatched tokens alone, within 1e-5 of
+   max |out|; (e) ``launch.train --arch deepseek_v3_671b --tiny``,
+   ``launch.serve --arch deepseek_v2_236b --tiny`` and ``examples.train_lm
+   --arch deepseek_v3_671b --tiny --strict`` side by side, each rc 0.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -5401,6 +5433,46 @@ def check_lm_serving(torch, np, device, cfg):
     return failures
 
 
+def start_lane(env, args, timeout=300):
+    """Start ``python args`` with ``env``; a thread waits for it (at most
+    ``timeout`` s, then kills it) and takes the time at which it exited."""
+    import threading
+    run = dict(args=args, t0=time.perf_counter())
+    proc = run["proc"] = subprocess.Popen(
+        [sys.executable] + args, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        try:
+            run["out"], run["err"] = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            run["out"], run["err"] = proc.communicate()
+        run["secs"] = time.perf_counter() - run["t0"]
+
+    run["thread"] = threading.Thread(target=wait)
+    run["thread"].start()
+    return run
+
+
+def finish_lane(run, part):
+    """Join a process of ``start_lane`` and log its output; returns the
+    failures (its nonzero exit)."""
+    run["thread"].join()
+    args, proc = run["args"], run["proc"]
+    lines = [ln for ln in run["out"].splitlines() if ln.strip()]
+    name = " ".join(args[1:2] + args[-1:] if "--resume" in args
+                    else args[1:2])
+    log(f"  ({part}) {name}: rc {proc.returncode} in {run['secs']:.1f} s "
+        "(start to exit); its output:")
+    for line in lines:
+        log(f"      {line[:300]}")
+    if proc.returncode != 0:
+        log("      " + run["err"].strip().replace("\n", "\n      ")[-2000:])
+        return [f"({part}) {' '.join(args)} rc {proc.returncode}"]
+    return []
+
+
 def run_lm_drivers(src, build_dir):
     """Phase 12 (e): the train driver then its resume, and beside them the
     example's --strict run, as subprocesses (each host-bound, so the two
@@ -5416,50 +5488,14 @@ def run_lm_drivers(src, build_dir):
              "20", "--ckpt-dir", str(ckpt)]
     strict = ["-m", "repro_torch.examples.train_lm", "--strict", "--steps",
               "40", "--ckpt-dir", str(example)]
-
-    def start(args):
-        """Start the driver; a thread waits for it (at most 300 s, then
-        kills it) and takes the time at which it exited."""
-        import threading
-        run = dict(args=args, t0=time.perf_counter())
-        proc = run["proc"] = subprocess.Popen(
-            [sys.executable] + args, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-
-        def wait():
-            try:
-                run["out"], run["err"] = proc.communicate(timeout=300)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                run["out"], run["err"] = proc.communicate()
-            run["secs"] = time.perf_counter() - run["t0"]
-
-        run["thread"] = threading.Thread(target=wait)
-        run["thread"].start()
-        return run
-
-    def finish(run):
-        run["thread"].join()
-        args, proc = run["args"], run["proc"]
-        lines = [ln for ln in run["out"].splitlines() if ln.strip()]
-        name = " ".join(args[1:2] + args[-1:] if "--resume" in args
-                        else args[1:2])
-        log(f"  (e) {name}: rc {proc.returncode} in {run['secs']:.1f} s "
-            "(start to exit); its output:")
-        for line in lines:
-            log(f"      {line[:300]}")
-        if proc.returncode != 0:
-            log("      " + run["err"].strip().replace("\n", "\n      ")[-2000:])
-            return [f"(e) {' '.join(args)} rc {proc.returncode}"]
-        return []
-
-    side = start(strict)
+    side = start_lane(env, strict)
     failures = []
     try:
-        failures += finish(start(train))
-        failures += finish(start(train + ["--resume"]))
+        failures += finish_lane(start_lane(env, train), "e")
+        failures += finish_lane(start_lane(env, train + ["--resume"]),
+                                  "e")
     finally:
-        failures += finish(side)
+        failures += finish_lane(side, "e")
     return failures
 
 
@@ -5496,6 +5532,463 @@ def run_lm_path(torch, np, device, src):
     return counts, failures
 
 
+MOE_ARCH = "deepseek_v3_671b"   # full width: d 7168, 128 heads, 256 experts
+MOE_DEPTH = dict(n_layers=2, first_k_dense=1)  # one dense MLA layer + one MoE
+ROUTE_T = 1024                  # (a): tokens of one router call
+ROUTE_CELLS = (("deepseek_v3_671b", 7168, 256, 8),
+               ("deepseek_v2_236b", 5120, 160, 6))
+ROUTE_TIE_RTOL = 1e-6           # k-th and (k+1)-th plan values this close
+ROUTE_COMBINE_TOL = 1e-6
+ROUTE_BALANCE_RTOL = 1e-6
+MOE_SERVE = (4, 64, 32)         # (b): batch, prompt, generated tokens
+MLA_CHECK = (2, 32)             # (b): the f32 MLA layer's batch and sequence
+MOE_TRAIN = (2, 256)            # (c): batch x seq of train_loss
+MOE_LOSS_RTOL = 1e-4            # (c): use_pallas off against on
+MOE_GRAD_TOL = 1e-3             # of each leaf's max |grad| (the OT leaves)
+MOE_YARDSTICK = 2.0             # model leaves: x the gap of a 1e-6 OT nudge
+MOE_ORACLE = ("deepseek_v2_236b", 256)   # (d): the layer's config, tokens
+MOE_ORACLE_TOL = 1e-5           # of max |out|
+MOE_PATH_KERNELS = ("log_feature_contract", "log_halfstep")
+
+
+def host_reads(torch, fn):
+    """``(fn(), the host reads it made)``: the synchronizing CUDA calls
+    torch's sync debug mode reports (``.item()``, ``float()``, copies to
+    the host)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in seen)
+
+
+def sliced_rel_err(torch, got, want, slice_=1 << 27):
+    """max |got - want| / max |want| in float32, ``got`` (on any device)
+    taken to ``want``'s a slice of ``slice_`` elements at a time, so that
+    a leaf of billions of elements never has a float32 copy."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    diff = peak = 0.0
+    for lo in range(0, want.numel(), slice_):
+        w = want[lo:lo + slice_].float()
+        g = got[lo:lo + slice_].to(want.device).float()
+        diff = max(diff, float((g - w).abs().max()))
+        peak = max(peak, float(w.abs().max()))
+    return diff / max(peak, 1e-30)
+
+
+def moe_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), **MOE_DEPTH)
+
+
+def check_router(torch, np, device):
+    """Phase 13 (a): ``sinkhorn_route`` on seeded float32 logits at v3's
+    and v2's width (T = ROUTE_T), the config's bf16 policy and f32, the
+    card against the CPU; the non-finite shares of u, v and the plan, the
+    load's max / mean against softmax top-k's, the ms and host reads of
+    one call."""
+    from repro_torch.core import ExecutionPolicy, balanced_plan, \
+        sinkhorn_route, stable_top_k
+    from repro_torch.models.layers import trunc_normal
+    from repro_torch.models.moe import router_probs
+
+    failures = []
+    cpu = torch.device("cpu")
+    for arch, d, E, k in ROUTE_CELLS:
+        gen = torch.Generator().manual_seed(13)
+        x = torch.randn((ROUTE_T, d), generator=gen)
+        p = {"router": trunc_normal((d, E), 0.02, generator=gen,
+                                    device=cpu)}
+        logits = x @ p["router"]
+        soft, _ = router_probs({"router": p["router"].to(device)},
+                               x.to(device), top_k=k)
+        soft_load = (soft > 0).float().mean(0)
+        for precision in ("bf16", "highest"):
+            pol = ExecutionPolicy(precision=precision)
+            tag = f"(a) {arch} d {d} E {E} k {k} {precision}"
+            card = sinkhorn_route(logits.to(device), top_k=k, policy=pol)
+            host = sinkhorn_route(logits, top_k=k, policy=pol)
+            res_h, plan_h = balanced_plan(logits, policy=pol)
+            res_c, plan_c = balanced_plan(logits.to(device), policy=pol)
+            vals, _ = stable_top_k(plan_h, k + 1)
+            # a NaN k-th or (k+1)-th value ties too: no order separates them
+            near = ~((vals[:, k - 1] - vals[:, k]).abs()
+                     > ROUTE_TIE_RTOL * vals[:, k - 1].abs())
+            differ = (card.dispatch.cpu() != host.dispatch).any(1)
+            off = int((differ & ~near).sum())
+            same = ~differ
+            comb = float((card.combine.cpu()[same] - host.combine[same]
+                          ).abs().max()) if same.any() else 0.0
+            bal_c, bal_h = float(card.balance_loss), float(host.balance_loss)
+            bal = abs(bal_c - bal_h) / max(abs(bal_h), 1e-30)
+
+            def shares(res, plan):
+                return (float((~torch.isfinite(res.u)).float().mean()),
+                        float((~torch.isfinite(res.v)).float().mean()),
+                        float((~torch.isfinite(plan)).any(1).float().mean()))
+
+            load = card.dispatch.mean(0)
+            log(f"  {tag}: dispatch differs from the CPU on "
+                f"{int(differ.sum())} of {ROUTE_T} tokens, {int(near.sum())} "
+                f"CPU rows tied within {ROUTE_TIE_RTOL} (NaN included), "
+                f"{off} differing rows not tied; combine worst {comb:.3g} "
+                f"(bar {ROUTE_COMBINE_TOL}); balance {bal_c:.6g} card / "
+                f"{bal_h:.6g} cpu (rel {bal:.3g}, bar {ROUTE_BALANCE_RTOL})")
+            log(f"  {tag}: non-finite shares u / v / plan rows: card "
+                f"{shares(res_c, plan_c)}, cpu {shares(res_h, plan_h)}; load "
+                f"max/mean {float(load.max() / load.mean()):.4f} against "
+                f"softmax top-k's {float(soft_load.max() / soft_load.mean()):.4f}")
+            if off:
+                failures.append(f"{tag}: {off} untied rows dispatch "
+                                "differently")
+            if not comb <= ROUTE_COMBINE_TOL:
+                failures.append(f"{tag}: combine {comb:.3g}")
+            if not differ.any() and not bal <= ROUTE_BALANCE_RTOL:
+                failures.append(f"{tag}: balance rel {bal:.3g}")
+        lg = logits.to(device)
+        pol = ExecutionPolicy(precision="bf16")
+        _, reads = host_reads(torch, lambda: [
+            sinkhorn_route(lg, top_k=k, policy=pol) for _ in range(4)])
+        ms = time_ms(torch, lambda: sinkhorn_route(lg, top_k=k, policy=pol),
+                     batches=7, per_batch=5, warmup=2)
+        log(f"  (a) {arch}: one router call (8 iterations, bf16) "
+            f"{ms:.4f} ms, {reads / 4:g} host reads (4 calls)")
+    return failures
+
+
+def moe_params(torch, cfg, device, seed=0):
+    """The config's parameters drawn on the card (a seeded CUDA generator,
+    the large leaves in slices), and the seconds it took."""
+    from repro_torch.models import init_params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, generator=gen, device=device)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def check_mla_layer(torch, device, cfg):
+    """Phase 13 (b), beside serving: one full-width MLA layer in float32,
+    ``mla_attend_step`` (the caller writing each slot) and ``mla_decode``
+    token by token against ``mla_train`` on the same sequence, at the
+    reference's bars (rtol 3e-3, atol 3e-4)."""
+    from repro_torch.models.attention import init_mla, init_mla_cache, \
+        mla_attend_step, mla_decode, mla_train
+    B, S = MLA_CHECK
+    kw = dict(n_heads=cfg.n_heads, kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
+              qk_rope=cfg.qk_rope, v_head=cfg.v_head,
+              rope_theta=cfg.rope_theta)
+    gen = torch.Generator(device=device).manual_seed(5)
+    p = init_mla(gen, cfg.d_model, cfg.n_heads, kv_lora=cfg.kv_lora,
+                 q_lora=cfg.q_lora, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                 v_head=cfg.v_head, device=device)
+    x = 0.5 * torch.randn((B, S, cfg.d_model), generator=gen, device=device)
+    worst = {}
+    with torch.no_grad():
+        full = mla_train(p, x, **kw)
+        cache = init_mla_cache(B, S, kv_lora=cfg.kv_lora,
+                               qk_rope=cfg.qk_rope, device=device)
+        c_ro, r_ro = cache.c_kv.clone(), cache.k_rope.clone()
+        steps, decs = [], []
+        for t in range(S):
+            o, c_new, r_new = mla_attend_step(
+                p, x[:, t:t + 1], c_ro, r_ro,
+                torch.tensor(t, device=device), **kw)
+            c_ro[:, t], r_ro[:, t] = c_new, r_new
+            steps.append(o)
+            o, cache = mla_decode(p, x[:, t:t + 1], cache, **kw)
+            decs.append(o)
+    failures = []
+    for name, outs in (("mla_attend_step", steps), ("mla_decode", decs)):
+        got = torch.cat(outs, 1)
+        excess = float(((got - full).abs()
+                        - (3e-4 + 3e-3 * full.abs())).max())
+        worst[name] = float((got - full).abs().max())
+        if not excess <= 0:
+            failures.append(f"(b) {name} against mla_train: {excess:.3g} "
+                            "past atol 3e-4 + rtol 3e-3")
+    log(f"  (b) one MLA layer at full width (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, kv_lora {cfg.kv_lora}, q_lora {cfg.q_lora}), float32, "
+        f"{B} x {S} tokens: max |decode - train| {worst} (max |train| "
+        f"{float(full.abs().max()):.4g}; bar atol 3e-4 + rtol 3e-3)")
+    return failures
+
+
+def serve_moe(torch, device, cfg, params):
+    """Phase 13 (b): ``launch.steps.make_serve_step``'s prefill step at
+    MOE_SERVE's batch x prompt, then its decode step: the prompt fed token
+    by token into the MLA caches and greedy tokens generated; logits
+    finite."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_caches
+
+    B, P, G = MOE_SERVE
+    prefill, _ = make_serve_step(cfg, None, ShapeSpec("p", P, B, "prefill"))
+    decode, _ = make_serve_step(cfg, None, ShapeSpec("d", P + G, B,
+                                                     "decode"))
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": prompt})
+    finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    caches = init_caches(cfg, B, P + G, device=device)
+    t0 = time.perf_counter()
+    for i in range(P):
+        logits, caches = decode(params, {"tokens": prompt[:, i:i + 1]},
+                                caches)
+    torch.cuda.synchronize()
+    ingest_ms = (time.perf_counter() - t0) * 1e3 / P
+    cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    (logits, caches), reads = host_reads(
+        torch, lambda: decode(params, {"tokens": cur}, caches))
+    walls = []
+    for _ in range(G - 1):
+        finite &= torch.isfinite(logits).all()
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        t0 = time.perf_counter()
+        logits, caches = decode(params, {"tokens": cur}, caches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    finite &= torch.isfinite(logits).all()
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = statistics.median(walls)
+    log(f"  (b) serving {cfg.name} ({cfg.n_layers} layers) through "
+        f"make_serve_step: prefill {B} x {P} in {prefill_ms:.1f} ms; the "
+        f"prompt into the caches {ingest_ms:.3f} ms a token step; decode "
+        f"{ms:.3f} ms a token step (median of {G - 1}), "
+        f"{B / (ms / 1e3):.1f} tok/s, {reads} host reads a decode step; "
+        f"cache length {int(caches[0].length[0])}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    return [] if bool(finite) else ["(b) non-finite serving logits"]
+
+
+def train_moe(torch, device, cfg, params):
+    """Phase 13 (c): ``train_loss`` forward and backward at MOE_TRAIN with
+    the OT loss on the kernels (the gradients parked on the host), then:
+    the same call again (bit-identical), with ``use_pallas=False`` (the
+    plain operators), and on the kernels with ``ot_loss_weight`` scaled by
+    1 + 2^-20 (the yardstick: how far a relative change of 1e-6 in the OT
+    loss's gradient moves the bf16 gradients); and the OT loss alone on
+    the model's hidden states in float32, kernels against plain operators.
+    Returns the failures."""
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward
+    from repro_torch.tree import named_leaves
+
+    failures = []
+    B, S = MOE_TRAIN
+    batch = DataPipeline(DataConfig(0, B, S, cfg.vocab),
+                         device=device).batch_at(0)
+    fused = ExecutionPolicy.from_config(cfg)
+    plain = dataclasses.replace(fused, use_pallas=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m_k, g_k = lm_grads(torch, params, cfg, batch, fused)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    finite = [k for k in ("ce", "aux", "mtp", "ot")
+              if not math.isfinite(m_k[k])]
+    bad = [n for n, g in named_leaves(g_k)
+           if not bool(torch.isfinite(g).all())]
+    router = float(g_k["groups"][1]["moe"]["router"].abs().max())
+    parked = {n: g.cpu() for n, g in named_leaves(g_k)}
+    del g_k
+
+    def gaps(cfg_, policy):
+        """(metrics, {leaf: gap to the parked gradients}, ms of the call)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m, grads = lm_grads(torch, params, cfg_, batch, policy)
+        ms = (time.perf_counter() - t) * 1e3
+        return m, {n: sliced_rel_err(torch, parked[n], g)
+                   for n, g in named_leaves(grads)}, ms
+
+    _, rerun, ms = gaps(cfg, fused)
+    m_p, gap, _ = gaps(cfg, plain)
+    nudged = dataclasses.replace(
+        cfg, ot_loss_weight=cfg.ot_loss_weight * (1 + 2 ** -20))
+    _, yard, _ = gaps(nudged, fused)
+    del parked
+    rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    # the OT leaves' gradients are float32 end to end; every other leaf's
+    # (the float32 router's too) comes through the bf16 backward
+    f32 = [n for n in gap if n.startswith("ot/")]
+    bf16 = [n for n in gap if n not in f32]
+
+    def worst(d, names):
+        name = max(names, key=lambda n: d[n])
+        return f"{d[name]:.3g} ({name})"
+
+    # the OT loss alone on the model's final hidden states, in float32
+    with torch.no_grad():
+        h, _ = forward(params, cfg, batch)
+    loss_k, ot_k = lm_ot_loss(torch, cfg, params["ot"], h.float(), fused)
+    loss_p, ot_p = lm_ot_loss(torch, cfg, params["ot"], h.float(), plain)
+    ot_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    ot_off, ot_worst = leaves_within(torch, ot_k, ot_p, MOE_GRAD_TOL, "(c)")
+    path = {k: v for k, v in counts.items() if v}
+    log(f"  (c) train_loss forward + backward of {cfg.name} at {B} x {S}: "
+        f"ce {m_k['ce']:.6f}, aux {m_k['aux']:.6f}, mtp {m_k['mtp']:.6f}, "
+        f"ot {m_k['ot']:.6f}, loss {m_k['loss']:.6f}; {ms:.1f} ms (first "
+        f"call {first_ms:.1f} ms), peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {path}; router max |grad| {router:.4g}; non-finite "
+        f"gradient leaves {bad}")
+    log(f"  (c) use_pallas=False: loss {m_p['loss']:.6f} (rel {rel:.3g}, bar "
+        f"{MOE_LOSS_RTOL}); gradients, of each leaf's max |grad|: the OT "
+        f"leaves (float32 end to end) worst {worst(gap, f32)} (bar "
+        f"{MOE_GRAD_TOL}); the model's leaves (the bf16 backward) worst "
+        f"{worst(gap, bf16)}, against the yardstick's {worst(yard, bf16)} "
+        f"(ot_loss_weight x (1 + 2^-20) on the kernels; its OT leaves "
+        f"{worst(yard, f32)}) and a rerun's {worst(rerun, list(rerun))}")
+    log(f"  (c) the OT loss alone on the model's hidden states (float32, "
+        f"d {cfg.d_model}): loss {float(loss_k):.7f} kernels / "
+        f"{float(loss_p):.7f} plain (rel {ot_rel:.3g}, bar "
+        f"{MOE_LOSS_RTOL}); gradients in h and the OT leaves worst "
+        f"{ot_worst:.3g} of max |grad| (bar {MOE_GRAD_TOL})")
+    if finite:
+        failures.append(f"(c) non-finite metrics {finite}")
+    if bad:
+        failures.append(f"(c) non-finite gradients {bad[:4]}")
+    if not router > 0:
+        failures.append("(c) the router's gradient is zero")
+    if not rel <= MOE_LOSS_RTOL or not ot_rel <= MOE_LOSS_RTOL:
+        failures.append(f"(c) loss on / off the kernels rel {rel:.3g}, "
+                        f"the OT loss alone {ot_rel:.3g}")
+    failures += [f"(c) {n}: {gap[n]:.3g}" for n in f32
+                 if not gap[n] <= MOE_GRAD_TOL] + ot_off
+    if max(rerun.values()) != 0:
+        failures.append(f"(c) a rerun's gradients differ: "
+                        f"{worst(rerun, list(rerun))}")
+    if not max(gap[n] for n in bf16) <= max(
+            MOE_GRAD_TOL, MOE_YARDSTICK * max(yard[n] for n in bf16)):
+        failures.append(f"(c) model gradients {worst(gap, bf16)} past "
+                        f"{MOE_YARDSTICK} x the yardstick's "
+                        f"{worst(yard, bf16)}")
+    return failures
+
+
+def check_moe_oracle(torch, device):
+    """Phase 13 (d): one full-width MoE layer of MOE_ORACLE's config in
+    float32 (``moe_dense``, the Sinkhorn router) against an oracle that
+    loops over the experts and runs each on the tokens dispatched to it
+    alone."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.models.moe import init_moe, moe_dense, router_probs
+
+    arch, T = MOE_ORACLE
+    cfg = get_config(arch)
+    gen = torch.Generator(device=device).manual_seed(3)
+    p = init_moe(gen, cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                 device=device)
+    x = torch.randn((T, cfg.d_model), generator=gen, device=device)
+    pol = ExecutionPolicy.from_config(cfg)
+    with torch.no_grad():
+        out, aux = moe_dense(p, x, top_k=cfg.top_k, router=cfg.router,
+                             policy=pol)
+        combine, _ = router_probs(p, x, top_k=cfg.top_k, router=cfg.router,
+                                  policy=pol)
+        want = torch.zeros_like(x)
+        for e in range(cfg.n_experts):
+            tok = torch.nonzero(combine[:, e] > 0)[:, 0]
+            if tok.numel():
+                xe = x[tok]
+                ye = (F.silu(xe @ p["gate"][e]) * (xe @ p["up"][e])
+                      ) @ p["down"][e]
+                want.index_add_(0, tok, ye * combine[tok, e, None])
+    err = float((out - want).abs().max()) / float(want.abs().max())
+    log(f"  (d) one MoE layer of {arch} (d {cfg.d_model}, {cfg.n_experts} "
+        f"experts of d_ff {cfg.moe_d_ff}, top-{cfg.top_k}, "
+        f"{p['up'].numel() * 3 * 4 / 2**30:.2f} GiB of float32 experts), "
+        f"{T} tokens: moe_dense against the expert-loop oracle "
+        f"{err:.3g} of max |out| (bar {MOE_ORACLE_TOL}); aux {float(aux):.6f}")
+    return [] if err <= MOE_ORACLE_TOL else [f"(d) oracle {err:.3g}"]
+
+
+def run_moe_lanes(src, build_dir):
+    """Phase 13 (e): ``launch.train``, ``launch.serve`` and
+    ``examples.train_lm`` on the tiny MoE configs, side by side as
+    subprocesses; each must exit 0."""
+    import os
+    import shutil
+    example = build_dir / "moe_example_ckpt"
+    shutil.rmtree(example, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(src))
+    lanes = [
+        ["-m", "repro_torch.launch.train", "--arch", "deepseek_v3_671b",
+         "--tiny", "--steps", "4", "--batch", "2", "--seq", "64",
+         "--log-every", "1"],
+        ["-m", "repro_torch.launch.serve", "--arch", "deepseek_v2_236b",
+         "--tiny"],
+        ["-m", "repro_torch.examples.train_lm", "--arch", "deepseek_v3_671b",
+         "--tiny", "--strict", "--steps", "20", "--ckpt-dir", str(example)],
+    ]
+    runs = [start_lane(env, args) for args in lanes]
+    failures = []
+    for run in runs:
+        failures += finish_lane(run, "e")
+    return failures
+
+
+def run_moe_path(torch, np, device, src):
+    """Phase 13: the MoE family at deepseek-v3's full width. Returns (the
+    launches of (b) and (c), failures)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import param_count
+
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    failures = timed("a", check_router, torch, np, device)
+    cfg = moe_config()
+    params, init_s = timed("init", moe_params, torch, cfg, device)
+    log(f"  {cfg.name} at {cfg.n_layers} layers ({cfg.layer_plan()} + the "
+        f"MTP block): {param_count(params) / 1e9:.3f} G parameters, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB on the card,"
+        f" drawn on the card in {init_s:.2f} s")
+    reset_launch_counts()
+    failures += timed("b", serve_moe, torch, device, cfg, params)
+    failures += timed("b mla", check_mla_layer, torch, device, cfg)
+    failures += timed("c", train_moe, torch, device, cfg, params)
+    counts = launch_counts()
+    missing = [k for k in MOE_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    del params
+    torch.cuda.empty_cache()
+    failures += timed("d", check_moe_oracle, torch, device)
+    torch.cuda.empty_cache()
+    build_dir = Path(__file__).resolve().parent / "build"
+    failures += timed("e", run_moe_lanes, src, build_dir)
+    log("  phase 13 parts (s): " + ", ".join(f"({k}) {v:.1f}"
+                                            for k, v in walls.items()))
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -5507,7 +6000,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 
 def main(argv=None) -> int:
@@ -5516,7 +6009,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all twelve)")
+                    "result lines need all thirteen)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -5828,10 +6321,26 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 12 FAILED: {failures}")
             return 1
+    if 13 in phases:
+        log(f"== phase 13: the MoE family ({MOE_ARCH} at full width, "
+            f"{MOE_DEPTH}: (a) the Sinkhorn router at T={ROUTE_T} for "
+            f"{[c[0] for c in ROUTE_CELLS]}, card vs CPU; (b) serving at "
+            f"{MOE_SERVE} and one MLA layer in float32; (c) train_loss at "
+            f"{MOE_TRAIN}, kernels vs plain; (d) one MoE layer of "
+            f"{MOE_ORACLE[0]} vs an expert-loop oracle; (e) train, serve "
+            "and train_lm on the tiny MoE configs)")
+        t13 = time.perf_counter()
+        c13, failures = run_moe_path(torch, np, device, src)
+        log(f"  launches on the MoE path: {c13}")
+        counts["moe"] = c13
+        log(f"  phase 13: {time.perf_counter() - t13:.1f} s")
+        if failures:
+            log(f"phase 13 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "twelve")
+            "thirteen")
         return 0
 
     kernels = []

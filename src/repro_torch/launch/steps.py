@@ -86,7 +86,7 @@ def make_train_step(cfg: ArchConfig, mesh=None,
             "multi-card slice (ROADMAP.md §A item 8d)")
     # ONE OT execution policy per run: every training-time solve shares it
     ot_policy = ExecutionPolicy.from_config(cfg)
-    if cfg.ot_loss_weight > 0:
+    if cfg.ot_loss_weight > 0 or cfg.router == "sinkhorn":
         print(f"[steps] ot-policy {ot_policy.describe()}")
     sched = linear_warmup_cosine(opt.lr, min(200, total_steps // 10 + 1),
                                  total_steps)

@@ -1,5 +1,6 @@
 """Grouped-query attention (MHA when ``n_kv == n_heads``; sliding windows;
-QKV bias) for training, prefill and decode.
+QKV bias) and DeepSeek's multi-head latent attention (MLA) for training,
+prefill and decode.
 
 :func:`chunked_attention` is the memory-efficient (flash-style) core: the
 KV axis is taken in chunks with a running (max, sum, accumulator), so no
@@ -10,9 +11,15 @@ Decode reads the cache and writes nothing: :func:`gqa_attend_step`
 attends over the slots before the current position plus the new token as
 an explicit self term, and returns the new token's (k, v) for the caller
 to write once per step (``models.model.decode_step``). A sliding window
-decodes on a rolling cache of ``window`` slots. MLA and cross-attention
-wait for their families (ROADMAP.md, queue A). Counterpart of the GQA
-half of ``repro.models.attention``.
+decodes on a rolling cache of ``window`` slots.
+
+MLA caches the compressed latents (``kv_lora`` + ``qk_rope`` numbers a
+token) and decodes in the absorbed form: ``q_nope`` is taken into the
+latent space through ``wk_up``, scores and values contract against the
+cached latents, and ``wv_up`` decompresses the context once. Training
+decompresses K and V a KV chunk at a time inside
+:func:`chunked_attention`. Cross-attention waits for its family
+(ROADMAP.md §A item 8c). Counterpart of ``repro.models.attention``.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import apply_rotary, init_linear, linear, rotary_cos_sin
+from .layers import apply_rotary, init_device, init_linear, linear, \
+    rmsnorm, rotary_cos_sin
 
 __all__ = [
     "chunked_attention",
@@ -31,6 +39,12 @@ __all__ = [
     "gqa_attend_step",
     "init_gqa_cache",
     "gqa_decode",
+    "init_mla",
+    "mla_train",
+    "MLACache",
+    "mla_attend_step",
+    "init_mla_cache",
+    "mla_decode",
 ]
 
 _NEG_INF = -1e30
@@ -240,3 +254,190 @@ def gqa_decode(p, x: torch.Tensor, cache: GQACache, *, n_heads: int,
     o = torch.einsum("bkgqs,bskd->bqkgd", pg, v_all.float())
     o = o.reshape(B, 1, n_heads * head_dim).to(x.dtype)
     return linear(p["wo"], o), GQACache(k_all, v_all, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2/V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator, d_model: int, n_heads: int, *, kv_lora: int = 512,
+             q_lora: int = 1536, qk_nope: int = 128, qk_rope: int = 64,
+             v_head: int = 128, dtype=torch.float32, device=None,
+             lead=()) -> Dict[str, Any]:
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    out_std = 0.02 / (2.0 ** 0.5)
+    dev = init_device(device)
+    return {
+        "wq_down": init_linear(generator, d_model, q_lora, **kw),
+        "q_norm": torch.ones(lead + (q_lora,), dtype=dtype, device=dev),
+        "wq_up": init_linear(generator, q_lora,
+                             n_heads * (qk_nope + qk_rope), **kw),
+        "wkv_down": init_linear(generator, d_model, kv_lora + qk_rope, **kw),
+        "kv_norm": torch.ones(lead + (kv_lora,), dtype=dtype, device=dev),
+        "wk_up": init_linear(generator, kv_lora, n_heads * qk_nope, **kw),
+        "wv_up": init_linear(generator, kv_lora, n_heads * v_head, **kw),
+        "wo": init_linear(generator, n_heads * v_head, d_model,
+                          std=out_std, **kw),
+    }
+
+
+def _mla_qkr(p, x: torch.Tensor, *, n_heads: int, qk_nope: int,
+             qk_rope: int, pos: torch.Tensor, rope_theta: float):
+    """The queries: ``q_nope`` (B, S, H, nope) and the rotated ``q_rope``
+    (B, S, H, rope)."""
+    B, S, _ = x.shape
+    qc = rmsnorm(linear(p["wq_down"], x), p["q_norm"])
+    q = linear(p["wq_up"], qc).reshape(B, S, n_heads, qk_nope + qk_rope)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    cos, sin = rotary_cos_sin(pos, qk_rope, rope_theta)
+    return q_nope, apply_rotary(q_rope, cos[None], sin[None])
+
+
+def _mla_latents(p, x: torch.Tensor, *, kv_lora: int, qk_rope: int,
+                 pos: torch.Tensor, rope_theta: float):
+    """The compressed cache entries of x (B, S, d): the normed latents
+    (B, S, kv_lora) and the rotated shared rope key (B, S, rope)."""
+    kvd = linear(p["wkv_down"], x)
+    c_kv = rmsnorm(kvd[..., :kv_lora], p["kv_norm"])
+    cos, sin = rotary_cos_sin(pos, qk_rope, rope_theta)
+    k_rope = apply_rotary(kvd[..., kv_lora:][:, :, None, :], cos[None],
+                          sin[None])[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_train(p, x: torch.Tensor, *, n_heads: int, kv_lora: int = 512,
+              qk_nope: int = 128, qk_rope: int = 64, v_head: int = 128,
+              rope_theta: float = 10000.0, kv_chunk: int = 1024,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal MLA, (B, S, d) -> (B, S, d), K and V
+    decompressed one KV chunk at a time."""
+    # the streaming accumulator is shaped from q, and q here is q_nope, so
+    # the value head must be as wide (true of DeepSeek-V2 / V3: 128)
+    assert qk_nope == v_head, "mla_train requires qk_nope == v_head"
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device) if positions is None else positions
+    scale = (qk_nope + qk_rope) ** -0.5
+    q_nope, q_rope = _mla_qkr(p, x, n_heads=n_heads, qk_nope=qk_nope,
+                              qk_rope=qk_rope, pos=pos,
+                              rope_theta=rope_theta)
+    c_kv, k_rope = _mla_latents(p, x, kv_lora=kv_lora, qk_rope=qk_rope,
+                                pos=pos, rope_theta=rope_theta)
+    wk, wv = p["wk_up"]["w"], p["wv_up"]["w"]
+
+    def score_fn(q, kv_c):
+        k_nope = (kv_c["c"] @ wk.to(kv_c["c"].dtype)).reshape(
+            B, -1, n_heads, qk_nope)
+        s = torch.einsum("bqhd,bshd->bhqs", q, k_nope)
+        s = s + torch.einsum("bqhr,bsr->bhqs", q_rope, kv_c["r"])
+        return s * scale
+
+    def value_fn(pr, kv_c):
+        v = (kv_c["c"] @ wv.to(kv_c["c"].dtype)).reshape(
+            B, -1, n_heads, v_head)
+        return torch.einsum("bhqs,bshd->bqhd", pr, v.float())
+
+    out = chunked_attention(q_nope, {"c": c_kv, "r": k_rope}, S,
+                            score_fn=score_fn, value_fn=value_fn,
+                            mask_fn=_causal_window_mask(pos, None),
+                            kv_chunk=kv_chunk)
+    return linear(p["wo"], out.reshape(B, S, n_heads * v_head).to(x.dtype))
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # ([L,] B, S_max, kv_lora) compressed latents
+    k_rope: torch.Tensor     # ([L,] B, S_max, qk_rope)
+    length: torch.Tensor     # ([L,]) int64: tokens decoded so far
+
+
+def _absorbed_query(p, x, pos, *, n_heads, kv_lora, qk_nope, qk_rope,
+                    rope_theta):
+    """One token's query in the latent space: ``q_c`` (B, 1, H, kv_lora)
+    and ``q_rope`` (B, 1, H, rope)."""
+    q_nope, q_rope = _mla_qkr(p, x, n_heads=n_heads, qk_nope=qk_nope,
+                              qk_rope=qk_rope, pos=pos[None],
+                              rope_theta=rope_theta)
+    wk = p["wk_up"]["w"].reshape(kv_lora, n_heads, qk_nope)
+    return torch.einsum("bqhd,chd->bqhc", q_nope, wk.to(q_nope.dtype)), \
+        q_rope
+
+
+def _absorbed_out(p, ctx_c: torch.Tensor, x: torch.Tensor, *, n_heads,
+                  kv_lora, v_head) -> torch.Tensor:
+    """The context (B, 1, H, kv_lora) decompressed by ``wv_up`` and
+    projected by ``wo``: (B, 1, d)."""
+    B = x.shape[0]
+    wv = p["wv_up"]["w"].reshape(kv_lora, n_heads, v_head)
+    out = torch.einsum("bqhc,chd->bqhd", ctx_c, wv.to(ctx_c.dtype))
+    return linear(p["wo"], out.reshape(B, 1, n_heads * v_head).to(x.dtype))
+
+
+def mla_attend_step(p, x: torch.Tensor, c_cache: torch.Tensor,
+                    r_cache: torch.Tensor, length: torch.Tensor, *,
+                    n_heads: int, kv_lora: int = 512, qk_nope: int = 128,
+                    qk_rope: int = 64, v_head: int = 128,
+                    rope_theta: float = 10000.0):
+    """Absorbed MLA decode over a READ-ONLY compressed cache: x (B, 1, d).
+    The slots before ``length`` are attended and the new token as an
+    explicit self term. Returns ``(out, c_new (B, kv_lora), r_new (B,
+    qk_rope))``; the caller writes the new slot once per step."""
+    pos = length
+    scale = (qk_nope + qk_rope) ** -0.5
+    q_c, q_rope = _absorbed_query(p, x, pos, n_heads=n_heads,
+                                  kv_lora=kv_lora, qk_nope=qk_nope,
+                                  qk_rope=qk_rope, rope_theta=rope_theta)
+    c_new, r_new = _mla_latents(p, x, kv_lora=kv_lora, qk_rope=qk_rope,
+                                pos=pos[None], rope_theta=rope_theta)
+    c_new, r_new = c_new[:, 0], r_new[:, 0]
+    s = torch.einsum("bqhc,bsc->bhqs", q_c, c_cache)
+    s = s + torch.einsum("bqhr,bsr->bhqs", q_rope, r_cache)
+    s = s.float() * scale
+    valid = torch.arange(c_cache.shape[1], device=x.device) < pos
+    s = torch.where(valid[None, None, None, :], s, _NEG_INF)
+    s_self = (torch.einsum("bqhc,bc->bhq", q_c, c_new.to(q_c.dtype))
+              + torch.einsum("bqhr,br->bhq", q_rope, r_new.to(q_rope.dtype))
+              ).float()[..., None] * scale
+    pr = torch.softmax(torch.cat([s, s_self], dim=-1), dim=-1).to(
+        c_cache.dtype)
+    ctx_c = torch.einsum("bhqs,bsc->bqhc", pr[..., :-1], c_cache)
+    ctx_c = ctx_c + torch.einsum("bhq,bc->bqhc", pr[..., -1], c_new)
+    out = _absorbed_out(p, ctx_c, x, n_heads=n_heads, kv_lora=kv_lora,
+                        v_head=v_head)
+    return out, c_new.to(c_cache.dtype), r_new.to(r_cache.dtype)
+
+
+def init_mla_cache(batch: int, s_max: int, *, kv_lora: int = 512,
+                   qk_rope: int = 64, dtype=torch.float32,
+                   device=None) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, s_max, kv_lora), dtype=dtype, device=device),
+        torch.zeros((batch, s_max, qk_rope), dtype=dtype, device=device),
+        torch.zeros((), dtype=torch.int64, device=device))
+
+
+def mla_decode(p, x: torch.Tensor, cache: MLACache, *, n_heads: int,
+               kv_lora: int = 512, qk_nope: int = 128, qk_rope: int = 64,
+               v_head: int = 128, rope_theta: float = 10000.0):
+    """Absorbed single-token decode of one layer that writes its own
+    cache: x (B, 1, d). Returns ``(out, new cache)``; the given cache is
+    left as it was."""
+    pos = cache.length
+    scale = (qk_nope + qk_rope) ** -0.5
+    q_c, q_rope = _absorbed_query(p, x, pos, n_heads=n_heads,
+                                  kv_lora=kv_lora, qk_nope=qk_nope,
+                                  qk_rope=qk_rope, rope_theta=rope_theta)
+    c_new, r_new = _mla_latents(p, x, kv_lora=kv_lora, qk_rope=qk_rope,
+                                pos=pos[None], rope_theta=rope_theta)
+    slot = pos.reshape(1)
+    c_all = cache.c_kv.index_copy(1, slot, c_new.to(cache.c_kv.dtype))
+    r_all = cache.k_rope.index_copy(1, slot, r_new.to(cache.k_rope.dtype))
+    s = torch.einsum("bqhc,bsc->bhqs", q_c, c_all)
+    s = s + torch.einsum("bqhr,bsr->bhqs", q_rope, r_all)
+    s = s.float() * scale
+    valid = torch.arange(c_all.shape[1], device=x.device) <= pos
+    s = torch.where(valid[None, None, None, :], s, _NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(c_all.dtype)
+    ctx_c = torch.einsum("bhqs,bsc->bqhc", pr, c_all)
+    out = _absorbed_out(p, ctx_c, x, n_heads=n_heads, kv_lora=kv_lora,
+                        v_head=v_head)
+    return out, MLACache(c_all, r_all, pos + 1)

@@ -9,6 +9,11 @@ values to ``device``, so one seed gives the same weights on every device;
 on the ``meta`` device nothing is drawn or allocated. Norms and rotary
 embeddings compute in float32 and cast back. Counterpart of
 ``repro.models.layers``.
+
+A generator on the card draws on the card instead, a slice of at most
+``DRAW_SLICE`` elements at a time, so that a leaf of billions of elements
+(a full-width expert stack) never holds more than a few GiB of float32
+transients; the distributions are the same, the numbers another stream.
 """
 from __future__ import annotations
 
@@ -46,8 +51,22 @@ def init_device(device=None) -> torch.device:
     return resolve_device(device)
 
 
-def _draw(values, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return values.to(dtype).to(device)
+DRAW_SLICE = 1 << 28     # elements a slice of a draw on the card
+
+
+def _draw(shape: Shape, values, generator: Optional[torch.Generator],
+          device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``values(shape, gen_device)`` (float32 draws from ``generator``) in
+    ``dtype`` on ``device``: whole on the host for a CPU generator, in
+    slices of ``DRAW_SLICE`` elements for one on the card."""
+    if generator is None or generator.device.type == "cpu":
+        return values(shape, None).to(dtype).to(device)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), DRAW_SLICE):
+        n = min(DRAW_SLICE, flat.numel() - lo)
+        flat[lo:lo + n] = values((n,), generator.device)
+    return out.to(device)
 
 
 def trunc_normal(shape: Shape, std: float = 0.02, *,
@@ -61,10 +80,14 @@ def trunc_normal(shape: Shape, std: float = 0.02, *,
     if dev.type == "meta":
         return torch.empty(shape, dtype=dtype, device=dev)
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = lo + (1.0 - 2.0 * lo) * torch.rand(shape, generator=generator,
-                                           dtype=torch.float32)
-    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
-    return _draw(std * torch.clamp(z, -2.0, 2.0), dev, dtype)
+
+    def values(sh, where):
+        u = lo + (1.0 - 2.0 * lo) * torch.rand(
+            sh, generator=generator, dtype=torch.float32, device=where)
+        z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+        return std * torch.clamp(z, -2.0, 2.0)
+
+    return _draw(tuple(shape), values, generator, dev, dtype)
 
 
 def normal(shape: Shape, std: float = 1.0, *,
@@ -74,8 +97,12 @@ def normal(shape: Shape, std: float = 1.0, *,
     dev = init_device(device)
     if dev.type == "meta":
         return torch.empty(shape, dtype=dtype, device=dev)
-    return _draw(std * torch.randn(shape, generator=generator,
-                                   dtype=torch.float32), dev, dtype)
+
+    def values(sh, where):
+        return std * torch.randn(sh, generator=generator,
+                                 dtype=torch.float32, device=where)
+
+    return _draw(tuple(shape), values, generator, dev, dtype)
 
 
 def _full(shape: Shape, value: float, dtype, device) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Model assembly: configs -> init / forward / loss / prefill / decode, for
-the ``dense`` and ``vlm`` families.
+the ``dense``, ``vlm`` and ``moe`` families.
 
 The layer plan (``configs.base.ArchConfig.layer_plan``) is grouped into
 runs of one block kind; each run's parameters are stacked on a leading
@@ -10,16 +10,25 @@ and biases as the reference does. The forward unbinds each stacked leaf
 once and runs the layers in order, each under
 ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set.
 
+Block kinds: ``attn`` (GQA), ``mla`` (multi-head latent attention) and
+their ``_moe`` twins, whose FFN half is the mixture of experts
+(``models.moe``, the Sinkhorn router for the DeepSeek configs) plus the
+shared experts' MLP. The MoE layers' auxiliary losses are summed over the
+layers into ``aux``; with ``cfg.mtp`` one more block on the final hidden
+states predicts the token after the next (the multi-token-prediction
+loss). The experts run on the dense path; under a mesh of more than one
+rank the MoE refuses (expert parallelism is ROADMAP.md §A item 8d).
+
 Parameters are a nested dict of tensors (``tree.named_leaves`` names
 them). The OT prototype loss (``models.ot_loss``) is part of
-:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. The MoE, SSM,
-hybrid and encoder-decoder families (and MLA, MTP and learned positions)
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. The SSM, hybrid
+and encoder-decoder families (and learned positions) raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 Counterpart of ``repro.models.model``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -27,8 +36,18 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.objective import ExecutionPolicy
 from ..tree import tree_leaves, tree_unflatten
-from .attention import GQACache, gqa_attend_step, gqa_train, init_gqa, \
-    init_gqa_cache
+from .attention import (
+    GQACache,
+    MLACache,
+    gqa_attend_step,
+    gqa_train,
+    init_gqa,
+    init_gqa_cache,
+    init_mla,
+    init_mla_cache,
+    mla_attend_step,
+    mla_train,
+)
 from .layers import (
     init_device,
     init_embedding,
@@ -39,6 +58,7 @@ from .layers import (
     mlp,
     rmsnorm,
 )
+from .moe import init_moe, moe_dense
 from .ot_loss import init_ot_loss, ot_prototype_loss
 
 __all__ = [
@@ -54,15 +74,16 @@ __all__ = [
     "param_count",
 ]
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
 
 _WAITS = {
-    "moe": "ROADMAP.md §A item 8a (MoE with the Sinkhorn router, MLA and "
-           "MTP)",
     "ssm": "ROADMAP.md §A item 8b (SSM and hybrid)",
     "hybrid": "ROADMAP.md §A item 8b (SSM and hybrid)",
     "encdec": "ROADMAP.md §A item 8c (encoder-decoder)",
 }
+_MULTI_CARD = "ROADMAP.md §A item 8d (the multi-card slice)"
+
+Cache = Union[GQACache, MLACache]
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -72,10 +93,6 @@ def check_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
             f"{_WAITS.get(cfg.family, 'ROADMAP.md §A item 8')} ports it")
-    if cfg.attention != "gqa" or cfg.n_experts or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA, MoE and MTP are not ported yet; "
-            f"{_WAITS['moe']} ports them")
     if cfg.pos != "rope":
         raise NotImplementedError(
             f"{cfg.name}: learned positions are not ported yet; "
@@ -132,41 +149,113 @@ def _unstack(stack: Any, count: int) -> List[Any]:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(generator, cfg: ArchConfig, device, lead=()) -> Dict:
+def _is_mla(kind: str) -> bool:
+    return kind in ("mla", "mla_moe")
+
+
+def _mtp_kind(cfg: ArchConfig) -> str:
+    return "mla" if cfg.attention == "mla" else "attn"
+
+
+def _init_block(generator, kind: str, cfg: ArchConfig, device,
+                lead=()) -> Dict:
+    kw = dict(dtype=cfg.dtype, device=device, lead=lead)
     p: Dict[str, Any] = {"norm1": _init_norm(cfg, device, lead)}
-    p["attn"] = init_gqa(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.head_dim, qkv_bias=cfg.qkv_bias, dtype=cfg.dtype,
-                         device=device, lead=lead)
-    if cfg.d_ff:
+    if _is_mla(kind):
+        p["attn"] = init_mla(generator, cfg.d_model, cfg.n_heads,
+                             kv_lora=cfg.kv_lora, q_lora=cfg.q_lora,
+                             qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                             v_head=cfg.v_head, **kw)
+    else:
+        p["attn"] = init_gqa(generator, cfg.d_model, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.head_dim,
+                             qkv_bias=cfg.qkv_bias, **kw)
+    if kind.endswith("_moe"):
+        p["norm2"] = _init_norm(cfg, device, lead)
+        p["moe"] = init_moe(generator, cfg.d_model, cfg.moe_d_ff,
+                            cfg.n_experts, **kw)
+        if cfg.n_shared_experts:
+            p["shared_mlp"] = init_mlp(
+                generator, cfg.d_model, cfg.n_shared_experts * cfg.moe_d_ff,
+                gated=cfg.mlp_gated, **kw)
+    elif cfg.d_ff:
         p["norm2"] = _init_norm(cfg, device, lead)
         p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
-                            gated=cfg.mlp_gated, dtype=cfg.dtype,
-                            device=device, lead=lead)
+                            gated=cfg.mlp_gated, **kw)
     return p
 
 
-def _block_train(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = x + gqa_train(p["attn"], _norm(p["norm1"], x, cfg),
-                      n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                      head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                      window=cfg.window)
+def _check_moe_mesh(cfg: ArchConfig, mesh) -> None:
+    """Refuse a MoE config on a mesh of more than one rank: the
+    reference's expert parallelism waits for the multi-card slice."""
+    if cfg.n_experts and mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE on a mesh of {mesh.size()} ranks (expert "
+            f"parallelism) waits for {_MULTI_CARD}; the port runs it on one "
+            "card")
+
+
+def _moe_apply(p, x2: torch.Tensor,
+               cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2 (B, S, d) normed input -> (out, aux): the dense expert path,
+    its router under the config's OT policy."""
+    B, S, d = x2.shape
+    out, aux = moe_dense(p["moe"], x2.reshape(-1, d), top_k=cfg.top_k,
+                         router=cfg.router,
+                         policy=ExecutionPolicy.from_config(cfg))
+    return out.reshape(B, S, d), aux
+
+
+def _ffn(p, x: torch.Tensor,
+         cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN half of a block: ``(x + ffn(norm2(x)), aux)``, aux 0-d
+    float32 (0 outside the MoE)."""
+    if "moe" in p:
+        x2 = _norm(p["norm2"], x, cfg)
+        out, aux = _moe_apply(p, x2, cfg)
+        if "shared_mlp" in p:
+            out = out + mlp(p["shared_mlp"], x2, gated=cfg.mlp_gated)
+        return x + out, aux
     if "mlp" in p:
         x = x + mlp(p["mlp"], _norm(p["norm2"], x, cfg), gated=cfg.mlp_gated)
-    return x
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _block_decode(p, x: torch.Tensor, k_cache, v_cache, length,
+def _block_train(kind: str, p, x: torch.Tensor,
+                 cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(x_out, aux)``, aux 0-d float32 (0 outside the MoE)."""
+    h = _norm(p["norm1"], x, cfg)
+    if _is_mla(kind):
+        x = x + mla_train(p["attn"], h, n_heads=cfg.n_heads,
+                          kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
+                          qk_rope=cfg.qk_rope, v_head=cfg.v_head,
+                          rope_theta=cfg.rope_theta)
+    else:
+        x = x + gqa_train(p["attn"], h, n_heads=cfg.n_heads,
+                          n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                          rope_theta=cfg.rope_theta, window=cfg.window)
+    return _ffn(p, x, cfg)
+
+
+def _block_decode(kind: str, p, x: torch.Tensor, cache: Cache, layer: int,
                   cfg: ArchConfig, window: Optional[int]):
-    """One token through one block; the cache is read only. Returns
-    ``(x, k_new, v_new)``."""
-    h, k_new, v_new = gqa_attend_step(
-        p["attn"], _norm(p["norm1"], x, cfg), k_cache, v_cache, length,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, window=window)
-    x = x + h
-    if "mlp" in p:
-        x = x + mlp(p["mlp"], _norm(p["norm2"], x, cfg), gated=cfg.mlp_gated)
-    return x, k_new, v_new
+    """One token through layer ``layer`` of a group; the group's cache is
+    read only. Returns ``(x, new)``: the new token's (k, v) or (c_kv,
+    k_rope) slot."""
+    h = _norm(p["norm1"], x, cfg)
+    if _is_mla(kind):
+        out, *new = mla_attend_step(
+            p["attn"], h, cache.c_kv[layer], cache.k_rope[layer],
+            cache.length[layer], n_heads=cfg.n_heads, kv_lora=cfg.kv_lora,
+            qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope, v_head=cfg.v_head,
+            rope_theta=cfg.rope_theta)
+    else:
+        out, *new = gqa_attend_step(
+            p["attn"], h, cache.k[layer], cache.v[layer],
+            cache.length[layer], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window)
+    x, _ = _ffn(p, x + out, cfg)
+    return x, new
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +280,15 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                          dtype=cfg.dtype, device=dev)
     params["groups"] = [
-        _init_block(gen, cfg, dev, lead=(count,))
-        for _, count in group_plan(cfg.layer_plan())]
+        _init_block(gen, kind, cfg, dev, lead=(count,))
+        for kind, count in group_plan(cfg.layer_plan())]
     params["final_norm"] = _init_norm(cfg, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab,
                                         dtype=cfg.dtype, device=dev)
+    if cfg.mtp:
+        params["mtp_block"] = _init_block(gen, _mtp_kind(cfg), cfg, dev)
+        params["mtp_norm"] = _init_norm(cfg, dev)
     if cfg.ot_loss_weight > 0:
         params["ot"] = init_ot_loss(
             gen, cfg.d_model, ot_dim=cfg.ot_dim, n_protos=cfg.ot_protos,
@@ -220,31 +312,34 @@ def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
 
 
 def _run_decoder_groups(params, cfg: ArchConfig,
-                        x: torch.Tensor) -> torch.Tensor:
+                        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers in order; returns ``(x, aux summed over the layers)``."""
     remat = cfg.remat and torch.is_grad_enabled()
-    for (_, count), stack in zip(group_plan(cfg.layer_plan()),
-                                 params["groups"]):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (kind, count), stack in zip(group_plan(cfg.layer_plan()),
+                                    params["groups"]):
         for p_l in _unstack(stack, count):
             if remat:
                 leaves = tree_leaves(p_l)
 
-                def body(x_, *ls, _tmpl=p_l):
-                    return _block_train(tree_unflatten(_tmpl, list(ls)), x_,
-                                        cfg)
+                def body(x_, *ls, _tmpl=p_l, _kind=kind):
+                    return _block_train(_kind, tree_unflatten(_tmpl, list(ls)),
+                                        x_, cfg)
 
-                x = checkpoint(body, x, *leaves, use_reentrant=False)
+                x, aux_l = checkpoint(body, x, *leaves, use_reentrant=False)
             else:
-                x = _block_train(p_l, x, cfg)
-    return x
+                x, aux_l = _block_train(kind, p_l, x, cfg)
+            aux = aux + aux_l
+    return x, aux
 
 
 def forward(params, cfg: ArchConfig,
             batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (hidden (B, S, d) after the final norm, aux losses)."""
+    """Returns (hidden (B, S, d) after the final norm, the MoE layers'
+    aux losses summed)."""
     check_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
-    x = _run_decoder_groups(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_decoder_groups(params, cfg, x)
     return _norm(params["final_norm"], x, cfg), aux
 
 
@@ -321,16 +416,27 @@ def _lm_ce(params, cfg: ArchConfig, h: torch.Tensor,
 def train_loss(params, cfg: ArchConfig, batch: Dict,
                policy: Optional[ExecutionPolicy] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The training objective: cross-entropy plus ``ot_loss_weight``
-    times the OT prototype loss. ``policy`` is the run-wide OT execution
-    policy (``None``: ``ExecutionPolicy.from_config(cfg)``). Returns
-    ``(loss, {"ce", "aux"[, "ot"], "loss"})``, 0-d tensors."""
+    """The training objective: cross-entropy, plus 0.01 times the MoE
+    layers' aux loss, 0.3 times the multi-token-prediction loss where
+    ``cfg.mtp`` (the MTP block on the final hidden states predicts the
+    token after the next) and ``ot_loss_weight`` times the OT prototype
+    loss. ``policy`` is the run-wide OT execution policy (``None``:
+    ``ExecutionPolicy.from_config(cfg)``); its mesh is the run's, and a
+    MoE config refuses one of more than one rank. Returns
+    ``(loss, {"ce", "aux"[, "mtp"][, "ot"], "loss"})``, 0-d tensors."""
     if policy is None:
         policy = ExecutionPolicy.from_config(cfg)
+    _check_moe_mesh(cfg, policy.mesh)
     h, aux = forward(params, cfg, batch)
     loss_ce = _lm_ce(params, cfg, h, batch["labels"])
     metrics = {"ce": loss_ce, "aux": aux}
     loss = loss_ce + 0.01 * aux
+    if cfg.mtp:
+        hm, _ = _block_train(_mtp_kind(cfg), params["mtp_block"], h, cfg)
+        hm = _norm(params["mtp_norm"], hm, cfg)
+        loss_mtp = _lm_ce(params, cfg, hm[:, :-1], batch["labels"][:, 1:])
+        metrics["mtp"] = loss_mtp
+        loss = loss + 0.3 * loss_mtp
     if cfg.ot_loss_weight > 0:
         loss_ot = ot_prototype_loss(
             params["ot"], h, eps=cfg.ot_eps, n_tokens=cfg.ot_tokens,
@@ -346,28 +452,36 @@ def train_loss(params, cfg: ArchConfig, batch: Dict,
 # ---------------------------------------------------------------------------
 
 
+def _stacked(cache, count: int):
+    return type(cache)(*(t.expand((count,) + t.shape).contiguous()
+                         for t in cache))
+
+
 def init_caches(cfg: ArchConfig, batch: int, s_max: int, *,
-                device=None) -> List[GQACache]:
-    """One stacked cache a layer group (leading axis: its layers), k and
-    v of (L, B, S_cache, KH, D) in the compute dtype, ``S_cache`` the
-    window where there is one; ``length`` (L,) int64."""
+                device=None) -> List[Cache]:
+    """One stacked cache a layer group (leading axis: its layers), in the
+    compute dtype: GQA k and v of (L, B, S_cache, KH, D), ``S_cache`` the
+    window where there is one; MLA latents (L, B, S, kv_lora) and rope
+    keys (L, B, S, qk_rope); ``length`` (L,) int64."""
     check_ported(cfg)
     dev = init_device(device)
     win = effective_window(cfg, s_max)
     caches = []
-    for _, count in group_plan(cfg.layer_plan()):
-        c = init_gqa_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
-                           window=win, dtype=cfg.cdtype, device=dev)
-        caches.append(GQACache(
-            c.k.expand((count,) + c.k.shape).contiguous(),
-            c.v.expand((count,) + c.v.shape).contiguous(),
-            c.length.expand(count).contiguous()))
+    for kind, count in group_plan(cfg.layer_plan()):
+        if _is_mla(kind):
+            c = init_mla_cache(batch, s_max, kv_lora=cfg.kv_lora,
+                               qk_rope=cfg.qk_rope, dtype=cfg.cdtype,
+                               device=dev)
+        else:
+            c = init_gqa_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
+                               window=win, dtype=cfg.cdtype, device=dev)
+        caches.append(_stacked(c, count))
     return caches
 
 
 def decode_step(params, cfg: ArchConfig, token_batch: Dict,
-                caches: List[GQACache], *, window: Optional[int] = None
-                ) -> Tuple[torch.Tensor, List[GQACache]]:
+                caches: List[Cache], *, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, List[Cache]]:
     """One-token decode: ``token_batch`` holds ``tokens`` (B, 1) or
     ``embeds`` (B, 1, d). Returns ``(logits (B, 1, V), caches)``.
 
@@ -381,21 +495,19 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
         x = token_batch["embeds"].to(cfg.cdtype)
     else:
         x = params["embed"]["table"].to(cfg.cdtype)[token_batch["tokens"]]
-    for (_, count), cache, stack in zip(group_plan(cfg.layer_plan()), caches,
-                                        params["groups"]):
-        k_new, v_new = [], []
+    for (kind, count), cache, stack in zip(group_plan(cfg.layer_plan()),
+                                           caches, params["groups"]):
+        new = []
         for layer, p_l in enumerate(_unstack(stack, count)):
-            x, k_l, v_l = _block_decode(p_l, x, cache.k[layer],
-                                        cache.v[layer], cache.length[layer],
-                                        cfg, window)
-            k_new.append(k_l)
-            v_new.append(v_l)
-        s_cache = cache.k.shape[2]
+            x, new_l = _block_decode(kind, p_l, x, cache, layer, cfg, window)
+            new.append(new_l)
+        s_cache = cache[0].shape[2]
         pos = cache.length[:1]
-        slot = torch.remainder(pos, s_cache) if window else \
-            torch.clamp(pos, max=s_cache - 1)
-        cache.k.index_copy_(2, slot, torch.stack(k_new)[:, :, None])
-        cache.v.index_copy_(2, slot, torch.stack(v_new)[:, :, None])
+        # a window's rolling buffer; MLA caches keep every position
+        slot = torch.remainder(pos, s_cache) if window and \
+            not _is_mla(kind) else torch.clamp(pos, max=s_cache - 1)
+        for buf, column in zip(cache[:2], zip(*new)):
+            buf.index_copy_(2, slot, torch.stack(column)[:, :, None])
         cache.length.add_(1)
     h = _norm(params["final_norm"], x, cfg)
     return _logits(params, cfg, h), caches

@@ -199,46 +199,64 @@ TRAJ_OT_RTOL = 0.25      # every step's ot, relative
 TRAJ_OT_MEAN_RTOL = 3e-2  # the mean ot of the last half, relative
 
 
-def test_train_trajectory_follows_reference():
-    """Forty ``make_train_step`` steps at smollm-135m's width (d_model 576,
-    9 heads, 3 KV heads, d_ff 1536) and its OT loss (512 of 8 x 64 tokens
-    against 512 prototypes, r = 257, 30 iterations), two layers and a
-    vocabulary of 512, with the default AdamW and schedule, against the
-    reference's steps from the same weights and the port's data stream.
-    It holds what one step cannot: the moments, the step count and the
-    prototypes carried across steps. Each package rounds the OT factors
-    to bf16, so the parameters' last bits differ after the first update
-    and training amplifies them. Step 0 is held at one step's bars
-    (``ce`` 1e-5, ``ot`` 1e-4 relative), the warmup steps at ``ce`` 1e-5
-    and ``ot`` 1e-2, every step at ``ce`` 2e-3 and ``ot`` 0.25, and the
-    mean ``ot`` of the last 20 steps at 3e-2 (at this seed the largest
-    gaps are about 2e-6, 1.2e-3, 3.3e-4, 8.9e-2 and 1.2e-2)."""
-    kw = dict(F32, d_model=576, n_heads=9, n_kv_heads=3, head_dim=64,
-              d_ff=1536, ot_features=256, ot_protos=512, ot_dim=16,
-              ot_tokens=512, ot_iters=30)
-    jc = j_get_config("smollm-135m").tiny(**kw)
-    tc = get_config("smollm-135m").tiny(**kw)
-    B, S = 8, 64
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the test, restored after it: at the tiny
+    widths the port's steps are op-overhead bound, and torch's pool
+    otherwise contends with XLA's on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_train_trajectory_follows_reference(one_torch_thread):
+    """Forty ``make_train_step`` steps at the tiny config's widths
+    (d_model 128, 4 heads, 2 KV heads, d_ff 256, two layers, a
+    vocabulary of 512) and its OT loss (64 of 4 x 32 tokens against 64
+    prototypes, r = 33, 10 iterations), with the default AdamW and
+    schedule, against the reference's steps (its jitted step, scanned
+    over the batches in one compiled call) from the same weights (the
+    port's seeded draw, carried into the reference's pytree) and the
+    port's data stream. It holds what one step cannot: the moments, the
+    step count and the prototypes carried across steps. Each package
+    rounds the OT factors to bf16, so the parameters' last bits differ
+    after the first update and training amplifies them. Step 0 is held at
+    one step's bars (``ce`` 1e-5, ``ot`` 1e-4 relative), the warmup steps
+    at ``ce`` 1e-5 and ``ot`` 1e-2, every step at ``ce`` 2e-3 and ``ot``
+    0.25, and the mean ``ot`` of the last 20 steps at 3e-2 (at this seed
+    the gaps are 0 and 5e-7 at step 0, 1.5e-7 and 1.4e-4 in the warmup,
+    1.8e-5 and 1.4e-2 over all steps, and 7.3e-4 for the mean)."""
+    jc = j_get_config("smollm-135m").tiny(**F32)
+    tc = get_config("smollm-135m").tiny(**F32)
+    B, S = 4, 32
     data = DataPipeline(DataConfig(0, B, S, tc.vocab), device="cpu")
-    jp = JM.init_params(jax.random.PRNGKey(0), jc)
-    p_np = jax.tree.map(np.asarray, jp)
+    batches = [data.batch_at(step) for step in range(TRAJ_STEPS)]
+    tp = init_params(tc, seed=0, device="cpu")
+    jp = tree_map(lambda t: jnp.asarray(t.numpy()), tp)
     jstep, _, _ = j_make_train_step(jc, j_local_mesh(1, 1),
                                     JShape("t", S, B, "train"),
                                     opt=JO.AdamWConfig(),
                                     total_steps=TRAJ_STEPS)
+
+    def j_trajectory(state, stacked):
+        """The reference's steps in one compiled scan over the batches."""
+        def body(carry, batch):
+            *carry, m = jstep(*carry, batch)
+            return tuple(carry), jnp.stack([m["ce"], m["ot"]])
+        return jax.lax.scan(body, state, stacked)[1]
+
+    stacked = {k: jnp.asarray(np.stack([b[k].numpy() for b in batches]),
+                              jnp.int32) for k in batches[0]}
+    ref = np.asarray(jax.jit(j_trajectory)(
+        (jp, JO.init_adamw(jp, JO.AdamWConfig())), stacked))
     tstep, _ = make_train_step(tc, None, ShapeSpec("t", S, B, "train"),
                                opt=TO.AdamWConfig(), total_steps=TRAJ_STEPS)
-    jstate = (jax.tree.map(jnp.asarray, p_np),
-              JO.init_adamw(jp, JO.AdamWConfig()))
-    tp = convert.lm_params(p_np, tc, device="cpu")
     tstate = (tp, TO.init_adamw(tp, tstep.opt))
     rows = []
     for step in range(TRAJ_STEPS):
-        batch = data.batch_at(step)
-        *jstate, jm = jstep(*jstate, {k: jnp.asarray(v.numpy(), jnp.int32)
-                                      for k, v in batch.items()})
-        *tstate, tm = tstep(*tstate, batch)
-        rows.append([float(m[k]) for m in (jm, tm) for k in ("ce", "ot")])
+        *tstate, tm = tstep(*tstate, batches[step])
+        rows.append(list(ref[step]) + [float(tm[k]) for k in ("ce", "ot")])
     rows = np.array(rows)          # (steps, [ref ce, ref ot, ce, ot])
     rel = np.abs(rows[:, 2:] - rows[:, :2]) / np.abs(rows[:, :2])
     tail = rows[TRAJ_STEPS // 2:]

@@ -87,6 +87,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.launch.train", "repro_torch.launch.serve",
             "repro_torch.launch.specs",
             "repro_torch.examples.train_lm"} <= set(MODULES)
+    # and the MoE slice's: the Sinkhorn router and the MoE layer
+    assert {"repro_torch.core.routing", "repro_torch.models.moe"} <= \
+        set(MODULES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
