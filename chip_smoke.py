@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -310,6 +310,40 @@ Phases, each of which fails the run (nonzero exit, no result line):
    max |out|; (e) ``launch.train --arch deepseek_v3_671b --tiny``,
    ``launch.serve --arch deepseek_v2_236b --tiny`` and ``examples.train_lm
    --arch deepseek_v3_671b --tiny --strict`` side by side, each rc 0.
+14. the SSM and hybrid families (``models.ssm``: the chunked SSD and the
+   O(1) decode; the hybrid's shared attention block) at full width and
+   full depth, float32, seeded weights drawn on the card: mamba2-1.3b (48
+   Mamba2 layers, d_model 2048, 64 heads of 64, N 128, 1.34 G
+   parameters) and zamba2-1.2b (32 Mamba2 layers, N 64, and 6 uses of one
+   attention + MLP block, 1.02 G). (a) One mamba2 mixer on 2 x 300 tokens
+   (three chunks of 128, a padded tail): ``mamba2_decode`` token by token
+   against ``mamba2_train`` and the decode state against
+   ``ssd_chunked``'s final state, within 1e-4 of max |value| and the
+   reference's rtol 3e-3 + atol 3e-4; (b) ``train_loss`` forward and
+   backward at 2 x 256 on the card against the port's CPU path, the same
+   weights, at full width cut to 4 (mamba2) and 12 (zamba2, two uses of
+   the shared block at its cadence of 6) layers: ``ce`` 1e-5, ``ot`` 1e-4 relative,
+   gradients 1e-3 of each leaf's max; (c) ``train_loss`` at full depth
+   and 8 x 256 with the OT loss on the kernels (rows 6-7, their launches
+   a call) against ``use_pallas=False``: the loss 1e-4 relative, every
+   gradient 1e-3 of its leaf's max; (d) ``launch.train`` in-process, 10
+   steps at 8 x 256 with AdamW, the final state on through the driver's
+   own step for steps 10-19: ms a step, tokens/s, peak memory, the busy
+   share of 2 profiled steps and the OT loss's share (steps with it on
+   against off); for zamba2 (whose tree holds the shared block's empty
+   groups) the first 10 steps end in a checkpoint and ``--resume`` runs
+   10 more, each resumed loss within 1e-4 relative of the uninterrupted
+   run; (e) ``launch.serve`` at batch 4 after a 64-token prompt, 16
+   generated, each decode step's logits within 1e-4 of max |logit| of
+   the forward at that position; (f) the ``long_500k`` caches (S =
+   524288, batch 1) of both configs on ``meta`` and their bytes, zamba2's
+   six shared-attention caches the 4096-slot rolling buffer; zamba2 with
+   a 64-slot window over 96 decode steps against the windowed forward
+   (1e-4 of max |logit|); one decode step on real ``long_500k`` caches
+   with every length at 64 and at 524287 (a timing only: the buffers hold
+   zeros, not a history); (g) ``examples.train_lm --tiny --strict`` on
+   both configs, ``launch.train --tiny`` on zamba2's and ``launch.serve
+   --tiny`` on mamba2's, side by side, each rc 0.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -5661,7 +5695,7 @@ def check_router(torch, np, device):
     return failures
 
 
-def moe_params(torch, cfg, device, seed=0):
+def card_params(torch, cfg, device, seed=0):
     """The config's parameters drawn on the card (a seeded CUDA generator,
     the large leaves in slices), and the seconds it took."""
     from repro_torch.models import init_params
@@ -5965,7 +5999,7 @@ def run_moe_path(torch, np, device, src):
 
     failures = timed("a", check_router, torch, np, device)
     cfg = moe_config()
-    params, init_s = timed("init", moe_params, torch, cfg, device)
+    params, init_s = timed("init", card_params, torch, cfg, device)
     log(f"  {cfg.name} at {cfg.n_layers} layers ({cfg.layer_plan()} + the "
         f"MTP block): {param_count(params) / 1e9:.3f} G parameters, "
         f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB on the card,"
@@ -5989,6 +6023,510 @@ def run_moe_path(torch, np, device, src):
     return counts, failures
 
 
+SSM_ARCHS = ("mamba2_1p3b", "zamba2_1p2b")   # full width and full depth
+SSM_MIXER = (2, 300)            # (a): batch, tokens (3 chunks, a padded tail)
+SSM_MIXER_TOL = 1e-4            # (a): of max |out|; also rtol 3e-3 + atol 3e-4
+SSM_CHECK = (2, 256)            # (b): batch x seq, card against the CPU
+SSM_CHECK_DEPTH = {"mamba2_1p3b": 4, "zamba2_1p2b": 12}  # 12: two shared uses
+SSM_TRAIN = (8, 256)            # (c), (d): batch x seq
+SSM_STEPS = 20                  # (d): the driver's two halves of 10 steps
+SSM_PROFILED = 2                # (d): the uninterrupted run's last steps, profiled
+SSM_SHARE_PAIRS = 5             # (d): steps with the OT loss on, then off
+SSM_SERVE = (4, 64, 16)         # (e): batch, prompt, generated tokens
+SSM_WRAP = (64, 96)             # (f): zamba2's window, decode steps
+SSM_LONG_REPEATS = 5            # (f): timed decode steps a position
+SSM_PATH_KERNELS = ("log_feature_contract", "log_halfstep")
+
+
+def ssm_config(arch, **over):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), param_dtype="float32",
+                               compute_dtype="float32", **over)
+
+
+def rel_to_max(torch, got, want):
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def check_ssd_forms(torch, device, cfg):
+    """Phase 14 (a): one full-width Mamba2 mixer of ``cfg`` on SSM_MIXER's
+    batch x tokens: ``mamba2_train`` (the chunked SSD) against
+    ``mamba2_decode`` stepped token by token, and ``ssd_chunked``'s final
+    state against the decode state after the last token."""
+    from repro_torch.models.ssm import init_mamba2, init_mamba2_cache, \
+        mamba2_decode, mamba2_train, ssd_chunked, ssd_inputs
+
+    B, S = SSM_MIXER
+    kw = dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+              expand=cfg.ssm_expand)
+    gen = torch.Generator(device=device).manual_seed(14)
+    p = init_mamba2(gen, cfg.d_model, conv_kernel=cfg.conv_kernel,
+                    device=device, **kw)
+    x = 0.5 * torch.randn((B, S, cfg.d_model), generator=gen, device=device)
+    with torch.no_grad():
+        full = mamba2_train(p, x, chunk=cfg.ssm_chunk, **kw)
+        _, final = ssd_chunked(*ssd_inputs(p, x, **kw)[1:],
+                               chunk=cfg.ssm_chunk)
+        cache = init_mamba2_cache(B, cfg.d_model, conv_kernel=cfg.conv_kernel,
+                                  device=device, **kw)
+        outs = []
+        for t in range(S):
+            out, cache = mamba2_decode(p, x[:, t:t + 1], cache, **kw)
+            outs.append(out)
+        dec = torch.cat(outs, dim=1)
+    err = rel_to_max(torch, dec, full)
+    state_err = rel_to_max(torch, cache.state, final)
+    ref_bar = bool(torch.allclose(dec, full, rtol=3e-3, atol=3e-4)) and \
+        bool(torch.allclose(cache.state, final, rtol=3e-3, atol=3e-4))
+    log(f"  (a) one {cfg.name} mixer (d {cfg.d_model}, {cfg.ssm_heads} heads "
+        f"of {cfg.ssm_head_dim}, N {cfg.ssm_state}, chunk {cfg.ssm_chunk}) "
+        f"on {B} x {S} tokens: {S} decode steps against mamba2_train "
+        f"{err:.3g} of max |out| ({float(full.abs().max()):.4g}); the decode "
+        f"state against ssd_chunked's final {state_err:.3g} of max |state|"
+        f" (bar {SSM_MIXER_TOL}; the reference's rtol 3e-3 + atol 3e-4: "
+        f"{'held' if ref_bar else 'MISSED'})")
+    if not (err <= SSM_MIXER_TOL and state_err <= SSM_MIXER_TOL and ref_bar):
+        return [f"(a) decode vs train {err:.3g}, state {state_err:.3g}"]
+    return []
+
+
+def check_ssm_card_vs_cpu(torch, device, arch):
+    """Phase 14 (b): one ``train_loss`` forward and backward at SSM_CHECK on
+    the card against the port's CPU path, the same weights (the CPU's
+    seeded draw, copied to the card), at full width and SSM_CHECK_DEPTH's
+    layers; phase 12's bars."""
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = ssm_config(arch, n_layers=SSM_CHECK_DEPTH[arch])
+    B, S = SSM_CHECK
+    cpu = torch.device("cpu")
+    params_cpu = init_params(cfg, seed=0, device=cpu)
+    params = tree_map(lambda t: t.to(device), params_cpu)
+    batch_cpu = DataPipeline(DataConfig(0, B, S, cfg.vocab),
+                             device=cpu).batch_at(0)
+    batch = {k: v.to(device) for k, v in batch_cpu.items()}
+    policy = ExecutionPolicy.from_config(cfg)
+    t0 = time.perf_counter()
+    m_card, g_card = lm_grads(torch, params, cfg, batch, policy)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = lm_grads(torch, params_cpu, cfg, batch_cpu, policy)
+    t_cpu = time.perf_counter() - t0
+    ce = abs(m_card["ce"] - m_cpu["ce"]) / abs(m_cpu["ce"])
+    ot = abs(m_card["ot"] - m_cpu["ot"]) / abs(m_cpu["ot"])
+    bad, worst = leaves_within(torch, g_card, g_cpu, LM_GRAD_TOL, "(b)")
+    log(f"  (b) {arch} at {cfg.n_layers} layers ({cfg.layer_plan()}), "
+        f"{B} x {S}: ce {m_card['ce']:.7f} card / {m_cpu['ce']:.7f} cpu "
+        f"(rel {ce:.3g}, bar {LM_CE_RTOL}); ot {m_card['ot']:.7f} / "
+        f"{m_cpu['ot']:.7f} (rel {ot:.3g}, bar {LM_OT_RTOL}); gradients "
+        f"worst {worst:.3g} of a leaf's max |grad| (bar {LM_GRAD_TOL}); "
+        f"{t_card:.2f} s card, {t_cpu:.2f} s cpu")
+    failures = bad
+    if not ce <= LM_CE_RTOL:
+        failures.append(f"(b) {arch} ce card vs cpu rel {ce:.3g}")
+    if not ot <= LM_OT_RTOL:
+        failures.append(f"(b) {arch} ot card vs cpu rel {ot:.3g}")
+    return failures
+
+
+def ssm_batch(torch, cfg, device, B, S, step=0):
+    from repro_torch.data import DataConfig, DataPipeline
+    return DataPipeline(DataConfig(seed=0, global_batch=B, seq_len=S,
+                                   vocab=cfg.vocab, input_kind=cfg.input_kind,
+                                   d_model=cfg.d_model),
+                        device=device).batch_at(step)
+
+
+def check_ssm_ot_kernels(torch, device, cfg, params):
+    """Phase 14 (c): ``train_loss`` forward and backward at full depth and
+    SSM_TRAIN with the OT loss on the kernels, its launches of rows 6-7,
+    then with ``use_pallas=False``: the loss 1e-4 relative, every gradient
+    1e-3 of its leaf's max."""
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.kernels import launch_counts
+
+    B, S = SSM_TRAIN
+    batch = ssm_batch(torch, cfg, device, B, S)
+    fused = ExecutionPolicy.from_config(cfg)
+    plain = dataclasses.replace(fused, use_pallas=False)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    m_k, g_k = lm_grads(torch, params, cfg, batch, fused)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    per_call = {k: v for k, v in counts_delta(before, launch_counts()).items()
+                if v}
+    t0 = time.perf_counter()
+    m_k, g_k = lm_grads(torch, params, cfg, batch, fused)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    m_p, g_p = lm_grads(torch, params, cfg, batch, plain)
+    rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    ot_rel = abs(m_k["ot"] - m_p["ot"]) / abs(m_p["ot"])
+    bad, worst = leaves_within(torch, g_k, g_p, MOE_GRAD_TOL, "(c)")
+    _, ot_worst = leaves_within(torch, g_k["ot"], g_p["ot"], MOE_GRAD_TOL,
+                                "(c) ot")
+    log(f"  (c) {cfg.name} train_loss forward + backward at {B} x {S}, "
+        f"{cfg.n_layers} layers: ce {m_k['ce']:.6f}, ot {m_k['ot']:.6f}, "
+        f"loss {m_k['loss']:.6f}; {ms:.1f} ms (first call {first_ms:.1f} "
+        f"ms); launches a call {per_call}; use_pallas=False: loss rel "
+        f"{rel:.3g}, ot rel {ot_rel:.3g} (bar {MOE_LOSS_RTOL}); gradients "
+        f"worst {worst:.3g} of a leaf's max (the OT leaves {ot_worst:.3g}; "
+        f"bar {MOE_GRAD_TOL})")
+    failures = bad
+    for k in SSM_PATH_KERNELS:
+        if per_call.get(k, 0) <= 0:
+            failures.append(f"(c) {k} not launched by train_loss")
+    if not rel <= MOE_LOSS_RTOL:
+        failures.append(f"(c) loss kernels vs plain rel {rel:.3g}")
+    return failures
+
+
+def train_ssm(torch, device, cfg, build_dir, resume):
+    """Phase 14 (d): the ``launch.train`` driver in-process at SSM_TRAIN
+    with AdamW for steps 0-9; its final state goes on uninterrupted
+    through the driver's own step (``make_train_step``, the same horizon
+    and data) for steps 10-19, timed, its last SSM_PROFILED steps under
+    the profiler; then SSM_SHARE_PAIRS pairs of steps with the OT loss on
+    and off. With ``resume`` (zamba2: its tree, with the shared block's
+    empty groups, is the one phase 12's checkpoint has not carried) the
+    first half ends in a checkpoint and ``--resume`` from it runs steps
+    10-19 again, its losses within 1e-4 relative of the uninterrupted
+    ones; without it no checkpoint is written (each full-size transfer
+    costs ~20 s)."""
+    import shutil
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    B, S = SSM_TRAIN
+    half = SSM_STEPS // 2
+    ck = build_dir / f"ssm_ckpt_{cfg.name}"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S),
+            "--steps", str(half), "--log-every", "1"]
+    if resume:
+        base += ["--save-every", str(10 ** 6), "--ckpt-dir", str(ck)]
+    t0 = time.perf_counter()
+    first = train.main(base)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    state = first.pop("state")
+
+    shape = ShapeSpec("phase14", S, B, "train")
+    step_fn, _ = make_train_step(cfg, None, shape, AdamWConfig(),
+                                 total_steps=half)
+
+    def one(state, step, fn=step_fn):
+        p, o, m = fn(state[0], state[1], ssm_batch(torch, cfg, device, B, S,
+                                                   step))
+        return (p, o), {k: float(v) for k, v in m.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    hist, ms = [], []
+    for step in range(half, SSM_STEPS - SSM_PROFILED):
+        t0 = time.perf_counter()
+        state, m = one(state, step)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append(m)
+
+    def profiled():
+        nonlocal state
+        for step in range(SSM_STEPS - SSM_PROFILED, SSM_STEPS):
+            state, m = one(state, step)
+            hist.append(m)
+
+    share, wall, top = busy_share(torch, profiled)
+    peak = torch.cuda.max_memory_allocated(device)
+    step_ms = statistics.median(ms[1:])
+    log(f"  (d) {cfg.name}, {B} x {S}: steps {half}-{SSM_STEPS - 1} "
+        f"uninterrupted: {step_ms:.1f} ms a step (median of steps "
+        f"{half + 1}-{SSM_STEPS - SSM_PROFILED - 1}), "
+        f"{B * S / (step_ms / 1e3):.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.3f} GiB; ce {first['losses'][0]['ce']:.4f} -> "
+        f"{hist[-1]['ce']:.4f}, ot {first['losses'][0]['ot']:.4f} -> "
+        f"{hist[-1]['ot']:.4f}; {SSM_PROFILED} profiled steps "
+        f"{wall * 1e3:.1f} ms, busy share "
+        f"{'not measured' if share is None else f'{share:.4f}'}; top "
+        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
+                    for e in top[:4]))
+    off_fn, _ = make_train_step(dataclasses.replace(cfg, ot_loss_weight=0.0),
+                                None, shape, AdamWConfig(), total_steps=half)
+    on_ms, off_ms = [], []
+    for pair in range(SSM_SHARE_PAIRS):
+        sides = ((step_fn, on_ms), (off_fn, off_ms))
+        for fn, out in sides[::1 if pair % 2 else -1]:   # alternate the lead
+            t0 = time.perf_counter()
+            one(state, pair, fn)
+            out.append((time.perf_counter() - t0) * 1e3)
+    diffs = [a - b for a, b in zip(on_ms[1:], off_ms[1:])]
+    log(f"  (d) {cfg.name} OT loss on / off, {SSM_SHARE_PAIRS - 1} pairs "
+        f"after one discarded: {[round(v, 1) for v in on_ms[1:]]} / "
+        f"{[round(v, 1) for v in off_ms[1:]]} ms; the OT loss's share of a "
+        f"step {statistics.median(diffs) / statistics.median(on_ms[1:]):.4f}")
+    del state
+    torch.cuda.empty_cache()
+    failures = []
+    if not all(math.isfinite(v) for m in hist + first["losses"]
+               for v in m.values()):
+        failures.append("(d) non-finite metrics")
+    if not resume:
+        log(f"  (d) {cfg.name} launch.train: steps 0-{half - 1} in "
+            f"{t_first:.1f} s (no checkpoint)")
+        if [d["step"] for d in first["losses"]] != list(range(half)):
+            failures.append("(d) the driver's logged steps")
+        return failures
+
+    ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    again = train.main(base + ["--resume"])
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    del again["state"]
+    shutil.rmtree(ck, ignore_errors=True)
+    resumed = again["losses"]
+    worst = max(abs(d[k] - h[k]) / abs(h[k]) for d, h in zip(resumed, hist)
+                for k in ("loss", "ce", "ot"))
+    log(f"  (d) {cfg.name} launch.train: steps 0-{half - 1} and a "
+        f"checkpoint ({ck_bytes / 2**30:.2f} GiB) in {t_first:.1f} s; "
+        f"--resume from step {again['start'] - 1}: steps "
+        f"{resumed[0]['step']}-{resumed[-1]['step']} and a checkpoint in "
+        f"{t_again:.1f} s; its losses against the uninterrupted steps: "
+        f"worst loss / ce / ot rel {worst:.3g} (bar {LM_RESUME_RTOL})")
+    if [d["step"] for d in first["losses"] + resumed] != list(
+            range(SSM_STEPS)):
+        failures.append("(d) the driver's logged steps")
+    if not worst <= LM_RESUME_RTOL:
+        failures.append(f"(d) resumed vs uninterrupted losses {worst:.3g}")
+    if not all(math.isfinite(v) for m in resumed for v in m.values()):
+        failures.append("(d) non-finite metrics after --resume")
+    return failures
+
+
+def serve_ssm(torch, device, cfg, params):
+    """Phase 14 (e): ``launch.serve`` at SSM_SERVE on the phase's weights;
+    then the prompt and the generated tokens decoded again from fresh
+    caches, each step's logits against the forward over the whole
+    sequence at that position (a causal model: ``prefill`` of each
+    prefix), within LM_DECODE_TOL of max |logit|."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models.model import _logits, effective_window
+
+    B, P, G = SSM_SERVE
+    out = serve.main(["--arch", cfg.name, "--batch", str(B), "--prompt-len",
+                      str(P), "--gen", str(G)], params=params)
+    seq = torch.cat([out["prompt"], out["generated"]], dim=1)
+    T = seq.shape[1]
+    caches = init_caches(cfg, B, T, device=device)
+    win = effective_window(cfg, T)
+    worst = 0.0
+    with torch.no_grad():
+        h, _ = forward(params, cfg, {"tokens": seq})
+        ref = _logits(params, cfg, h)
+        for i in range(T):
+            logits, caches = decode_step(params, cfg,
+                                         {"tokens": seq[:, i:i + 1]}, caches,
+                                         window=win)
+            worst = max(worst, rel_to_max(torch, logits[:, 0], ref[:, i]))
+    ms = out["decode_s"] * 1e3 / G
+    log(f"  (e) {cfg.name} launch.serve batch {B}, prompt {P}: prefill "
+        f"{out['prefill_ms']:.3f} ms a token step, decode {ms:.3f} ms a "
+        f"token step, {out['decode_tok_s']:.1f} tok/s; decode vs prefill "
+        f"over {T} positions: worst {worst:.3g} of max |logit| (bar "
+        f"{LM_DECODE_TOL})")
+    return [] if worst <= LM_DECODE_TOL else [
+        f"(e) {cfg.name} decode vs prefill {worst:.3g}"]
+
+
+def ssm_long_caches(torch, device):
+    """Phase 14 (f), first part: the ``long_500k`` caches of both configs
+    on ``meta`` (``launch.specs.cache_specs``): their bytes, and zamba2's
+    shared-attention caches the 4096-slot rolling buffer."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.specs import cache_specs
+    from repro_torch.models.attention import GQACache
+    from repro_torch.models.model import effective_window
+
+    shape = SHAPES["long_500k"]
+    failures = []
+    for arch in SSM_ARCHS:
+        cfg = ssm_config(arch)
+        caches = cache_specs(cfg, shape)
+        kinds = collections.Counter(type(c).__name__ for c in caches)
+        nbytes = collections.Counter()
+        for c in caches:
+            nbytes[type(c).__name__] += sum(t.numel() * t.element_size()
+                                            for t in c)
+        gqa = [c for c in caches if isinstance(c, GQACache)]
+        slots = sorted({c.k.shape[1] for c in gqa})
+        win = effective_window(cfg, shape.seq_len)
+        log(f"  (f) {arch} long_500k (S = {shape.seq_len}, batch "
+            f"{shape.global_batch}) caches: {dict(kinds)}, "
+            + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in nbytes.items())
+            + f"; shared-attention slots {slots}, window {win}")
+        if arch.startswith("zamba2") and (
+                len(gqa) != 6 or slots != [cfg.long_context_window] or
+                win != 4096):
+            failures.append(f"(f) zamba2's long_500k shared caches: "
+                            f"{len(gqa)} of slots {slots}, window {win}")
+    return failures
+
+
+def check_ssm_wrap(torch, device, cfg, params):
+    """Phase 14 (f): zamba2 at full width and depth with a window of
+    SSM_WRAP[0] slots: SSM_WRAP[1] decode steps, each step's logits against
+    the forward with the same window at that position (1e-4 of max
+    |logit|), the rolling buffer wrapping after SSM_WRAP[0] tokens."""
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models.attention import GQACache
+    from repro_torch.models.model import _logits, effective_window
+
+    window, T = SSM_WRAP
+    cfg = dataclasses.replace(cfg, window=window)
+    tok = torch.randint(0, cfg.vocab, (2, T),
+                        generator=torch.Generator().manual_seed(14))
+    tok = tok.to(device)
+    caches = init_caches(cfg, 2, 524288, device=device)
+    win = effective_window(cfg, 524288)
+    slots = {c.k.shape[1] for c in caches if isinstance(c, GQACache)}
+    worst = 0.0
+    with torch.no_grad():
+        ref = _logits(params, cfg, forward(params, cfg, {"tokens": tok})[0])
+        for i in range(T):
+            logits, caches = decode_step(params, cfg,
+                                         {"tokens": tok[:, i:i + 1]}, caches,
+                                         window=win)
+            worst = max(worst, rel_to_max(torch, logits[:, 0], ref[:, i]))
+    log(f"  (f) {cfg.name} window {win} (cache slots {sorted(slots)}), {T} "
+        f"decode steps against the windowed forward: worst {worst:.3g} of "
+        f"max |logit| (bar {LM_DECODE_TOL})")
+    return [] if worst <= LM_DECODE_TOL and slots == {window} else [
+        f"(f) wrap {worst:.3g}, slots {slots}"]
+
+
+def time_long_decode(torch, device, cfg, params):
+    """Phase 14 (f): one decode step on real ``long_500k`` caches (batch
+    1) with every ``length`` set to 64, then to 524287: a timing only (the
+    buffers hold zeros, not a 524k-token history). Median host ms of
+    SSM_LONG_REPEATS steps, each to a sync."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import decode_step, init_caches
+    from repro_torch.models.model import effective_window
+
+    shape = SHAPES["long_500k"]
+    caches = init_caches(cfg, shape.global_batch, shape.seq_len,
+                         device=device)
+    held = sum(t.numel() * t.element_size() for c in caches for t in c)
+    win = effective_window(cfg, shape.seq_len)
+    tok = torch.zeros((shape.global_batch, 1), dtype=torch.long,
+                      device=device)
+    out = {}
+    with torch.no_grad():
+        for pos in (64, shape.seq_len - 1):
+            walls = []
+            for _ in range(SSM_LONG_REPEATS + 1):
+                for c in caches:
+                    c.length.fill_(pos)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                decode_step(params, cfg, {"tokens": tok}, caches, window=win)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[pos] = statistics.median(walls[1:])
+    log(f"  (f) {cfg.name} long_500k decode step (timing only: seeded "
+        f"buffers, no real history), {held / 1e6:.1f} MB of caches on the "
+        f"card, window {win}: "
+        + ", ".join(f"length {k}: {v:.3f} ms" for k, v in out.items()))
+    return []
+
+
+def run_ssm_lanes(src, build_dir):
+    """Phase 14 (g): the drivers on the tiny ssm and hybrid configs on the
+    card, side by side as subprocesses: ``examples.train_lm --strict`` for
+    each, ``launch.train`` on zamba2's and ``launch.serve`` on mamba2's;
+    each must exit 0."""
+    import os
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(src))
+    lanes = []
+    for arch in SSM_ARCHS:
+        example = build_dir / f"ssm_example_ckpt_{arch}"
+        shutil.rmtree(example, ignore_errors=True)
+        lanes.append(["-m", "repro_torch.examples.train_lm", "--arch", arch,
+                      "--tiny", "--strict", "--steps", "20", "--ckpt-dir",
+                      str(example)])
+    lanes += [["-m", "repro_torch.launch.train", "--arch", SSM_ARCHS[1],
+               "--tiny", "--steps", "4", "--batch", "2", "--seq", "64",
+               "--log-every", "1"],
+              ["-m", "repro_torch.launch.serve", "--arch", SSM_ARCHS[0],
+               "--tiny"]]
+    runs = [start_lane(env, args) for args in lanes]
+    failures = []
+    for run in runs:
+        failures += finish_lane(run, "g")
+    return failures
+
+
+def run_ssm_path(torch, np, device, src):
+    """Phase 14: the SSM and hybrid families at full width and depth.
+    Returns (the launches of (c)-(f), failures)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import param_count
+
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    failures = timed("a", check_ssd_forms, torch, device,
+                     ssm_config(SSM_ARCHS[0]))
+    for arch in SSM_ARCHS:
+        failures += timed("b", check_ssm_card_vs_cpu, torch, device, arch)
+    reset_launch_counts()       # the main path: (c)-(f) at full depth
+    for arch in SSM_ARCHS:
+        cfg = ssm_config(arch)
+        params, init_s = timed("init", card_params, torch, cfg, device)
+        log(f"  {arch}: {cfg.n_layers} layers "
+            f"({collections.Counter(cfg.layer_plan())}), "
+            f"{param_count(params) / 1e9:.4f} G parameters, "
+            f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB on the "
+            f"card, drawn on the card in {init_s:.2f} s")
+        failures += timed("c", check_ssm_ot_kernels, torch, device, cfg,
+                          params)
+        torch.cuda.empty_cache()
+        failures += timed("d", train_ssm, torch, device, cfg, build_dir,
+                          arch.startswith("zamba2"))
+        torch.cuda.empty_cache()
+        failures += timed("e", serve_ssm, torch, device, cfg, params)
+        if arch.startswith("zamba2"):
+            failures += timed("f", check_ssm_wrap, torch, device, cfg,
+                              params)
+        failures += timed("f", time_long_decode, torch, device, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+    failures += timed("f", ssm_long_caches, torch, device)
+    counts = launch_counts()
+    failures += timed("g", run_ssm_lanes, src, build_dir)
+    missing = [k for k in SSM_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    log("  phase 14 parts (s): " + ", ".join(f"({k}) {v:.1f}"
+                                            for k, v in walls.items()))
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -6000,7 +6538,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 
 
 def main(argv=None) -> int:
@@ -6009,7 +6547,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all thirteen)")
+                    "result lines need all fourteen)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -6337,10 +6875,31 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 13 FAILED: {failures}")
             return 1
+    if 14 in phases:
+        log(f"== phase 14: the SSM and hybrid families ({SSM_ARCHS} at full "
+            f"width and depth, float32: (a) one mixer's two SSD forms on "
+            f"{SSM_MIXER[0]} x {SSM_MIXER[1]} tokens; (b) train_loss at "
+            f"{SSM_CHECK[0]} x {SSM_CHECK[1]}, card vs CPU, at "
+            f"{SSM_CHECK_DEPTH} layers; (c) train_loss at {SSM_TRAIN[0]} x "
+            f"{SSM_TRAIN[1]}, kernels vs plain; (d) launch.train, "
+            f"{SSM_STEPS} steps, zamba2's with a checkpoint and a resume; "
+            f"(e) "
+            f"launch.serve at {SSM_SERVE}; (f) long_500k caches, a "
+            f"{SSM_WRAP[0]}-slot window wrapped over {SSM_WRAP[1]} steps, "
+            "decode steps at length 64 and 524287; (g) the drivers on the "
+            "tiny configs)")
+        t14 = time.perf_counter()
+        c14, failures = run_ssm_path(torch, np, device, src)
+        log(f"  launches on the SSM path: {c14}")
+        counts["ssm"] = c14
+        log(f"  phase 14: {time.perf_counter() - t14:.1f} s")
+        if failures:
+            log(f"phase 14 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "thirteen")
+            "fourteen")
         return 0
 
     kernels = []

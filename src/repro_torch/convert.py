@@ -46,7 +46,7 @@ from .models.layers import init_device
 from .optim.adamw import AdamWState
 from .resilience.policy import RUNGS, RecoveryPolicy
 from .streaming import PagedFeatureStore, StreamingDistribution
-from .tree import named_leaves, tree_unflatten
+from .tree import named_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "gaussian_point_cloud",
@@ -243,12 +243,19 @@ def _leaf(arr, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(arr).to(device=device, dtype=dtype).contiguous()
 
 
+def _port_layout(tree_np):
+    """The reference's tree in the port's layout: a hybrid's shared-block
+    group is ``None`` there (a subtree without leaves in JAX's pytrees, a
+    leaf in ``torch.utils._pytree``) and ``{}`` in the port."""
+    return tree_map(lambda x: {} if x is None else x, tree_np)
+
+
 def _like(template, tree_np, device, *, moments: bool = False):
     """``tree_np``'s leaves as tensors in the structure and shapes of the
     port's tree ``template``, each in the template leaf's dtype (for
     ``moments``, in its own: bfloat16 or float32); the names must match."""
     want = named_leaves(template)
-    have = dict(named_leaves(tree_np))
+    have = dict(named_leaves(_port_layout(tree_np)))
     names = {name for name, _ in want}
     if set(have) != names:
         raise ValueError(f"names differ: only in the port "

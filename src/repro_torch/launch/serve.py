@@ -9,7 +9,8 @@ step); decode then takes the argmax of each step's logits. The step and
 the argmax run once on a throwaway cache before any timer starts, and
 prefill (prompt ingestion, latency-bound) is timed apart from decode
 (generation, throughput-bound). Parameters and compute are float32, as in
-the JAX driver. Counterpart of ``repro.launch.serve``.
+the JAX driver, drawn from a generator seeded 0 on the device.
+Counterpart of ``repro.launch.serve``.
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ def main(argv: Optional[Sequence[str]] = None,
     cfg = dataclasses.replace(cfg, param_dtype="float32",
                               compute_dtype="float32")
     if params is None:
-        params = init_params(cfg, seed=0, device=device)
+        params = init_params(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(0))
     B = args.batch
     s_max = args.prompt_len + args.gen
     caches = init_caches(cfg, B, s_max, device=device)

@@ -9,7 +9,10 @@ Runs the production loop on one card: the step of ``launch.steps``
 data, and with ``--ckpt-dir`` atomic checkpoints every ``--save-every``
 steps under the fault-tolerant supervisor (``--resume`` restores the
 latest committed step and runs ``--steps`` more). Parameters and compute
-are float32, as in the JAX driver. ``--tiny`` takes the reduced config;
+are float32, as in the JAX driver; the weights are drawn from a
+generator seeded 0 on the device (on the card a full-width model's
+billion draws take a fraction of a second; on the CPU they are
+``init_params(cfg, seed=0)``'s). ``--tiny`` takes the reduced config;
 ``--device cpu`` runs on the host (the kernels' plain versions).
 Counterpart of ``repro.launch.train``.
 """
@@ -19,6 +22,8 @@ import argparse
 import dataclasses
 import time
 from typing import Dict, Optional, Sequence
+
+import torch
 
 from ..checkpoint import CheckpointManager
 from ..configs import get_config
@@ -69,7 +74,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
           f"ot-policy {ExecutionPolicy.from_config(cfg).describe()}")
     step_fn, _ = make_train_step(cfg, None, shape, opt,
                                  total_steps=args.steps)
-    params = init_params(cfg, seed=0, device=device)
+    params = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(0))
     opt_state = init_adamw(params, step_fn.opt)
     data = DataPipeline(DataConfig(
         seed=0, global_batch=args.batch, seq_len=args.seq, vocab=cfg.vocab,

@@ -1,5 +1,5 @@
 """Model assembly: configs -> init / forward / loss / prefill / decode, for
-the ``dense``, ``vlm`` and ``moe`` families.
+the ``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid`` families.
 
 The layer plan (``configs.base.ArchConfig.layer_plan``) is grouped into
 runs of one block kind; each run's parameters are stacked on a leading
@@ -13,16 +13,26 @@ once and runs the layers in order, each under
 Block kinds: ``attn`` (GQA), ``mla`` (multi-head latent attention) and
 their ``_moe`` twins, whose FFN half is the mixture of experts
 (``models.moe``, the Sinkhorn router for the DeepSeek configs) plus the
-shared experts' MLP. The MoE layers' auxiliary losses are summed over the
-layers into ``aux``; with ``cfg.mtp`` one more block on the final hidden
-states predicts the token after the next (the multi-token-prediction
-loss). The experts run on the dense path; under a mesh of more than one
-rank the MoE refuses (expert parallelism is ROADMAP.md §A item 8d).
+shared experts' MLP; ``mamba`` (a Mamba2 mixer, ``models.ssm``, with no
+FFN half); and the hybrid's ``shared_attn``: one ``attn`` block whose
+parameters are held once, in ``params["shared_attn"]``, applied at every
+``attn_every``-th layer outside remat (its gradient the sum over its
+uses), each use with its own unstacked GQA cache. A ``shared_attn`` group
+holds the empty dict in ``params["groups"]`` where the reference holds
+``None`` (a leaf in ``torch.utils._pytree``, so ``convert.lm_params``
+maps the one to the other): the two packages' leaf names
+(``groups/2/mixer/in_proj/w``, ``shared_attn/attn/wq/w``) agree and
+AdamW and the checkpoints see no placeholder.
+The MoE layers' auxiliary losses are summed over the layers into ``aux``;
+with ``cfg.mtp`` one more block on the final hidden states predicts the
+token after the next (the multi-token-prediction loss). The experts run
+on the dense path; under a mesh of more than one rank the MoE and the
+SSD refuse (expert and context parallelism are ROADMAP.md §A item 8d).
 
 Parameters are a nested dict of tensors (``tree.named_leaves`` names
 them). The OT prototype loss (``models.ot_loss``) is part of
-:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. The SSM, hybrid
-and encoder-decoder families (and learned positions) raise
+:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. The
+encoder-decoder family (and learned positions) raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 Counterpart of ``repro.models.model``.
 """
@@ -60,6 +70,8 @@ from .layers import (
 )
 from .moe import init_moe, moe_dense
 from .ot_loss import init_ot_loss, ot_prototype_loss
+from .ssm import Mamba2Cache, init_mamba2, init_mamba2_cache, \
+    mamba2_decode, mamba2_train
 
 __all__ = [
     "check_ported",
@@ -74,16 +86,14 @@ __all__ = [
     "param_count",
 ]
 
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 _WAITS = {
-    "ssm": "ROADMAP.md §A item 8b (SSM and hybrid)",
-    "hybrid": "ROADMAP.md §A item 8b (SSM and hybrid)",
     "encdec": "ROADMAP.md §A item 8c (encoder-decoder)",
 }
 _MULTI_CARD = "ROADMAP.md §A item 8d (the multi-card slice)"
 
-Cache = Union[GQACache, MLACache]
+Cache = Union[GQACache, MLACache, Mamba2Cache]
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -157,10 +167,20 @@ def _mtp_kind(cfg: ArchConfig) -> str:
     return "mla" if cfg.attention == "mla" else "attn"
 
 
+def _ssm_kw(cfg: ArchConfig) -> Dict[str, int]:
+    return dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                expand=cfg.ssm_expand)
+
+
 def _init_block(generator, kind: str, cfg: ArchConfig, device,
                 lead=()) -> Dict:
     kw = dict(dtype=cfg.dtype, device=device, lead=lead)
     p: Dict[str, Any] = {"norm1": _init_norm(cfg, device, lead)}
+    if kind == "mamba":
+        p["mixer"] = init_mamba2(generator, cfg.d_model,
+                                 conv_kernel=cfg.conv_kernel, **_ssm_kw(cfg),
+                                 **kw)
+        return p
     if _is_mla(kind):
         p["attn"] = init_mla(generator, cfg.d_model, cfg.n_heads,
                              kv_lora=cfg.kv_lora, q_lora=cfg.q_lora,
@@ -185,12 +205,20 @@ def _init_block(generator, kind: str, cfg: ArchConfig, device,
     return p
 
 
-def _check_moe_mesh(cfg: ArchConfig, mesh) -> None:
-    """Refuse a MoE config on a mesh of more than one rank: the
-    reference's expert parallelism waits for the multi-card slice."""
-    if cfg.n_experts and mesh is not None and mesh.size() > 1:
+def _check_mesh(cfg: ArchConfig, mesh) -> None:
+    """Refuse a MoE or SSD config on a mesh of more than one rank: the
+    reference's expert parallelism and the SSD's context parallelism wait
+    for the multi-card slice."""
+    if mesh is None or mesh.size() <= 1:
+        return
+    if cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: the MoE on a mesh of {mesh.size()} ranks (expert "
+            f"parallelism) waits for {_MULTI_CARD}; the port runs it on one "
+            "card")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the SSD on a mesh of {mesh.size()} ranks (context "
             f"parallelism) waits for {_MULTI_CARD}; the port runs it on one "
             "card")
 
@@ -225,6 +253,10 @@ def _block_train(kind: str, p, x: torch.Tensor,
                  cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(x_out, aux)``, aux 0-d float32 (0 outside the MoE)."""
     h = _norm(p["norm1"], x, cfg)
+    if kind == "mamba":
+        return (x + mamba2_train(p["mixer"], h, chunk=cfg.ssm_chunk,
+                                 **_ssm_kw(cfg)),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     if _is_mla(kind):
         x = x + mla_train(p["attn"], h, n_heads=cfg.n_heads,
                           kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
@@ -241,8 +273,13 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache: Cache, layer: int,
                   cfg: ArchConfig, window: Optional[int]):
     """One token through layer ``layer`` of a group; the group's cache is
     read only. Returns ``(x, new)``: the new token's (k, v) or (c_kv,
-    k_rope) slot."""
+    k_rope) slot, or the layer's new (conv history, SSM state)."""
     h = _norm(p["norm1"], x, cfg)
+    if kind == "mamba":
+        out, new = mamba2_decode(
+            p["mixer"], h, Mamba2Cache(cache.conv[layer], cache.state[layer],
+                                       cache.length[layer]), **_ssm_kw(cfg))
+        return x + out, new[:2]
     if _is_mla(kind):
         out, *new = mla_attend_step(
             p["attn"], h, cache.c_kv[layer], cache.k_rope[layer],
@@ -279,9 +316,15 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     if cfg.input_kind == "tokens":
         params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                          dtype=cfg.dtype, device=dev)
-    params["groups"] = [
-        _init_block(gen, kind, cfg, dev, lead=(count,))
-        for kind, count in group_plan(cfg.layer_plan())]
+    groups = []
+    for kind, count in group_plan(cfg.layer_plan()):
+        if kind == "shared_attn":
+            if "shared_attn" not in params:
+                params["shared_attn"] = _init_block(gen, "attn", cfg, dev)
+            groups.append({})
+        else:
+            groups.append(_init_block(gen, kind, cfg, dev, lead=(count,)))
+    params["groups"] = groups
     params["final_norm"] = _init_norm(cfg, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab,
@@ -318,6 +361,10 @@ def _run_decoder_groups(params, cfg: ArchConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, count), stack in zip(group_plan(cfg.layer_plan()),
                                     params["groups"]):
+        if kind == "shared_attn":
+            x, aux_l = _block_train("attn", params["shared_attn"], x, cfg)
+            aux = aux + aux_l
+            continue
         for p_l in _unstack(stack, count):
             if remat:
                 leaves = tree_leaves(p_l)
@@ -422,11 +469,11 @@ def train_loss(params, cfg: ArchConfig, batch: Dict,
     token after the next) and ``ot_loss_weight`` times the OT prototype
     loss. ``policy`` is the run-wide OT execution policy (``None``:
     ``ExecutionPolicy.from_config(cfg)``); its mesh is the run's, and a
-    MoE config refuses one of more than one rank. Returns
+    MoE, ssm or hybrid config refuses one of more than one rank. Returns
     ``(loss, {"ce", "aux"[, "mtp"][, "ot"], "loss"})``, 0-d tensors."""
     if policy is None:
         policy = ExecutionPolicy.from_config(cfg)
-    _check_moe_mesh(cfg, policy.mesh)
+    _check_mesh(cfg, policy.mesh)
     h, aux = forward(params, cfg, batch)
     loss_ce = _lm_ce(params, cfg, h, batch["labels"])
     metrics = {"ce": loss_ce, "aux": aux}
@@ -457,26 +504,78 @@ def _stacked(cache, count: int):
                          for t in cache))
 
 
+def _as_stack(cache):
+    """An unstacked cache (a shared block's) as a stack of one: views, so
+    the group writes below write it."""
+    return type(cache)(*(t[None] for t in cache))
+
+
 def init_caches(cfg: ArchConfig, batch: int, s_max: int, *,
                 device=None) -> List[Cache]:
-    """One stacked cache a layer group (leading axis: its layers), in the
-    compute dtype: GQA k and v of (L, B, S_cache, KH, D), ``S_cache`` the
-    window where there is one; MLA latents (L, B, S, kv_lora) and rope
-    keys (L, B, S, qk_rope); ``length`` (L,) int64."""
+    """One cache a layer group, in the compute dtype, stacked on a leading
+    axis of the group's layers: GQA k and v of (L, B, S_cache, KH, D),
+    ``S_cache`` the window where there is one; MLA latents (L, B, S,
+    kv_lora) and rope keys (L, B, S, qk_rope); Mamba2 conv histories (L,
+    B, K - 1, conv_dim) and states (L, B, H, P, N); ``length`` (L,) int64.
+    A ``shared_attn`` use has its own GQA cache, unstacked (B, S_cache,
+    KH, D) with a 0-d ``length``, as in the reference."""
     check_ported(cfg)
     dev = init_device(device)
     win = effective_window(cfg, s_max)
     caches = []
     for kind, count in group_plan(cfg.layer_plan()):
-        if _is_mla(kind):
+        if kind == "mamba":
+            c = init_mamba2_cache(batch, cfg.d_model,
+                                  conv_kernel=cfg.conv_kernel,
+                                  dtype=cfg.cdtype, device=dev,
+                                  **_ssm_kw(cfg))
+        elif _is_mla(kind):
             c = init_mla_cache(batch, s_max, kv_lora=cfg.kv_lora,
                                qk_rope=cfg.qk_rope, dtype=cfg.cdtype,
                                device=dev)
         else:
             c = init_gqa_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
                                window=win, dtype=cfg.cdtype, device=dev)
-        caches.append(_stacked(c, count))
+        caches.append(c if kind == "shared_attn" else _stacked(c, count))
     return caches
+
+
+def _expect(cache, kind: type) -> None:
+    if not isinstance(cache, kind):
+        raise TypeError(f"a {type(cache).__name__} given to the "
+                        f"{kind.__name__} write")
+
+
+def _write_slots(cache, new, slot: torch.Tensor) -> None:
+    """The new tokens' entries of every layer of a group into its two
+    sequence buffers, at ``slot`` of the sequence axis."""
+    for buf, column in zip(cache[:2], zip(*new)):
+        buf.index_copy_(2, slot, torch.stack(column)[:, :, None])
+
+
+def _write_gqa(cache: GQACache, new, window: Optional[int]) -> None:
+    """A window's rolling buffer, or the position clamped to the last
+    slot."""
+    _expect(cache, GQACache)
+    s_cache, pos = cache.k.shape[2], cache.length[:1]
+    _write_slots(cache, new, torch.remainder(pos, s_cache) if window
+                 else torch.clamp(pos, max=s_cache - 1))
+
+
+def _write_mla(cache: MLACache, new) -> None:
+    """MLA caches keep every position: the position clamped to the last
+    slot."""
+    _expect(cache, MLACache)
+    _write_slots(cache, new, torch.clamp(cache.length[:1],
+                                         max=cache.c_kv.shape[2] - 1))
+
+
+def _write_mamba(cache: Mamba2Cache, new) -> None:
+    """Each layer's whole new conv history and state."""
+    _expect(cache, Mamba2Cache)
+    for layer, (conv, state) in enumerate(new):
+        cache.conv[layer].copy_(conv)
+        cache.state[layer].copy_(state)
 
 
 def decode_step(params, cfg: ArchConfig, token_batch: Dict,
@@ -487,9 +586,11 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
 
     Each group's cache is written once a step, after its layers have read
     it, and IN PLACE (the JAX package donates its caches): the returned
-    caches are the given ones. ``window`` must be
-    ``effective_window(cfg, s_max)`` of the session (the rolling buffer of
-    a sliding window); without one the write clamps to the last slot."""
+    caches are the given ones. Each cache kind has its own write (a
+    sequence slot of GQA and MLA caches, the whole state of a Mamba2
+    cache). ``window`` must be ``effective_window(cfg, s_max)`` of the
+    session (the rolling buffer of a sliding window); without one the
+    write clamps to the last slot."""
     check_ported(cfg)
     if cfg.input_kind == "embeds":
         x = token_batch["embeds"].to(cfg.cdtype)
@@ -497,17 +598,21 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
         x = params["embed"]["table"].to(cfg.cdtype)[token_batch["tokens"]]
     for (kind, count), cache, stack in zip(group_plan(cfg.layer_plan()),
                                            caches, params["groups"]):
+        if kind == "shared_attn":
+            kind, layers = "attn", [params["shared_attn"]]
+            cache = _as_stack(cache)
+        else:
+            layers = _unstack(stack, count)
         new = []
-        for layer, p_l in enumerate(_unstack(stack, count)):
+        for layer, p_l in enumerate(layers):
             x, new_l = _block_decode(kind, p_l, x, cache, layer, cfg, window)
             new.append(new_l)
-        s_cache = cache[0].shape[2]
-        pos = cache.length[:1]
-        # a window's rolling buffer; MLA caches keep every position
-        slot = torch.remainder(pos, s_cache) if window and \
-            not _is_mla(kind) else torch.clamp(pos, max=s_cache - 1)
-        for buf, column in zip(cache[:2], zip(*new)):
-            buf.index_copy_(2, slot, torch.stack(column)[:, :, None])
+        if kind == "mamba":
+            _write_mamba(cache, new)
+        elif _is_mla(kind):
+            _write_mla(cache, new)
+        else:
+            _write_gqa(cache, new, window)
         cache.length.add_(1)
     h = _norm(params["final_norm"], x, cfg)
     return _logits(params, cfg, h), caches

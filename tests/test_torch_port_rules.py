@@ -90,6 +90,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     # and the MoE slice's: the Sinkhorn router and the MoE layer
     assert {"repro_torch.core.routing", "repro_torch.models.moe"} <= \
         set(MODULES)
+    # and the SSM slice's Mamba2 mixer
+    assert "repro_torch.models.ssm" in MODULES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
