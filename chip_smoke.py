@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,...,15] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -344,6 +344,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    zeros, not a history); (g) ``examples.train_lm --tiny --strict`` on
    both configs, ``launch.train --tiny`` on zamba2's and ``launch.serve
    --tiny`` on mamba2's, side by side, each rc 0.
+15. the encoder-decoder family at full width and depth, float32, seeded
+   weights drawn on the card: whisper-base (6 bidirectional encoder
+   layers and 6 decoder layers with cross-attention, d_model 512, 8
+   heads of 64, learned positions, 130.9 M parameters). (a) layer 0's
+   cross-attention over the encoder's output on 4 x 1500 frames:
+   ``cross_attend_step`` (the decode form, on K/V built from ``xattn``'s
+   wk / wv) token by token for 64 tokens against ``cross_attention``,
+   within 1e-4 of max |out|; (b) ``train_loss`` at 2 x 128 on the card
+   against the CPU, phase 14's bars; (c) ``train_loss`` at 8 x 256 (T =
+   S) with the OT loss on the kernels (rows 6-7, their launches a call)
+   against ``use_pallas=False``; (d) phase 14's (d) with a checkpoint
+   and a resume; (e) the encoder's K/V of every layer on 4 x 1500
+   frames, 64 tokens teacher-forced through ``decode_step`` against
+   ``forward``, within 1e-4 of max |logit|, then ``launch.serve`` (batch
+   4, prompt 32, 16 generated, the reference's random ``enc_kv``); (f)
+   the ``decode_32k`` shape at batch 4: 3.22 GB of self-attention caches
+   at length 32767 and 3.22 GB of ``enc_kv``, one step's ms, and the
+   step reads row 32767 of the position table; (g) ``examples.train_lm
+   --tiny --strict``, ``launch.train --tiny`` and ``launch.serve --tiny``
+   on whisper-base's tiny config side by side, each rc 0.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -6038,7 +6058,7 @@ SSM_LONG_REPEATS = 5            # (f): timed decode steps a position
 SSM_PATH_KERNELS = ("log_feature_contract", "log_halfstep")
 
 
-def ssm_config(arch, **over):
+def f32_config(arch, **over):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(arch), param_dtype="float32",
                                compute_dtype="float32", **over)
@@ -6091,23 +6111,20 @@ def check_ssd_forms(torch, device, cfg):
     return []
 
 
-def check_ssm_card_vs_cpu(torch, device, arch):
-    """Phase 14 (b): one ``train_loss`` forward and backward at SSM_CHECK on
-    the card against the port's CPU path, the same weights (the CPU's
-    seeded draw, copied to the card), at full width and SSM_CHECK_DEPTH's
-    layers; phase 12's bars."""
+def check_card_vs_cpu(torch, device, cfg, B, S):
+    """Phases 14 and 15 (b): one ``train_loss`` forward and backward at B x
+    S on the card against the port's CPU path, the same weights (the
+    CPU's seeded draw, copied to the card) and the pipeline's batch at
+    step 0; phase 12's bars on ``ce``, ``ot`` and every gradient leaf."""
     from repro_torch.core.objective import ExecutionPolicy
-    from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.models import init_params
     from repro_torch.tree import tree_map
 
-    cfg = ssm_config(arch, n_layers=SSM_CHECK_DEPTH[arch])
-    B, S = SSM_CHECK
+    arch = cfg.name
     cpu = torch.device("cpu")
     params_cpu = init_params(cfg, seed=0, device=cpu)
     params = tree_map(lambda t: t.to(device), params_cpu)
-    batch_cpu = DataPipeline(DataConfig(0, B, S, cfg.vocab),
-                             device=cpu).batch_at(0)
+    batch_cpu = ssm_batch(torch, cfg, cpu, B, S)
     batch = {k: v.to(device) for k, v in batch_cpu.items()}
     policy = ExecutionPolicy.from_config(cfg)
     t0 = time.perf_counter()
@@ -6119,7 +6136,8 @@ def check_ssm_card_vs_cpu(torch, device, arch):
     ce = abs(m_card["ce"] - m_cpu["ce"]) / abs(m_cpu["ce"])
     ot = abs(m_card["ot"] - m_cpu["ot"]) / abs(m_cpu["ot"])
     bad, worst = leaves_within(torch, g_card, g_cpu, LM_GRAD_TOL, "(b)")
-    log(f"  (b) {arch} at {cfg.n_layers} layers ({cfg.layer_plan()}), "
+    enc = f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else ""
+    log(f"  (b) {arch} at {cfg.n_layers} layers{enc} ({cfg.layer_plan()}), "
         f"{B} x {S}: ce {m_card['ce']:.7f} card / {m_cpu['ce']:.7f} cpu "
         f"(rel {ce:.3g}, bar {LM_CE_RTOL}); ot {m_card['ot']:.7f} / "
         f"{m_cpu['ot']:.7f} (rel {ot:.3g}, bar {LM_OT_RTOL}); gradients "
@@ -6141,15 +6159,17 @@ def ssm_batch(torch, cfg, device, B, S, step=0):
                         device=device).batch_at(step)
 
 
-def check_ssm_ot_kernels(torch, device, cfg, params):
-    """Phase 14 (c): ``train_loss`` forward and backward at full depth and
-    SSM_TRAIN with the OT loss on the kernels, its launches of rows 6-7,
-    then with ``use_pallas=False``: the loss 1e-4 relative, every gradient
-    1e-3 of its leaf's max."""
+def check_ssm_ot_kernels(torch, device, cfg, params,
+                         kernels=SSM_PATH_KERNELS):
+    """Phases 14 and 15 (c): ``train_loss`` forward and backward at full
+    depth and SSM_TRAIN with the OT loss on the kernels, its launches of
+    ``kernels`` (rows 6-7), then with ``use_pallas=False``: the loss 1e-4
+    relative, every gradient 1e-3 of its leaf's max."""
     from repro_torch.core.objective import ExecutionPolicy
     from repro_torch.kernels import launch_counts
 
     B, S = SSM_TRAIN
+    enc = f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else ""
     batch = ssm_batch(torch, cfg, device, B, S)
     fused = ExecutionPolicy.from_config(cfg)
     plain = dataclasses.replace(fused, use_pallas=False)
@@ -6172,14 +6192,14 @@ def check_ssm_ot_kernels(torch, device, cfg, params):
     _, ot_worst = leaves_within(torch, g_k["ot"], g_p["ot"], MOE_GRAD_TOL,
                                 "(c) ot")
     log(f"  (c) {cfg.name} train_loss forward + backward at {B} x {S}, "
-        f"{cfg.n_layers} layers: ce {m_k['ce']:.6f}, ot {m_k['ot']:.6f}, "
+        f"{cfg.n_layers} layers{enc}: ce {m_k['ce']:.6f}, ot {m_k['ot']:.6f}, "
         f"loss {m_k['loss']:.6f}; {ms:.1f} ms (first call {first_ms:.1f} "
         f"ms); launches a call {per_call}; use_pallas=False: loss rel "
         f"{rel:.3g}, ot rel {ot_rel:.3g} (bar {MOE_LOSS_RTOL}); gradients "
         f"worst {worst:.3g} of a leaf's max (the OT leaves {ot_worst:.3g}; "
         f"bar {MOE_GRAD_TOL})")
     failures = bad
-    for k in SSM_PATH_KERNELS:
+    for k in kernels:
         if per_call.get(k, 0) <= 0:
             failures.append(f"(c) {k} not launched by train_loss")
     if not rel <= MOE_LOSS_RTOL:
@@ -6188,13 +6208,14 @@ def check_ssm_ot_kernels(torch, device, cfg, params):
 
 
 def train_ssm(torch, device, cfg, build_dir, resume):
-    """Phase 14 (d): the ``launch.train`` driver in-process at SSM_TRAIN
-    with AdamW for steps 0-9; its final state goes on uninterrupted
-    through the driver's own step (``make_train_step``, the same horizon
-    and data) for steps 10-19, timed, its last SSM_PROFILED steps under
-    the profiler; then SSM_SHARE_PAIRS pairs of steps with the OT loss on
-    and off. With ``resume`` (zamba2: its tree, with the shared block's
-    empty groups, is the one phase 12's checkpoint has not carried) the
+    """Phases 14 and 15 (d): the ``launch.train`` driver in-process at
+    SSM_TRAIN with AdamW for steps 0-9; its final state goes on
+    uninterrupted through the driver's own step (``make_train_step``, the
+    same horizon and data) for steps 10-19, timed, its last SSM_PROFILED
+    steps under the profiler; then SSM_SHARE_PAIRS pairs of steps with the
+    OT loss on and off. With ``resume`` (zamba2: its tree, with the shared
+    block's empty groups; whisper-base: its encoder, learned positions and
+    cross-attention; trees phase 12's checkpoint has not carried) the
     first half ends in a checkpoint and ``--resume`` from it runs steps
     10-19 again, its losses within 1e-4 relative of the uninterrupted
     ones; without it no checkpoint is written (each full-size transfer
@@ -6358,7 +6379,7 @@ def ssm_long_caches(torch, device):
     shape = SHAPES["long_500k"]
     failures = []
     for arch in SSM_ARCHS:
-        cfg = ssm_config(arch)
+        cfg = f32_config(arch)
         caches = cache_specs(cfg, shape)
         kinds = collections.Counter(type(c).__name__ for c in caches)
         nbytes = collections.Counter()
@@ -6491,12 +6512,14 @@ def run_ssm_path(torch, np, device, src):
 
     build_dir = Path(__file__).resolve().parent / "build"
     failures = timed("a", check_ssd_forms, torch, device,
-                     ssm_config(SSM_ARCHS[0]))
+                     f32_config(SSM_ARCHS[0]))
     for arch in SSM_ARCHS:
-        failures += timed("b", check_ssm_card_vs_cpu, torch, device, arch)
+        failures += timed("b", check_card_vs_cpu, torch, device,
+                          f32_config(arch, n_layers=SSM_CHECK_DEPTH[arch]),
+                          *SSM_CHECK)
     reset_launch_counts()       # the main path: (c)-(f) at full depth
     for arch in SSM_ARCHS:
-        cfg = ssm_config(arch)
+        cfg = f32_config(arch)
         params, init_s = timed("init", card_params, torch, cfg, device)
         log(f"  {arch}: {cfg.n_layers} layers "
             f"({collections.Counter(cfg.layer_plan())}), "
@@ -6527,6 +6550,247 @@ def run_ssm_path(torch, np, device, src):
     return counts, failures
 
 
+ENCDEC_ARCH = "whisper_base"    # full width and depth: 6 + 6 layers, d 512
+ENCDEC_FRAMES = 1500            # (a), (e): Whisper's 30-second window
+ENCDEC_XATTN = (4, 64)          # (a), (e): batch, decoded tokens
+ENCDEC_TOL = 1e-4               # (a): of max |out|; (e): of max |logit|
+ENCDEC_CHECK = (2, 128)         # (b): batch x seq, card against the CPU
+ENCDEC_SERVE = (4, 32, 16)      # (e): launch.serve's batch, prompt, generated
+ENCDEC_LONG_BATCH = 4           # (f): decode_32k at batch 4 (128 needs 103 GB)
+ENCDEC_LONG_REPEATS = 5         # (f): timed decode steps
+ENCDEC_PATH_KERNELS = ("log_feature_contract", "log_halfstep")
+
+
+def encoder_kv(torch, params, cfg, enc):
+    """Every decoder layer's cross-attention keys and values of the
+    encoder's output ``enc`` (B, T, d): ``{"k", "v"}``, each (n_layers, B,
+    T, H, D), as ``decode_step`` reads them."""
+    from repro_torch.models.layers import linear
+    from repro_torch.models.model import _unstack
+
+    B, T, _ = enc.shape
+    layers = _unstack(params["groups"][0], cfg.n_layers)
+    return {w: torch.stack([
+        linear(p_l["xattn"][f"w{w}"], enc).reshape(B, T, cfg.n_heads,
+                                                    cfg.head_dim)
+        for p_l in layers]) for w in ("k", "v")}
+
+
+def encdec_inputs(torch, cfg, device, B, T, S, seed):
+    """Seeded encoder frames (B, T, d), 0.02 N(0, 1) as the pipeline draws
+    them, and decoder tokens (B, S)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = 0.02 * torch.randn((B, T, cfg.d_model), generator=gen,
+                                device=device)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    return frames, tokens
+
+
+def check_xattn_forms(torch, device, cfg, params):
+    """Phase 15 (a): the first ``dec_attn`` layer's cross-attention in its
+    two forms, on the encoder's output over ENCDEC_FRAMES frames:
+    ``cross_attention`` (the training form, chunked) over ENCDEC_XATTN's
+    decoder states against ``cross_attend_step`` (the decode form,
+    unchunked) on K/V built from ``xattn.wk`` / ``wv``, token by token."""
+    from repro_torch.models.attention import cross_attend_step, \
+        cross_attention
+    from repro_torch.models.model import _encode, _unstack
+
+    B, S = ENCDEC_XATTN
+    T = ENCDEC_FRAMES
+    frames, _ = encdec_inputs(torch, cfg, device, B, T, S, seed=15)
+    x = torch.randn((B, S, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(16))
+    p = _unstack(params["groups"][0], cfg.n_layers)[0]["xattn"]
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+    with torch.no_grad():
+        enc = _encode(params, cfg, {"enc_embeds": frames})
+        full = cross_attention(p, x, enc, **kw)
+        kv = encoder_kv(torch, params, cfg, enc)
+        dec = torch.cat([cross_attend_step(p, x[:, t:t + 1], kv["k"][0],
+                                           kv["v"][0], **kw)
+                         for t in range(S)], dim=1)
+    err = rel_to_max(torch, dec, full)
+    log(f"  (a) {cfg.name} layer 0 cross-attention, {B} x {S} decoder "
+        f"states over {T} encoder frames: {S} decode-form steps against the "
+        f"training form {err:.3g} of max |out| ({float(full.abs().max()):.4g}"
+        f"; bar {ENCDEC_TOL})")
+    return [] if err <= ENCDEC_TOL else [f"(a) decode vs train {err:.3g}"]
+
+
+def check_encdec_serving(torch, device, cfg, params):
+    """Phase 15 (e): encoder K/V built from the encoder's output over
+    ENCDEC_FRAMES frames (every layer's ``xattn.wk`` / ``wv``), then
+    ENCDEC_XATTN's tokens teacher-forced through ``decode_step``, each
+    step's logits against ``forward``'s at that position; then
+    ``launch.serve`` at ENCDEC_SERVE with the reference's random
+    ``enc_kv``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models.model import _encode, _logits
+
+    B, S = ENCDEC_XATTN
+    frames, tokens = encdec_inputs(torch, cfg, device, B, ENCDEC_FRAMES, S,
+                                   seed=17)
+    batch = {"enc_embeds": frames, "tokens": tokens}
+    caches = init_caches(cfg, B, S, device=device)
+    worst = 0.0
+    with torch.no_grad():
+        ref = _logits(params, cfg, forward(params, cfg, batch)[0])
+        kv = encoder_kv(torch, params, cfg, _encode(params, cfg, batch))
+        for i in range(S):
+            logits, caches = decode_step(
+                params, cfg, {"tokens": tokens[:, i:i + 1], "enc_kv": kv},
+                caches)
+            worst = max(worst, rel_to_max(torch, logits[:, 0], ref[:, i]))
+    failures = [] if worst <= ENCDEC_TOL else [
+        f"(e) decode vs forward {worst:.3g}"]
+    Bs, P, G = ENCDEC_SERVE
+    out = serve.main(["--arch", cfg.name, "--batch", str(Bs), "--prompt-len",
+                      str(P), "--gen", str(G)], params=params)
+    ms = out["decode_s"] * 1e3 / G
+    log(f"  (e) {cfg.name}: {S} tokens decoded over the encoder's K/V of "
+        f"{ENCDEC_FRAMES} frames against forward: worst {worst:.3g} of max "
+        f"|logit| (bar {ENCDEC_TOL}); launch.serve batch {Bs}, prompt {P}, "
+        f"random enc_kv: prefill {out['prefill_ms']:.3f} ms a token step, "
+        f"decode {ms:.3f} ms a token step, {out['decode_tok_s']:.1f} tok/s")
+    return failures
+
+
+def check_decode_32k(torch, device, cfg, params):
+    """Phase 15 (f): the ``decode_32k`` shape at batch ENCDEC_LONG_BATCH:
+    self-attention caches of 32768 slots at length 32767 and seeded
+    encoder K/V of 32768 frames; the median ms of ENCDEC_LONG_REPEATS
+    decode steps (each to a sync; zero caches, a timing only) and the
+    bytes held. The step reads row 32767 of the learned positions: its
+    logits move when that row moves (by N(0, 1) draws) and stay within
+    1e-6 of max |logit| when rows 32766 and 32768 move."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import decode_step, init_caches
+
+    s = SHAPES["decode_32k"].seq_len
+    B = ENCDEC_LONG_BATCH
+    caches = init_caches(cfg, B, s, device=device)
+    gen = torch.Generator(device=device).manual_seed(18)
+    kv_shape = (cfg.n_layers, B, s, cfg.n_heads, cfg.head_dim)
+    kv = {w: torch.randn(kv_shape, generator=gen, device=device)
+          for w in ("k", "v")}
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c[:2])
+    kv_bytes = sum(t.numel() * t.element_size() for t in kv.values())
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=device)
+
+    def step(p):
+        for c in caches:
+            c.length.fill_(s - 1)
+        return decode_step(p, cfg, {"tokens": tok, "enc_kv": kv}, caches)[0]
+
+    walls = []
+    with torch.no_grad():
+        for _ in range(ENCDEC_LONG_REPEATS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            base = step(params)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        moved = {}
+        for rows in ((s - 1,), (s - 2, s)):
+            # a random move: the norms take out a constant shift of a row
+            pos = params["pos"].clone()
+            pos[list(rows)] += torch.randn((len(rows), cfg.d_model),
+                                           generator=gen, device=device)
+            moved[rows] = rel_to_max(torch, step(dict(params, pos=pos)),
+                                     base)
+            del pos
+    ms = statistics.median(walls[1:])
+    log(f"  (f) {cfg.name} decode_32k at batch {B}: self-attention caches "
+        f"{cache_bytes / 1e9:.4f} GB ({tuple(caches[0].k.shape)} k and v), "
+        f"enc_kv {kv_bytes / 1e9:.4f} GB; one decode step at length "
+        f"{s - 1}: {ms:.3f} ms (median of {ENCDEC_LONG_REPEATS}; zero "
+        f"caches, a timing only); logits moved by pos row {s - 1}: "
+        f"{moved[(s - 1,)]:.3g}, by rows {s - 2} and {s}: "
+        f"{moved[(s - 2, s)]:.3g} of max |logit|")
+    del kv, caches
+    torch.cuda.empty_cache()
+    failures = []
+    if not (moved[(s - 1,)] > 1e-3 and moved[(s - 2, s)] <= 1e-6):
+        failures.append(f"(f) the position row read: {moved}")
+    want = cfg.n_layers * 2 * B * s * cfg.n_kv_heads * cfg.head_dim * 4
+    if not cache_bytes == kv_bytes == want:
+        failures.append(f"(f) bytes {cache_bytes}, {kv_bytes}, not {want}")
+    return failures
+
+
+def run_encdec_lanes(src, build_dir):
+    """Phase 15 (g): the drivers on whisper-base's tiny config on the
+    card, side by side as subprocesses: ``examples.train_lm --strict``,
+    ``launch.train`` and ``launch.serve``; each must exit 0."""
+    import os
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(src))
+    example = build_dir / "encdec_example_ckpt"
+    shutil.rmtree(example, ignore_errors=True)
+    lanes = [["-m", "repro_torch.examples.train_lm", "--arch", ENCDEC_ARCH,
+              "--tiny", "--strict", "--steps", "20", "--ckpt-dir",
+              str(example)],
+             ["-m", "repro_torch.launch.train", "--arch", ENCDEC_ARCH,
+              "--tiny", "--steps", "4", "--batch", "2", "--seq", "64",
+              "--log-every", "1"],
+             ["-m", "repro_torch.launch.serve", "--arch", ENCDEC_ARCH,
+              "--tiny"]]
+    runs = [start_lane(env, args) for args in lanes]
+    failures = []
+    for run in runs:
+        failures += finish_lane(run, "g")
+    return failures
+
+
+def run_encdec_path(torch, np, device, src):
+    """Phase 15: the encoder-decoder family, whisper-base at full width and
+    depth in float32. Returns (the launches of (a) and (c)-(f),
+    failures)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import param_count
+
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    cfg = f32_config(ENCDEC_ARCH)
+    failures = timed("b", check_card_vs_cpu, torch, device, cfg,
+                     *ENCDEC_CHECK)
+    reset_launch_counts()       # the main path: (a), (c)-(f)
+    params, init_s = timed("init", card_params, torch, cfg, device)
+    log(f"  {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, {param_count(params):,} parameters, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB on the card, "
+        f"drawn on the card in {init_s:.2f} s")
+    failures += timed("a", check_xattn_forms, torch, device, cfg, params)
+    failures += timed("c", check_ssm_ot_kernels, torch, device, cfg, params,
+                      ENCDEC_PATH_KERNELS)
+    torch.cuda.empty_cache()
+    failures += timed("d", train_ssm, torch, device, cfg, build_dir, True)
+    torch.cuda.empty_cache()
+    failures += timed("e", check_encdec_serving, torch, device, cfg, params)
+    failures += timed("f", check_decode_32k, torch, device, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    failures += timed("g", run_encdec_lanes, src, build_dir)
+    missing = [k for k in ENCDEC_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    log("  phase 15 parts (s): " + ", ".join(f"({k}) {v:.1f}"
+                                            for k, v in walls.items()))
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -6538,7 +6802,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 
 def main(argv=None) -> int:
@@ -6547,7 +6811,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all fourteen)")
+                    "result lines need all fifteen)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -6896,10 +7160,29 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 14 FAILED: {failures}")
             return 1
+    if 15 in phases:
+        log(f"== phase 15: the encoder-decoder family ({ENCDEC_ARCH} at full "
+            f"width and depth, float32: (a) one layer's cross-attention in "
+            f"its two forms over {ENCDEC_FRAMES} frames, {ENCDEC_XATTN[0]} x "
+            f"{ENCDEC_XATTN[1]} tokens; (b) train_loss at {ENCDEC_CHECK[0]} x"
+            f" {ENCDEC_CHECK[1]}, card vs CPU; (c) train_loss at "
+            f"{SSM_TRAIN[0]} x {SSM_TRAIN[1]}, kernels vs plain; (d) "
+            f"launch.train, {SSM_STEPS} steps with a checkpoint and a "
+            f"resume; (e) decode over the encoder's K/V vs forward, "
+            f"launch.serve at {ENCDEC_SERVE}; (f) decode_32k at batch "
+            f"{ENCDEC_LONG_BATCH}; (g) the drivers on the tiny config)")
+        t15 = time.perf_counter()
+        c15, failures = run_encdec_path(torch, np, device, src)
+        log(f"  launches on the encoder-decoder path: {c15}")
+        counts["encdec"] = c15
+        log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+        if failures:
+            log(f"phase 15 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "fourteen")
+            "fifteen")
         return 0
 
     kernels = []

@@ -3,10 +3,9 @@
 Counterpart of ``repro.configs.base``: the same records field for field
 (each architecture's module registers one), so ``list_archs()`` and
 ``get_config(name)`` are the JAX package's. ``dtype`` / ``cdtype`` give
-torch dtypes. The port runs the ``dense``, ``vlm``, ``moe``, ``ssm`` and
-``hybrid`` families (``repro_torch.models``); the ``encdec`` record is
-here all the same, and its model raises ``NotImplementedError``
-(ROADMAP.md, queue A).
+torch dtypes. The port runs every family of the registry
+(``repro_torch.models``): ``dense``, ``vlm``, ``moe``, ``ssm``,
+``hybrid`` and ``encdec``.
 """
 from __future__ import annotations
 

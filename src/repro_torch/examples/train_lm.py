@@ -107,8 +107,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     opt_state = init_adamw(params, ocfg)
     sched = linear_warmup_cosine(args.lr, warmup=20, total_steps=args.steps)
     data = DataPipeline(DataConfig(
-        seed=0, global_batch=args.batch, seq_len=args.seq, vocab=cfg.vocab),
-        device=device)
+        seed=0, global_batch=args.batch, seq_len=args.seq, vocab=cfg.vocab,
+        input_kind=cfg.input_kind, d_model=cfg.d_model), device=device)
 
     def step_fn(params, opt_state, batch):
         grads, metrics = loss_and_grads(params, cfg, batch, policy)

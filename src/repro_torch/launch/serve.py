@@ -5,7 +5,11 @@
 
 Prefill feeds the prompt one token at a time through the decode step
 (``models.decode_step``, which writes each layer group's cache once a
-step); decode then takes the argmax of each step's logits. The step and
+step); decode then takes the argmax of each step's logits. An
+encoder-decoder config attends, at every step, encoder keys and values
+drawn as the JAX driver draws them: one standard normal of (n_layers,
+batch, prompt_len, heads, head_dim) from a stream of its own, used as
+both k and v (not the encoder's output). The step and
 the argmax run once on a throwaway cache before any timer starts, and
 prefill (prompt ingestion, latency-bound) is timed apart from decode
 (generation, throughput-bound). Parameters and compute are float32, as in
@@ -66,6 +70,12 @@ def main(argv: Optional[Sequence[str]] = None,
     win = effective_window(cfg, s_max)
     tok = torch.randint(0, cfg.vocab, (B, args.prompt_len),
                         generator=step_generator(0, 1)).to(device)
+    extra = {}
+    if cfg.input_kind == "encdec":
+        enc = torch.randn((cfg.n_layers, B, args.prompt_len, cfg.n_heads,
+                           cfg.head_dim), generator=step_generator(0, 2))
+        enc = enc.to(device=device, dtype=cfg.cdtype)
+        extra["enc_kv"] = {"k": enc, "v": enc}
 
     def step(batch, cache):
         return decode_step(params, cfg, batch, cache, window=win)
@@ -75,8 +85,8 @@ def main(argv: Optional[Sequence[str]] = None,
         if cfg.input_kind == "embeds":
             emb = torch.randn((B, 1, cfg.d_model),
                               generator=step_generator(0, 3, i))
-            return {"embeds": emb.to(device)}
-        return {"tokens": cur}
+            return {"embeds": emb.to(device), **extra}
+        return {"tokens": cur, **extra}
 
     # warm up the step and the greedy glue on a throwaway cache, outside
     # every timed region

@@ -1,7 +1,7 @@
 """The LM surfaces of the port for the ``dense``, ``vlm``, ``moe``,
-``ssm`` and ``hybrid`` families: parameters, forward, the training loss
-with the OT prototype term, prefill and decode, and the Mamba2 mixer of
-``models.ssm``. Counterpart of ``repro.models``."""
+``ssm``, ``hybrid`` and ``encdec`` families: parameters, forward, the
+training loss with the OT prototype term, prefill and decode, and the
+Mamba2 mixer of ``models.ssm``. Counterpart of ``repro.models``."""
 from __future__ import annotations
 
 from .model import (

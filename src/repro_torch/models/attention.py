@@ -18,8 +18,12 @@ token) and decodes in the absorbed form: ``q_nope`` is taken into the
 latent space through ``wk_up``, scores and values contract against the
 cached latents, and ``wv_up`` decompresses the context once. Training
 decompresses K and V a KV chunk at a time inside
-:func:`chunked_attention`. Cross-attention waits for its family
-(ROADMAP.md §A item 8c). Counterpart of ``repro.models.attention``.
+:func:`chunked_attention`.
+
+Cross-attention (the encoder-decoder family) is multi-head attention of
+decoder states over encoder states, with no rotation and no mask; the
+encoder's bidirectional self-attention is the same function with the
+encoder states on both sides. Counterpart of ``repro.models.attention``.
 """
 from __future__ import annotations
 
@@ -45,6 +49,9 @@ __all__ = [
     "mla_attend_step",
     "init_mla_cache",
     "mla_decode",
+    "init_cross_attention",
+    "cross_attention",
+    "cross_attend_step",
 ]
 
 _NEG_INF = -1e30
@@ -441,3 +448,52 @@ def mla_decode(p, x: torch.Tensor, cache: MLACache, *, n_heads: int,
     out = _absorbed_out(p, ctx_c, x, n_heads=n_heads, kv_lora=kv_lora,
                         v_head=v_head)
     return out, MLACache(c_all, r_all, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the encoder-decoder family)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(generator, d_model: int, n_heads: int,
+                         head_dim: int, *, dtype=torch.float32, device=None,
+                         lead=()) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A GQA parameter set with as many K/V heads as query heads."""
+    return init_gqa(generator, d_model, n_heads, n_heads, head_dim,
+                    dtype=dtype, device=device, lead=lead)
+
+
+def cross_attention(p, x: torch.Tensor, enc: torch.Tensor, *, n_heads: int,
+                    head_dim: int, kv_chunk: int = 1024) -> torch.Tensor:
+    """Decoder states x (B, S, d) attend over encoder states enc (B, T, d):
+    q from x, k and v from enc, no rotation, no mask. (B, S, d)."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    q = linear(p["wq"], x).reshape(B, S, n_heads, head_dim) * (
+        head_dim ** -0.5)
+    k = linear(p["wk"], enc).reshape(B, T, n_heads, head_dim)
+    v = linear(p["wv"], enc).reshape(B, T, n_heads, head_dim)
+    out = chunked_attention(
+        q, {"k": k, "v": v}, T,
+        score_fn=_gqa_score_fn(n_heads), value_fn=_gqa_value_fn(n_heads),
+        mask_fn=lambda pos_k: torch.ones((1, 1, S, pos_k.shape[0]),
+                                         dtype=torch.bool,
+                                         device=pos_k.device),
+        kv_chunk=kv_chunk)
+    return linear(p["wo"], out.reshape(B, S, n_heads * head_dim).to(x.dtype))
+
+
+def cross_attend_step(p, x: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, *, n_heads: int,
+                      head_dim: int) -> torch.Tensor:
+    """One decoder token x (B, 1, d) over cached encoder keys and values
+    k, v (B, T, H, D), unchunked: the scores in the promoted dtype of q
+    and k, then float32, the softmax and the values in float32, cast back
+    before ``wo``. (B, 1, d)."""
+    B = x.shape[0]
+    q = linear(p["wq"], x).reshape(B, 1, n_heads, head_dim) * (
+        head_dim ** -0.5)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    s = torch.einsum("bqhd,bshd->bhqs", q.to(dt), k.to(dt)).float()
+    o = torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, dim=-1), v.float())
+    return linear(p["wo"], o.reshape(B, 1, n_heads * head_dim).to(x.dtype))

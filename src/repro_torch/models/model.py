@@ -1,5 +1,6 @@
 """Model assembly: configs -> init / forward / loss / prefill / decode, for
-the ``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid`` families.
+the ``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid`` and ``encdec``
+families.
 
 The layer plan (``configs.base.ArchConfig.layer_plan``) is grouped into
 runs of one block kind; each run's parameters are stacked on a leading
@@ -17,7 +18,11 @@ shared experts' MLP; ``mamba`` (a Mamba2 mixer, ``models.ssm``, with no
 FFN half); and the hybrid's ``shared_attn``: one ``attn`` block whose
 parameters are held once, in ``params["shared_attn"]``, applied at every
 ``attn_every``-th layer outside remat (its gradient the sum over its
-uses), each use with its own unstacked GQA cache. A ``shared_attn`` group
+uses), each use with its own unstacked GQA cache; and the
+encoder-decoder's ``enc_attn`` (bidirectional self-attention, the
+encoder's blocks, stacked in ``params["encoder"]``) and ``dec_attn``
+(causal self-attention, then cross-attention over the encoder's output,
+``norm_x`` and ``xattn``). A ``shared_attn`` group
 holds the empty dict in ``params["groups"]`` where the reference holds
 ``None`` (a leaf in ``torch.utils._pytree``, so ``convert.lm_params``
 maps the one to the other): the two packages' leaf names
@@ -29,12 +34,13 @@ token after the next (the multi-token-prediction loss). The experts run
 on the dense path; under a mesh of more than one rank the MoE and the
 SSD refuse (expert and context parallelism are ROADMAP.md §A item 8d).
 
+Learned positions (``cfg.pos == "learned"``) are one (65536, d) table in
+``params["pos"]``, shared by the encoder and the decoder; decode reads the
+row of ``caches[0].length`` on the device, clamped to the table.
 Parameters are a nested dict of tensors (``tree.named_leaves`` names
 them). The OT prototype loss (``models.ot_loss``) is part of
-:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. The
-encoder-decoder family (and learned positions) raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
-Counterpart of ``repro.models.model``.
+:func:`train_loss` whenever ``cfg.ot_loss_weight > 0``. Counterpart of
+``repro.models.model``.
 """
 from __future__ import annotations
 
@@ -49,8 +55,11 @@ from ..tree import tree_leaves, tree_unflatten
 from .attention import (
     GQACache,
     MLACache,
+    cross_attend_step,
+    cross_attention,
     gqa_attend_step,
     gqa_train,
+    init_cross_attention,
     init_gqa,
     init_gqa_cache,
     init_mla,
@@ -67,6 +76,7 @@ from .layers import (
     linear,
     mlp,
     rmsnorm,
+    trunc_normal,
 )
 from .moe import init_moe, moe_dense
 from .ot_loss import init_ot_loss, ot_prototype_loss
@@ -86,27 +96,20 @@ __all__ = [
     "param_count",
 ]
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-
-_WAITS = {
-    "encdec": "ROADMAP.md §A item 8c (encoder-decoder)",
-}
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+POS_ROWS = 65536                # rows of the learned position table
 _MULTI_CARD = "ROADMAP.md §A item 8d (the multi-card slice)"
 
 Cache = Union[GQACache, MLACache, Mamba2Cache]
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run yet,
-    naming the ROADMAP item that ports it."""
+    """Raise ``NotImplementedError`` for a config of a family the port
+    does not know."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"{_WAITS.get(cfg.family, 'ROADMAP.md §A item 8')} ports it")
-    if cfg.pos != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions are not ported yet; "
-            f"{_WAITS['encdec']} ports them")
+            f"{cfg.name}: no family {cfg.family!r}; the port has "
+            f"{PORTED_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +193,10 @@ def _init_block(generator, kind: str, cfg: ArchConfig, device,
         p["attn"] = init_gqa(generator, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.head_dim,
                              qkv_bias=cfg.qkv_bias, **kw)
+    if kind == "dec_attn":
+        p["norm_x"] = _init_norm(cfg, device, lead)
+        p["xattn"] = init_cross_attention(generator, cfg.d_model,
+                                          cfg.n_heads, cfg.head_dim, **kw)
     if kind.endswith("_moe"):
         p["norm2"] = _init_norm(cfg, device, lead)
         p["moe"] = init_moe(generator, cfg.d_model, cfg.moe_d_ff,
@@ -249,9 +256,11 @@ def _ffn(p, x: torch.Tensor,
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _block_train(kind: str, p, x: torch.Tensor,
-                 cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(x_out, aux)``, aux 0-d float32 (0 outside the MoE)."""
+def _block_train(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
+                 enc: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(x_out, aux)``, aux 0-d float32 (0 outside the MoE);
+    ``enc`` is the encoder's output, which a ``dec_attn`` block attends."""
     h = _norm(p["norm1"], x, cfg)
     if kind == "mamba":
         return (x + mamba2_train(p["mixer"], h, chunk=cfg.ssm_chunk,
@@ -262,18 +271,27 @@ def _block_train(kind: str, p, x: torch.Tensor,
                           kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
                           qk_rope=cfg.qk_rope, v_head=cfg.v_head,
                           rope_theta=cfg.rope_theta)
+    elif kind == "enc_attn":
+        # bidirectional: the cross-attention's math on the states themselves
+        x = x + cross_attention(p["attn"], h, h, n_heads=cfg.n_heads,
+                                head_dim=cfg.head_dim)
     else:
         x = x + gqa_train(p["attn"], h, n_heads=cfg.n_heads,
                           n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                           rope_theta=cfg.rope_theta, window=cfg.window)
+    if kind == "dec_attn":
+        x = x + cross_attention(p["xattn"], _norm(p["norm_x"], x, cfg), enc,
+                                n_heads=cfg.n_heads, head_dim=cfg.head_dim)
     return _ffn(p, x, cfg)
 
 
 def _block_decode(kind: str, p, x: torch.Tensor, cache: Cache, layer: int,
-                  cfg: ArchConfig, window: Optional[int]):
+                  cfg: ArchConfig, window: Optional[int], enc_kv=None):
     """One token through layer ``layer`` of a group; the group's cache is
     read only. Returns ``(x, new)``: the new token's (k, v) or (c_kv,
-    k_rope) slot, or the layer's new (conv history, SSM state)."""
+    k_rope) slot, or the layer's new (conv history, SSM state). A
+    ``dec_attn`` layer attends ``enc_kv``'s (k, v) of its layer, each
+    (L, B, T, H, D)."""
     h = _norm(p["norm1"], x, cfg)
     if kind == "mamba":
         out, new = mamba2_decode(
@@ -291,7 +309,12 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache: Cache, layer: int,
             p["attn"], h, cache.k[layer], cache.v[layer],
             cache.length[layer], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window)
-    x, _ = _ffn(p, x + out, cfg)
+    x = x + out
+    if kind == "dec_attn":
+        x = x + cross_attend_step(p["xattn"], _norm(p["norm_x"], x, cfg),
+                                  enc_kv["k"][layer], enc_kv["v"][layer],
+                                  n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+    x, _ = _ffn(p, x, cfg)
     return x, new
 
 
@@ -313,9 +336,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(int(seed))
     params: Dict[str, Any] = {}
-    if cfg.input_kind == "tokens":
+    if cfg.input_kind in ("tokens", "encdec"):
         params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                          dtype=cfg.dtype, device=dev)
+    if cfg.pos == "learned":
+        params["pos"] = trunc_normal((POS_ROWS, cfg.d_model), 0.01,
+                                     generator=gen, dtype=cfg.dtype,
+                                     device=dev)
     groups = []
     for kind, count in group_plan(cfg.layer_plan()):
         if kind == "shared_attn":
@@ -325,6 +352,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         else:
             groups.append(_init_block(gen, kind, cfg, dev, lead=(count,)))
     params["groups"] = groups
+    if cfg.family == "encdec":
+        params["encoder"] = _init_block(gen, "enc_attn", cfg, dev,
+                                        lead=(cfg.n_enc_layers,))
+        params["enc_norm"] = _init_norm(cfg, dev)
     params["final_norm"] = _init_norm(cfg, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab,
@@ -348,14 +379,41 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _add_positions(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) plus the learned positions 0..S-1 (where the config has
+    them)."""
+    if cfg.pos != "learned":
+        return x
+    return x + params["pos"][:x.shape[1]][None].to(cfg.cdtype)
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
     if cfg.input_kind == "embeds":
-        return batch["embeds"].to(cfg.cdtype)
-    return params["embed"]["table"].to(cfg.cdtype)[batch["tokens"]]
+        x = batch["embeds"].to(cfg.cdtype)
+    else:
+        x = params["embed"]["table"].to(cfg.cdtype)[batch["tokens"]]
+    return _add_positions(params, cfg, x)
 
 
-def _run_decoder_groups(params, cfg: ArchConfig,
-                        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _run_layer(kind: str, p_l, x: torch.Tensor, cfg: ArchConfig,
+               enc: Optional[torch.Tensor], remat: bool):
+    """One layer of a stacked group, under ``torch.utils.checkpoint`` with
+    ``remat``: the layer's leaves and ``enc`` are arguments of the
+    checkpoint, so their gradients flow through the recomputation."""
+    if not remat:
+        return _block_train(kind, p_l, x, cfg, enc)
+    leaves = tree_leaves(p_l)
+
+    def body(x_, enc_, *ls):
+        return _block_train(kind, tree_unflatten(p_l, list(ls)), x_, cfg,
+                            enc_)
+
+    return checkpoint(body, x, enc, *leaves, use_reentrant=False)
+
+
+def _run_decoder_groups(params, cfg: ArchConfig, x: torch.Tensor,
+                        enc: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers in order; returns ``(x, aux summed over the layers)``."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -366,27 +424,30 @@ def _run_decoder_groups(params, cfg: ArchConfig,
             aux = aux + aux_l
             continue
         for p_l in _unstack(stack, count):
-            if remat:
-                leaves = tree_leaves(p_l)
-
-                def body(x_, *ls, _tmpl=p_l, _kind=kind):
-                    return _block_train(_kind, tree_unflatten(_tmpl, list(ls)),
-                                        x_, cfg)
-
-                x, aux_l = checkpoint(body, x, *leaves, use_reentrant=False)
-            else:
-                x, aux_l = _block_train(kind, p_l, x, cfg)
+            x, aux_l = _run_layer(kind, p_l, x, cfg, enc, remat)
             aux = aux + aux_l
     return x, aux
+
+
+def _encode(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+    """The encoder: ``enc_embeds`` (B, T, d) plus positions 0..T-1 through
+    the ``enc_attn`` layers, then ``enc_norm``. (B, T, d)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = _add_positions(params, cfg, batch["enc_embeds"].to(cfg.cdtype))
+    for p_l in _unstack(params["encoder"], cfg.n_enc_layers):
+        x, _ = _run_layer("enc_attn", p_l, x, cfg, None, remat)
+    return _norm(params["enc_norm"], x, cfg)
 
 
 def forward(params, cfg: ArchConfig,
             batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, d) after the final norm, the MoE layers'
-    aux losses summed)."""
+    aux losses summed). An ``encdec`` config runs its encoder on
+    ``batch["enc_embeds"]`` first."""
     check_ported(cfg)
+    enc = _encode(params, cfg, batch) if cfg.family == "encdec" else None
     x = _embed_inputs(params, cfg, batch)
-    x, aux = _run_decoder_groups(params, cfg, x)
+    x, aux = _run_decoder_groups(params, cfg, x, enc)
     return _norm(params["final_norm"], x, cfg), aux
 
 
@@ -582,7 +643,9 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
                 caches: List[Cache], *, window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, List[Cache]]:
     """One-token decode: ``token_batch`` holds ``tokens`` (B, 1) or
-    ``embeds`` (B, 1, d). Returns ``(logits (B, 1, V), caches)``.
+    ``embeds`` (B, 1, d), and for an ``encdec`` config ``enc_kv``, the
+    cached encoder keys and values ``{"k", "v"}``, each (n_layers, B, T,
+    H, D). Returns ``(logits (B, 1, V), caches)``.
 
     Each group's cache is written once a step, after its layers have read
     it, and IN PLACE (the JAX package donates its caches): the returned
@@ -590,12 +653,17 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
     sequence slot of GQA and MLA caches, the whole state of a Mamba2
     cache). ``window`` must be ``effective_window(cfg, s_max)`` of the
     session (the rolling buffer of a sliding window); without one the
-    write clamps to the last slot."""
+    write clamps to the last slot. A learned position is the first
+    group's ``length``, read on the device and clamped to the table."""
     check_ported(cfg)
     if cfg.input_kind == "embeds":
         x = token_batch["embeds"].to(cfg.cdtype)
     else:
         x = params["embed"]["table"].to(cfg.cdtype)[token_batch["tokens"]]
+    if cfg.pos == "learned":
+        pos = torch.clamp(caches[0].length.reshape(-1)[:1], 0, POS_ROWS - 1)
+        x = x + params["pos"].index_select(0, pos).to(cfg.cdtype)
+    enc_kv = token_batch.get("enc_kv")
     for (kind, count), cache, stack in zip(group_plan(cfg.layer_plan()),
                                            caches, params["groups"]):
         if kind == "shared_attn":
@@ -605,7 +673,8 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
             layers = _unstack(stack, count)
         new = []
         for layer, p_l in enumerate(layers):
-            x, new_l = _block_decode(kind, p_l, x, cache, layer, cfg, window)
+            x, new_l = _block_decode(kind, p_l, x, cache, layer, cfg, window,
+                                     enc_kv)
             new.append(new_l)
         if kind == "mamba":
             _write_mamba(cache, new)

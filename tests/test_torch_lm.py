@@ -273,7 +273,7 @@ def test_gqa_decode_matches_reference():
     assert int(ct.length) == int(cj.length) == 5
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["whisper-base"])
 def test_param_count_matches_reference_at_full_size(arch):
     """Full-size parameter counts, nothing allocated: ``jax.eval_shape``
     on the reference, ``meta`` tensors on the port; every leaf's shape."""
@@ -287,16 +287,11 @@ def test_param_count_matches_reference_at_full_size(arch):
     assert {n: tuple(t.shape) for n, t in named_leaves(tp)} == want
     if arch == "smollm-135m":
         assert TM.param_count(tp) == 134_536_512
-
-
-@pytest.mark.parametrize("arch,item", [("whisper-base", "8c")])
-def test_other_families_raise_naming_their_roadmap_item(arch, item):
-    cfg = get_config(arch).tiny()
-    assert cfg.name in list_archs()
-    for fn in (lambda: TM.init_params(cfg, device="meta"),
-               lambda: TM.init_caches(cfg, 1, 4, device="meta")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            fn()
+    if arch == "whisper-base":
+        assert TM.param_count(tp) == 130_863_104
+        assert want["pos"] == (65536, 512)
+        assert want["encoder/attn/wq/w"] == (6, 512, 512)
+        assert want["groups/0/xattn/wk/w"] == (6, 512, 512)
 
 
 def test_trunc_normal_is_std_times_a_normal_truncated_at_two():

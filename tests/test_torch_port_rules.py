@@ -92,6 +92,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
         set(MODULES)
     # and the SSM slice's Mamba2 mixer
     assert "repro_torch.models.ssm" in MODULES
+    # and the encoder-decoder slice's config (its cross-attention lives in
+    # repro_torch.models.attention)
+    assert "repro_torch.configs.whisper_base" in MODULES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
