@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,...,15] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,...,16] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -364,6 +364,37 @@ Phases, each of which fails the run (nonzero exit, no result line):
    step reads row 32767 of the position table; (g) ``examples.train_lm
    --tiny --strict``, ``launch.train --tiny`` and ``launch.serve --tiny``
    on whisper-base's tiny config side by side, each rc 0.
+16. multi-card LM training and serving, in a gloo world of 2 ranks
+   spawned on card 0 (NCCL refuses two ranks on one device), then an
+   NCCL world of 1: (a) which collectives gloo takes on CUDA tensors
+   (all-reduce SUM and MAX in float32, SUM in int32, all-gather,
+   all-to-all, reduce-scatter), each against its exact answer; a refused
+   one stops the part that needs it, with a line that says so; (b)
+   smollm-135m at full width and depth in float32 on a 2 x 1 mesh: each
+   rank's parameter and moment bytes against one card's tree, one step at
+   8 x 256 (ZeRO shards gathered, the OT loss on the sharded log plan,
+   rows 6-7) against the one-card step from the same weights and batch
+   (``ce`` 1e-5 and ``ot`` 1e-4 relative, the gradients (the first
+   moments) 1e-3 and the parameters after AdamW at eps 1 1e-5 of a
+   leaf's max), then 3 timed steps (median), each rank's peak memory and
+   its launches a step; (c) ``compressed_psum`` and ``ef_compress_tree``
+   of each rank's gradients of (b)'s step, within 0.05 of the exact
+   sum's max plus 1e-3 (the reference's bar), the residual exact; (d)
+   deepseek-v2-236b's MoE layer at full width in bf16 (d 5120, 160
+   experts, 80 a rank, top-6, moe_d_ff 1536, the Sinkhorn router) on 2 x
+   512 tokens through ``moe_ep_local`` on 1 x 2, forward and backward at
+   capacity factor 8 against ``moe_dense`` in float32 on the same
+   weights, every rank's tokens routed on their own, EP in float32
+   within 1e-4 and EP in bf16 within 3e-2 of max |out| and of each
+   gradient's max, then at the config's 1.25 the kept (token, expert)
+   set against a recount of the capacity rule, and its share; (e) mamba2-1.3b's SSD (64
+   heads of 64, d_state 128, chunk 128) at 2 x 4096 context parallel on
+   1 x 2 against ``ssd_chunked`` on one rank (1e-4 of max |y|), both
+   timed; (f) ``launch.train --arch smollm-135m --mesh 2x1`` in process
+   on both ranks: 5 steps at 4 x 128 ending in a checkpoint (one
+   ``shard_<rank>.npz`` a rank), 5 more uninterrupted, then ``--resume``
+   (1e-4 relative), and 8 decode steps at batch 4 on the mesh against one
+   card (1e-4 of max |logit|); the NCCL world of 1 runs (d) on 1 x 1.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -6791,6 +6822,705 @@ def run_encdec_path(torch, np, device, src):
     return counts, failures
 
 
+MC_ARCH = "smollm-135m"          # (b), (c), (f): full width and depth
+MC_MESH = (2, 1)                 # (b), (f): data x model, a gloo world of 2
+MC_TRAIN = (8, 256)              # (b): batch x seq of the checked step
+MC_TIMED = 3                     # (b): timed steps after the checked one
+MC_DRIVER = (4, 128, 5)          # (f): batch, seq, steps a half
+MC_DECODE = (4, 64, 8)           # (f): batch, cache length, decoded tokens
+MC_COMPRESS_TOL = (0.05, 1e-3)   # (c): of the exact sum's max, plus
+MC_MOE = ("deepseek_v2_236b", 2, 512)   # (d): config, batch x seq tokens
+MC_MOE_TOL = {"float32": 1e-4,   # (d): EP against the float32 oracle, of
+              "bfloat16": 3e-2}  # max |out| and of each gradient's max
+MC_MOE_FACTORS = (8.0, 1.25)     # (d): no drops, then the config's drops
+MC_SSD = (2, 4096, 64, 64, 128, 128)    # (e): B, S, H, P, N, chunk
+MC_SSD_TOL = 1e-4                # (e): of max |y|
+MC_TIMEOUT_S = 600               # a world's spawn, run and join
+MC_COLLECTIVES = ("all_reduce SUM", "all_reduce MAX", "all_reduce SUM int32",
+                  "all_gather", "all_to_all", "reduce_scatter")
+
+
+def probe_collectives(torch, dist, device, rank, world):
+    """Phase 16 (a): which collectives the world's backend takes on CUDA
+    tensors, each against its exact answer ({name: "ok" or the error})."""
+    out = {}
+
+    def one(name, fn, want):
+        try:
+            got = fn()
+            sync(torch)
+            out[name] = "ok" if got == want else f"wrong: {got} != {want}"
+        except (RuntimeError, ValueError) as exc:
+            out[name] = f"{type(exc).__name__}: {str(exc)[:120]}"
+
+    def reduce(op, dtype):
+        t = torch.full((4,), rank + 1, dtype=dtype, device=device)
+        dist.all_reduce(t, op=op)
+        return t.tolist()
+
+    def gather():
+        parts = [torch.empty(2, device=device) for _ in range(world)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device=device))
+        return [p.tolist() for p in parts]
+
+    def to_all():
+        x = torch.arange(world, dtype=torch.float32, device=device) + \
+            10 * rank
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return y.tolist()
+
+    def scatter():
+        x = torch.arange(2 * world, dtype=torch.float32, device=device)
+        y = torch.empty(2, device=device)
+        dist.reduce_scatter_tensor(y, x)
+        return y.tolist()
+
+    total = world * (world + 1) // 2
+    one("all_reduce SUM", lambda: reduce(dist.ReduceOp.SUM, torch.float32),
+        [float(total)] * 4)
+    one("all_reduce MAX", lambda: reduce(dist.ReduceOp.MAX, torch.float32),
+        [float(world)] * 4)
+    one("all_reduce SUM int32", lambda: reduce(dist.ReduceOp.SUM,
+                                               torch.int32), [total] * 4)
+    one("all_gather", gather, [[float(r)] * 2 for r in range(world)])
+    one("all_to_all", to_all, [float(rank + 10 * r) for r in range(world)])
+    one("reduce_scatter", scatter,
+        [float(world * (2 * rank + j)) for j in range(2)])
+    return out
+
+
+def mc_config():
+    """(b)'s smollm-135m in float32, its OT solves in float32 too: the
+    sharded divergence solves in float32 whatever the storage policy, and
+    the one-card step it is held against must solve as it does."""
+    return dataclasses.replace(lm_config(), ot_precision="highest")
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def mc_train_step(torch, dist, device, rank, lines):
+    """Phase 16 (b): one smollm-135m step at MC_TRAIN on a 2 x 1 mesh
+    (ZeRO shards, the sharded OT loss on rows 6-7) against the one-card
+    step from the same weights and batch (rank 0), then MC_TIMED timed
+    steps with the launch counters set to 0 before and read after.
+    Returns (failures, counts of the timed steps, the step's pieces for
+    (c))."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import gather_tree, shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    failures = []
+    cfg = mc_config()
+    B, S = MC_TRAIN
+    shape = ShapeSpec("phase16", S, B, "train")
+    # eps 1: the first update is close to linear in the gradient, so the
+    # parameters hold the gradients' agreement (the CPU tests' choice)
+    opt = AdamWConfig(eps=1.0)
+    mesh = make_local_mesh(*MC_MESH, device=device)
+    step, _ = make_train_step(cfg, mesh, shape, opt, total_steps=10)
+    specs, ctx = step.shardings[0], step.context
+    params = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(0))
+    shards = shard_tree(params, specs, ctx)
+    state = init_adamw(shards, step.opt)
+    whole = tree_bytes(params)
+    lines.append(
+        f"  (b) rank {rank}: parameters {tree_bytes(shards) / 2**20:.1f} "
+        f"MiB, AdamW moments {tree_bytes((state.m, state.v)) / 2**20:.1f} "
+        f"MiB; one card's tree {whole / 2**20:.1f} MiB and "
+        f"{2 * whole / 2**20:.1f} MiB")
+    batch = DataPipeline(DataConfig(0, B, S, cfg.vocab),
+                         device=device).batch_at(0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    new, st, met = step(shards, state, batch)
+    sync(torch)
+    first_s = time.perf_counter() - t0
+    got_p, got_m = gather_tree(new, specs, ctx), gather_tree(st.m, specs,
+                                                             ctx)
+    if rank == 0:
+        one, _ = make_train_step(cfg, None, shape, opt, total_steps=10)
+        want_p, want_s, want = one(params, init_adamw(params, one.opt),
+                                   batch)
+        ce = abs(float(met["ce"]) - float(want["ce"])) / abs(float(want["ce"]))
+        ot = abs(float(met["ot"]) - float(want["ot"])) / abs(float(want["ot"]))
+        gn = abs(float(met["grad_norm"]) - float(want["grad_norm"])) / abs(
+            float(want["grad_norm"]))
+        # m = (1 - b1) g: the first moments are the clipped gradients
+        bad_g, worst_g = leaves_within(torch, got_m, want_s.m, LM_GRAD_TOL,
+                                       "(b) gradient")
+        bad_p, worst_p = leaves_within(torch, got_p, want_p, 1e-5,
+                                       "(b) parameter")
+        lines.append(
+            f"  (b) {cfg.name} {B} x {S} on {MC_MESH[0]} x {MC_MESH[1]} "
+            f"against one card: ce {float(met['ce']):.7f} / "
+            f"{float(want['ce']):.7f} (rel {ce:.3g}, bar {LM_CE_RTOL}); ot "
+            f"{float(met['ot']):.7f} / {float(want['ot']):.7f} (rel "
+            f"{ot:.3g}, bar {LM_OT_RTOL}); grad norm rel {gn:.3g}; "
+            f"gradients worst {worst_g:.3g} of a leaf's max (bar "
+            f"{LM_GRAD_TOL}); parameters after AdamW worst {worst_p:.3g} "
+            f"(bar 1e-05)")
+        if not ce <= LM_CE_RTOL:
+            failures.append(f"(b) ce rel {ce:.3g}")
+        if not ot <= LM_OT_RTOL:
+            failures.append(f"(b) ot rel {ot:.3g}")
+        failures += bad_g + bad_p
+        del want_p, want_s, one
+    del got_p, got_m, params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    ms = []
+    reset_launch_counts()
+    for _ in range(MC_TIMED):
+        sync(torch)
+        t0 = time.perf_counter()
+        step(shards, state, batch)
+        sync(torch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    per = {k: v / MC_TIMED for k, v in counts.items() if v}
+    lines.append(
+        f"  (b) rank {rank}: first step {first_s:.2f} s; "
+        f"{statistics.median(ms):.1f} ms a step (median of {MC_TIMED}: "
+        f"{[round(v, 1) for v in ms]}); peak memory {peak / 2**30:.3f} GiB; "
+        f"launches a step {per}")
+    missing = [k for k in LM_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"(b) rank {rank}: kernels never launched {missing}")
+    return failures, counts, (cfg, mesh, step, shards, batch)
+
+
+def mc_compress(torch, dist, device, rank, pieces, lines):
+    """Phase 16 (c): each rank's gradients of (b)'s step on its rows,
+    summed over the ranks by ``compressed_psum`` and exactly; and
+    ``ef_compress_tree`` of them, its residual exact."""
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.distributed import MeshAxis, use_mesh_context
+    from repro_torch.launch.specs import gather_tree
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.optim import compressed_psum, ef_compress_tree, \
+        init_error_buffers
+    from repro_torch.tree import named_leaves
+
+    cfg, mesh, step, shards, batch = pieces
+    ctx = step.context
+    full = gather_tree(shards, step.shardings[0], ctx)
+    n = MC_TRAIN[0] // MC_MESH[0]
+    rows = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    with use_mesh_context(ctx):
+        grads, _ = loss_and_grads(full, cfg, rows,
+                                  ExecutionPolicy.from_config(cfg, mesh=mesh))
+    del full
+    axis = MeshAxis(mesh, "data")
+    rel, t0 = 0.0, time.perf_counter()
+    failures = []
+    for name, g in named_leaves(grads):
+        exact = g.clone()
+        dist.all_reduce(exact)
+        err = float((compressed_psum(g, axis) - exact).abs().max())
+        scale = float(exact.abs().max())
+        rel = max(rel, err / max(scale, 1e-30))
+        if not err < MC_COMPRESS_TOL[0] * scale + MC_COMPRESS_TOL[1]:
+            failures.append(f"(c) compressed_psum {name}: {err:.3g} of "
+                            f"{scale:.3g}")
+    sync(torch)
+    psum_s = time.perf_counter() - t0
+    deq, resid = ef_compress_tree(grads, init_error_buffers(grads))
+    ef_rel, exact_resid = 0.0, True
+    for (name, g), d_, e_ in zip(named_leaves(grads), named_leaves(deq),
+                                 named_leaves(resid)):
+        err = float((d_[1] - g).abs().max())
+        scale = float(g.abs().max())
+        ef_rel = max(ef_rel, err / max(scale, 1e-30))
+        exact_resid &= bool(torch.equal(d_[1].float() + e_[1], g.float()))
+        if not err < MC_COMPRESS_TOL[0] * scale + MC_COMPRESS_TOL[1]:
+            failures.append(f"(c) ef_compress_tree {name}: {err:.3g}")
+    if not exact_resid:
+        failures.append("(c) ef_compress_tree: deq + residual != g")
+    lines.append(
+        f"  (c) rank {rank}: compressed_psum of {len(named_leaves(grads))} "
+        f"gradient leaves worst {rel:.3g} of the exact sum's max (bar "
+        f"{MC_COMPRESS_TOL[0]} of max + {MC_COMPRESS_TOL[1]}) in "
+        f"{psum_s:.2f} s with the exact sums; ef_compress_tree worst "
+        f"{ef_rel:.3g}, residual exact {exact_resid}")
+    return failures
+
+
+def capacity_of(rows, buckets, factor):
+    c = int(-(-rows // max(buckets, 1)) * factor)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def recount_kept(np, idx, n_experts, factor):
+    """The (token, expert) assignments the capacity rule keeps, recounted
+    from every rank's dispatch (R, T, k) in numpy: a send bucket a
+    destination rank in (token, k) order, then each expert's rows in
+    received order (by source rank, then slot)."""
+    R, T, k = idx.shape
+    e_loc = n_experts // R
+    c_send = capacity_of(T * k, R, factor)
+    c_exp = capacity_of(R * c_send, e_loc, factor)
+    kept = np.zeros((R, T * k), bool)
+    received = [[] for _ in range(R)]
+    for src in range(R):
+        sent = np.zeros(R, int)
+        for a, e in enumerate(idx[src].reshape(-1)):
+            dest = e // e_loc
+            if sent[dest] < c_send:
+                received[dest].append((src, sent[dest], e % e_loc, a))
+            sent[dest] += 1
+    for dest in range(R):
+        taken = np.zeros(e_loc, int)
+        for src, _, e, a in sorted(received[dest]):
+            kept[src, a] = taken[e] < c_exp
+            taken[e] += 1
+    return kept.reshape(R, T, k)
+
+
+def mc_moe(torch, np, dist, device, rank, world, lines):
+    """Phase 16 (d): deepseek-v2-236b's MoE layer at full width in bf16
+    (its Sinkhorn router) through ``moe_ep_local`` on a 1 x ``world``
+    mesh, forward and backward at capacity factor 8 in float32 on the
+    bf16 weights, against ``moe_dense`` in float32 on the same weights,
+    on every rank's tokens (each routed on its own, as EP routes them)
+    with all the experts; the same in bf16, whose own rounding puts it
+    ~1e-2 of max off the float32 oracle (each at its bar of
+    ``MC_MOE_TOL``); then at the
+    config's factor the bf16 layer's kept (token, expert) set against a
+    recount of the capacity rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.objective import ExecutionPolicy
+    from repro_torch.core.routing import stable_top_k
+    from repro_torch.distributed import MeshAxis
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.moe import init_moe, moe_dense, moe_ep_local, \
+        router_probs
+
+    arch, B, S = MC_MOE
+    cfg = get_config(arch)
+    d, E, k, f = cfg.d_model, cfg.n_experts, cfg.top_k, cfg.moe_d_ff
+    policy = ExecutionPolicy.from_config(cfg)
+    axis = MeshAxis(make_local_mesh(1, world, device=device), "model")
+    gen = torch.Generator(device=device).manual_seed(16)
+    p = init_moe(gen, d, f, E, dtype=torch.bfloat16, device=device)
+    x = torch.randn((B, S, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    cot = torch.randn((B, S, d), generator=gen, device=device)
+    seg, e_loc = S // world, E // world
+    # rank r's tokens: the r-th segment of each batch row, in (b, s) order
+    segs = [x[:, r * seg:(r + 1) * seg].reshape(-1, d) for r in range(world)]
+    cots = [cot[:, r * seg:(r + 1) * seg].reshape(-1, d)
+            for r in range(world)]
+    failures = []
+    # the oracle first, one rank at a time (~50 GB at its peak: the
+    # weights in float32 and their gradients): moe_dense in float32 on
+    # the bf16 weights' values, each rank's tokens routed on their own as
+    # EP routes them. A rank then keeps only its own experts and the
+    # oracle's answers for them.
+    want, dense_s = {}, 0.0
+    for turn in range(world):
+        dist.barrier()
+        if turn != rank:
+            continue
+        full = {n: t.float().requires_grad_(True) for n, t in p.items()}
+        p = {n: t[rank * e_loc:(rank + 1) * e_loc].clone() if n != "router"
+             else t for n, t in p.items()}
+        torch.cuda.empty_cache()
+        xs = [s_.float().requires_grad_(True) for s_ in segs]
+        t0 = time.perf_counter()
+        outs = [moe_dense(full, xs_, top_k=k, router=cfg.router,
+                          policy=policy)[0] for xs_ in xs]
+        g = torch.autograd.grad(
+            sum(torch.sum(o * c) for o, c in zip(outs, cots)),
+            list(full.values()) + [xs[rank]])
+        sync(torch)
+        dense_s = time.perf_counter() - t0
+        want = {"out": outs[rank], "x": g[-1], "router": g[0]}
+        want.update({n: g[i][rank * e_loc:(rank + 1) * e_loc]
+                     for i, n in enumerate(("up", "gate", "down"), start=1)})
+        want = {n: t.detach().clone() for n, t in want.items()}
+        del full, xs, outs, g
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def ep(dtype):
+        """moe_ep_local forward and backward on this rank's tokens and
+        experts in ``dtype`` (the bf16 weights' values): its errors against
+        the oracle and its seconds."""
+        p_loc = {"router": p["router"].clone()}
+        p_loc.update({n: p[n].to(dtype, copy=True)
+                      for n in ("up", "gate", "down")})
+        leaves = [t.requires_grad_(True) for t in p_loc.values()]
+        x_loc = segs[rank].to(dtype).requires_grad_(True)
+        sync(torch)
+        t0 = time.perf_counter()
+        out, _ = moe_ep_local(p_loc, x_loc, top_k=k, n_experts=E, axis=axis,
+                              router=cfg.router,
+                              capacity_factor=MC_MOE_FACTORS[0],
+                              policy=policy)
+        got = torch.autograd.grad(torch.sum(out.float() * cots[rank]),
+                                  leaves + [x_loc])
+        sync(torch)
+        secs = time.perf_counter() - t0
+        router = got[0].clone()
+        dist.all_reduce(router, group=axis.group)
+        errs = {"out": sliced_rel_err(torch, out.detach(), want["out"]),
+                "x": sliced_rel_err(torch, got[-1], want["x"]),
+                "router": sliced_rel_err(torch, router, want["router"])}
+        for i, n in enumerate(("up", "gate", "down"), start=1):
+            errs[n] = sliced_rel_err(torch, got[i], want[n])
+        return errs, secs
+
+    errs, ep_s = ep(torch.float32)
+    noise, ep16_s = ep(torch.bfloat16)
+    for dtype, got in (("float32", errs), ("bfloat16", noise)):
+        for n, e in got.items():
+            if not e <= MC_MOE_TOL[dtype]:
+                failures.append(f"(d) rank {rank} EP in {dtype} vs dense "
+                                f"{n}: {e:.3g} (bar {MC_MOE_TOL[dtype]})")
+    lines.append(
+        f"  (d) rank {rank}/{world}: {arch} MoE layer (d {d}, {E} experts, "
+        f"{e_loc} a rank, top-{k}, moe_d_ff {f}, {cfg.router} router, bf16 "
+        f"weights), {B} x {S} tokens, capacity factor {MC_MOE_FACTORS[0]}: "
+        f"EP in float32 against moe_dense in float32, of max: " + ", ".join(
+            f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (bar {MC_MOE_TOL['float32']}); EP in bf16 against it: "
+        + ", ".join(
+            f"{n} {e:.3g}" for n, e in noise.items())
+        + f" (bar {MC_MOE_TOL['bfloat16']}); EP forward + backward "
+        f"{ep_s:.2f} s float32, {ep16_s:.2f} s bf16, dense {dense_s:.2f} s (first calls)")
+    del want
+    torch.cuda.empty_cache()
+    p_loc = p
+    # the config's capacity factor: the kept set against a recount
+    stats = {}
+    with torch.no_grad():
+        moe_ep_local(p_loc, segs[rank], top_k=k, n_experts=E, axis=axis,
+                     router=cfg.router, capacity_factor=cfg.capacity_factor,
+                     policy=policy, stats=stats)
+        combine, _ = router_probs(p_loc, segs[rank], top_k=k,
+                                  router=cfg.router, policy=policy)
+        idx = stable_top_k(combine, k)[1]
+    kept = axis.gather_rows(stats["kept"][None].to(torch.int32)).cpu()
+    idx = axis.gather_rows(idx[None]).cpu().numpy()
+    want = recount_kept(np, idx, E, cfg.capacity_factor)
+    same = bool(np.array_equal(kept.numpy() > 0, want))
+    lines.append(
+        f"  (d) rank {rank}/{world}: capacity factor {cfg.capacity_factor}: "
+        f"kept share {float(kept.float().mean()):.4f} of "
+        f"{kept.numel()} (token, expert) assignments; equal to the "
+        f"recount: {same}")
+    if not same:
+        failures.append(f"(d) rank {rank}: kept set != the recount")
+    return failures
+
+
+def mc_ssd(torch, dist, device, rank, world, lines):
+    """Phase 16 (e): mamba2-1.3b's SSD at full width (64 heads of 64,
+    d_state 128, chunk 128), B x S = MC_SSD, context parallel over a 1 x
+    ``world`` mesh against ``ssd_chunked`` on one rank; both timed."""
+    from repro_torch.distributed import MeshContext, use_mesh_context
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.ssm import ssd_chunked, ssd_context_parallel
+
+    B, S, H, P, N, Q = MC_SSD
+    gen = torch.Generator(device=device).manual_seed(18)
+    x = torch.randn((B, S, H, P), generator=gen, device=device)
+    dt = 0.01 * torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=device))
+    A = -torch.exp(0.3 * torch.randn((H,), generator=gen, device=device))
+    Bm = 0.5 * torch.randn((B, S, N), generator=gen, device=device)
+    Cm = 0.5 * torch.randn((B, S, N), generator=gen, device=device)
+    ctx = MeshContext(make_local_mesh(1, world, device=device))
+
+    def cp():
+        with use_mesh_context(ctx):
+            return ssd_context_parallel(x, dt, A, Bm, Cm, chunk=Q)
+
+    def timed(fn, reps=3):
+        fn()
+        ms = []
+        for _ in range(reps):
+            sync(torch)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(ms)
+
+    with torch.no_grad():
+        y_cp, cp_ms = timed(cp)
+        if rank == 0:
+            y_one, one_ms = timed(lambda: ssd_chunked(x, dt, A, Bm, Cm,
+                                                      chunk=Q)[0])
+            err = rel_to_max(torch, y_cp, y_one)
+    dist.barrier()
+    if rank != 0:
+        return []
+    lines.append(
+        f"  (e) SSD (H {H}, P {P}, N {N}, chunk {Q}), {B} x {S}: context "
+        f"parallel over {world} ranks {cp_ms:.2f} ms (median of 3, its "
+        f"gather included), ssd_chunked on one rank {one_ms:.2f} ms; "
+        f"within {err:.3g} of max |y| (bar {MC_SSD_TOL})")
+    return [] if err <= MC_SSD_TOL else [f"(e) CP vs chunked {err:.3g}"]
+
+
+def mc_driver(torch, dist, device, rank, build_dir, lines):
+    """Phase 16 (f): ``launch.train --arch smollm-135m --mesh 2x1`` in
+    process on every rank: MC_DRIVER's steps ending in a checkpoint, then
+    as many more uninterrupted through ``make_train_step`` (the driver's
+    schedule and data), then ``--resume`` from the checkpoint, its losses
+    against the uninterrupted ones; then decode on the mesh at MC_DECODE
+    against one card."""
+    import shutil
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import gather_tree, shard_tree
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.models import init_caches, shard_caches
+    from repro_torch.optim import AdamWConfig
+
+    B, S, half = MC_DRIVER
+    ck = build_dir / "multicard_ckpt"
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    dist.barrier()
+    base = ["--arch", MC_ARCH, "--mesh", f"{MC_MESH[0]}x{MC_MESH[1]}",
+            "--batch", str(B), "--seq", str(S), "--steps", str(half),
+            "--log-every", "1", "--save-every", str(10 ** 6), "--ckpt-dir",
+            str(ck)]
+    t0 = time.perf_counter()
+    first = train.main(base)
+    first_s = time.perf_counter() - t0
+    cfg = lm_config()
+    mesh = make_local_mesh(*MC_MESH, device=device)
+    step, _ = make_train_step(cfg, mesh, ShapeSpec("p16", S, B, "train"),
+                              AdamWConfig(), total_steps=half)
+    data = DataPipeline(DataConfig(seed=0, global_batch=B, seq_len=S,
+                                   vocab=cfg.vocab), device=device)
+    params, opt_state = first.pop("state")
+    hist = []
+    for s_ in range(half, 2 * half):
+        params, opt_state, m = step(params, opt_state, data.batch_at(s_))
+        hist.append({k: float(v) for k, v in m.items()})
+    t0 = time.perf_counter()
+    again = train.main(base + ["--resume"])
+    again_s = time.perf_counter() - t0
+    del again["state"]
+    worst = max(abs(d_[k] - h[k]) / abs(h[k]) for d_, h in
+                zip(again["losses"], hist) for k in ("loss", "ce", "ot"))
+    failures = []
+    steps = [d_["step"] for d_ in first["losses"] + again["losses"]]
+    if steps != list(range(2 * half)):
+        failures.append(f"(f) the driver's logged steps {steps}")
+    if not worst <= LM_RESUME_RTOL:
+        failures.append(f"(f) resumed vs uninterrupted {worst:.3g}")
+    files = sorted(p.name for p in (ck / f"step_{half - 1:09d}").iterdir())
+    # decode on the mesh against one card, from the trained weights
+    Bd, Sd, n_tok = MC_DECODE
+    shape = ShapeSpec("p16d", Sd, Bd, "decode")
+    dec, _ = make_serve_step(cfg, mesh, shape)
+    one, _ = make_serve_step(cfg, None, shape)
+    full = gather_tree(params, step.shardings[0], step.context)
+    shards = shard_tree(full, dec.shardings[0], dec.context)
+    c_mesh = shard_caches(cfg, init_caches(cfg, Bd, Sd, device=device),
+                          dec.context)
+    c_one = init_caches(cfg, Bd, Sd, device=device)
+    tok = torch.randint(0, cfg.vocab, (Bd, n_tok), device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            19))
+    err = 0.0
+    for t in range(n_tok):
+        lg, c_mesh = dec(shards, {"tokens": tok[:, t:t + 1]}, c_mesh)
+        lw, c_one = one(full, {"tokens": tok[:, t:t + 1]}, c_one)
+        err = max(err, rel_to_max(torch, lg, lw))
+    if not err <= LM_DECODE_TOL:
+        failures.append(f"(f) rank {rank}: decode on the mesh vs one card "
+                        f"{err:.3g}")
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+        lines.append(
+            f"  (f) launch.train --mesh {MC_MESH[0]}x{MC_MESH[1]}, {B} x {S}:"
+            f" steps 0-{half - 1} and a checkpoint ({files}) in "
+            f"{first_s:.1f} s; --resume from step {again['start'] - 1}: "
+            f"steps {half}-{2 * half - 1} in {again_s:.1f} s, against the "
+            f"uninterrupted steps worst loss / ce / ot rel {worst:.3g} (bar "
+            f"{LM_RESUME_RTOL})")
+    lines.append(
+        f"  (f) rank {rank}: decode at batch {Bd}, {n_tok} tokens, on the "
+        f"mesh (caches of {int(c_mesh[0][0].shape[1])} rows) against one "
+        f"card: within {err:.3g} of max |logit| (bar {LM_DECODE_TOL})")
+    return failures
+
+
+def _multicard_rank(rank, world, backend, port, src, queue, build_dir,
+                    device="cuda"):
+    """One rank of a phase-16 world (a spawned process on card 0). A world
+    of 2 runs (a)-(f); a world of 1 runs (d) on a 1 x 1 mesh. Sends back
+    its lines, failures and (b)'s launch counts."""
+    import traceback
+    from datetime import timedelta
+
+    lines, failures, counts = [], [], None
+    try:
+        sys.path.insert(0, src)
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.kernels import backend as kbackend
+        if device == "cuda":
+            torch.cuda.set_device(0)
+            device = torch.device("cuda", 0)
+        else:
+            device = torch.device(device)
+        kbackend.DEFAULT_DEVICE = str(device)
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=60))
+        build_dir = Path(build_dir)
+        parts = {}
+
+        def part(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            parts[name] = time.perf_counter() - t0
+            return out
+
+        if world == 1:
+            failures += part("d", mc_moe, torch, np, dist, device, rank,
+                             world, lines)
+        else:
+            took = part("a", probe_collectives, torch, dist, device, rank,
+                        world)
+            if rank == 0:
+                lines.append(f"  (a) gloo on CUDA tensors: {took}")
+            refused = [k for k, v in took.items() if v != "ok"]
+            more, counts, pieces = part("b", mc_train_step, torch, dist,
+                                        device, rank, lines)
+            failures += more
+            if "all_reduce SUM int32" in refused:
+                lines.append("  (c) gloo refuses int32 sums of CUDA tensors:"
+                             " compressed_psum stops here")
+            else:
+                failures += part("c", mc_compress, torch, dist, device, rank,
+                                 pieces, lines)
+            del pieces
+            torch.cuda.empty_cache()
+            if "all_to_all" in refused:
+                lines.append("  (d) gloo refuses all-to-all on CUDA tensors: "
+                             "the 1 x 2 expert parallelism stops here, the "
+                             "NCCL world of 1 stands")
+            else:
+                failures += part("d", mc_moe, torch, np, dist, device, rank,
+                                 world, lines)
+            torch.cuda.empty_cache()
+            failures += part("e", mc_ssd, torch, dist, device, rank, world,
+                             lines)
+            failures += part("f", mc_driver, torch, dist, device, rank,
+                             build_dir, lines)
+        lines.append(f"  {backend} rank {rank}/{world} parts (s): " + ", ".join(
+            f"({k}) {v:.1f}" for k, v in parts.items()))
+        dist.barrier(**({"device_ids": [0]} if backend == "nccl" else {}))
+        dist.destroy_process_group()
+        queue.put(dict(rank=rank, lines=lines, failures=failures,
+                       counts=counts))
+    except Exception:
+        queue.put(dict(rank=rank, error=traceback.format_exc(),
+                       lines=lines))
+
+
+def run_multicard_world(world, backend, src, build_dir, device="cuda"):
+    """Spawn a phase-16 world of ``world`` ranks on card 0; returns (the
+    ranks' reports sorted, or None, and the failure text)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_multicard_rank,
+                         args=(r, world, backend, port, str(src), q,
+                               str(build_dir), device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports, deadline = [], time.monotonic() + MC_TIMEOUT_S
+    try:
+        while len(reports) < world:
+            try:
+                rep = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if time.monotonic() > deadline:
+                    return None, f"{backend} world of {world} timed out"
+                dead = [p.exitcode for p in procs if p.exitcode not in
+                        (None, 0)]
+                if dead:
+                    return None, f"{backend} world: a rank exited {dead}"
+                continue
+            if "error" in rep:
+                for line in rep["lines"]:
+                    log(line)
+                for other in reports:
+                    for line in other["lines"]:
+                        log(line)
+                return None, (f"{backend} world rank {rep['rank']}:\n"
+                              f"{rep['error']}")
+            reports.append(rep)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return sorted(reports, key=lambda r: r["rank"]), None
+
+
+def run_multicard_path(torch, src):
+    """Phase 16: the multi-card LM path in a gloo world of 2 ranks on the
+    one card ((a)-(f)), then an NCCL world of 1 ((d) on a 1 x 1 mesh).
+    Returns (rank 0's launch counts of (b)'s timed steps, failures)."""
+    import gc
+    build_dir = Path(__file__).resolve().parent / "build"
+    clear_runners()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as the "
+        "ranks start")
+    failures, counts = [], None
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        t0 = time.perf_counter()
+        reports, err = run_multicard_world(world, backend, src, build_dir)
+        if err:
+            failures.append(err)
+            log(f"  {backend} world of {world}: FAILED\n{err}")
+            continue
+        for rep in reports:
+            for line in rep["lines"]:
+                log(line)
+            failures += rep["failures"]
+        if backend == "gloo":
+            counts = reports[0]["counts"]
+        log(f"  {backend} world of {world}: {time.perf_counter() - t0:.1f} s")
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -6802,7 +7532,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 
 
 def main(argv=None) -> int:
@@ -6811,7 +7541,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all fifteen)")
+                    "result lines need all sixteen)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -7179,10 +7909,32 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 15 FAILED: {failures}")
             return 1
+    if 16 in phases:
+        log(f"== phase 16: multi-card LM training and serving (a gloo world "
+            f"of 2 on card 0: (a) the collectives gloo takes on CUDA "
+            f"tensors; (b) {MC_ARCH} at full width and depth, one step at "
+            f"{MC_TRAIN[0]} x {MC_TRAIN[1]} on {MC_MESH[0]} x {MC_MESH[1]} "
+            f"against one card, then {MC_TIMED} timed; (c) compressed_psum "
+            f"and ef_compress_tree on its gradients; (d) {MC_MOE[0]}'s MoE "
+            f"layer through expert parallelism on 1 x 2 at {MC_MOE[1]} x "
+            f"{MC_MOE[2]} tokens; (e) mamba2-1.3b's SSD context parallel on "
+            f"1 x 2 at {MC_SSD[0]} x {MC_SSD[1]}; (f) launch.train --mesh "
+            f"2x1 with a checkpoint and a resume, decode on the mesh; then "
+            f"an NCCL world of 1: (d) on 1 x 1)")
+        t16 = time.perf_counter()
+        c16, failures = run_multicard_path(torch, src)
+        log(f"  launches on the multi-card path (rank 0, {MC_TIMED} steps): "
+            f"{c16}")
+        if c16 is not None:
+            counts["multicard"] = c16
+        log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+        if failures:
+            log(f"phase 16 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "fifteen")
+            "sixteen")
         return 0
 
     kernels = []

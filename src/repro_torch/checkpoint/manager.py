@@ -9,9 +9,17 @@ without a COMMIT are ignored. The keys are the parameter names
 ``(params, opt_state)`` pair). bfloat16 does not survive ``np.savez``: it
 is widened to float32, exactly, and cast back to the template's dtype on
 restore. An async save snapshots the tensors to host memory before its
-thread writes them. Counterpart of ``repro.checkpoint.manager``; one
-process writes shard 0 (the multi-host shards wait for the multi-card
-slice).
+thread writes them.
+
+On a mesh every rank saves its own shards (``group``: the process group
+of the mesh's ranks, and ``host_id`` defaults to the rank in it): rank 0
+makes ``step_<N>.tmp``, every rank writes ``shard_<rank>.npz`` into it,
+and after a barrier rank 0 writes the manifest (with ``n_hosts``) and
+``COMMIT`` and renames the directory; a last barrier keeps every rank
+from reading before the rename. A restore reads the rank's own shard
+file, so it re-shards onto the mesh the checkpoint was saved from (a
+manifest of another host count is refused). Counterpart of
+``repro.checkpoint.manager``.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..tree import named_leaves, tree_unflatten
 
@@ -47,13 +56,25 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
-                 host_id: int = 0, async_save: bool = False):
+                 host_id: Optional[int] = None, async_save: bool = False,
+                 group=None):
         self.dir = directory
         self.keep = keep
+        self.group = group
+        self.n_hosts = 1 if group is None else dist.get_world_size(group)
+        if host_id is None:
+            host_id = 0 if group is None else dist.get_rank(group)
         self.host_id = host_id
+        if async_save and self.n_hosts > 1:
+            raise ValueError("an async save of a mesh's shards would call "
+                             "its barriers from a thread: save in line")
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
+
+    def _barrier(self) -> None:
+        if self.n_hosts > 1:
+            dist.barrier(group=self.group)
 
     # ---------- save ----------
 
@@ -75,19 +96,26 @@ class CheckpointManager:
     def _write(self, step: int, flat: Dict[str, np.ndarray], extra: Dict):
         final = os.path.join(self.dir, f"step_{step:09d}")
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp, exist_ok=True)
+        lead = self.host_id == 0
+        if lead:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp, exist_ok=True)
+        self._barrier()
         np.savez(os.path.join(tmp, f"shard_{self.host_id}.npz"), **flat)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump({"step": step, "extra": extra,
-                       "n_arrays": len(flat)}, f)
-        with open(os.path.join(tmp, "COMMIT"), "w") as f:
-            f.write("ok")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-        self._gc()
+        self._barrier()
+        if lead:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump({"step": step, "extra": extra,
+                           "n_arrays": len(flat),
+                           "n_hosts": self.n_hosts}, f)
+            with open(os.path.join(tmp, "COMMIT"), "w") as f:
+                f.write("ok")
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            self._gc()
+        self._barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -120,6 +148,10 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+        if manifest.get("n_hosts", 1) != self.n_hosts:
+            raise ValueError(
+                f"step {step} holds the shards of {manifest['n_hosts']} "
+                f"hosts; this mesh has {self.n_hosts}")
         leaves = []
         with np.load(os.path.join(path, f"shard_{self.host_id}.npz")) as data:
             for name, leaf in named_leaves(template):

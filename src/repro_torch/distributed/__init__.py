@@ -1,13 +1,17 @@
-"""Collectives of the sharded solves over ``torch.distributed``.
+"""Collectives and logical axes of the port over ``torch.distributed``.
 
-:mod:`.sharding` holds the mesh axis a sharded solve runs over
+:mod:`.sharding` holds the mesh axis a sharded computation runs over
 (:class:`~.sharding.MeshAxis`: its process group, size and this rank's
-index), the distributed log-sum-exp :func:`~.sharding.psum_logsumexp` and
+index), the distributed log-sum-exp :func:`~.sharding.psum_logsumexp`,
 the differentiable boundaries :func:`~.sharding.shard_rows` /
-:func:`~.sharding.replicate`. ``MeshContext``, ``logical_spec`` and
-``shard`` of the JAX package shard its LM models over many cards and wait
-for the multi-card slice (ROADMAP.md §A item 8d). :mod:`.fault_tolerance`
-holds the training supervisor. Counterpart of ``repro.distributed``.
+:func:`~.sharding.replicate` and collectives (:func:`~.sharding.
+all_gather`, :func:`~.sharding.all_to_all`, :func:`~.sharding.psum`,
+:func:`~.sharding.pmean`), and the LM models' logical axes
+(:class:`~.sharding.MeshContext`, :func:`~.sharding.mesh_context`,
+:func:`~.sharding.use_mesh_context`,
+:func:`~.sharding.logical_spec`, :func:`~.sharding.shard`).
+:mod:`.fault_tolerance` holds the training supervisor. Counterpart of
+``repro.distributed``.
 """
 from .fault_tolerance import (
     FaultToleranceConfig,
@@ -15,8 +19,27 @@ from .fault_tolerance import (
     remesh_plan,
     suggest_save_every,
 )
-from .sharding import MeshAxis, psum_logsumexp, replicate, shard_rows
+from .sharding import (
+    MeshAxis,
+    MeshContext,
+    PartitionSpec,
+    all_gather,
+    all_to_all,
+    current_mesh_context,
+    logical_spec,
+    mesh_context,
+    pmean,
+    psum,
+    psum_logsumexp,
+    replicate,
+    shard,
+    shard_rows,
+    use_mesh_context,
+)
 
-__all__ = ["FaultToleranceConfig", "MeshAxis", "TrainingSupervisor",
-           "psum_logsumexp", "remesh_plan", "replicate", "shard_rows",
-           "suggest_save_every"]
+__all__ = ["FaultToleranceConfig", "MeshAxis", "MeshContext",
+           "PartitionSpec", "TrainingSupervisor", "all_gather", "all_to_all",
+           "current_mesh_context", "logical_spec", "mesh_context", "pmean",
+           "psum",
+           "psum_logsumexp", "remesh_plan", "replicate", "shard",
+           "shard_rows", "suggest_save_every", "use_mesh_context"]

@@ -30,15 +30,42 @@ the same on every rank), and a tensor every rank holds whole (the
 backward sums the ranks' contributions). Counterpart of
 ``repro.distributed.sharding`` (``shard_map``'s in-specs ``P(axis)`` and
 ``P()``, and ``psum_logsumexp``).
+
+The LM models' logical axes: a :class:`MeshContext` over a ``DeviceMesh``
+with dimensions ``("data", "model")`` or ``("pod", "data", "model")``
+maps the model's logical axes onto mesh dimensions as the JAX package
+does (``batch`` -> ``("pod", "data")`` or ``("data",)``; ``seq``,
+``kvseq``, ``vocab``, ``expert`` and ``heads`` -> ``"model"``; ``fsdp``
+-> ``"data"``), and :func:`use_mesh_context` makes one current for the
+code it encloses. The port runs such a mesh in explicit SPMD: every rank
+runs the step on its own shards and calls its collectives itself, so
+:func:`shard` is a layout's name, not a constraint; the JAX package's
+``shard_map`` bodies (expert parallelism, the SSD's context parallelism)
+call the differentiable collectives :func:`all_gather`,
+:func:`all_to_all`, :func:`psum` and :func:`pmean` over a
+:class:`MeshAxis` (one dimension, or the ``batch`` axes flattened into
+one group). Their backwards are the adjoints of their forwards: a sum of
+every rank's loss is differentiated, so a gather's backward sums the
+ranks' cotangents of a block and an all-to-all's is the mirrored
+all-to-all.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import math
+import weakref
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["MeshAxis", "psum_logsumexp", "shard_rows", "replicate"]
+__all__ = ["MeshAxis", "MeshContext", "PartitionSpec", "all_gather",
+           "all_to_all", "current_mesh_context", "logical_spec",
+           "mesh_context", "pmean",
+           "psum", "psum_logsumexp", "replicate", "resolve_logical", "shard",
+           "shard_rows", "use_mesh_context"]
+
+AxisName = Union[str, Tuple[str, ...]]
 
 
 class MeshAxis:
@@ -56,6 +83,15 @@ class MeshAxis:
         self.group = mesh.get_group(dim)
         self.size = int(mesh.size(dim))
         self.rank = int(mesh.get_local_rank(dim))
+
+    @classmethod
+    def of_group(cls, axis: AxisName, group, size: int,
+                 rank: int) -> "MeshAxis":
+        """The axis of an existing process group (several mesh dimensions
+        flattened into one, as ``MeshContext.axis`` builds them)."""
+        self = cls.__new__(cls)
+        self.axis, self.group, self.size, self.rank = axis, group, size, rank
+        return self
 
     def __repr__(self) -> str:
         return f"MeshAxis({self.axis!r}, rank {self.rank} of {self.size})"
@@ -165,3 +201,246 @@ def replicate(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``x`` as every rank holds it; the gradient of ``x`` sums every
     rank's contribution, so it is the same on every rank."""
     return _Replicate.apply(x, axis)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives over a mesh axis (the shard_map bodies' lax.*)
+# ---------------------------------------------------------------------------
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(axis.size)]
+        dist.all_gather(parts, x, group=axis.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the adjoint: every rank's cotangent of this rank's block, summed
+        # (a reduce-scatter, as an all-reduce and a slice on every backend)
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.axis.group)
+        return (grad.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.axis), None
+
+
+def _exchange(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis.group)
+    return out
+
+
+def all_gather(x: torch.Tensor, axis: MeshAxis, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all) concatenated along ``dim`` in
+    rank order, on every rank (``lax.all_gather(..., tiled=True)``)."""
+    if axis.size == 1:
+        return x
+    return _AllGather.apply(x, axis, dim)
+
+
+def all_to_all(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``x`` of shape (p, ...): block j goes to rank j, and block j of the
+    result came from rank j (``lax.all_to_all(x, axis, 0, 0)``)."""
+    if x.shape[0] != axis.size:
+        raise ValueError(f"all_to_all of leading dim {x.shape[0]} over "
+                         f"{axis.size} ranks")
+    if axis.size == 1:
+        return x
+    return _AllToAll.apply(x, axis)
+
+
+def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The sum over the axis' ranks, on every rank (``lax.psum``)."""
+    if axis.size == 1:
+        return x
+    return _AllReduceSum.apply(x, axis.group)
+
+
+def pmean(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The mean over the axis' ranks, on every rank (``lax.pmean``)."""
+    return psum(x, axis) / axis.size
+
+
+# ---------------------------------------------------------------------------
+# Logical axes
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """One entry a dimension: a mesh dimension's name, a tuple of names
+    (the ``batch`` axes), or ``None`` (replicated); ``jax.sharding.
+    PartitionSpec``'s counterpart, which also reads a tuple of one name as
+    the name. A leaf of ``torch.utils._pytree``, so a tree of specs has
+    the structure of the tree it describes."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (
+            a[0] if isinstance(a, tuple) and len(a) == 1 else a
+            for a in axes))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+def resolve_logical(logical: Optional[str], names: Sequence[str]):
+    """The mesh dimension(s) of a logical axis on a mesh with dimensions
+    ``names`` (``None``: replicated); an unknown name raises ``KeyError``."""
+    if logical is None:
+        return None
+    if logical == "batch":
+        dp = tuple(a for a in ("pod", "data") if a in names)
+        return dp if dp else None
+    if logical in ("seq", "kvseq", "vocab", "expert", "heads"):
+        return "model" if "model" in names else None
+    if logical == "fsdp":
+        return "data" if "data" in names else None
+    raise KeyError(f"unknown logical axis {logical!r}")
+
+
+def _dims(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+class MeshContext:
+    """The logical-to-mesh map of one run over a ``DeviceMesh``, and the
+    process groups of its axes. Building one is collective: every rank of
+    the mesh builds it, in the same order (the ``batch`` axes of a
+    ``("pod", "data", "model")`` mesh get a group of their own).
+    :func:`mesh_context` shares one a mesh, so its groups are built once."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        names = tuple(mesh.mesh_dim_names)
+        self.dp_axes: Tuple[str, ...] = tuple(
+            a for a in ("pod", "data") if a in names)
+        self.tp_axis: Optional[str] = "model" if "model" in names else None
+        self.sizes = _dims(mesh)
+        self._axes: Dict[Tuple[str, ...], MeshAxis] = {}
+        for key in (self.dp_axes, names):
+            if key:
+                self.axis(key)
+
+    def resolve(self, logical: Optional[str]):
+        return resolve_logical(logical, tuple(self.sizes))
+
+    @property
+    def world(self) -> MeshAxis:
+        """Every rank of the mesh as one axis."""
+        return self.axis(tuple(self.mesh.mesh_dim_names))
+
+    @property
+    def dp(self) -> MeshAxis:
+        """The batch axes (``("pod", "data")`` flattened, or ``"data"``)."""
+        return self.axis(self.dp_axes)
+
+    def axis(self, axis: AxisName) -> MeshAxis:
+        """The :class:`MeshAxis` of a dimension or of several flattened
+        (row-major, as ``P(("pod", "data"))`` lays the batch out)."""
+        key = (axis,) if isinstance(axis, str) else tuple(axis)
+        if key not in self._axes:
+            self._axes[key] = self._build(key)
+        return self._axes[key]
+
+    def coord(self, axis: Optional[AxisName]) -> int:
+        """This rank's index on an axis (0 on ``None``)."""
+        return 0 if axis is None else self.axis(axis).rank
+
+    def size(self, axis: Optional[AxisName]) -> int:
+        if axis is None:
+            return 1
+        names = (axis,) if isinstance(axis, str) else axis
+        return math.prod(self.sizes[a] for a in names)
+
+    def _build(self, key: Tuple[str, ...]) -> MeshAxis:
+        names = tuple(self.mesh.mesh_dim_names)
+        unknown = [a for a in key if a not in names]
+        if unknown:
+            raise ValueError(f"mesh has axes {names}, not {unknown}")
+        if len(key) == 1:
+            return MeshAxis(self.mesh, key[0])
+        rank = 0
+        for a in key:
+            rank = rank * self.sizes[a] + int(self.mesh.get_local_rank(a))
+        size = self.size(key)
+        if size == self.mesh.size() and size == dist.get_world_size():
+            group = dist.group.WORLD
+        else:
+            ranks = self.mesh.mesh.permute(
+                [names.index(a) for a in names if a not in key]
+                + [names.index(a) for a in key]).reshape(-1, size)
+            group, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+        return MeshAxis.of_group(key, group, size, rank)
+
+
+# the current context, process-wide: autograd runs a CUDA backward, and a
+# checkpointed layer's recomputation in it, on threads of its own, which
+# must see the context the forward ran under
+_current: Dict[str, Optional[MeshContext]] = {"ctx": None}
+_CONTEXTS: Dict[int, Tuple[weakref.ref, MeshContext]] = {}
+
+
+def mesh_context(mesh) -> MeshContext:
+    """The one :class:`MeshContext` of ``mesh`` (this very object: a new
+    mesh of a new world gets its own), built on first use. Collective
+    there, as building a context is."""
+    hit = _CONTEXTS.get(id(mesh))
+    if hit is not None and hit[0]() is mesh:
+        return hit[1]
+    for key in [k for k, (ref, _) in _CONTEXTS.items() if ref() is None]:
+        del _CONTEXTS[key]
+    ctx = MeshContext(mesh)
+    _CONTEXTS[id(mesh)] = (weakref.ref(mesh), ctx)
+    return ctx
+
+
+@contextlib.contextmanager
+def use_mesh_context(ctx: Optional[MeshContext]):
+    """Make ``ctx`` current for the enclosed code (``None``: no mesh), on
+    every thread of the process (autograd's too)."""
+    prev = _current["ctx"]
+    _current["ctx"] = ctx
+    try:
+        yield ctx
+    finally:
+        _current["ctx"] = prev
+
+
+def current_mesh_context() -> Optional[MeshContext]:
+    return _current["ctx"]
+
+
+def logical_spec(*axes: Optional[str]) -> Optional[PartitionSpec]:
+    """The mesh spec of logical ``axes`` under the current context, or
+    ``None`` without one. No step of the port calls it or :func:`shard`
+    (each rank slices its own rows, ``launch.specs``); they give the JAX
+    package's names to code that holds the two layouts side by side, as
+    the tests do."""
+    ctx = current_mesh_context()
+    if ctx is None:
+        return None
+    return PartitionSpec(*(ctx.resolve(a) for a in axes))
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """``x`` laid out by logical ``axes`` (one a dimension): in explicit
+    SPMD each rank already holds its own rows, so this names the layout
+    (an unknown logical axis raises ``KeyError``) and returns ``x``."""
+    if len(axes) != x.dim():
+        raise ValueError(f"{len(axes)} logical axes for a {x.dim()}-d tensor")
+    logical_spec(*axes)
+    return x

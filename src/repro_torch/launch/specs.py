@@ -1,20 +1,60 @@
-"""Input and cache specs of an LM cell, as tensors on the ``meta``
-device: the shapes and dtypes of every model input and of the decode
-caches, with nothing allocated. Tokens and labels are int64 (the port's
-index type). Counterpart of ``input_specs`` and ``cache_specs`` of
-``repro.launch.specs``; the parameter, input and cache shardings wait for
-the multi-card slice (ROADMAP.md §A item 8d).
+"""Input and cache specs of an LM cell, and the sharding rules of its
+parameters, inputs and caches on a mesh.
+
+``input_specs`` / ``cache_specs`` give the shapes and dtypes of every
+model input and of the decode caches as tensors on the ``meta`` device,
+with nothing allocated. Tokens and labels are int64 (the port's index
+type).
+
+``param_shardings`` maps every parameter leaf onto a ``("data",
+"model")`` or ``("pod", "data", "model")`` mesh by the JAX package's
+rules, one :class:`~repro_torch.distributed.sharding.PartitionSpec` a
+leaf:
+
+  experts  (L, E, d, f)  ->  E over 'model' (EP), then d / f over 'data'
+                             under ``zero3`` (FSDP)
+  embed    (V, d)        ->  vocab over 'model', d over 'data'
+  lm_head  (d, V)        ->  d over 'data', vocab over 'model'
+  generic  (..., a, b)   ->  'data' on the first divisible of the last two
+                             dimensions (ZeRO weight shards)
+  1-D, small (< 65536) and router leaves  ->  replicated
+
+'data' spans ``("pod", "data")`` on the multi-pod mesh. The rules match
+names as the reference's do, by substring of the '/'-joined path, so its
+quirks carry over (every leaf of a MoE group contains "up", in "groups",
+so the router's layer axis goes over 'model' where it divides).
+Optimizer moments take their parameter's spec. ``input_shardings`` and
+``cache_shardings`` give the batch over the data axes and the sequence
+(train, prefill) or the KV sequence and SSD heads (decode) over 'model'.
+
+A mesh here is a ``DeviceMesh`` or a mapping of dimension names to sizes
+(the rules need only the sizes). :func:`shard_tree` cuts a global tree
+to this rank's shards by a tree of specs, :func:`gather_tree` gathers the
+shards back. Counterpart of ``repro.launch.specs``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import math
+from typing import Any, Dict, List, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..configs import ArchConfig, ShapeSpec
-from ..models import init_caches
+from ..distributed.sharding import MeshContext, PartitionSpec, \
+    resolve_logical
+from ..models import cache_logical_axes, init_caches
+from ..tree import named_leaves, tree_leaves, tree_unflatten
 
-__all__ = ["input_specs", "cache_specs"]
+__all__ = [
+    "input_specs",
+    "cache_specs",
+    "input_shardings",
+    "param_shardings",
+    "cache_shardings",
+    "shard_tree",
+    "gather_tree",
+]
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -58,3 +98,198 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
 def cache_specs(cfg: ArchConfig, shape: ShapeSpec) -> List[Any]:
     """The decode caches of the cell, on ``meta``."""
     return init_caches(cfg, shape.global_batch, shape.seq_len, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    if isinstance(mesh, MeshContext):
+        return dict(mesh.sizes)
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+def _axis_size(sizes: Dict[str, int], axis) -> int:
+    names = axis if isinstance(axis, tuple) else (axis,)
+    return math.prod(sizes[a] for a in names)
+
+
+def _axis_ok(sizes: Dict[str, int], axis, size: int) -> bool:
+    return axis is None or size % _axis_size(sizes, axis) == 0
+
+
+def input_shardings(mesh, cfg: ArchConfig, shape: ShapeSpec,
+                    specs: Dict[str, Any]) -> Dict[str, Any]:
+    """A :class:`PartitionSpec` for every leaf of ``input_specs``."""
+    sizes = _sizes(mesh)
+    dp = resolve_logical("batch", tuple(sizes))
+    tp = resolve_logical("seq", tuple(sizes))
+
+    def batch_axis(B):
+        return dp if (dp and _axis_ok(sizes, dp, B)) else None
+
+    def spec_for(path: str, s) -> PartitionSpec:
+        dims = tuple(s.shape)
+        if path in ("tokens", "labels"):
+            ax = [batch_axis(dims[0])] + [None] * (len(dims) - 1)
+            if shape.mode != "decode" and len(dims) > 1 and \
+                    _axis_ok(sizes, tp, dims[1]):
+                ax[1] = tp
+            return PartitionSpec(*ax)
+        if path in ("embeds", "enc_embeds"):
+            ax = [batch_axis(dims[0]), None, None]
+            if shape.mode != "decode" and _axis_ok(sizes, tp, dims[1]):
+                ax[1] = tp
+            return PartitionSpec(*ax)
+        if path in ("enc_kv.k", "enc_kv.v"):
+            # (L, B, S, H, D): the encoder length over 'model'
+            return PartitionSpec(None, batch_axis(dims[1]),
+                                 tp if _axis_ok(sizes, tp, dims[2]) else None,
+                                 None, None)
+        return PartitionSpec()
+
+    out: Dict[str, Any] = {}
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            out[k] = {kk: spec_for(f"{k}.{kk}", vv) for kk, vv in v.items()}
+        else:
+            out[k] = spec_for(k, v)
+    return out
+
+
+def cache_shardings(mesh, cfg: ArchConfig, shape: ShapeSpec) -> List[Any]:
+    """The caches of ``cache_specs``, each field a :class:`PartitionSpec`
+    (the decode contract: the batch over the data axes, the KV sequence
+    and the SSD heads over 'model'; ``length`` replicated)."""
+    sizes = _sizes(mesh)
+    out = []
+    for cache, logical in zip(cache_specs(cfg, shape),
+                              cache_logical_axes(cfg)):
+        fields = []
+        for leaf, lg in zip(cache, logical):
+            if lg == "skip":
+                fields.append(PartitionSpec(*([None] * leaf.dim())))
+                continue
+            ax = []
+            for dim, name in zip(leaf.shape, lg):
+                a = resolve_logical(name, tuple(sizes))
+                ax.append(a if _axis_ok(sizes, a, dim) else None)
+            fields.append(PartitionSpec(*ax))
+        out.append(type(cache)(*fields))
+    return out
+
+
+def param_shardings(mesh, cfg: ArchConfig, params_shape) -> Any:
+    """A :class:`PartitionSpec` for every parameter (or optimizer moment)
+    leaf of ``params_shape``, in its tree's structure. The ZeRO 'data'
+    direction spans ``("pod", "data")`` on the multi-pod mesh, so
+    parameter and moment shards shrink with the whole data-parallel
+    world."""
+    sizes = _sizes(mesh)
+    model_ok = "model" in sizes
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+
+    def rule(name: str, leaf) -> PartitionSpec:
+        dims = tuple(leaf.shape)
+        ax: list = [None] * len(dims)
+
+        def try_assign(dim_idx: int, axis) -> bool:
+            if axis == "data":
+                if not dp_axes:
+                    return False
+                axis = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            elif axis == "model" and not model_ok:
+                return False
+            if ax[dim_idx] is not None:
+                return False
+            size = _axis_size(sizes, axis)
+            if dims[dim_idx] % size == 0 and dims[dim_idx] >= size:
+                ax[dim_idx] = axis
+                return True
+            return False
+
+        if "moe" in name and any(k in name for k in ("up", "gate", "down")):
+            # (L, E, d, f) or (E, d, f): E -> model (EP), then FSDP on d/f
+            try_assign(len(dims) - 3, "model")
+            if cfg.zero3:
+                if "down" in name:
+                    try_assign(len(dims) - 1, "data")   # (f, d): shard d
+                else:
+                    try_assign(len(dims) - 2, "data")   # (d, f): shard d
+            return PartitionSpec(*ax)
+        if "embed" in name and "table" in name:
+            try_assign(0, "model")
+            try_assign(1, "data")
+            return PartitionSpec(*ax)
+        if "lm_head" in name:
+            if len(dims) == 2:
+                try_assign(1, "model")
+                try_assign(0, "data")
+            return PartitionSpec(*ax)
+        if "router" in name or len(dims) <= 1 or \
+                math.prod(dims) < 65536:
+            return PartitionSpec(*ax)
+        # generic FSDP: 'data' on the first divisible trailing dim
+        for dim_idx in range(len(dims) - 2, len(dims)):
+            if try_assign(dim_idx, "data"):
+                break
+        return PartitionSpec(*ax)
+
+    return tree_unflatten(params_shape, [rule(name, leaf) for name, leaf in
+                                         named_leaves(params_shape)])
+
+
+# ---------------------------------------------------------------------------
+# A rank's shards
+# ---------------------------------------------------------------------------
+
+
+def cut(t: torch.Tensor, spec: Sequence, ctx: MeshContext,
+        skip: Sequence = ()) -> torch.Tensor:
+    """This rank's block of ``t`` by ``spec`` (dimensions whose axis is in
+    ``skip`` are left whole), a tensor of its own."""
+    for dim, axis in enumerate(spec):
+        if axis is None or axis in skip:
+            continue
+        n = ctx.size(axis)
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does "
+                             f"not divide over {axis} ({n} ranks)")
+        chunk = t.shape[dim] // n
+        t = t.narrow(dim, ctx.coord(axis) * chunk, chunk)
+    return t.clone()
+
+
+def gathered(t: torch.Tensor, spec: Sequence, ctx: MeshContext,
+             skip: Sequence = ()) -> torch.Tensor:
+    """The inverse of :func:`cut`: every rank's block along each sharded
+    dimension, concatenated in rank order (not differentiable)."""
+    for dim, axis in enumerate(spec):
+        if axis is None or axis in skip or ctx.size(axis) == 1:
+            continue
+        ax = ctx.axis(axis)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(ax.size)]
+        dist.all_gather(parts, t, group=ax.group)
+        t = torch.cat(parts, dim=dim)
+    return t
+
+
+def shard_tree(tree, specs, ctx: MeshContext):
+    """This rank's shards of a global tree (parameters or moments) by a
+    tree of specs of the same structure (:func:`param_shardings`)."""
+    return tree_unflatten(tree, [
+        cut(t, s, ctx) for t, s in zip(tree_leaves(tree),
+                                       tree_leaves(specs))])
+
+
+def gather_tree(tree, specs, ctx: MeshContext):
+    """The global tree from every rank's shards (collective: every rank
+    calls it)."""
+    return tree_unflatten(tree, [
+        gathered(t, s, ctx) for t, s in zip(tree_leaves(tree),
+                                            tree_leaves(specs))])

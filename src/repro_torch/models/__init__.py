@@ -5,6 +5,7 @@ Mamba2 mixer of ``models.ssm``. Counterpart of ``repro.models``."""
 from __future__ import annotations
 
 from .model import (
+    cache_logical_axes,
     check_ported,
     decode_step,
     effective_window,
@@ -14,6 +15,7 @@ from .model import (
     init_params,
     param_count,
     prefill,
+    shard_caches,
     train_loss,
 )
 from .ssm import (
@@ -26,6 +28,7 @@ from .ssm import (
 
 __all__ = [
     "Mamba2Cache",
+    "cache_logical_axes",
     "check_ported",
     "decode_step",
     "effective_window",
@@ -39,5 +42,6 @@ __all__ = [
     "mamba2_train",
     "param_count",
     "prefill",
+    "shard_caches",
     "train_loss",
 ]

@@ -30,9 +30,21 @@ maps the one to the other): the two packages' leaf names
 AdamW and the checkpoints see no placeholder.
 The MoE layers' auxiliary losses are summed over the layers into ``aux``;
 with ``cfg.mtp`` one more block on the final hidden states predicts the
-token after the next (the multi-token-prediction loss). The experts run
-on the dense path; under a mesh of more than one rank the MoE and the
-SSD refuse (expert and context parallelism are ROADMAP.md §A item 8d).
+token after the next (the multi-token-prediction loss).
+
+On a mesh (a current ``distributed.sharding.MeshContext`` with a
+``"model"`` axis, one rank included, as the reference's train step always
+enters one) the MoE layers of training and prefill run expert parallel
+(``models.moe.moe_ep_local``, with its capacity drops) and the SSD
+context parallel (``models.ssm.ssd_context_parallel``). The activations
+are replicated over the ``"model"`` ranks: each rank hands the experts
+the reference's tokens of that rank, the contiguous S / tp segment of
+each of its batch rows in (b, s) order, and the outputs are gathered
+back. Decode runs the dense experts, as the reference's does, on the
+whole batch's tokens (gathered over the data axes, so the Sinkhorn router
+balances the batch a card would); without a context the experts run
+dense. :func:`cache_logical_axes` names the caches' logical axes and
+:func:`shard_caches` cuts a rank's batch rows.
 
 Learned positions (``cfg.pos == "learned"``) are one (65536, d) table in
 ``params["pos"]``, shared by the encoder and the decoder; decode reads the
@@ -51,6 +63,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.objective import ExecutionPolicy
+from ..distributed.sharding import MeshAxis, MeshContext, all_gather, \
+    current_mesh_context, pmean, resolve_logical, use_mesh_context
 from ..tree import tree_leaves, tree_unflatten
 from .attention import (
     GQACache,
@@ -78,7 +92,7 @@ from .layers import (
     rmsnorm,
     trunc_normal,
 )
-from .moe import init_moe, moe_dense
+from .moe import init_moe, moe_dense, moe_ep_local
 from .ot_loss import init_ot_loss, ot_prototype_loss
 from .ssm import Mamba2Cache, init_mamba2, init_mamba2_cache, \
     mamba2_decode, mamba2_train
@@ -94,11 +108,12 @@ __all__ = [
     "group_plan",
     "effective_window",
     "param_count",
+    "cache_logical_axes",
+    "shard_caches",
 ]
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 POS_ROWS = 65536                # rows of the learned position table
-_MULTI_CARD = "ROADMAP.md §A item 8d (the multi-card slice)"
 
 Cache = Union[GQACache, MLACache, Mamba2Cache]
 
@@ -212,42 +227,70 @@ def _init_block(generator, kind: str, cfg: ArchConfig, device,
     return p
 
 
-def _check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Refuse a MoE or SSD config on a mesh of more than one rank: the
-    reference's expert parallelism and the SSD's context parallelism wait
-    for the multi-card slice."""
-    if mesh is None or mesh.size() <= 1:
-        return
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE on a mesh of {mesh.size()} ranks (expert "
-            f"parallelism) waits for {_MULTI_CARD}; the port runs it on one "
-            "card")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the SSD on a mesh of {mesh.size()} ranks (context "
-            f"parallelism) waits for {_MULTI_CARD}; the port runs it on one "
-            "card")
+def _local_experts(pm, cfg: ArchConfig, tp: MeshAxis,
+                   fsdp: Optional[MeshAxis]) -> Dict[str, torch.Tensor]:
+    """The router and this rank's expert stacks, from whole stacks or from
+    the rank's own (a train step hands over its shards): E cut over
+    ``tp``, and d over ``fsdp`` where the experts gather lazily."""
+    out = dict(pm)
+    for k, d_dim in (("up", 1), ("gate", 1), ("down", 2)):
+        w = out[k]
+        if w.shape[0] == cfg.n_experts and tp.size > 1:
+            e = cfg.n_experts // tp.size
+            w = w[tp.rank * e:(tp.rank + 1) * e]
+        if fsdp is not None and fsdp.size > 1 and \
+                w.shape[d_dim] == cfg.d_model:
+            n = cfg.d_model // fsdp.size
+            w = w.narrow(d_dim, fsdp.rank * n, n)
+        out[k] = w
+    return out
 
 
-def _moe_apply(p, x2: torch.Tensor,
-               cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x2 (B, S, d) normed input -> (out, aux): the dense expert path,
-    its router under the config's OT policy."""
+def _moe_apply(p, x2: torch.Tensor, cfg: ArchConfig, *,
+               decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2 (B, S, d) normed input -> (out, aux): expert parallel under a
+    mesh context with a ``"model"`` axis, dense otherwise and in decode;
+    the router under the config's OT policy."""
     B, S, d = x2.shape
-    out, aux = moe_dense(p["moe"], x2.reshape(-1, d), top_k=cfg.top_k,
-                         router=cfg.router,
-                         policy=ExecutionPolicy.from_config(cfg))
-    return out.reshape(B, S, d), aux
+    policy = ExecutionPolicy.from_config(cfg)
+    ctx = current_mesh_context()
+    if decode or ctx is None or ctx.tp_axis is None:
+        x_all = x2.reshape(-1, d)
+        # a decode step's router sees the whole batch, as on one card (the
+        # Sinkhorn router balances the tokens it is given)
+        split = decode and ctx is not None and bool(ctx.dp_axes) \
+            and ctx.dp.size > 1
+        if split:
+            x_all = all_gather(x_all, ctx.dp, dim=0)
+        out, aux = moe_dense(p["moe"], x_all, top_k=cfg.top_k,
+                             router=cfg.router, policy=policy)
+        if split:
+            out = out[ctx.dp.rank * B * S:(ctx.dp.rank + 1) * B * S]
+        return out.reshape(B, S, d), aux
+    tp = ctx.axis(ctx.tp_axis)
+    fsdp = ctx.dp if (cfg.zero3 and ctx.dp_axes) else None
+    if S % tp.size:
+        raise ValueError(f"a sequence of {S} over {tp.size} 'model' ranks")
+    seg = S // tp.size
+    # the reference's tokens of this rank under P(dp, tp, None): the
+    # contiguous segment of each batch row, in (b, s) order
+    x_loc = x2[:, tp.rank * seg:(tp.rank + 1) * seg].reshape(-1, d)
+    out, aux = moe_ep_local(
+        _local_experts(p["moe"], cfg, tp, fsdp), x_loc, top_k=cfg.top_k,
+        n_experts=cfg.n_experts, axis=tp, router=cfg.router,
+        capacity_factor=cfg.capacity_factor, fsdp_axis=fsdp, policy=policy)
+    if ctx.dp_axes:
+        aux = pmean(aux, ctx.dp)
+    return all_gather(out.reshape(B, seg, d), tp, dim=1), aux
 
 
-def _ffn(p, x: torch.Tensor,
-         cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(p, x: torch.Tensor, cfg: ArchConfig, *, decode: bool = False
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN half of a block: ``(x + ffn(norm2(x)), aux)``, aux 0-d
     float32 (0 outside the MoE)."""
     if "moe" in p:
         x2 = _norm(p["norm2"], x, cfg)
-        out, aux = _moe_apply(p, x2, cfg)
+        out, aux = _moe_apply(p, x2, cfg, decode=decode)
         if "shared_mlp" in p:
             out = out + mlp(p["shared_mlp"], x2, gated=cfg.mlp_gated)
         return x + out, aux
@@ -314,7 +357,7 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache: Cache, layer: int,
         x = x + cross_attend_step(p["xattn"], _norm(p["norm_x"], x, cfg),
                                   enc_kv["k"][layer], enc_kv["v"][layer],
                                   n_heads=cfg.n_heads, head_dim=cfg.head_dim)
-    x, _ = _ffn(p, x, cfg)
+    x, _ = _ffn(p, x, cfg, decode=True)
     return x, new
 
 
@@ -399,14 +442,18 @@ def _run_layer(kind: str, p_l, x: torch.Tensor, cfg: ArchConfig,
                enc: Optional[torch.Tensor], remat: bool):
     """One layer of a stacked group, under ``torch.utils.checkpoint`` with
     ``remat``: the layer's leaves and ``enc`` are arguments of the
-    checkpoint, so their gradients flow through the recomputation."""
+    checkpoint, so their gradients flow through the recomputation, which
+    runs under the mesh context of the forward (expert and context
+    parallel where it was), wherever the backward is called."""
     if not remat:
         return _block_train(kind, p_l, x, cfg, enc)
     leaves = tree_leaves(p_l)
+    ctx = current_mesh_context()
 
     def body(x_, enc_, *ls):
-        return _block_train(kind, tree_unflatten(p_l, list(ls)), x_, cfg,
-                            enc_)
+        with use_mesh_context(ctx):
+            return _block_train(kind, tree_unflatten(p_l, list(ls)), x_,
+                                cfg, enc_)
 
     return checkpoint(body, x, enc, *leaves, use_reentrant=False)
 
@@ -529,12 +576,13 @@ def train_loss(params, cfg: ArchConfig, batch: Dict,
     ``cfg.mtp`` (the MTP block on the final hidden states predicts the
     token after the next) and ``ot_loss_weight`` times the OT prototype
     loss. ``policy`` is the run-wide OT execution policy (``None``:
-    ``ExecutionPolicy.from_config(cfg)``); its mesh is the run's, and a
-    MoE, ssm or hybrid config refuses one of more than one rank. Returns
-    ``(loss, {"ce", "aux"[, "mtp"][, "ot"], "loss"})``, 0-d tensors."""
+    ``ExecutionPolicy.from_config(cfg)``; its mesh, where it has one,
+    shards the OT loss's solves). Under a mesh context each rank holds
+    its batch rows, and the losses are this rank's (``ce`` over its rows;
+    ``aux`` and ``ot`` global). Returns ``(loss, {"ce", "aux"[, "mtp"][,
+    "ot"], "loss"})``, 0-d tensors."""
     if policy is None:
         policy = ExecutionPolicy.from_config(cfg)
-    _check_mesh(cfg, policy.mesh)
     h, aux = forward(params, cfg, batch)
     loss_ce = _lm_ce(params, cfg, h, batch["labels"])
     metrics = {"ce": loss_ce, "aux": aux}
@@ -599,6 +647,59 @@ def init_caches(cfg: ArchConfig, batch: int, s_max: int, *,
                                window=win, dtype=cfg.cdtype, device=dev)
         caches.append(c if kind == "shared_attn" else _stacked(c, count))
     return caches
+
+
+def cache_logical_axes(cfg: ArchConfig) -> List[Cache]:
+    """The logical axes of every cache leaf, in :func:`init_caches`'
+    structure (``"skip"`` for ``length``): GQA and MLA caches put the KV
+    sequence on ``kvseq`` (the flash-decoding contract), Mamba2 states
+    their heads on ``heads``."""
+    specs: List[Cache] = []
+    for kind, _ in group_plan(cfg.layer_plan()):
+        lead = () if kind == "shared_attn" else (None,)
+        if kind in ("attn", "attn_moe", "dec_attn", "shared_attn"):
+            c = GQACache(k=lead + ("batch", "kvseq", None, None),
+                         v=lead + ("batch", "kvseq", None, None),
+                         length="skip")
+        elif _is_mla(kind):
+            c = MLACache(c_kv=lead + ("batch", "kvseq", None),
+                         k_rope=lead + ("batch", "kvseq", None),
+                         length="skip")
+        elif kind == "mamba":
+            c = Mamba2Cache(conv=lead + ("batch", None, None),
+                            state=lead + ("batch", "heads", None, None),
+                            length="skip")
+        else:
+            raise ValueError(kind)
+        specs.append(c)
+    return specs
+
+
+def shard_caches(cfg: ArchConfig, caches: List[Cache],
+                 ctx: Optional[MeshContext] = None) -> List[Cache]:
+    """The decode contract's batch rows of this rank (the current context
+    by default): every leaf on ``batch`` cut over the data axes where they
+    divide it; the caches as they are without a context. The KV sequence
+    and the heads stay whole on each ``"model"`` rank (their partition is
+    ROADMAP.md §A item 8e)."""
+    ctx = current_mesh_context() if ctx is None else ctx
+    if ctx is None:
+        return caches
+    out = []
+    for cache, logical in zip(caches, cache_logical_axes(cfg)):
+        fields = []
+        for leaf, lg in zip(cache, logical):
+            if lg != "skip" and "batch" in lg:
+                dim = lg.index("batch")
+                dp = resolve_logical("batch", tuple(ctx.sizes))
+                n = ctx.size(dp)
+                if dp and leaf.shape[dim] % n == 0:
+                    rows = leaf.shape[dim] // n
+                    leaf = leaf.narrow(dim, ctx.coord(dp) * rows,
+                                       rows).clone()
+            fields.append(leaf)
+        out.append(type(cache)(*fields))
+    return out
 
 
 def _expect(cache, kind: type) -> None:

@@ -14,7 +14,15 @@ features with learnable anchors), exactly as the paper's GAN objective
 * theta = (anchors, prototypes, f_gamma) is learned.
 
 One constant feature column (the kappa floor) is appended, so the rank is
-``n_features + 1``. Counterpart of ``repro.models.ot_loss``.
+``n_features + 1``.
+
+Under a mesh context whose batch axes hold more than one rank, each rank
+holds its rows of the batch: the sample's indices are the GLOBAL ones
+over B * S, each rank contributes its rows of the sample and they are
+all-gathered in rank order (the gather's backward hands each rank its
+rows' gradient, summed over the ranks that hold the loss). With the
+policy's mesh the solves run sharded over its ``"data"`` axis
+(``core.sharded``). Counterpart of ``repro.models.ot_loss``.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 
 from ..core.features import gaussian_log_features, gaussian_q
 from ..core.objective import ExecutionPolicy, OTObjective
+from ..distributed.sharding import all_gather, current_mesh_context
 from .layers import normal, trunc_normal
 
 __all__ = ["init_ot_loss", "ot_prototype_loss", "prototype_log_features",
@@ -67,13 +76,34 @@ def subsample_tokens(hidden: torch.Tensor, n_tokens: int) -> torch.Tensor:
     return hidden.reshape(B * S, d)[idx]
 
 
+def _sample(hidden: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """The subsampled token states: this rank's alone, or under a mesh
+    context that splits the batch, every rank's rows of the global sample
+    in order (padded to one count for the gather, then unpadded)."""
+    ctx = current_mesh_context()
+    if ctx is None or not ctx.dp_axes or ctx.dp.size == 1:
+        return subsample_tokens(hidden, n_tokens)
+    dp = ctx.dp
+    B, S, d = hidden.shape
+    idx = subsample_indices(B * dp.size, S, n_tokens)
+    rows = B * S
+    counts = np.bincount(idx // rows, minlength=dp.size)
+    mine = idx[(idx >= dp.rank * rows) & (idx < (dp.rank + 1) * rows)]
+    local = hidden.reshape(rows, d)[torch.as_tensor(
+        mine - dp.rank * rows, device=hidden.device)]
+    width = int(counts.max())
+    local = torch.nn.functional.pad(local, (0, 0, 0, width - len(mine)))
+    parts = all_gather(local, dp, dim=0).split(width)
+    return torch.cat([part[:int(c)] for part, c in zip(parts, counts)])
+
+
 def prototype_log_features(p_ot: Dict[str, torch.Tensor],
                            hidden: torch.Tensor, *, eps: float,
                            n_tokens: int):
     """The loss's log-features ``(log_xi (n, r + 1), log_zeta (m, r + 1))``
     of the subsampled token states and the prototypes: f_gamma, the
     Lemma-1 features under the learned anchors, and the kappa column."""
-    sample = subsample_tokens(hidden, n_tokens).float()
+    sample = _sample(hidden, n_tokens).float()
     z = OT_RADIUS * torch.tanh(sample @ p_ot["proj"])          # f_gamma
     protos = OT_RADIUS * torch.tanh(p_ot["protos"])
     q = gaussian_q(OT_RADIUS, eps, z.shape[-1])

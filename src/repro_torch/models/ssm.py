@@ -12,8 +12,12 @@ Shapes: x (B, S, H*P) with head dim P, state dim N, and one B / C pair
 shared by every head (n_groups = 1). The JAX package computes the SSD in
 XLA (no Pallas kernel), so plain PyTorch is the port; its three-operand
 einsums are written as pairwise products in a fixed order, so no
-contraction path can build a (B, C, Q, K, H, P) temporary. Counterpart of
-``repro.models.ssm``.
+contraction path can build a (B, C, Q, K, H, P) temporary.
+
+Under a mesh context with a ``"model"`` axis, :func:`ssd_context_parallel`
+runs the reference's context parallelism on the rank's segment of the
+sequence (the inputs are whole on every ``"model"`` rank, and the output
+is gathered back). Counterpart of ``repro.models.ssm``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import all_gather, current_mesh_context
 from .layers import init_device, init_linear, linear, rmsnorm, trunc_normal
 
 __all__ = [
@@ -33,9 +38,6 @@ __all__ = [
     "ssd_chunked",
     "ssd_context_parallel",
 ]
-
-_MULTI_CARD = "ROADMAP.md §A item 8d (the multi-card slice)"
-
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """(..., Q) -> (..., Q, Q) lower-triangular segment sums:
@@ -111,19 +113,45 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def ssd_context_parallel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          Bm: torch.Tensor, Cm: torch.Tensor, *,
-                         chunk: int = 128, mesh=None) -> torch.Tensor:
-    """The SSD as the training path calls it: the plain chunked SSD off a
-    mesh (``mesh`` None or of one rank). The reference's context
-    parallelism (the sequence sharded over ranks, one state relayed a
-    rank) waits for the multi-card slice: a mesh of more than one rank
-    raises ``NotImplementedError``."""
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"the SSD over a mesh of {mesh.size()} ranks (context "
-            f"parallelism) waits for {_MULTI_CARD}; the port runs it on "
-            "one card")
-    y, _ = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
-    return y
+                         chunk: int = 128) -> torch.Tensor:
+    """The SSD as the training path calls it: the plain chunked SSD
+    without a mesh context (or one whose ``"model"`` axis is absent or of
+    one rank), else the
+    sequence's context parallelism over the ``"model"`` ranks. Each rank
+    runs the chunked SSD on its contiguous S / p segment from a zero
+    state; the ranks gather each segment's final (B, H, P, N) state and
+    (B, H) decay; the scan of ``(d, h) -> (d1 d2, h1 d2 + h2)`` over the
+    ranks before this one gives its inbound state; a linear correction
+    ``C exp(cumsum dA) h_in`` adds it. The segments' outputs are gathered
+    back, so every rank returns the whole (B, S, H, P)."""
+    ctx = current_mesh_context()
+    if ctx is None or ctx.tp_axis is None or ctx.size(ctx.tp_axis) == 1:
+        y, _ = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+        return y
+    tp = ctx.axis(ctx.tp_axis)
+    S = x.shape[1]
+    if S % tp.size:
+        raise ValueError(f"a sequence of {S} over {tp.size} 'model' ranks")
+    seg = S // tp.size
+    lo = tp.rank * seg
+    x_l, dt_l, B_l, C_l = (t[:, lo:lo + seg] for t in (x, dt, Bm, Cm))
+    y0, h_loc = ssd_chunked(x_l, dt_l, A, B_l, C_l, chunk=chunk)
+    dacs = torch.cumsum(dt_l * A[None, None, :], dim=1)        # (B, S_l, H)
+    seg_decay = torch.exp(dacs[:, -1, :])                      # (B, H)
+    hs = all_gather(h_loc[None], tp, dim=0)                    # (R,B,H,P,N)
+    ds = all_gather(seg_decay[None], tp, dim=0)                # (R, B, H)
+    # the inbound states of every rank (the ranks before it, combined in
+    # order), then this rank's: every rank builds the same graph on the
+    # gathered tensors, so their backwards' collectives pair up
+    prefix = [torch.zeros_like(h_loc)]
+    for r in range(tp.size - 1):
+        prefix.append(prefix[-1] * ds[r][..., None, None] + hs[r])
+    init = torch.stack(prefix)[tp.rank]
+    # y_corr[b,s,h,p] = sum_n C[b,s,n] exp(dacs)[b,s,h] init[b,h,p,n]
+    y_corr = C_l[:, None] @ init.to(x_l.dtype).transpose(-1, -2)  # (B,H,S,P)
+    y_corr = y_corr * torch.exp(dacs).transpose(1, 2)[..., None]
+    y = y0 + y_corr.transpose(1, 2).to(y0.dtype)
+    return all_gather(y, tp, dim=1)
 
 
 def init_mamba2(generator, d_model: int, *, d_state: int = 128,

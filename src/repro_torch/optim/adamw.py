@@ -71,20 +71,27 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm (``norm``: one computed elsewhere, a sharded tree's across its
+    ranks)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig,
                  lr_schedule: Optional[Callable[[torch.Tensor],
-                                                torch.Tensor]] = None):
-    """Returns ``(new_params, new_state, {"grad_norm", "lr"})``."""
+                                                torch.Tensor]] = None, *,
+                 norm_fn: Optional[Callable[[Any], torch.Tensor]] = None):
+    """Returns ``(new_params, new_state, {"grad_norm", "lr"})``.
+    ``norm_fn(grads)`` gives the global norm where the tree is one rank's
+    shards (``launch.specs.global_norm``); by default :func:`global_norm`."""
+    gnorm = (global_norm if norm_fn is None else norm_fn)(grads)
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    else:
-        gnorm = global_norm(grads)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, gnorm)
     step = state.step + 1
     stepf = step.float()
     lr = (torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)

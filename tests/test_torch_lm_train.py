@@ -51,6 +51,7 @@ from repro_torch.optim import adamw as TO
 from repro_torch.tree import named_leaves, tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 OPT_TOL = 1e-6           # of each leaf's max |value|
 STEP_PARAM_TOL = 1e-5    # of each leaf's max |value|
@@ -277,22 +278,54 @@ def test_train_trajectory_follows_reference(one_torch_thread):
     assert ot_mean <= TRAJ_OT_MEAN_RTOL
 
 
-def test_meshes_beyond_one_card_are_refused():
-    class Mesh:
-        def __init__(self, n):
-            self.n = n
+def test_meshes_beyond_one_card_are_refused(tmp_path):
+    """Meshes and ``ot_shard=True`` run the paths they once refused (the
+    worlds of 2 and 4 ranks are held against the reference in
+    ``tests/test_torch_multicard.py``): in a gloo world of this process
+    alone, a step on a 1 x 1 mesh with ``ot_shard=True`` (the OT loss on
+    the sharded log plan) equals the mesh-less step (both solving in
+    float32), and a decode on the mesh equals the mesh-less one. Only
+    ``ot_shard=True`` without a mesh is refused."""
+    import torch_sharded_worker as W
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import gather_tree, shard_tree
+    from repro_torch.models import init_caches, shard_caches
 
-        def size(self):
-            return self.n
-
-    cfg = get_config("smollm-135m").tiny(**F32)
-    make_train_step(cfg, Mesh(1), ShapeSpec("t", 16, 4, "train"))
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        make_train_step(cfg, Mesh(2), ShapeSpec("t", 16, 4, "train"))
-    with pytest.raises(NotImplementedError, match="item 8d"):
+    cfg = get_config("smollm-135m").tiny(**F32, ot_iters=4,
+                                         ot_precision="highest")
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(dataclasses.replace(cfg, ot_shard=True))
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        make_serve_step(cfg, Mesh(4), ShapeSpec("d", 16, 2, "decode"))
+    params = init_params(cfg, device="cpu")
+    tok = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                         (4, 17)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    opt = TO.AdamWConfig(lr=1.0, eps=1.0)
+    shape = ShapeSpec("t", 16, 4, "train")
+    one, _ = make_train_step(cfg, None, shape, opt)
+    want_p, _, want = one(params, TO.init_adamw(params, opt), batch)
+    dshape = ShapeSpec("d", 16, 4, "decode")
+    dec_one, _ = make_serve_step(cfg, None, dshape)
+    want_logits, _ = dec_one(params, {"tokens": tok[:, :1]},
+                             init_caches(cfg, 4, 16, device="cpu"))
+    with W.world_of_one(tmp_path / "init"):
+        mesh = make_local_mesh(1, 1, device="cpu")
+        step, _ = make_train_step(dataclasses.replace(cfg, ot_shard=True),
+                                  mesh, shape, opt)
+        specs = step.shardings[0]
+        shards = shard_tree(params, specs, step.context)
+        new, _, got = step(shards, TO.init_adamw(shards, opt), batch)
+        got_p = gather_tree(new, specs, step.context)
+        dec, _ = make_serve_step(cfg, mesh, dshape)
+        logits, _ = dec(shard_tree(params, specs, dec.context),
+                        {"tokens": tok[:, :1]},
+                        shard_caches(cfg, init_caches(cfg, 4, 16,
+                                                      device="cpu"),
+                                     dec.context))
+    assert float(got["ce"]) == pytest.approx(float(want["ce"]), rel=1e-5)
+    assert float(got["ot"]) == pytest.approx(float(want["ot"]), rel=1e-4)
+    _leaves_agree(got_p, tree_map(lambda t: t.numpy(), want_p),
+                  STEP_PARAM_TOL)
+    assert _rel_to_max(_np(logits), _np(want_logits)) <= 1e-6
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-3-4b",

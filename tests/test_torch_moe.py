@@ -2,7 +2,7 @@
 CPU: the Sinkhorn router (with NaN and tied plans), the router's two
 kinds, the dense MoE layer and its gradients, multi-head latent attention
 (train, step, decode), the deepseek-v2 / v3 parameter trees, their decode
-caches, and the refusal of a mesh of more than one rank.
+caches, and the expert-parallel path on a one-rank mesh.
 ``tests/test_torch_moe_lm.py`` holds the two configs' losses, decode and
 train step.
 
@@ -17,6 +17,10 @@ gradients 1e-4 of each leaf's max |grad|; MLA 1e-5 of max |value|, and
 decode against the port's own training forward at the reference's bars
 (rtol 3e-3, atol 3e-4).
 """
+import dataclasses
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +45,8 @@ from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
 from repro_torch.tree import named_leaves
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 MOE = ["deepseek-v2-236b", "deepseek-v3-671b"]
 F32 = dict(param_dtype="float32", compute_dtype="float32")
@@ -317,26 +323,34 @@ def test_cache_specs_match_reference(arch):
     assert [tuple(c.c_kv.shape) for c in caches] == [(1, 2, 16, 32)] * 2
 
 
-def test_moe_on_a_mesh_of_more_than_one_rank_raises():
-    """Expert parallelism waits for the multi-card slice: a mesh of more
-    than one rank raises naming item 8d, in ``make_train_step`` and in
-    ``train_loss`` (a policy whose mesh has two ranks); a one-rank mesh
-    is accepted."""
-    class Mesh:
-        def __init__(self, n):
-            self.n = n
+def test_moe_on_a_mesh_of_more_than_one_rank_raises(tmp_path, monkeypatch):
+    """The MoE on a mesh runs the expert-parallel path it once refused
+    (its worlds of 2 and 4 ranks are held against the reference in
+    ``tests/test_torch_multicard.py``): in a gloo world of this process
+    alone, ``make_train_step`` takes a 1 x 1 mesh, and ``train_loss``
+    under its mesh context sends every MoE layer through
+    ``moe_ep_local``; at a capacity no assignment overflows, its loss
+    equals the dense experts' (no context)."""
+    import torch_sharded_worker as W
+    from repro_torch.distributed import MeshContext, use_mesh_context
+    from repro_torch.launch.mesh import make_local_mesh
 
-        def size(self):
-            return self.n
-
-    cfg = get_config("deepseek-v3-671b").tiny(**F32)
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        make_train_step(cfg, Mesh(2), ShapeSpec("t", 16, 4, "train"))
-    make_train_step(cfg, Mesh(1), ShapeSpec("t", 16, 4, "train"))
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").tiny(**F32),
+                              capacity_factor=8.0)
     params = TM.init_params(cfg, device="cpu")
     tok = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
                                                          (1, 9)))
     tb = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        TM.train_loss(params, cfg, tb,
-                      policy=ExecutionPolicy(mesh=Mesh(2)))
+    dense, _ = TM.train_loss(params, cfg, tb)
+    calls = []
+    real = TM.moe_ep_local
+    monkeypatch.setattr(TM, "moe_ep_local",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    with W.world_of_one(tmp_path / "init"):
+        mesh = make_local_mesh(1, 1, device="cpu")
+        make_train_step(cfg, mesh, ShapeSpec("t", 16, 4, "train"))
+        with use_mesh_context(MeshContext(mesh)):
+            ep, metrics = TM.train_loss(params, cfg, tb)
+    n_moe = sum(1 for k in cfg.layer_plan() if k.endswith("_moe"))
+    assert len(calls) == n_moe > 0
+    assert float(ep) == pytest.approx(float(dense), rel=1e-5)

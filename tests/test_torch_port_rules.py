@@ -95,6 +95,15 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     # and the encoder-decoder slice's config (its cross-attention lives in
     # repro_torch.models.attention)
     assert "repro_torch.configs.whisper_base" in MODULES
+    # and the multi-card slice's: the int8 gradient compression (the
+    # logical axes, expert and context parallelism live in the modules of
+    # distributed.sharding, models.moe, models.ssm and launch.specs)
+    assert "repro_torch.optim.compression" in MODULES
+    from repro_torch.distributed import MeshContext, use_mesh_context
+    from repro_torch.models.moe import moe_ep_local
+    from repro_torch.optim import compressed_psum
+    assert callable(moe_ep_local) and callable(compressed_psum)
+    assert MeshContext and use_mesh_context
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))

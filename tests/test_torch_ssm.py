@@ -8,8 +8,8 @@ with two uses of the shared block, and with a rolling window that
 wraps), the
 full-size parameter trees and the ``long_500k`` caches on ``meta``, one
 AdamW step with a checkpoint of the hybrid's tree (whose shared-block
-groups hold no leaves), the per-kind cache writes, and the refusal of a
-mesh of more than one rank.
+groups hold no leaves), the per-kind cache writes, and the SSD's context
+parallel path on a one-rank mesh.
 
 Inputs are made from seeds with numpy. A model's parameters are the
 port's seeded draw laid out as the reference holds them (``None`` for a
@@ -38,7 +38,6 @@ from repro.models import ssm as JSSM
 from repro_torch import convert
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import SHAPES, ShapeSpec, get_config
-from repro_torch.core.objective import ExecutionPolicy
 from repro_torch.launch import specs as TS
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import attention as TA
@@ -445,27 +444,31 @@ def test_each_cache_kind_has_its_own_write(monkeypatch):
     assert all(int(c.length.reshape(-1)[0]) == 1 for c in caches)
 
 
-def test_ssd_on_a_mesh_of_more_than_one_rank_raises():
-    """Context parallelism waits for the multi-card slice: the SSD and
-    ``train_loss`` of an ssm or hybrid config under a mesh of two ranks
-    raise naming item 8d; a one-rank mesh runs the plain SSD."""
-    class Mesh:
-        def __init__(self, n):
-            self.n = n
-
-        def size(self):
-            return self.n
+def test_ssd_on_a_mesh_of_more_than_one_rank_raises(tmp_path):
+    """The SSD on a mesh runs the context-parallel path it once refused
+    (its worlds of 2 and 4 ranks are held against the reference in
+    ``tests/test_torch_multicard.py``): under a 1 x 1 mesh context in a
+    gloo world of this process alone, ``ssd_context_parallel`` equals the
+    chunked SSD bit for bit, and ``train_loss`` of the ssm and hybrid
+    tiny configs equals the mesh-less one."""
+    import torch_sharded_worker as W
+    from repro_torch.distributed import MeshContext, use_mesh_context
+    from repro_torch.launch.mesh import make_local_mesh
 
     x, dt, A, Bm, Cm, _ = map(torch.tensor, _ssd_inputs(8))
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        TSSM.ssd_context_parallel(x, dt, A, Bm, Cm, chunk=4, mesh=Mesh(2))
-    assert torch.equal(
-        TSSM.ssd_context_parallel(x, dt, A, Bm, Cm, chunk=4, mesh=Mesh(1)),
-        TSSM.ssd_chunked(x, dt, A, Bm, Cm, chunk=4)[0])
-    for arch in TINY:
-        tc = get_config(arch).tiny(**F32)
-        params = TM.init_params(tc, device="cpu")
-        _, tb = _tokens(tc, B=1, S=8)
-        with pytest.raises(NotImplementedError, match="item 8d"):
-            TM.train_loss(params, tc, tb,
-                          policy=ExecutionPolicy(mesh=Mesh(2)))
+    want = TSSM.ssd_chunked(x, dt, A, Bm, Cm, chunk=4)[0]
+    assert torch.equal(TSSM.ssd_context_parallel(x, dt, A, Bm, Cm, chunk=4),
+                       want)
+    with W.world_of_one(tmp_path / "init"):
+        ctx = MeshContext(make_local_mesh(1, 1, device="cpu"))
+        with use_mesh_context(ctx):
+            assert torch.equal(
+                TSSM.ssd_context_parallel(x, dt, A, Bm, Cm, chunk=4), want)
+        for arch in TINY:
+            tc = get_config(arch).tiny(**F32)
+            params = TM.init_params(tc, device="cpu")
+            _, tb = _tokens(tc, B=1, S=8)
+            plain, _ = TM.train_loss(params, tc, tb)
+            with use_mesh_context(ctx):
+                meshed, _ = TM.train_loss(params, tc, tb)
+            assert float(meshed) == pytest.approx(float(plain), rel=1e-6)
