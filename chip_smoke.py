@@ -54,7 +54,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    512, 1024 and 2048, r = 256), against their plain
    batched twins, each rerun bit-identical, each problem within the same
    tolerance of the 2-D kernel on it alone, and a problem with a NaN row
-   leaving every other problem's bits unchanged. Tolerances: the
+   leaving every other problem's bits unchanged; both megakernels with
+   their problem axis (one thread block cluster a problem) at P = 1, 3,
+   32 and 264 in bf16 at n = m = 256, r = 128, in float32 at n = m = 128,
+   r = 128 and ragged 250 x 256 in bf16, momentum 1.0 and 1.3, dead atoms
+   and a dead lane (all-zero weights), against their plain batched twins,
+   each problem bit-identical to the 2-D launch on it alone at the same
+   forced C, reruns bit-identical and a NaN problem isolated. Tolerances: the
    feature map and the scaling kernels within 1e-5 of max
    |value|; the LSE kernels and the log megakernel's potentials atol 1e-4
    + rtol 1e-5 (summation order differs); the scaling megakernel's
@@ -100,7 +106,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    log_matvec at (16384, 1024); the four kernels with a problem axis at
    the batched engine's shape (P = 32, n = 1024, r = 256, float32 and
    bf16, cold and warm) beside their batched twins, ``torch.bmm`` /
-   ``torch.logsumexp`` and 32 launches of the 2-D kernel;
+   ``torch.logsumexp`` and 32 launches of the 2-D kernel; both
+   megakernels with their problem axis at the OT-GAN shape (bf16, 8
+   iterations) at P = 1, 8, 32 and 132: the autotuner's C (its key holds
+   P), C forced to 1, 2, 4 and 8 with the clusters placed at once and the
+   waves, the plain twin, the same 8 iterations through the stacked
+   per-iteration kernels and P launches of the 2-D megakernel (both
+   replayed from a CUDA graph), beside P times the 2-D bound;
 4. the solve path: three annealed ``solve()`` requests on Gaussian point
    clouds (N(1, I) against N(0, 0.1 I), n = m = 16384, d = 8, r = 1024,
    eps = 0.1, seeds 0, 1, 2, tol = 1e-4, well above the float32 noise floor
@@ -188,7 +200,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    |d n_iter| <= 1, a stage each for the clouds), the launches a replay
    at P = 1 and P = 32 (equal), and bench_batch's fixed 50 iterations:
    one ``solve_stacked`` against a loop of 32 single solves, and one
-   iteration's device time stacked against 32 single steps;
+   iteration's device time stacked against 32 single steps. Then the GAN
+   minibatch, with the counters set to 0 before and read after (its own
+   ``launches_by_path`` column): ``solve_point_clouds`` on 32
+   OT-GAN-shaped cloud pairs (n = m = 256 in the embedding's R^8, r = 128
+   anchors, eps 0.5, bf16, ``log_factored``) and ``solve_stacked`` on
+   their Gaussian features (``factored``), auto cadence, each twice, and
+   ``sinkhorn_divergence_gaussian_batched`` at P = 32, n = m = 128,
+   float32 with its gradient in x, y and the anchors, twice: one
+   megakernel launch per 8 iterations for all 32 problems (the launches
+   a replay), zero captures after warmup, each solve's lanes against the
+   per-iteration step at ``check_every=8`` and ``use_pallas=False`` with
+   ``inner_steps=8`` (cost 1e-4 relative, ``n_iter`` within a block), the
+   divergence against the CPU (value 1e-4 relative, gradients 1e-3 of
+   max |grad|), and ms a solve and a divergence call against the
+   per-iteration path on the same data, with the busy share;
 10. the serving path, with the counters set to 0 before and read after:
    one trace of the reference's traffic generator at the card's width
    (``TrafficSpec(n_requests=400, eps=0.5, r=256, size_classes=((1024,
@@ -649,6 +675,7 @@ def check_kernels(torch, np, device, shapes, lse_shapes, bf16_shapes,
     check_paged(torch, np, device, record)
     check_log_matvec(torch, device, record)
     check_batched(torch, device, record)
+    check_batched_blocks(torch, device, record)
     check_capture(torch, np, device, record)
     return errs, failures
 
@@ -1326,6 +1353,173 @@ def check_batched(torch, device, record):
                        ok and same and lanes_ok and iso is not False)
 
 
+BLOCK_PS = (1, 3, 32, 264)      # phase 2: problems of a batched megakernel
+                                # launch (an H100 places 30 clusters of 8 at
+                                # the OT-GAN shape: 264 runs in 9 waves)
+
+
+def stacked_block_inputs(torch, mode, P, n, m, r, dtype, seed, device,
+                         eps=0.5, dead_lane=True):
+    """P problems of a megakernel block stacked on a leading axis, as the
+    stacked plans build them: factors (log U(0.05, 1) - U(0, 6) in log
+    mode, (r max(n, m))^-1/2 exp(N(0, 1)) in scaling mode) at ``dtype``,
+    uniform weights with three dead atoms a side on every odd problem,
+    problem P // 2 a dead lane (all-zero weights, for P >= 3, where
+    ``dead_lane``), and the
+    carry from the cold start (f = 0, g = 0, t = LSE_i(log_xi + f / eps);
+    u = v = 1, s = Zeta (Xi^T u)). Returns the wrapper's arguments."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.ones((P, n, 1), device=device)
+    b = torch.ones((P, m, 1), device=device)
+    a[1::2, n // 3:n // 3 + 3] = 0.0
+    b[1::2, m // 4:m // 4 + 3] = 0.0
+    a, b = a / a.sum(1, keepdim=True), b / b.sum(1, keepdim=True)
+    if dead_lane and P >= 3:
+        a[P // 2] = 0.0
+        b[P // 2] = 0.0
+    if mode == "log":
+        def factor(rows):
+            return (torch.log(torch.rand((P, rows, r), generator=g,
+                                         device=device) + 0.05)
+                    - 6.0 * torch.rand((P, rows, r), generator=g,
+                                       device=device)).to(dtype)
+        lxi, lzt = factor(n), factor(m)
+
+        def masked_log(w):
+            return torch.where(w > 0, torch.log(torch.where(w > 0, w, 1.0)),
+                               -math.inf).contiguous()
+
+        loga, logb = masked_log(a), masked_log(b)
+        f0 = torch.where(loga > -math.inf, 0.0, -math.inf).contiguous()
+        g0 = torch.where(logb > -math.inf, 0.0, -math.inf).contiguous()
+        t0 = ref.log_feature_contract_ref(lxi, f0 / eps).contiguous()
+        return lxi, lzt, loga, logb, b.contiguous(), f0, g0, t0
+    c = (r * max(n, m)) ** -0.5
+    xi = (c * torch.exp(torch.randn((P, n, r), generator=g, device=device))
+          ).to(dtype).contiguous()
+    zeta = (c * torch.exp(torch.randn((P, m, r), generator=g, device=device))
+            ).to(dtype).contiguous()
+    u0 = torch.ones((P, n, 1), device=device)
+    v0 = torch.ones((P, m, 1), device=device)
+    s0 = ref.feature_matvec_ref(zeta, ref.feature_contract_ref(xi, u0))
+    return xi, zeta, a.contiguous(), b.contiguous(), u0, v0, s0.contiguous()
+
+
+def block_call(mode, args, steps, mom, eps=0.5):
+    """The batched megakernel wrapper of ``mode`` on ``args`` and its plain
+    batched twin: ``(kernel(), plain())`` callables."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_loop import (log_sinkhorn_block,
+                                                sinkhorn_block)
+    if mode == "log":
+        kw = dict(inner_steps=steps, eps=eps, momentum=mom)
+        return (lambda x=args: log_sinkhorn_block(*x, **kw),
+                lambda x=args: ref.log_sinkhorn_block_ref(*x, **kw))
+    kw = dict(inner_steps=steps, momentum=mom)
+    return (lambda x=args: sinkhorn_block(*x, **kw),
+            lambda x=args: ref.sinkhorn_block_ref(*x, **kw))
+
+
+def lane_bits(torch, x, i):
+    """Problem ``i`` of a stacked output as raw bits (NaN payloads
+    included), for bit-identity."""
+    return x[i].contiguous().view(torch.int32)
+
+
+def check_batched_blocks(torch, device, record):
+    """Both megakernels with their problem axis (P clusters, one a problem)
+    against their plain batched twins at P = 1, 3, 32 and 264: bf16 at the
+    OT-GAN shape (n = m = 256, r = 128), float32 at n = m = 128, r = 128
+    (the largest float32 n = m the budget admits at r = 128 is 176), and
+    ragged 250 x 256 in bf16; momentum 1.0 and 1.3; three dead atoms a side
+    on every odd problem and, at P >= 3, a dead lane (all-zero weights).
+    Bars are phase 2's: log potentials atol 1e-4 + rtol 1e-5, scaling
+    carries 1e-5 of max |value|, errors 1e-4 relative + 1e-6; the dead
+    lane non-finite where the twin is (the kernel's LSE max drops a NaN
+    that the twin's keeps, so its t reads -inf where the twin's is NaN)
+    and its error NaN in both, which stops the lane at its first check.
+    Each problem's bits equal the
+    2-D launch on it alone at the same forced C (the static one, and C = 2
+    at one case), a rerun is bit-identical, and a NaN row in problem 1
+    leaves every other problem's bits unchanged."""
+    from repro_torch.kernels import autotune, fused_loop
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(P, GAN_BATCH, GAN_BATCH, 128, bf, 1.0) for P in BLOCK_PS]
+    cases += [(32, GAN_BATCH, GAN_BATCH, 128, bf, 1.3),
+              (3, 128, 128, 128, f32, 1.3)]
+    cases += [(P, 128, 128, 128, f32, 1.0) for P in BLOCK_PS]
+    cases += [(P, 250, GAN_BATCH, 128, bf, 1.3) for P in (3, 32)]
+    for mode, name in (("log", "log_sinkhorn_block"),
+                       ("scaling", "sinkhorn_block")):
+        tol = (dict(atol=LSE_ATOL, rtol=LSE_RTOL) if mode == "log"
+               else dict(rel_to_max=SCALING_REL_TOL))
+        for k, (P, n, m, r, dtype, mom) in enumerate(cases):
+            args = stacked_block_inputs(torch, mode, P, n, m, r, dtype,
+                                        1000 + k, device)
+            static = fused_loop._block_plan(n, m, r, dtype, mode).cluster
+            forced = (static, 2) if (P, dtype, mom) == (32, bf, 1.0) \
+                else (static,)
+            dead = P // 2 if P >= 3 else None
+            live = [i for i in range(P) if i != dead]
+            for C in forced:
+                with autotune.pinned(name, cluster=C):
+                    kernel, plain = block_call(mode, args, 8, mom)
+                    got, again = kernel(), kernel()
+                    want = plain()
+                    torch.cuda.synchronize()
+                    worst, ok = 0.0, True
+                    for gv, wv in zip(got[:3], want[:3]):
+                        err, good = compare(torch, gv[live], wv[live], **tol)
+                        worst, ok = max(worst, err), ok and good
+                    e_got, e_want = got[3][live], want[3][live]
+                    ok = ok and bool(((e_got - e_want).abs()
+                                      <= 1e-4 * e_want.abs() + 1e-6).all())
+                    if dead is not None:   # non-finite where the twin is
+                        ok = ok and all(
+                            torch.equal(torch.isfinite(gv[dead]),
+                                        torch.isfinite(wv[dead]))
+                            for gv, wv in zip(got, want)) and bool(
+                            torch.isnan(got[3][dead])
+                            and torch.isnan(want[3][dead]))
+                    rerun = all(torch.equal(lane_bits(torch, x, i),
+                                            lane_bits(torch, y, i))
+                                for x, y in zip(got, again)
+                                for i in range(P))
+                    lanes2d = True     # each problem alone, same C
+                    for i in range(P):
+                        one = block_call(mode, tuple(
+                            x[i].contiguous() for x in args), 8, mom)[0]()
+                        lanes2d = lanes2d and all(
+                            torch.equal(lane_bits(torch, x, i),
+                                        y.contiguous().view(torch.int32))
+                            for x, y in zip(got, one))
+                    iso = "n/a"
+                    if P > 1:
+                        bad = args[0].clone()
+                        bad[1, n // 2] = math.nan
+                        poisoned = block_call(mode, (bad,) + args[1:], 8,
+                                              mom)[0]()
+                        torch.cuda.synchronize()
+                        iso = all(torch.equal(lane_bits(torch, x, i),
+                                              lane_bits(torch, y, i))
+                                  for x, y in zip(got, poisoned)
+                                  for i in range(P) if i != 1) and \
+                            bool(torch.isnan(poisoned[3][1]))
+                active = fused_loop._clusters(
+                    device.index, mode, n, m, r, dtype == bf,
+                    fused_loop._block_plan(n, m, r, dtype, mode, cluster=C))
+                record(name, f"batched P={P} n={n} m={m} r={r} "
+                       f"{str(dtype)[6:]} momentum={mom} C={C} ({active} "
+                       f"clusters placed, {-(-P // active)} waves) dead "
+                       f"lane {dead}: rerun "
+                       f"{'bit-identical' if rerun else 'DIFFERS'}, lanes = "
+                       f"2-D launches {'bit for bit' if lanes2d else 'NO'}, "
+                       f"NaN lane isolated {iso}", worst,
+                       ok and rerun and lanes2d and iso is not False)
+
+
 def check_capture(torch, np, device, record):
     """Every kernel wrapper captured into a CUDA graph (as the solve
     runners capture them; the contracts are cooperative launches, the
@@ -1764,7 +1958,8 @@ def unfused_log_block(torch, args, steps, eps):
     """``steps`` log-domain iterations at momentum 1 through the
     per-iteration kernels, in the log plan's order (``ops._log_plan``:
     half-step zeta, contract zeta, half-step xi, contract xi), then the
-    block-end check: the megakernel's yardstick."""
+    block-end check: the megakernel's yardstick (P problems at once where
+    ``args`` are stacked)."""
     from repro_torch.kernels.logmatvec import log_feature_contract, log_halfstep
 
     lxi, lzt, loga, logb, b, _, _, t0 = args
@@ -1778,7 +1973,8 @@ def unfused_log_block(torch, args, steps, eps):
             f = log_halfstep(lxi, t, loga, scale=eps)
             t = log_feature_contract(lxi, f / eps)
         lse = log_halfstep(lzt, t, zero, scale=-1.0)
-        return f, g, t, torch.sum(torch.abs(torch.exp(lse + g / eps) - b))
+        return f, g, t, torch.sum(torch.abs(torch.exp(lse + g / eps) - b),
+                                  dim=(-2, -1))
 
     return run
 
@@ -1968,7 +2164,8 @@ def unfused_scaling_block(torch, args, steps):
     per-iteration kernels, in the scaling plan's order
     (``ops._scaling_plan``: v = b / s, contract zeta, half-step xi,
     contract xi, matvec zeta), then the block-end error: the scaling
-    megakernel's yardstick."""
+    megakernel's yardstick (P problems at once where ``args`` are
+    stacked)."""
     from repro_torch.kernels.kermatvec import (
         feature_contract,
         feature_matvec,
@@ -1984,7 +2181,7 @@ def unfused_scaling_block(torch, args, steps):
             t = feature_contract(zeta, v)
             u = sinkhorn_halfstep(xi, t, a)
             s = feature_matvec(zeta, feature_contract(xi, u))
-        return u, v, s, torch.sum(torch.abs(v * s - b))
+        return u, v, s, torch.sum(torch.abs(v * s - b), dim=(-2, -1))
 
     return run
 
@@ -3999,6 +4196,93 @@ def time_batched_kernels(torch, np, device):
     return rows
 
 
+BLOCK_TIME_PS = (1, 8, 32, 132)  # phase 3: problems a batched megakernel launch
+
+
+def time_batched_blocks(torch, device):
+    """Phase 3 for both megakernels with their problem axis at the OT-GAN
+    shape (n = m = 256, r = 128, bf16, 8 iterations, momentum 1) at P = 1,
+    8, 32 and 132: the autotuner's C (tuning on, a fresh cache
+    ``build/tuning/phase3.json``, its key holding P), each C of 1, 2, 4 and
+    8 forced with the clusters the card places at once and the waves
+    ceil(P / placed), the plain batched twin, and as yardsticks the same 8
+    iterations through the per-iteration kernels on the stacked factors
+    (today's stacked step: 4 or 5 launches an iteration) and P launches of
+    the 2-D megakernel, one a problem; both yardsticks replay a captured
+    CUDA graph, so they time the device and not the host's launches. The
+    bound is P times the 2-D bytes over 3.35 TB/s. No PyTorch call runs
+    Sinkhorn iterations: no library time. Returns the P = 32 rows."""
+    from repro_torch.kernels import autotune, fused_loop
+
+    n = m = GAN_BATCH
+    r, steps, bf = 128, 8, torch.bfloat16
+    cache = TUNE_CACHE.parent / "phase3.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    one = {"log": (2.0 * (n + m) * r + 4.0 * (3 * n + 4 * m + 2 * r + 1),
+                   3.0 * r * (steps * 2 * (n + m) + m)),
+           "scaling": (2.0 * (n + m) * r + 4.0 * (3 * n + 5 * m + 1),
+                       steps * (4.0 * r * (n + m) + 4.0 * (n + m))
+                       + 3.0 * m)}
+    rows = {}
+    for mode, name in (("log", "log_sinkhorn_block"),
+                       ("scaling", "sinkhorn_block")):
+        for P in BLOCK_TIME_PS:
+            args = stacked_block_inputs(torch, mode, P, n, m, r, bf, 300 + P,
+                                        device, dead_lane=False)
+            kernel, plain = block_call(mode, args, steps, 1.0)
+            ext = dict(P=P, n=n, m=m, r=r, esize=2)
+            with autotune.tuning(cache_path=str(cache)):
+                tuned = autotune.resolve(name, ext, bf, device)["cluster"]
+            forced = {}
+            for C in (1, 2, 4, 8):
+                plan = fused_loop._block_plan(n, m, r, bf, mode, cluster=C)
+                if not fused_loop._runs(plan):
+                    continue
+                placed = fused_loop._clusters(device.index, mode, n, m, r,
+                                              True, plan)
+                with autotune.pinned(name, cluster=C):
+                    forced[C] = (time_ms(torch, kernel, batches=11,
+                                         per_batch=5),
+                                 placed, -(-P // placed))
+            ms, placed, waves = forced[tuned]
+            plain_ms = time_ms(torch, plain, batches=5, per_batch=2)
+            unfused = (unfused_log_block(torch, args, steps, 0.5)
+                       if mode == "log" else
+                       unfused_scaling_block(torch, args, steps))
+            unfused_ms = time_ms(torch, graph_replay(torch, unfused),
+                                 batches=11, per_batch=2)
+            lanes = [block_call(mode, tuple(x[i].contiguous() for x in args),
+                                steps, 1.0)[0] for i in range(P)]
+
+            def looped():
+                for call in lanes:
+                    call()
+
+            loop_ms = time_ms(torch, graph_replay(torch, looped), batches=5,
+                              per_batch=1)
+            b_ms, b_by = bound(P * one[mode][0], P * one[mode][1])
+            static = fused_loop._block_plan(n, m, r, bf, mode).cluster
+            log(f"  {name:22s} batched bf16 P={P} n=m={n} r={r} "
+                f"inner_steps={steps}: tuned C={tuned} (static {static}) "
+                f"{ms:.4f} ms, {placed} clusters placed, {waves} waves; "
+                + "; ".join(f"C={C} {t:.4f} ms ({w} waves)"
+                            for C, (t, _, w) in forced.items())
+                + f"; plain {plain_ms:.4f} ms; per-iteration stacked step "
+                f"x{steps} {unfused_ms:.4f} ms ({unfused_ms / ms:.2f}x); {P} "
+                f"2-D launches {loop_ms:.4f} ms ({loop_ms / ms:.2f}x); bound "
+                f"{b_ms:.6f} ms ({b_by}); kernel/bound {ms / b_ms:.1f}")
+            if P == GAN_MB_P:
+                rows[name] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by, cluster=tuned, placed=placed, waves=waves,
+                    forced_ms={str(C): t for C, (t, _, _) in forced.items()},
+                    per_iteration_ms=unfused_ms, looped_ms=loop_ms,
+                    shape=f"P={P} n=m={n} r={r} bf16 inner_steps={steps}")
+            del args, lanes
+    return rows
+
+
 BATCH_SUPPORTS = (300, 700, 1024, 1500, 2048)   # the ragged solve_many list
 BATCH_CLOUD_EPS = 0.1
 BATCH_ITERS = 50                # bench_batch's fixed iteration count
@@ -4347,6 +4631,243 @@ def time_batched_engine(torch, device, inp):
             f"iteration (device, CUDA events on a captured graph) "
             f"{step_ms:.4f} ms stacked, {loop_ms:.4f} ms as {BATCH_P} "
             f"single steps ({loop_ms / step_ms:.2f}x)")
+    return failures
+
+
+GAN_MB_P = 32                   # phase 9's GAN minibatch: problems,
+GAN_MB_D = 8                    # the OT-GAN embedding's dimension,
+GAN_MB_BALL = 3.0               # its ball's radius (the feature map's R),
+GAN_MB_R = 128                  # anchors, the trainer's default r
+GAN_MB_EPS = 0.5                # the trainer's eps
+GAN_MB_DIV_N = 128              # the divergence's n = m in float32 (176 is
+                                # the largest the budget admits at r = 128)
+GAN_MB_KERNELS = ("gaussian_feature_map", "log_feature_contract",
+                  "log_sinkhorn_block", "sinkhorn_block")
+
+
+def gan_clouds(torch, np, P, n, seed, device):
+    """P OT-GAN-shaped cloud pairs (n points each in the embedding's R^8,
+    inside its ball of radius 3): 0.7 N(0, I) against 0.7 N(0, I) + 0.4,
+    each point pulled radially into the ball; numpy seeds, float32."""
+    rng = np.random.default_rng(seed)
+
+    def ball(z):
+        norm = np.linalg.norm(z, axis=-1, keepdims=True)
+        return z * np.minimum(1.0, 0.95 * GAN_MB_BALL / norm)
+
+    x = ball(0.7 * rng.standard_normal((P, n, GAN_MB_D)))
+    y = ball(0.7 * rng.standard_normal((P, n, GAN_MB_D)) + 0.4)
+    return (torch.as_tensor(x.astype(np.float32), device=device),
+            torch.as_tensor(y.astype(np.float32), device=device))
+
+
+def gan_lane_check(label, got, want, failures, block=8):
+    """Every lane of ``got`` against ``want`` (both stacked): cost 1e-4
+    relative, |d n_iter| within one block. Returns the worst of both."""
+    rel = ((got.cost - want.cost).abs() / want.cost.abs()).max().item()
+    dn = (got.n_iter - want.n_iter).abs().max().item()
+    if not (rel <= COST_RTOL and dn <= block):
+        failures.append(f"{label}: cost rel {rel:.2e}, |d n_iter| {dn}")
+    return rel, dn
+
+
+def per_iteration_blocks():
+    """A context in which no stacked plan admits its megakernel
+    (``GeometryOps.block_admits`` false), so the auto cadence takes the
+    per-iteration step at every check: the path these solves took before
+    the megakernels had a problem axis, timed as the yardstick."""
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        admits = ops.GeometryOps.block_admits
+        ops.GeometryOps.block_admits = lambda self, n, m, P=1: False
+        try:
+            yield
+        finally:
+            ops.GeometryOps.block_admits = admits
+
+    return ctx()
+
+
+def best_wall(torch, fn, repeats=3):
+    """The best host wall of ``fn`` ending in a device sync, after one
+    untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def run_gan_minibatch(torch, np, device):
+    """Phase 9's GAN-minibatch part, with the launch counters set to 0
+    just before and read just after: ``solve_point_clouds`` on 32
+    OT-GAN-shaped cloud pairs (n = m = 256 in R^8, r = 128 shared anchors,
+    eps 0.5, ``precision="bf16"``, ``log_factored``, auto cadence) and
+    ``solve_stacked`` on the same clouds' Gaussian features
+    (``factored``), each twice; then ``sinkhorn_divergence_gaussian_batched``
+    at P = 32, n = m = 128 in float32 with its gradient in x, y and the
+    anchors, twice. At these shapes each problem fits the megakernel, so
+    every solve runs 8 iterations of all 32 problems a launch. Returns
+    ``(inputs, results, counts, failures)``."""
+    from repro_torch.core import (BatchedSinkhorn, GaussianFeatureMap,
+                                  sinkhorn_divergence_gaussian_batched)
+    from repro_torch.core.features import gaussian_log_features
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    P, n = GAN_MB_P, GAN_BATCH
+    fm = GaussianFeatureMap(r=GAN_MB_R, d=GAN_MB_D, eps=GAN_MB_EPS,
+                            R=GAN_MB_BALL)
+    anchors = fm.init(torch.Generator().manual_seed(0)).to(device)
+    x, y = gan_clouds(torch, np, P, n, 29, device)
+    lxi = gaussian_log_features(x, anchors, eps=GAN_MB_EPS, q=fm.q)
+    lzt = gaussian_log_features(y, anchors, eps=GAN_MB_EPS, q=fm.q)
+    w = torch.full((P, n), 1.0 / n, device=device)
+    dx, dy = gan_clouds(torch, np, P, GAN_MB_DIV_N, 31, device)
+    inp = dict(x=x, y=y, anchors=anchors, q=fm.q, xi=torch.exp(lxi),
+               zeta=torch.exp(lzt), w=w, dx=dx, dy=dy)
+    kw = dict(eps=GAN_MB_EPS, tol=TOL, max_iter=2000, precision="bf16")
+    engines = {"log_factored": BatchedSinkhorn(method="log_factored", **kw),
+               "factored": BatchedSinkhorn(method="factored", **kw)}
+    calls = {"log_factored": lambda eng: eng.solve_point_clouds(
+                 x, y, anchors, R=GAN_MB_BALL),
+             "factored": lambda eng: eng.solve_stacked(
+                 inp["xi"], inp["zeta"], w, w)}
+    out, failures = {}, []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for method, eng in engines.items():
+        for k in range(2):
+            c0 = eng.runners.captures
+            res = calls[method](eng)
+            torch.cuda.synchronize()
+            if k and eng.runners.captures != c0:
+                failures.append(f"GAN minibatch {method} captured "
+                                f"{eng.runners.captures - c0} after warmup")
+        out[method] = res
+        per = [r_.per_replay for r_ in eng.runners._runners.values()]
+        mega = "log_sinkhorn_block" if method == "log_factored" \
+            else "sinkhorn_block"
+        blocks = [key.blocks for key in eng.runners.keys()]
+        ok = (len(per) == 1 and set(per[0]) == {mega}
+              and per[0][mega] == blocks[0])
+        log(f"  GAN minibatch {method} bf16 P={P} n=m={n} d={GAN_MB_D} "
+            f"r={GAN_MB_R}: n_iter {res.n_iter.min().item()}-"
+            f"{res.n_iter.max().item()}, cost "
+            f"{float(res.cost.min()):.6f}-{float(res.cost.max()):.6f}; "
+            f"launches a replay {per} ({blocks[0]} blocks of 8 iterations "
+            f"for all {P} problems) {'ok' if ok else 'FAIL'}; runners "
+            f"{eng.runners.stats()}")
+        if not ok:
+            failures.append(f"GAN minibatch {method}: launches a replay "
+                            f"{per}, blocks {blocks}")
+    leaves = [t.clone().requires_grad_(True) for t in (dx, dy, anchors)]
+    for k in range(2):
+        before = loop_stats()
+        val = sinkhorn_divergence_gaussian_batched(
+            *leaves, eps=GAN_MB_EPS, q=fm.q)
+        grads = torch.autograd.grad(val.sum(), leaves)
+        torch.cuda.synchronize()
+        new = loop_delta(before, loop_stats())["captures"]
+        if k and new:
+            failures.append(f"GAN minibatch divergence captured {new} "
+                            "after warmup")
+    out["divergence"] = (val.detach(), [g_.detach() for g_ in grads])
+    counts = launch_counts()
+    log(f"  GAN minibatch divergence f32 P={P} n=m={GAN_MB_DIV_N} "
+        f"r={GAN_MB_R}: value {float(val.detach().min()):.6f}-"
+        f"{float(val.detach().max()):.6f},"
+        f" second call captured {new}")
+    missing = [k_ for k_ in GAN_MB_KERNELS if counts[k_] <= 0]
+    if missing:
+        failures.append(f"GAN minibatch: kernels never launched: {missing}")
+    return inp, engines, calls, out, counts, failures
+
+
+def compare_gan_minibatch(torch, device, inp, engines, calls, out):
+    """Phase 9's GAN-minibatch yardsticks: each solve's lanes against the
+    per-iteration stacked step at ``check_every=8`` and against
+    ``use_pallas=False`` with ``inner_steps=8`` (the same check points):
+    cost 1e-4 relative, |d n_iter| within one block (8); the divergence
+    against the same call on the CPU (value 1e-4 relative, gradients 1e-3
+    of max |grad|). Then ms a solve and a divergence call (value and
+    gradients) on the megakernels against the per-iteration path on the
+    same data, and last the busy share of a solve (every cell captured
+    by then)."""
+    from repro_torch.core import (BatchedSinkhorn,
+                                  sinkhorn_divergence_gaussian_batched)
+
+    failures = []
+    kw = dict(eps=GAN_MB_EPS, tol=TOL, max_iter=2000, precision="bf16")
+    worst = {}
+    for method in engines:
+        for label, extra in (("per-iteration check_every=8",
+                              dict(check_every=8)),
+                             ("use_pallas=False inner_steps=8",
+                              dict(use_pallas=False, inner_steps=8))):
+            other = calls[method](BatchedSinkhorn(method=method, **kw,
+                                                  **extra))
+            worst.setdefault(method, []).append(gan_lane_check(
+                f"GAN minibatch {method} vs {label}", out[method], other,
+                failures))
+    val, grads = out["divergence"]
+    leaves_cpu = [t.detach().cpu().requires_grad_(True)
+                  for t in (inp["dx"], inp["dy"], inp["anchors"])]
+    want = sinkhorn_divergence_gaussian_batched(*leaves_cpu, eps=GAN_MB_EPS,
+                                                q=inp["q"])
+    want_g = torch.autograd.grad(want.sum(), leaves_cpu)
+    rel = ((val.cpu() - want.detach()).abs()
+           / want.detach().abs()).max().item()
+    g_err = [((g_.cpu() - w_).abs().max() / w_.abs().max()).item()
+             for g_, w_ in zip(grads, want_g)]
+    ok = rel <= COST_RTOL and max(g_err) <= GRAD_REL_TOL
+    if not ok:
+        failures.append(f"GAN minibatch divergence vs CPU: value rel "
+                        f"{rel:.2e}, grads {g_err}")
+    walls, fresh = {}, {}
+    for method, eng in engines.items():
+        fresh[method] = BatchedSinkhorn(method=method, **kw)
+        with per_iteration_blocks():
+            per_it = best_wall(torch, lambda: calls[method](fresh[method]))
+        walls[method] = (best_wall(torch, lambda: calls[method](eng)),
+                         per_it)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (inp["dx"], inp["dy"], inp["anchors"])]
+
+    def div_call():
+        v = sinkhorn_divergence_gaussian_batched(*leaves, eps=GAN_MB_EPS,
+                                                 q=inp["q"])
+        torch.autograd.grad(v.sum(), leaves)
+
+    div_mega = best_wall(torch, div_call)
+    with per_iteration_blocks():
+        div_per_it = best_wall(torch, div_call)
+    for method, eng in engines.items():
+        with per_iteration_blocks():
+            share_it, _, _ = busy_share(
+                torch, lambda: calls[method](fresh[method]))
+        share, _, top = busy_share(torch, lambda: calls[method](eng))
+        (w0, w1), (mega, per_it) = worst[method], walls[method]
+        log(f"  GAN minibatch {method}: {GAN_MB_P} lanes vs per-iteration "
+            f"(check_every=8) worst cost rel {w0[0]:.2e} |d n_iter| "
+            f"{w0[1]}, vs use_pallas=False (inner_steps=8) {w1[0]:.2e} / "
+            f"{w1[1]}; a solve {mega * 1e3:.3f} ms on the megakernel, "
+            f"{per_it * 1e3:.3f} ms per-iteration ({per_it / mega:.2f}x); "
+            f"busy share {'n/a' if share is None else f'{share:.3f}'} "
+            f"(per-iteration "
+            f"{'n/a' if share_it is None else f'{share_it:.3f}'}); top "
+            f"{[(e.key[:28], round(e.self_device_time_total)) for e in top[:3]]}")
+    log(f"  GAN minibatch divergence vs the CPU: value rel {rel:.2e}, "
+        f"gradients (x, y, anchors) {[f'{e:.2e}' for e in g_err]} of max "
+        f"|grad| {'ok' if ok else 'FAIL'}; a call with its gradient "
+        f"{div_mega * 1e3:.3f} ms on the megakernel, "
+        f"{div_per_it * 1e3:.3f} ms per-iteration "
+        f"({div_per_it / div_mega:.2f}x)")
     return failures
 
 
@@ -4734,7 +5255,7 @@ def tuner_keys(torch, np, device):
                         torch.bfloat16, 0, 7, device)
     keys.append((f"log megakernel n=m={GAN_BATCH} r=128 bf16 8 iterations",
                  "log_sinkhorn_block",
-                 dict(n=GAN_BATCH, m=GAN_BATCH, r=128, esize=2),
+                 dict(P=1, n=GAN_BATCH, m=GAN_BATCH, r=128, esize=2),
                  torch.bfloat16,
                  lambda: log_sinkhorn_block(*args, inner_steps=8, eps=0.5),
                  lambda: ref.log_sinkhorn_block_ref(*args, inner_steps=8,
@@ -7695,6 +8216,7 @@ def main(argv=None) -> int:
         flat_contract_digest(torch, device)
         times.update(time_paged_kernels(torch, np, device))
         batched_rows = time_batched_kernels(torch, np, device)
+        batched_rows.update(time_batched_blocks(torch, device))
         for name, row in batched_rows.items():
             times[name] = dict(times[name], batched=row)
 
@@ -7800,6 +8322,20 @@ def main(argv=None) -> int:
         counts["batched"] = c9
         failures += compare_batched_path(torch, np, device, inp, ragged,
                                          engines, cloud_engine, out)
+        t9b = time.perf_counter()
+        log(f"  GAN minibatch: {GAN_MB_P} OT-GAN-shaped cloud pairs "
+            f"(n=m={GAN_BATCH}, d={GAN_MB_D}, r={GAN_MB_R}, eps="
+            f"{GAN_MB_EPS}, bf16) through solve_point_clouds and "
+            f"solve_stacked, the batched divergence at n=m={GAN_MB_DIV_N} "
+            "f32 with its gradient")
+        (gan_inp, gan_engines, gan_calls, gan_out, c9b,
+         more) = run_gan_minibatch(torch, np, device)
+        log(f"  launches on the GAN-minibatch path: {c9b}")
+        counts["gan_minibatch"] = c9b
+        failures += more
+        failures += compare_gan_minibatch(torch, device, gan_inp,
+                                          gan_engines, gan_calls, gan_out)
+        log(f"  GAN minibatch part: {time.perf_counter() - t9b:.1f} s")
         log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
         if failures:
             log(f"phase 9 FAILED: {failures}")

@@ -41,6 +41,7 @@ as the graph's launches per replay, and each replay adds them back
 from __future__ import annotations
 
 import collections
+import gc
 import weakref
 from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
@@ -126,6 +127,14 @@ class Runner:
                 with torch.cuda.stream(side):
                     warmup()
                     before = launch_counts()
+                    # A dropped runner sits in a reference cycle (it and
+                    # its cache), so the collector frees its graph when it
+                    # runs; inside a capture that call is refused and
+                    # invalidates the capture. Collect first, and not
+                    # during the capture.
+                    gc.collect()
+                    collecting = gc.isenabled()
+                    gc.disable()
                     try:
                         graph.capture_begin(pool=self._cache.pool(device))
                         try:
@@ -137,6 +146,8 @@ class Runner:
                             f"capture of the solve loop of cell {self.key} "
                             f"failed: {exc}") from exc
                     finally:
+                        if collecting:
+                            gc.enable()
                         after = launch_counts()
                         set_launch_counts(before)
                 current.wait_stream(side)

@@ -492,9 +492,10 @@ def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
     ``runners`` (default ``core.runners.RUNNERS``). ``carry0`` is
     ``(u0, v0)`` or ``(f0, g0)``; returns ``(n_iter, carry, err)``. A plan
     over P stacked problems (weights ``(P, n)``) runs its lanes in one
-    loop, its ``n_iter`` a list and ``tol`` a float or one a lane; the
-    megakernels take no problem axis, so ``block_admits`` refuses P > 1
-    and the per-iteration step runs, as for any shape they refuse."""
+    loop, its ``n_iter`` a list and ``tol`` a float or one a lane; its
+    megakernel step advances all P lanes in one launch (one cluster a
+    problem) wherever one problem's shape is admitted, and each lane
+    commits and stops on its own (:func:`run_check_blocks`)."""
     lanes = a.shape[0] if a.dim() == 2 else None
     n, m = a.shape[-1], b.shape[-1]
     inner, check, auto = _resolve_cadence(plan, inner_steps, check_every)

@@ -92,9 +92,22 @@
 // sums are plain float FMAs (no tensor cores: the reference accumulates in
 // true float32), no atomics: a rerun is bit-identical.
 //
+// Both kernels take P problems stacked on a leading axis, the port's
+// counterpart of the JAX package's vmap over its pallas_call (which adds
+// the problems as a leading grid axis: BatchedSinkhorn's vmapped solver,
+// repro/core/api.py). The grid is P clusters of C CTAs; cluster p =
+// blockIdx.x / C runs problem p from operands offset by p problems, and
+// its rank 0 writes err_out[p]. Inside a cluster nothing changes: the
+// same slices, combines and barriers, so each problem's bits are the one-
+// problem launch's at the same C. No cluster reads another's memory, no
+// barrier spans clusters and there are no atomics, so a NaN problem
+// cannot reach another and P is not bounded by residency: clusters past
+// what the card places at once (cudaOccupancyMaxActiveClusters) run in
+// later waves.
+//
 // Both plans admit a kernel only where the JAX package's 192 KiB GPU
-// budget admits its own (fused_loop.block_plan_fits), which keeps every
-// CTA under the 227 KB it may hold.
+// budget admits its own (fused_loop.block_plan_fits), per problem, which
+// keeps every CTA under the 227 KB it may hold.
 //
 // Bound on the H100: at the OT-GAN shape (n = m = 256, r = 128, bf16) a
 // launch reads 136 KB once and does 4 * 8 * 32768 terms (an exponential
@@ -127,19 +140,19 @@ constexpr int kMaxCluster = 8;      // CTAs of a cluster (the portable size)
 constexpr int kGroupRows = 8;       // most rows a lane takes in a column pass
 constexpr int kMaxBlockThreads = 512;   // 128 registers a thread
 
-struct BlockArgs {
-  const void* log_xi;      // (n, r), T
-  const void* log_zeta;    // (m, r), T
-  const float* loga;       // (n,)
-  const float* logb;       // (m,)
-  const float* b;          // (m,)
-  const float* f0;         // (n,)
-  const float* g0;         // (m,)
-  const float* t0;         // (r,)
+struct BlockArgs {          // each operand (P, ...): a problem a cluster
+  const void* log_xi;      // (P, n, r), T
+  const void* log_zeta;    // (P, m, r), T
+  const float* loga;       // (P, n)
+  const float* logb;       // (P, m)
+  const float* b;          // (P, m)
+  const float* f0;         // (P, n)
+  const float* g0;         // (P, m)
+  const float* t0;         // (P, r)
   float* f_out;
   float* g_out;
   float* t_out;
-  float* err_out;
+  float* err_out;          // (P,)
   int n, m, r, inner_steps;
   float eps, mom, one_minus_mom;
   int relax;
@@ -415,26 +428,31 @@ log_sinkhorn_block_kernel(const BlockArgs a) {
   float2* part = reinterpret_cast<float2*>(smem + L.part);
   float* errp = reinterpret_cast<float*>(smem + L.err);
 
+  // this cluster's problem p: its operands start p problems in
+  const size_t p = blockIdx.x / C;
+  const size_t pn = p * a.n, pm = p * a.m, pr = p * a.r;
+  const T* log_xi = static_cast<const T*>(a.log_xi) + pn * a.r;
+  const T* log_zeta = static_cast<const T*>(a.log_zeta) + pm * a.r;
+
   // this rank's slices: rows [i0, i0 + nx) of log_xi, [j0, j0 + nz) of
   // log_zeta (C contiguous slices in order, sizes differing by at most 1)
   const int i0 = static_cast<int>((long long)q * a.n / C);
   const int nx = static_cast<int>((long long)(q + 1) * a.n / C) - i0;
   const int j0 = static_cast<int>((long long)q * a.m / C);
   const int nz = static_cast<int>((long long)(q + 1) * a.m / C) - j0;
-  stage_rows(lxi, static_cast<const T*>(a.log_xi), i0, nx, a.r, words, a.ldw,
-             -INFINITY);
-  stage_rows(lzt, static_cast<const T*>(a.log_zeta), j0, nz, a.r, words, a.ldw,
-             -INFINITY);
+  stage_rows(lxi, log_xi, i0, nx, a.r, words, a.ldw, -INFINITY);
+  stage_rows(lzt, log_zeta, j0, nz, a.r, words, a.ldw, -INFINITY);
   for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    f[i] = a.f0[i0 + i];
-    la[i] = a.loga[i0 + i];
+    f[i] = a.f0[pn + i0 + i];
+    la[i] = a.loga[pn + i0 + i];
   }
   for (int j = threadIdx.x; j < nz; j += blockDim.x) {
-    g[j] = a.g0[j0 + j];
-    lb[j] = a.logb[j0 + j];
-    bw[j] = a.b[j0 + j];
+    g[j] = a.g0[pm + j0 + j];
+    lb[j] = a.logb[pm + j0 + j];
+    bw[j] = a.b[pm + j0 + j];
   }
-  for (int k = threadIdx.x; k < tc; k += blockDim.x) t[k] = k < a.r ? a.t0[k] : 0.0f;
+  for (int k = threadIdx.x; k < tc; k += blockDim.x)
+    t[k] = k < a.r ? a.t0[pr + k] : 0.0f;
   __syncthreads();
 
   const bool rel = a.relax != 0;
@@ -475,15 +493,15 @@ log_sinkhorn_block_kernel(const BlockArgs a) {
     e = warp_sum(e);
     if (lane == 0) errp[0] = e;
   }
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) a.f_out[i0 + i] = f[i];
-  for (int j = threadIdx.x; j < nz; j += blockDim.x) a.g_out[j0 + j] = g[j];
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) a.f_out[pn + i0 + i] = f[i];
+  for (int j = threadIdx.x; j < nz; j += blockDim.x) a.g_out[pm + j0 + j] = g[j];
   if (q == 0)
-    for (int k = threadIdx.x; k < a.r; k += blockDim.x) a.t_out[k] = t[k];
+    for (int k = threadIdx.x; k < a.r; k += blockDim.x) a.t_out[pr + k] = t[k];
   cluster.sync();
   if (q == 0 && threadIdx.x == 0) {
     float err = 0.0f;
-    for (int p = 0; p < C; ++p) err += *cluster.map_shared_rank(errp, p);
-    a.err_out[0] = err;
+    for (int rk = 0; rk < C; ++rk) err += *cluster.map_shared_rank(errp, rk);
+    a.err_out[p] = err;
   }
   cluster.sync();      // no CTA leaves while rank 0 reads its shared memory
 }
@@ -492,18 +510,18 @@ log_sinkhorn_block_kernel(const BlockArgs a) {
 // Scaling space: one thread block cluster
 // ---------------------------------------------------------------------------
 
-struct ScalingArgs {
-  const void* xi;          // (n, r), T
-  const void* zeta;        // (m, r), T
-  const float* a;          // (n,)
-  const float* b;          // (m,)
-  const float* u0;         // (n,)
-  const float* v0;         // (m,)
-  const float* s0;         // (m,)
+struct ScalingArgs {        // each operand (P, ...): a problem a cluster
+  const void* xi;          // (P, n, r), T
+  const void* zeta;        // (P, m, r), T
+  const float* a;          // (P, n)
+  const float* b;          // (P, m)
+  const float* u0;         // (P, n)
+  const float* v0;         // (P, m)
+  const float* s0;         // (P, m)
   float* u_out;
   float* v_out;
   float* s_out;
-  float* err_out;
+  float* err_out;          // (P,)
   int n, m, r, inner_steps;
   float mom, one_minus_mom;
   int relax;
@@ -675,22 +693,28 @@ sinkhorn_block_kernel(const ScalingArgs a) {
   float* part = reinterpret_cast<float*>(smem + L.part);
   float* errp = reinterpret_cast<float*>(smem + L.err);
 
+  // this cluster's problem p: its operands start p problems in
+  const size_t p = blockIdx.x / C;
+  const size_t pn = p * a.n, pm = p * a.m;
+  const T* xi = static_cast<const T*>(a.xi) + pn * a.r;
+  const T* zeta = static_cast<const T*>(a.zeta) + pm * a.r;
+
   // this rank's slices: rows [i0, i0 + nx) of xi, [j0, j0 + nz) of zeta
   // (C contiguous slices in order, sizes differing by at most 1)
   const int i0 = static_cast<int>((long long)q * a.n / C);
   const int nx = static_cast<int>((long long)(q + 1) * a.n / C) - i0;
   const int j0 = static_cast<int>((long long)q * a.m / C);
   const int nz = static_cast<int>((long long)(q + 1) * a.m / C) - j0;
-  stage_rows(xs, static_cast<const T*>(a.xi), i0, nx, a.r, words, a.ldw, 0.0f);
-  stage_rows(zs, static_cast<const T*>(a.zeta), j0, nz, a.r, words, a.ldw, 0.0f);
+  stage_rows(xs, xi, i0, nx, a.r, words, a.ldw, 0.0f);
+  stage_rows(zs, zeta, j0, nz, a.r, words, a.ldw, 0.0f);
   for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    u[i] = a.u0[i0 + i];
-    av[i] = a.a[i0 + i];
+    u[i] = a.u0[pn + i0 + i];
+    av[i] = a.a[pn + i0 + i];
   }
   for (int j = threadIdx.x; j < nz; j += blockDim.x) {
-    v[j] = a.v0[j0 + j];
-    bw[j] = a.b[j0 + j];
-    s[j] = a.s0[j0 + j];
+    v[j] = a.v0[pm + j0 + j];
+    bw[j] = a.b[pm + j0 + j];
+    s[j] = a.s0[pm + j0 + j];
   }
   for (int k = threadIdx.x; k < tc; k += blockDim.x) t[k] = 0.0f;
   __syncthreads();
@@ -728,16 +752,16 @@ sinkhorn_block_kernel(const ScalingArgs a) {
     e = warp_sum(e);
     if (threadIdx.x == 0) errp[0] = e;
   }
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) a.u_out[i0 + i] = u[i];
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) a.u_out[pn + i0 + i] = u[i];
   for (int j = threadIdx.x; j < nz; j += blockDim.x) {
-    a.v_out[j0 + j] = v[j];
-    a.s_out[j0 + j] = s[j];
+    a.v_out[pm + j0 + j] = v[j];
+    a.s_out[pm + j0 + j] = s[j];
   }
   cluster.sync();
   if (q == 0 && threadIdx.x == 0) {
     float err = 0.0f;
-    for (int p = 0; p < C; ++p) err += *cluster.map_shared_rank(errp, p);
-    a.err_out[0] = err;
+    for (int rk = 0; rk < C; ++rk) err += *cluster.map_shared_rank(errp, rk);
+    a.err_out[p] = err;
   }
   cluster.sync();      // no CTA leaves while rank 0 reads its shared memory
 }
@@ -780,10 +804,10 @@ size_t scaling_smem(const ScalingArgs& a, int C, int threads) {
                         kCols<T>, a.ldw).total;
 }
 
-// The launch of one cluster of C CTAs (the whole grid) of `kernel`.
+// The launch of `problems` clusters of C CTAs of `kernel`, one a problem.
 template <typename Args>
 cudaError_t cluster_config(void (*kernel)(Args), int C, int threads,
-                           size_t smem, cudaStream_t stream,
+                           size_t smem, int problems, cudaStream_t stream,
                            cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -791,7 +815,7 @@ cudaError_t cluster_config(void (*kernel)(Args), int C, int threads,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(C, 1, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(C) * problems, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -806,11 +830,14 @@ cudaError_t cluster_config(void (*kernel)(Args), int C, int threads,
 
 template <typename Args>
 int cluster_launch(void (*kernel)(Args), const Args& a, size_t smem, int C,
-                   int threads, cudaStream_t stream) {
-  if (smem == 0 || a.inner_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+                   int threads, int problems, cudaStream_t stream) {
+  if (smem == 0 || a.inner_steps < 1 || problems < 1 ||
+      (long long)C * problems > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, C, threads, smem, stream, cfg, attr);
+  cudaError_t err = cluster_config(kernel, C, threads, smem, problems, stream,
+                                   cfg, attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -824,7 +851,7 @@ int cluster_count(void (*kernel)(Args), size_t smem, int C, int threads) {
   if (smem == 0) return -static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, C, threads, smem, 0, cfg, attr);
+  cudaError_t err = cluster_config(kernel, C, threads, smem, 1, 0, cfg, attr);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
@@ -832,16 +859,19 @@ int cluster_count(void (*kernel)(Args), size_t smem, int C, int threads) {
 }
 
 template <typename T>
-int log_launch(const BlockArgs& a, int C, int threads, cudaStream_t stream) {
+int log_launch(const BlockArgs& a, int C, int threads, int problems,
+               cudaStream_t stream) {
   return cluster_launch(log_sinkhorn_block_kernel<T>, a,
-                        log_smem<T>(a, C, threads), C, threads, stream);
+                        log_smem<T>(a, C, threads), C, threads, problems,
+                        stream);
 }
 
 template <typename T>
-int scaling_launch(const ScalingArgs& a, int C, int threads,
+int scaling_launch(const ScalingArgs& a, int C, int threads, int problems,
                    cudaStream_t stream) {
   return cluster_launch(sinkhorn_block_kernel<T>, a,
-                        scaling_smem<T>(a, C, threads), C, threads, stream);
+                        scaling_smem<T>(a, C, threads), C, threads, problems,
+                        stream);
 }
 
 }  // namespace
@@ -904,21 +934,23 @@ REPRO_EXPORT int log_sinkhorn_block_clusters(int n, int m, int r, int bf16,
 }
 
 // Factors are float (bf16 == 0) or bfloat16; all vectors float, B = 1.
-// relax == 0 means momentum 1 (no over-relaxation). One cluster of
-// `cluster` CTAs, launched with cudaLaunchKernelEx.
+// relax == 0 means momentum 1 (no over-relaxation). `problems` problems
+// stacked on a leading axis (factors (P, n, r) / (P, m, r), vectors (P,
+// n) / (P, m), t (P, r), one error each), one cluster of `cluster` CTAs
+// a problem, launched with cudaLaunchKernelEx.
 REPRO_EXPORT int log_sinkhorn_block_launch(
     const void* log_xi, const void* log_zeta, int bf16, const float* loga,
     const float* logb, const float* b, const float* f0, const float* g0,
     const float* t0, float* f_out, float* g_out, float* t_out, float* err_out,
     int n, int m, int r, int inner_steps, float eps, float mom,
     float one_minus_mom, int relax, int cluster, int threads, int groups,
-    int lanes, int ldw, cudaStream_t stream) {
+    int lanes, int ldw, int problems, cudaStream_t stream) {
   const BlockArgs a = block_args(log_xi, log_zeta, loga, logb, b, f0, g0, t0,
                                  f_out, g_out, t_out, err_out, n, m, r,
                                  inner_steps, eps, mom, one_minus_mom, relax,
                                  groups, lanes, ldw);
-  return bf16 ? log_launch<__nv_bfloat16>(a, cluster, threads, stream)
-              : log_launch<float>(a, cluster, threads, stream);
+  return bf16 ? log_launch<__nv_bfloat16>(a, cluster, threads, problems, stream)
+              : log_launch<float>(a, cluster, threads, problems, stream);
 }
 
 // The scaling kernel's plan (the log kernel's geometry): dynamic shared
@@ -948,18 +980,21 @@ REPRO_EXPORT int sinkhorn_block_clusters(int n, int m, int r, int bf16,
 }
 
 // Factors are float (bf16 == 0) or bfloat16; all vectors float, B = 1.
-// relax == 0 means momentum 1 (no over-relaxation). One cluster of
-// `cluster` CTAs, launched with cudaLaunchKernelEx.
+// relax == 0 means momentum 1 (no over-relaxation). `problems` problems
+// stacked on a leading axis (factors (P, n, r) / (P, m, r), vectors (P,
+// n) / (P, m), one error each), one cluster of `cluster` CTAs a problem,
+// launched with cudaLaunchKernelEx.
 REPRO_EXPORT int sinkhorn_block_launch(
     const void* xi, const void* zeta, int bf16, const float* a,
     const float* b, const float* u0, const float* v0, const float* s0,
     float* u_out, float* v_out, float* s_out, float* err_out, int n, int m,
     int r, int inner_steps, float mom, float one_minus_mom, int relax,
-    int cluster, int threads, int groups, int lanes, int ldw,
+    int cluster, int threads, int groups, int lanes, int ldw, int problems,
     cudaStream_t stream) {
   const ScalingArgs args{xi, zeta, a, b, u0, v0, s0, u_out, v_out, s_out,
                          err_out, n, m, r, inner_steps, mom, one_minus_mom,
                          relax, groups, lanes, ldw};
-  return bf16 ? scaling_launch<__nv_bfloat16>(args, cluster, threads, stream)
-              : scaling_launch<float>(args, cluster, threads, stream);
+  return bf16 ? scaling_launch<__nv_bfloat16>(args, cluster, threads, problems,
+                                              stream)
+              : scaling_launch<float>(args, cluster, threads, problems, stream);
 }

@@ -12,7 +12,15 @@ the geometry both share). The plans take either only where
 :func:`block_plan_fits` admits the shape, under the JAX package's 192 KiB
 GPU budget; larger shapes run the streaming per-iteration plan. A shape
 the budget admits but whose plan does not fit raises, as does a cluster
-the card cannot place. Counterpart of ``repro.kernels.fused_loop``.
+the card cannot place.
+
+Both wrappers also take P problems stacked on a leading axis (``(P, n,
+r)`` factors, ``(P, n, 1)`` columns, ``(P, r, 1)`` t) and advance all of
+them in one launch of P clusters, one a problem, as ``jax.vmap`` over the
+JAX package's ``pallas_call`` adds a leading grid axis; each problem's
+error comes back in a (P,) tensor. Clusters the card cannot hold at once
+run in later waves (:func:`_clusters` counts those it holds). Counterpart
+of ``repro.kernels.fused_loop``.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import autotune, build
-from .backend import MEGAKERNEL_BUDGET, check_operand
+from .backend import MEGAKERNEL_BUDGET, check_operand, stacked_dims
 from .ref import log_sinkhorn_block_ref, sinkhorn_block_ref
 
 __all__ = [
@@ -175,13 +183,13 @@ def _lib():
     fn = lib.log_sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.sinkhorn_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -208,17 +216,18 @@ def _runs(plan: BlockPlan) -> bool:
             and plan.smem <= _MAX_SMEM)
 
 
-def _checked_plan(what, mode, n, m, r, dtype, device=None) -> BlockPlan:
-    """The plan the ``mode`` wrapper launches (its cluster size the
-    autotuner's, ``what``), refused where :func:`block_plan_fits` does not
-    admit the shape (the cluster's shared memory would hold more, but the
-    plans' admission stays the JAX package's) or the kernel cannot run
-    it."""
+def _checked_plan(what, mode, n, m, r, dtype, device=None,
+                  P: int = 1) -> BlockPlan:
+    """The plan the ``mode`` wrapper launches for P problems (its cluster
+    size the autotuner's, ``what``, keyed by P as well), refused where
+    :func:`block_plan_fits` does not admit one problem's shape (the
+    cluster's shared memory would hold more, but the plans' admission
+    stays the JAX package's) or the kernel cannot run it."""
     _check_block_shape(what, n, m, r, dtype, mode)
     if not block_plan_fits(n, m, r, 1, dtype):
         raise ValueError(f"{what} kernel takes the shapes block_plan_fits "
                          f"admits; got n={n}, m={m}, r={r} ({dtype})")
-    ext = dict(n=n, m=m, r=r, esize=torch.finfo(dtype).bits // 8)
+    ext = dict(P=P, n=n, m=m, r=r, esize=torch.finfo(dtype).bits // 8)
     knobs = autotune.resolve(what, ext, dtype, device)
     plan = _block_plan(n, m, r, dtype, mode, cluster=knobs["cluster"])
     if not _runs(plan):
@@ -227,13 +236,15 @@ def _checked_plan(what, mode, n, m, r, dtype, device=None) -> BlockPlan:
     return plan
 
 
-def _log_block_plan(n, m, r, dtype, device=None) -> BlockPlan:
-    return _checked_plan("log_sinkhorn_block", "log", n, m, r, dtype, device)
+def _log_block_plan(n, m, r, dtype, device=None, P: int = 1) -> BlockPlan:
+    return _checked_plan("log_sinkhorn_block", "log", n, m, r, dtype, device,
+                         P)
 
 
-def _scaling_block_plan(n, m, r, dtype, device=None) -> BlockPlan:
+def _scaling_block_plan(n, m, r, dtype, device=None,
+                        P: int = 1) -> BlockPlan:
     return _checked_plan("sinkhorn_block", "scaling", n, m, r, dtype,
-                         device)
+                         device, P)
 
 
 def _ext_dtype(ext: dict) -> torch.dtype:
@@ -241,16 +252,20 @@ def _ext_dtype(ext: dict) -> torch.dtype:
 
 
 def _block_planner(mode: str) -> "autotune.Planner":
-    """The megakernel's cluster size as a tuner knob: its neighbours the
-    size halved and doubled (within 1-8) where the kernel runs the plan."""
+    """The megakernel's cluster size as a tuner knob: its neighbours every
+    power of two up to 8 at which the kernel runs the plan. The prior is
+    the shape's alone; the key holds P too, since P clusters of C CTAs
+    fill the card differently at each C (at the OT-GAN shape an H100
+    places 30 clusters of 8 and 66 of 2, so P = 32 takes two waves at C =
+    8 and one at C = 2; chip_smoke.py phase 3)."""
     def plan_of(ext, cluster=0):
         return _block_plan(ext["n"], ext["m"], ext["r"], _ext_dtype(ext),
                            mode, cluster=cluster)
 
     def neighbours(ext, prior):
-        for k in autotune.halved_doubled(prior, "cluster", 1, _MAX_CLUSTER):
-            if _runs(plan_of(ext, k["cluster"])):
-                yield k
+        for c in (1, 2, 4, _MAX_CLUSTER):
+            if c != prior["cluster"] and _runs(plan_of(ext, c)):
+                yield {"cluster": c}
 
     return autotune.Planner(("cluster",),
                             lambda ext: {"cluster": plan_of(ext).cluster},
@@ -260,8 +275,9 @@ def _block_planner(mode: str) -> "autotune.Planner":
 @functools.cache
 def _clusters(device_index: int, mode: str, n: int, m: int, r: int,
               bf16: bool, plan: BlockPlan) -> int:
-    """Clusters of the ``mode`` kernel's ``plan`` the card places at once;
-    raises where it can place none (the launch would be refused)."""
+    """Clusters of the ``mode`` kernel's ``plan`` the card places at once
+    (a launch of P problems runs in ceil(P / this) waves); raises where it
+    can place none (the launch would be refused)."""
     what = "log_sinkhorn_block" if mode == "log" else "sinkhorn_block"
     with torch.cuda.device(device_index):
         got = getattr(_lib(), f"{what}_clusters")(
@@ -276,6 +292,21 @@ def _clusters(device_index: int, mode: str, n: int, m: int, r: int,
     return got
 
 
+def _problems(factor: torch.Tensor) -> int:
+    """P of a stacked (P, n, r) factor; 1 for a 2-D one."""
+    return factor.shape[0] if factor.dim() == 3 else 1
+
+
+def _check_columns(what, lead, named):
+    """Each ``(name, tensor, rows)`` of ``named`` must be ``lead + (rows,
+    B)`` with one B, the first's; raises naming every shape otherwise."""
+    B = named[0][1].shape[-1]
+    if any(tuple(t.shape) != lead + (rows, B) for _, t, rows in named):
+        raise ValueError(f"{what}: shape mismatch: " + ", ".join(
+            f"{name} {tuple(t.shape)}" for name, t, _ in named))
+    return B
+
+
 def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, u0: torch.Tensor, v0: torch.Tensor,
                    s0: torch.Tensor, *, inner_steps: int,
@@ -284,26 +315,28 @@ def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
 
     ``xi`` (n, r) and ``zeta`` (m, r) are float32 or bfloat16; ``a``/``u0``
     (n, B) and ``b``/``v0``/``s0`` (m, B) float32 (a zero weight marks a
-    dead atom). On a CUDA tensor this launches the kernel, which takes
+    dead atom). With P problems stacked on a leading axis (``xi`` (P, n,
+    r), ``a`` (P, n, B), ...) every operand has it and one launch serves
+    all P, each problem's ``err`` in a (P,) tensor; for one problem
+    ``err`` is 0-d. On a CUDA tensor this launches the kernel, which takes
     B = 1; on a CPU tensor it runs
-    :func:`~repro_torch.kernels.ref.sinkhorn_block_ref` (any B). ``err``
-    is a 0-d tensor."""
+    :func:`~repro_torch.kernels.ref.sinkhorn_block_ref` (any B)."""
     dev = xi.device
-    check_operand(xi, "xi", 2, dev, factor=True)
-    check_operand(zeta, "zeta", 2, dev, factor=True)
+    nd = stacked_dims(xi, "xi")
+    check_operand(xi, "xi", nd, dev, factor=True)
+    check_operand(zeta, "zeta", nd, dev, factor=True)
     for name, t in (("a", a), ("b", b), ("u0", u0), ("v0", v0), ("s0", s0)):
-        check_operand(t, name, 2, dev)
-    n, r = xi.shape
-    m = zeta.shape[0]
-    B = a.shape[1]
-    if (zeta.dtype != xi.dtype or zeta.shape[1] != r
-            or any(tuple(w.shape) != (n, B) for w in (a, u0))
-            or any(tuple(w.shape) != (m, B) for w in (b, v0, s0))):
-        raise ValueError(
-            f"shape mismatch: xi {tuple(xi.shape)} {xi.dtype}, zeta "
-            f"{tuple(zeta.shape)} {zeta.dtype}, a {tuple(a.shape)}, b "
-            f"{tuple(b.shape)}, u0 {tuple(u0.shape)}, v0 {tuple(v0.shape)}, "
-            f"s0 {tuple(s0.shape)}")
+        check_operand(t, name, nd, dev)
+    n, r = xi.shape[-2:]
+    m = zeta.shape[-2]
+    lead = tuple(xi.shape[:-2])
+    if zeta.dtype != xi.dtype or tuple(zeta.shape) != lead + (m, r):
+        raise ValueError(f"sinkhorn_block: shape mismatch: xi "
+                         f"{tuple(xi.shape)} {xi.dtype}, zeta "
+                         f"{tuple(zeta.shape)} {zeta.dtype}")
+    B = _check_columns("sinkhorn_block", lead, (
+        ("a", a, n), ("u0", u0, n), ("b", b, m), ("v0", v0, m),
+        ("s0", s0, m)))
     if inner_steps < 1:
         raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
     if dev.type == "cpu":
@@ -311,25 +344,29 @@ def sinkhorn_block(xi: torch.Tensor, zeta: torch.Tensor, a: torch.Tensor,
                                   inner_steps=inner_steps, momentum=momentum)
     if B != 1:
         raise ValueError(f"sinkhorn_block kernel takes B = 1 column, got {B}")
+    P = _problems(xi)
     out = _launch_scaling_block(
         xi, zeta, a, b, u0, v0, s0, inner_steps, momentum,
-        _scaling_block_plan(n, m, r, xi.dtype, dev))
+        _scaling_block_plan(n, m, r, xi.dtype, dev, P))
     sinkhorn_block.launches += 1
     return out
 
 
 def _launch_scaling_block(xi, zeta, a, b, u0, v0, s0, inner_steps: int,
                           momentum: float, plan: BlockPlan):
-    """Launch the scaling megakernel at ``plan``: ``(u, v, s, err)``."""
+    """Launch the scaling megakernel at ``plan``, one cluster a problem:
+    ``(u, v, s, err)``."""
     dev = xi.device
-    n, r = xi.shape
-    m = zeta.shape[0]
+    n, r = xi.shape[-2:]
+    m = zeta.shape[-2]
+    lead = tuple(xi.shape[:-2])
+    P = _problems(xi)
     bf16 = xi.dtype == torch.bfloat16
     _clusters(dev.index, "scaling", n, m, r, bf16, plan)
-    u = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    v = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    s = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    err = torch.empty((1,), dtype=torch.float32, device=dev)
+    u = torch.empty(lead + (n, 1), dtype=torch.float32, device=dev)
+    v = torch.empty(lead + (m, 1), dtype=torch.float32, device=dev)
+    s = torch.empty(lead + (m, 1), dtype=torch.float32, device=dev)
+    err = torch.empty((P,), dtype=torch.float32, device=dev)
     mom = float(momentum)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -339,9 +376,9 @@ def _launch_scaling_block(xi, zeta, a, b, u0, v0, s0, inner_steps: int,
             u.data_ptr(), v.data_ptr(), s.data_ptr(), err.data_ptr(), n, m,
             r, int(inner_steps), mom, 1.0 - mom, int(mom != 1.0),
             plan.cluster, plan.threads, plan.groups, plan.lanes, plan.ldw,
-            stream)
+            P, stream)
     build.check_launch(_lib(), code, "sinkhorn_block")
-    return u, v, s, err[0]
+    return u, v, s, (err if lead else err[0])
 
 
 def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
@@ -353,29 +390,31 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
 
     ``log_xi`` (n, r) and ``log_zeta`` (m, r) are float32 or bfloat16;
     ``loga``/``f0`` (n, B), ``logb``/``b``/``g0`` (m, B) and ``t0`` (r, B)
-    float32 (``-inf`` marks a dead atom). On a CUDA tensor this launches
-    the kernel, which takes B = 1; on a CPU tensor it runs
-    :func:`~repro_torch.kernels.ref.log_sinkhorn_block_ref` (any B).
-    ``err`` is a 0-d tensor."""
+    float32 (``-inf`` marks a dead atom). With P problems stacked on a
+    leading axis (``log_xi`` (P, n, r), ``loga`` (P, n, B), ``t0`` (P, r,
+    B), ...) every operand has it and one launch serves all P, each
+    problem's ``err`` in a (P,) tensor; for one problem ``err`` is 0-d. On
+    a CUDA tensor this launches the kernel, which takes B = 1; on a CPU
+    tensor it runs :func:`~repro_torch.kernels.ref.log_sinkhorn_block_ref`
+    (any B)."""
     dev = log_xi.device
-    check_operand(log_xi, "log_xi", 2, dev, factor=True)
-    check_operand(log_zeta, "log_zeta", 2, dev, factor=True)
+    nd = stacked_dims(log_xi, "log_xi")
+    check_operand(log_xi, "log_xi", nd, dev, factor=True)
+    check_operand(log_zeta, "log_zeta", nd, dev, factor=True)
     for name, t in (("loga", loga), ("logb", logb), ("b", b), ("f0", f0),
                     ("g0", g0), ("t0", t0)):
-        check_operand(t, name, 2, dev)
-    n, r = log_xi.shape
-    m = log_zeta.shape[0]
-    B = loga.shape[1]
-    if (log_zeta.dtype != log_xi.dtype or log_zeta.shape[1] != r
-            or tuple(f0.shape) != (n, B) or tuple(loga.shape) != (n, B)
-            or any(tuple(v.shape) != (m, B) for v in (logb, b, g0))
-            or tuple(t0.shape) != (r, B)):
-        raise ValueError(
-            f"shape mismatch: log_xi {tuple(log_xi.shape)} {log_xi.dtype}, "
-            f"log_zeta {tuple(log_zeta.shape)} {log_zeta.dtype}, loga "
-            f"{tuple(loga.shape)}, logb {tuple(logb.shape)}, b "
-            f"{tuple(b.shape)}, f0 {tuple(f0.shape)}, g0 {tuple(g0.shape)}, "
-            f"t0 {tuple(t0.shape)}")
+        check_operand(t, name, nd, dev)
+    n, r = log_xi.shape[-2:]
+    m = log_zeta.shape[-2]
+    lead = tuple(log_xi.shape[:-2])
+    if (log_zeta.dtype != log_xi.dtype
+            or tuple(log_zeta.shape) != lead + (m, r)):
+        raise ValueError(f"log_sinkhorn_block: shape mismatch: log_xi "
+                         f"{tuple(log_xi.shape)} {log_xi.dtype}, log_zeta "
+                         f"{tuple(log_zeta.shape)} {log_zeta.dtype}")
+    B = _check_columns("log_sinkhorn_block", lead, (
+        ("loga", loga, n), ("f0", f0, n), ("logb", logb, m), ("b", b, m),
+        ("g0", g0, m), ("t0", t0, r)))
     if inner_steps < 1:
         raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
     if dev.type == "cpu":
@@ -385,9 +424,10 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     if B != 1:
         raise ValueError(f"log_sinkhorn_block kernel takes B = 1 column, "
                          f"got {B}")
+    P = _problems(log_xi)
     out = _launch_log_block(
         log_xi, log_zeta, loga, logb, b, f0, g0, t0, inner_steps, eps,
-        momentum, _log_block_plan(n, m, r, log_xi.dtype, dev))
+        momentum, _log_block_plan(n, m, r, log_xi.dtype, dev, P))
     log_sinkhorn_block.launches += 1
     return out
 
@@ -395,16 +435,19 @@ def log_sinkhorn_block(log_xi: torch.Tensor, log_zeta: torch.Tensor,
 def _launch_log_block(log_xi, log_zeta, loga, logb, b, f0, g0, t0,
                       inner_steps: int, eps: float, momentum: float,
                       plan: BlockPlan):
-    """Launch the log megakernel at ``plan``: ``(f, g, t, err)``."""
+    """Launch the log megakernel at ``plan``, one cluster a problem:
+    ``(f, g, t, err)``."""
     dev = log_xi.device
-    n, r = log_xi.shape
-    m = log_zeta.shape[0]
+    n, r = log_xi.shape[-2:]
+    m = log_zeta.shape[-2]
+    lead = tuple(log_xi.shape[:-2])
+    P = _problems(log_xi)
     bf16 = log_xi.dtype == torch.bfloat16
     _clusters(dev.index, "log", n, m, r, bf16, plan)
-    f = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    g = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    t = torch.empty((r, 1), dtype=torch.float32, device=dev)
-    err = torch.empty((1,), dtype=torch.float32, device=dev)
+    f = torch.empty(lead + (n, 1), dtype=torch.float32, device=dev)
+    g = torch.empty(lead + (m, 1), dtype=torch.float32, device=dev)
+    t = torch.empty(lead + (r, 1), dtype=torch.float32, device=dev)
+    err = torch.empty((P,), dtype=torch.float32, device=dev)
     mom = float(momentum)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -414,25 +457,26 @@ def _launch_log_block(log_xi, log_zeta, loga, logb, b, f0, g0, t0,
             g0.data_ptr(), t0.data_ptr(), f.data_ptr(), g.data_ptr(),
             t.data_ptr(), err.data_ptr(), n, m, r, int(inner_steps),
             float(eps), mom, 1.0 - mom, int(mom != 1.0), plan.cluster,
-            plan.threads, plan.groups, plan.lanes, plan.ldw, stream)
+            plan.threads, plan.groups, plan.lanes, plan.ldw, P, stream)
     build.check_launch(_lib(), code, "log_sinkhorn_block")
-    return f, g, t, err[0]
+    return f, g, t, (err if lead else err[0])
 
 
 def _block_runner(mode: str):
-    """The megakernels' tuner runs: 8 iterations at the key's shape on
-    uniform synthetic factors."""
+    """The megakernels' tuner runs: 8 iterations at the key's shape and P
+    on uniform synthetic factors."""
     def factory(ext, dtype, device):
-        n, m, r = ext["n"], ext["m"], ext["r"]
+        P, n, m, r = ext["P"], ext["n"], ext["m"], ext["r"]
+        lead = (P,) if P > 1 else ()
 
         def col(rows, fill=0.0):
-            return torch.full((rows, 1), fill, device=device)
+            return torch.full(lead + (rows, 1), fill, device=device)
 
-        fx = torch.full((n, r), -0.5, dtype=dtype, device=device)
-        fz = torch.full((m, r), -0.5, dtype=dtype, device=device)
+        fx = torch.full(lead + (n, r), -0.5, dtype=dtype, device=device)
+        fz = torch.full(lead + (m, r), -0.5, dtype=dtype, device=device)
         if mode == "log":
             args = (fx, fz, col(n), col(m), col(m, 1.0 / m), col(n), col(m),
-                    torch.full((r, 1), -0.5, device=device))
+                    col(r, -0.5))
             return lambda knobs: _launch_log_block(
                 *args, 8, 0.5, 1.0, _block_plan(n, m, r, dtype, mode,
                                                 cluster=knobs["cluster"]))

@@ -53,8 +53,11 @@ problems as a leading grid axis (``repro.kernels.ops.
 fused_batched_sinkhorn_iteration``). :func:`stacked_ops` builds such a plan
 from stacked factors, or from flattened ``(P * n, d)`` point clouds with
 shared anchors, whose Lemma-1 features are per point and so need no
-problem axis in the feature map. The megakernels take no problem axis:
-``block_admits`` refuses P > 1.
+problem axis in the feature map. The megakernels take the problem axis
+too, one thread block cluster a problem: ``make_block_step`` advances all
+P problems ``inner_steps`` iterations in one launch wherever
+``fused_loop.block_plan_fits`` admits one problem's shape, as the JAX
+package's ``vmap`` over its megakernel does.
 
 A spec carrying a mesh axis (``spmd``: ``distributed.sharding.MeshAxis``,
 from ``core.sharded``'s geometries) gives the SHARDED plan: the factors
@@ -241,30 +244,12 @@ class GeometryOps(NamedTuple):
 
     def block_admits(self, n: int, m: int, P: int = 1) -> bool:
         """Whether ``make_block_step`` gives a megakernel step at n x m for
-        P stacked problems: the plan has one, P = 1 (the megakernels take
-        no problem axis) and ``fused_loop.block_plan_fits`` admits the
-        shape."""
+        P >= 1 stacked problems: the plan has one and
+        ``fused_loop.block_plan_fits`` admits one problem's shape (each
+        problem runs in a cluster of its own, so any P is admitted)."""
         xi = self.features[0]
-        return (self.make_block_step is not None and P == 1
+        return (self.make_block_step is not None and P >= 1
                 and block_plan_fits(n, m, xi.shape[-1], 1, xi.dtype))
-
-
-def _one_problem_block_step(plan_of, operands, a, b, **kw):
-    """A stacked plan's megakernel step at P = 1: the 2-D plan's step on
-    the one problem (``plan_of(*operands)``), its carry and error given
-    back their problem axis; ``None`` where the 2-D plan refuses the
-    shape."""
-    got = plan_of(*(t[0] for t in operands)).make_block_step(a[0], b[0],
-                                                             **kw)
-    if got is None:
-        return None
-    step2, _ = got
-
-    def step(carry):
-        out, err = step2(tuple(c[0] for c in carry))
-        return tuple(c[None] for c in out), err[None]
-
-    return step
 
 
 def _identity(x):
@@ -322,26 +307,21 @@ def _scaling_plan(kind: str, xi: torch.Tensor, zeta: torch.Tensor,
         return step, init
 
     def make_block_step(a, b, *, inner_steps: int, momentum: float = 1.0):
-        if xi.dim() == 3:
-            if xi.shape[0] != 1:
-                return None
-            step = _one_problem_block_step(
-                lambda x, z: _scaling_plan(kind, x, z, eps, precision),
-                (xi, zeta), a, b, inner_steps=inner_steps,
-                momentum=momentum)
-            return None if step is None else (step, init)
-        n, m = a.shape[0], b.shape[0]
-        if not block_plan_fits(n, m, xi.shape[1], 1, xi.dtype):
+        """One launch of ``inner_steps`` iterations for every problem (a
+        problem axis first where stacked), or ``None`` where
+        ``block_plan_fits`` refuses one problem's shape."""
+        n, m = a.shape[-1], b.shape[-1]
+        if not block_plan_fits(n, m, xi.shape[-1], 1, xi.dtype):
             return None
-        ac, bc = a[:, None].contiguous(), b[:, None].contiguous()
+        ac, bc = a[..., None].contiguous(), b[..., None].contiguous()
 
         def step(carry):
             u, v, s = carry
             u2, v2, s2, err = sinkhorn_block(
-                xi, zeta, ac, bc, u[:, None].contiguous(),
-                v[:, None].contiguous(), s[:, None].contiguous(),
+                xi, zeta, ac, bc, u[..., None].contiguous(),
+                v[..., None].contiguous(), s[..., None].contiguous(),
                 inner_steps=inner_steps, momentum=momentum)
-            return (u2[:, 0], v2[:, 0], s2[:, 0]), err
+            return (u2[..., 0], v2[..., 0], s2[..., 0]), err
 
         return step, init
 
@@ -411,28 +391,23 @@ def _log_plan(kind: str, log_xi: torch.Tensor, log_zeta: torch.Tensor,
         return step, init
 
     def make_block_step(a, b, *, inner_steps: int, momentum: float = 1.0):
-        if log_xi.dim() == 3:
-            if log_xi.shape[0] != 1:
-                return None
-            step = _one_problem_block_step(
-                lambda x, z: _log_plan(kind, x, z, eps, precision),
-                (log_xi, log_zeta), a, b, inner_steps=inner_steps,
-                momentum=momentum)
-            return None if step is None else (step, init)
-        n, m = a.shape[0], b.shape[0]
-        if not block_plan_fits(n, m, log_xi.shape[1], 1, log_xi.dtype):
+        """One launch of ``inner_steps`` iterations for every problem (a
+        problem axis first where stacked), or ``None`` where
+        ``block_plan_fits`` refuses one problem's shape."""
+        n, m = a.shape[-1], b.shape[-1]
+        if not block_plan_fits(n, m, log_xi.shape[-1], 1, log_xi.dtype):
             return None
-        loga = _masked_log(a)[:, None].contiguous()
-        logb = _masked_log(b)[:, None].contiguous()
-        bc = b[:, None].contiguous()
+        loga = _masked_log(a)[..., None].contiguous()
+        logb = _masked_log(b)[..., None].contiguous()
+        bc = b[..., None].contiguous()
 
         def step(carry):
             f, g, t1 = carry
             f2, g2, t2, err = log_sinkhorn_block(
-                log_xi, log_zeta, loga, logb, bc, f[:, None].contiguous(),
-                g[:, None].contiguous(), t1, inner_steps=inner_steps,
+                log_xi, log_zeta, loga, logb, bc, f[..., None].contiguous(),
+                g[..., None].contiguous(), t1, inner_steps=inner_steps,
                 eps=eps, momentum=momentum)
-            return (f2[:, 0], g2[:, 0], t2), err
+            return (f2[..., 0], g2[..., 0], t2), err
 
         return step, init
 

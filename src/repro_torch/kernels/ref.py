@@ -12,12 +12,14 @@ package). The shift is held constant under autograd, as
 stored in bfloat16 are upcast to float32 before any arithmetic: every sum
 accumulates in float32.
 
-The contract, half-step and matvec versions are also the batched twins of
-their kernels: given P problems stacked on a leading axis (``(P, n, r)``
-factors, ``(P, n, B)`` columns) they compute every problem at once, the
-products as batched matrix products (``torch.bmm`` through ``@``) and the
-LSEs over the problem's own axes, exactly as
-``repro.kernels.ops.fused_batched_sinkhorn_iteration`` vmaps its kernels.
+The contract, half-step, matvec and megakernel block versions are also
+the batched twins of their kernels: given P problems stacked on a leading
+axis (``(P, n, r)`` factors, ``(P, n, B)`` columns) they compute every
+problem at once, the products as batched matrix products (``torch.bmm``
+through ``@``), the LSEs over the problem's own axes and one block-end
+error a problem, exactly as ``repro.kernels.ops.
+fused_batched_sinkhorn_iteration`` and ``BatchedSinkhorn`` vmap its
+kernels.
 """
 from __future__ import annotations
 
@@ -206,14 +208,15 @@ def sinkhorn_block_ref(xi: torch.Tensor, zeta: torch.Tensor,
     ``(u, v, s = Zeta (Xi^T u))``, then the marginal error
     ``sum |v s - b|`` at the block end. Shapes (n, r), (m, r); (n, B),
     (m, B); (n, B), (m, B), (m, B); any B. Returns ``(u, v, s, err)`` with
-    ``err`` 0-d."""
+    ``err`` 0-d; with P problems stacked on a leading axis of every
+    operand, ``err`` is (P,), one a problem."""
     u, v, s = u0, v0, s0
     for _ in range(inner_steps):
         v = relax_scaling(b / s, v, momentum)
         t = feature_contract_ref(zeta, v)
         u = relax_scaling(a / feature_matvec_ref(xi, t), u, momentum)
         s = feature_matvec_ref(zeta, feature_contract_ref(xi, u))
-    return u, v, s, torch.sum(torch.abs(v * s - b))
+    return u, v, s, torch.sum(torch.abs(v * s - b), dim=(-2, -1))
 
 
 def log_sinkhorn_block_ref(log_xi: torch.Tensor, log_zeta: torch.Tensor,
@@ -226,15 +229,23 @@ def log_sinkhorn_block_ref(log_xi: torch.Tensor, log_zeta: torch.Tensor,
     ``(f, g, t = LSE_i(log_xi + f/eps))``, then the marginal error
     ``sum |exp(LSE_k(log_zeta + t) + g/eps) - b|`` at the block end.
     Shapes (n, r), (m, r); (n, B), (m, B), (m, B); (n, B), (m, B), (r, B);
-    any B. Returns ``(f, g, t, err)`` with ``err`` 0-d."""
+    any B. Returns ``(f, g, t, err)`` with ``err`` 0-d; with P problems
+    stacked on a leading axis of every operand, ``err`` is (P,), one a
+    problem."""
     lxi, lzt = log_xi.float(), log_zeta.float()
+
+    def rows(lw, t):        # LSE_k(lw[j, k] + t[k, c]) -> (..., rows, B)
+        return lse(lw[..., :, :, None] + t[..., None, :, :], dim=-2)
+
+    def cols(lw, s):        # LSE_j(lw[j, k] + s[j, c]) -> (..., r, B)
+        return lse(lw[..., :, :, None] + s[..., :, None, :], dim=-3)
+
     f, g, t = f0, g0, t0
     for _ in range(inner_steps):
-        g = relax_log(eps * (logb - lse(lzt[:, :, None] + t[None], dim=1)),
-                      g, momentum)
-        t = lse(lzt[:, :, None] + (g / eps)[:, None, :], dim=0)
-        f = relax_log(eps * (loga - lse(lxi[:, :, None] + t[None], dim=1)),
-                      f, momentum)
-        t = lse(lxi[:, :, None] + (f / eps)[:, None, :], dim=0)
-    log_col = lse(lzt[:, :, None] + t[None], dim=1) + g / eps
-    return f, g, t, torch.sum(torch.abs(torch.exp(log_col) - b))
+        g = relax_log(eps * (logb - rows(lzt, t)), g, momentum)
+        t = cols(lzt, g / eps)
+        f = relax_log(eps * (loga - rows(lxi, t)), f, momentum)
+        t = cols(lxi, f / eps)
+    log_col = rows(lzt, t) + g / eps
+    return f, g, t, torch.sum(torch.abs(torch.exp(log_col) - b),
+                              dim=(-2, -1))
