@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,...,16] [--src DIR]
+    python3 chip_smoke.py [--phases 1,2,...,17] [--src DIR]
 
 ``--src`` drives the ``repro_torch`` under another checkout's ``src`` (to
 time two versions with one script, in turns, on one card).
@@ -302,8 +302,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    peak memory; (d) ``launch.serve`` at its defaults (batch 4, prompt 32,
    16 generated) and at batch 32, each decode step's logits within 1e-4 of
    max |logit| of ``prefill`` of the same prefix; (e) ``launch.train
-   --steps 20 --ckpt-dir``, its ``--resume`` and ``examples.train_lm
-   --strict --steps 40`` as subprocesses, each rc 0.
+   --steps 10 --ckpt-dir``, its ``--resume`` and ``examples.train_lm
+   --strict --steps 20`` as subprocesses, each rc 0.
 13. the MoE family (``core.routing``, ``models.moe``, MLA, the MTP head)
    at deepseek-v3-671b's full width (d_model 7168, 128 heads, kv_lora
    512, q_lora 1536, 256 experts of d_ff 2048, top-8, one shared expert,
@@ -352,13 +352,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    gradients 1e-3 of each leaf's max; (c) ``train_loss`` at full depth
    and 8 x 256 with the OT loss on the kernels (rows 6-7, their launches
    a call) against ``use_pallas=False``: the loss 1e-4 relative, every
-   gradient 1e-3 of its leaf's max; (d) ``launch.train`` in-process, 10
+   gradient 1e-3 of its leaf's max; (d) ``launch.train`` in-process, 6
    steps at 8 x 256 with AdamW, the final state on through the driver's
-   own step for steps 10-19: ms a step, tokens/s, peak memory, the busy
+   own step for steps 6-11: ms a step, tokens/s, peak memory, the busy
    share of 2 profiled steps and the OT loss's share (steps with it on
    against off); for zamba2 (whose tree holds the shared block's empty
-   groups) the first 10 steps end in a checkpoint and ``--resume`` runs
-   10 more, each resumed loss within 1e-4 relative of the uninterrupted
+   groups) the first 6 steps end in a checkpoint and ``--resume`` runs
+   6 more, each resumed loss within 1e-4 relative of the uninterrupted
    run; (e) ``launch.serve`` at batch 4 after a 64-token prompt, 16
    generated, each decode step's logits within 1e-4 of max |logit| of
    the forward at that position; (f) the ``long_500k`` caches (S =
@@ -417,10 +417,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    heads of 64, d_state 128, chunk 128) at 2 x 4096 context parallel on
    1 x 2 against ``ssd_chunked`` on one rank (1e-4 of max |y|), both
    timed; (f) ``launch.train --arch smollm-135m --mesh 2x1`` in process
-   on both ranks: 5 steps at 4 x 128 ending in a checkpoint (one
-   ``shard_<rank>.npz`` a rank), 5 more uninterrupted, then ``--resume``
+   on both ranks: 3 steps at 4 x 128 ending in a checkpoint (one
+   ``shard_<rank>.npz`` a rank), 3 more uninterrupted, then ``--resume``
    (1e-4 relative), and 8 decode steps at batch 4 on the mesh against one
    card (1e-4 of max |logit|); the NCCL world of 1 runs (d) on 1 x 1.
+17. the dry run against the card (``repro_torch.launch.dryrun``): phase
+   12's smollm-135m step at 8 x 256 on a 1 x 1 mesh, (a) traced on fake
+   tensors in a fake world of one rank under ``launch.analysis.
+   StepCounter``, (b) run for real in an NCCL world of one rank on the
+   card under the same counter (after a warm-up step), with the launch
+   counters set to 0 before and read after: dot FLOPs equal to 1e-6
+   relative (or the ops that differ named), the estimated peak within 10%
+   of ``max_memory_allocated`` less what the card held before the step
+   outside its arguments (a larger gap fails the phase); the roofline on
+   the H100's data-sheet numbers beside the median of 3 real steps (no
+   bar: the step is host-bound); (c) ``run_cell`` of smollm-135m x
+   decode_32k x 16 x 16 on a fake world of 256, its report under
+   ``build/dryrun_torch/``; and the ``nvidia-smi`` name and power
+   line.
 
 Phases 2 and 4-7 also drive the solve loop as the port runs it on the
 card: every fused-plan solve replays its cell's captured CUDA graph
@@ -6091,9 +6105,9 @@ def run_lm_drivers(src, build_dir):
         shutil.rmtree(d, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(src))
     train = ["-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--steps",
-             "20", "--ckpt-dir", str(ckpt)]
+             "10", "--ckpt-dir", str(ckpt)]
     strict = ["-m", "repro_torch.examples.train_lm", "--strict", "--steps",
-              "40", "--ckpt-dir", str(example)]
+              "20", "--ckpt-dir", str(example)]
     side = start_lane(env, strict)
     failures = []
     try:
@@ -6601,9 +6615,9 @@ SSM_MIXER_TOL = 1e-4            # (a): of max |out|; also rtol 3e-3 + atol 3e-4
 SSM_CHECK = (2, 256)            # (b): batch x seq, card against the CPU
 SSM_CHECK_DEPTH = {"mamba2_1p3b": 4, "zamba2_1p2b": 12}  # 12: two shared uses
 SSM_TRAIN = (8, 256)            # (c), (d): batch x seq
-SSM_STEPS = 20                  # (d): the driver's two halves of 10 steps
+SSM_STEPS = 12                  # (d): the driver's two halves of 6 steps
 SSM_PROFILED = 2                # (d): the uninterrupted run's last steps, profiled
-SSM_SHARE_PAIRS = 5             # (d): steps with the OT loss on, then off
+SSM_SHARE_PAIRS = 3             # (d): steps with the OT loss on, then off
 SSM_SERVE = (4, 64, 16)         # (e): batch, prompt, generated tokens
 SSM_WRAP = (64, 96)             # (f): zamba2's window, decode steps
 SSM_LONG_REPEATS = 5            # (f): timed decode steps a position
@@ -6761,15 +6775,16 @@ def check_ssm_ot_kernels(torch, device, cfg, params,
 
 def train_ssm(torch, device, cfg, build_dir, resume):
     """Phases 14 and 15 (d): the ``launch.train`` driver in-process at
-    SSM_TRAIN with AdamW for steps 0-9; its final state goes on
-    uninterrupted through the driver's own step (``make_train_step``, the
-    same horizon and data) for steps 10-19, timed, its last SSM_PROFILED
+    SSM_TRAIN with AdamW for the first half of SSM_STEPS; its final state
+    goes on uninterrupted through the driver's own step
+    (``make_train_step``, the same horizon and data) for the second half,
+    timed, its last SSM_PROFILED
     steps under the profiler; then SSM_SHARE_PAIRS pairs of steps with the
     OT loss on and off. With ``resume`` (zamba2: its tree, with the shared
     block's empty groups; whisper-base: its encoder, learned positions and
     cross-attention; trees phase 12's checkpoint has not carried) the
-    first half ends in a checkpoint and ``--resume`` from it runs steps
-    10-19 again, its losses within 1e-4 relative of the uninterrupted
+    first half ends in a checkpoint and ``--resume`` from it runs the
+    second half again, its losses within 1e-4 relative of the uninterrupted
     ones; without it no checkpoint is written (each full-size transfer
     costs ~20 s)."""
     import shutil
@@ -7347,7 +7362,7 @@ MC_ARCH = "smollm-135m"          # (b), (c), (f): full width and depth
 MC_MESH = (2, 1)                 # (b), (f): data x model, a gloo world of 2
 MC_TRAIN = (8, 256)              # (b): batch x seq of the checked step
 MC_TIMED = 3                     # (b): timed steps after the checked one
-MC_DRIVER = (4, 128, 5)          # (f): batch, seq, steps a half
+MC_DRIVER = (4, 128, 3)          # (f): batch, seq, steps a half
 MC_DECODE = (4, 64, 8)           # (f): batch, cache length, decoded tokens
 MC_COMPRESS_TOL = (0.05, 1e-3)   # (c): of the exact sum's max, plus
 MC_MOE = ("deepseek_v2_236b", 2, 512)   # (d): config, batch x seq tokens
@@ -8042,6 +8057,150 @@ def run_multicard_path(torch, src):
     return counts, failures
 
 
+DRY_TRAIN = (8, 256)            # phase 17: phase 12's step, batch x seq
+DRY_MESH = (1, 1)               # data x model
+DRY_PEAK_RTOL = 0.10            # the estimated peak against the card's
+DRY_FLOP_RTOL = 1e-6            # dot FLOPs, dry against the real step
+DRY_TIMED = 3                   # timed real steps (median)
+DRY_CELL = ("smollm_135m", "decode_32k")   # the production cell printed
+
+
+def dot_flop_gaps(dry, real):
+    """The ops whose dot FLOPs differ between two counters (name: dry,
+    real)."""
+    ops = sorted(set(dry.dot_by_op) | set(real.dot_by_op))
+    return {op: (dry.dot_by_op.get(op, 0.0), real.dot_by_op.get(op, 0.0))
+            for op in ops
+            if dry.dot_by_op.get(op, 0.0) != real.dot_by_op.get(op, 0.0)}
+
+
+def run_dryrun_path(torch, device):
+    """Phase 17: the dry run against the card. (a) phase 12's smollm-135m
+    step at DRY_TRAIN on a DRY_MESH mesh traced on fake tensors in a fake
+    world of one rank (``launch.dryrun.dry_step``); (b) the same step for
+    real in an NCCL world of one rank on the card: a warm-up step, then
+    one under the same ``StepCounter`` with the launch counters set to 0
+    before and read after, then DRY_TIMED timed steps. Holds the dot
+    FLOPs (DRY_FLOP_RTOL, or the ops that differ named) and the estimated
+    peak against ``max_memory_allocated`` less the bytes the card held
+    before the step that are not its arguments (the runners' buffers,
+    cuBLAS' workspace) within DRY_PEAK_RTOL; prints the roofline against
+    the measured step and (c) one production cell's dry run on a fake
+    world of 256. Returns (the counted step's launches, failures)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import StepCounter
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_adamw
+
+    failures = []
+    cfg = lm_config()
+    B, S = DRY_TRAIN
+    shape = ShapeSpec("phase17", S, B, "train")
+    t0 = time.perf_counter()
+    with dryrun.fake_world(math.prod(DRY_MESH)):
+        dry, mem = dryrun.dry_step(cfg, shape,
+                                   make_local_mesh(*DRY_MESH, device="cpu"))
+    log(f"  (a) dry: {time.perf_counter() - t0:.1f} s, {dry.ops} ops; dot "
+        f"FLOPs {dry.dot_flops:.6e} (raw {dry.raw_flops:.6e}), HBM bytes "
+        f"{dry.hbm_bytes:.6e}, collectives {dry.counts}; memory {mem}")
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(*DRY_MESH, device=device)
+        step, _ = make_train_step(cfg, mesh, shape)
+        params = init_params(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(0))
+        shards = shard_tree(params, step.shardings[0], step.context)
+        del params
+        state = init_adamw(shards, step.opt)
+        batch = DataPipeline(DataConfig(0, B, S, cfg.vocab),
+                             device=device).batch_at(0)
+        args = (shards, state, batch)
+        step(*args)                     # warm-up: the OT loss's captures
+        sync(torch)
+        torch.cuda.empty_cache()
+        real = StepCounter()
+        other = torch.cuda.memory_allocated(device) - real.track(args)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        with real:
+            out = step(*args)
+        sync(torch)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        del out
+        ms = []
+        for _ in range(DRY_TIMED):
+            sync(torch)
+            t1 = time.perf_counter()
+            step(*args)
+            sync(torch)
+            ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        dist.destroy_process_group()
+
+    rel = abs(dry.dot_flops - real.dot_flops) / real.dot_flops
+    gaps = dot_flop_gaps(dry, real)
+    log(f"  (b) dot FLOPs dry {dry.dot_flops:.6e} / real step "
+        f"{real.dot_flops:.6e}: rel {rel:.3g} (bar {DRY_FLOP_RTOL}); ops "
+        f"that differ: {gaps or 'none'}; raw {dry.raw_flops:.6e} / "
+        f"{real.raw_flops:.6e}")
+    if not rel <= DRY_FLOP_RTOL:
+        log(f"  (b) dot FLOPs differ in {sorted(gaps)}")
+    want = peak - other
+    prel = abs(mem["peak_bytes"] - want) / want
+    log(f"  (b) peak: estimated {mem['peak_bytes'] / 2**30:.4f} GiB, card "
+        f"{peak / 2**30:.4f} GiB max_memory_allocated less "
+        f"{other / 2**30:.4f} GiB held outside the step's arguments = "
+        f"{want / 2**30:.4f} GiB: rel {prel:.4f} (bar {DRY_PEAK_RTOL}); "
+        f"arguments {real.tracked_bytes / 2**30:.4f} GiB (dry "
+        f"{mem['argument_size_in_bytes'] / 2**30:.4f}); the counter's peak "
+        f"over the real step {real.peak_bytes / 2**30:.4f} GiB")
+    if not prel <= DRY_PEAK_RTOL:
+        failures.append(f"(b) estimated peak off the card's by {prel:.4f}")
+    terms = dry.roofline()
+    step_ms = statistics.median(ms)
+    bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"],
+                         terms["collective_s"])
+    log(f"  (b) roofline (H100 data sheet): compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.4f} ms -> {terms['dominant']}; a "
+        f"real step {step_ms:.1f} ms (median of {DRY_TIMED}: "
+        f"{[round(v, 1) for v in ms]}) = {step_ms / bound_ms:.2f}x the "
+        f"roofline; launches a step {({k: v for k, v in counts.items() if v})}")
+    missing = [k for k in LM_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"(b) kernels never launched: {missing}")
+
+    arch, shape_name = DRY_CELL
+    out_dir = Path(__file__).resolve().parent / "build" / "dryrun_torch"
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(arch, shape_name, multi_pod=False,
+                           artifact_dir=str(out_dir))
+    log(f"  (c) {arch} x {shape_name} x {cell['mesh']}: "
+        f"{time.perf_counter() - t0:.1f} s; peak a rank "
+        f"{cell['memory']['peak_bytes'] / 2**30:.3f} GiB, fits "
+        f"{cell['memory']['fits']}, dot FLOPs {cell['flops_per_device']:.4e}"
+        f", wire {cell['wire_bytes_per_device']:.4e} B, "
+        f"{cell['roofline']['dominant']}-bound")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(f"  {smi.stdout.strip()}")
+    return counts, failures
+
+
 SCALING_PATH_KERNELS = ("feature_contract", "sinkhorn_halfstep",
                         "feature_matvec", "sinkhorn_block")
 TRAIN_PATH_KERNELS = ("gaussian_feature_map", "log_feature_contract",
@@ -8053,7 +8212,7 @@ STREAM_PATH_KERNELS = ("paged_feature_contract", "paged_halfstep",
                        "log_halfstep")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 
 
 def main(argv=None) -> int:
@@ -8062,7 +8221,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all; the "
-                    "result lines need all sixteen)")
+                    "result lines need all seventeen)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch to drive "
                     "(default: this checkout's; another checkout's, to time "
@@ -8467,10 +8626,25 @@ def main(argv=None) -> int:
         if failures:
             log(f"phase 16 FAILED: {failures}")
             return 1
+    if 17 in phases:
+        log(f"== phase 17: the dry run against the card ({LM_ARCH} at full "
+            f"width and depth, float32: (a) one step at {DRY_TRAIN[0]} x "
+            f"{DRY_TRAIN[1]} on {DRY_MESH[0]} x {DRY_MESH[1]} traced on fake "
+            f"tensors; (b) the same step on the card, dot FLOPs and peak "
+            f"memory against (a), the roofline against its time; (c) "
+            f"{DRY_CELL[0]} x {DRY_CELL[1]} dry on a fake world of 256)")
+        t17 = time.perf_counter()
+        c17, failures = run_dryrun_path(torch, device)
+        log(f"  launches on the dry run's real step: {c17}")
+        counts["dryrun"] = c17
+        log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
+        if failures:
+            log(f"phase 17 FAILED: {failures}")
+            return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != set(ALL_PHASES):
         log(f"phases {sorted(phases)} passed; no result line without all "
-            "sixteen")
+            "seventeen")
         return 0
 
     kernels = []

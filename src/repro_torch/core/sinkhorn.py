@@ -40,6 +40,12 @@ A sharded geometry (``core.sharded``, ``geom.spmd`` set) runs the same
 solvers: its plan's collectives and :func:`geometry_reduce`'s all-reduced
 error and dual value make every rank leave the loop together; its loop is
 the eager host loop (a graph cannot hold a gloo collective).
+
+On fake tensors (the dry run, ``launch.dryrun``: shapes with no data) a
+loop cannot read an error, so every loop runs its check blocks up to
+``max_iter`` with no host read, no runner and no capture
+(:func:`is_dry`). For a tol-0 solve that is the real count; elsewhere it
+is the bound.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..kernels.ops import (
     check_precision,
@@ -70,6 +77,7 @@ __all__ = [
     "run_check_blocks",
     "run_marginal_loop",
     "run_lane_loop",
+    "is_dry",
     "sinkhorn_operator",
     "sinkhorn_geometry",
     "sinkhorn_factored",
@@ -302,6 +310,17 @@ def _lanes_like(lanes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return lanes.view(lanes.shape + (1,) * (x.dim() - 1))
 
 
+def is_dry(t: torch.Tensor) -> bool:
+    """``t`` is a fake tensor: a dry run, whose loops read nothing to the
+    host and run every block up to ``max_iter``."""
+    return is_fake(t)
+
+
+def _blocks_to(max_iter: int, cadence: int) -> int:
+    """The check blocks a loop takes to reach ``max_iter`` (at least one)."""
+    return max(1, -(-int(max_iter) // cadence))
+
+
 def _read_status(state: LoopState):
     """The loop's one host read: ``(done, n_iter)``; with stacked problems
     ``done`` once no lane runs, and ``n_iter`` a list, one count a lane."""
@@ -334,6 +353,11 @@ def run_marginal_loop(step, carry0, *, tol: float, max_iter: int,
 
     carry, err = block(carry0)
     it = cadence
+    if is_dry(err):
+        blocks = _blocks_to(max_iter, cadence)
+        for _ in range(blocks - 1):
+            carry, err = block(carry)
+        return blocks * cadence, carry, err
     e = float(err)
     while it < max_iter and e > tol and math.isfinite(e):
         carry, err = block(carry)
@@ -351,6 +375,13 @@ def run_lane_loop(step, carry0, *, tol, max_iter: int, lanes: int,
     Returns ``(n_iter, carry, err)``: a list of counts, the committed
     carry and the (P,) errors."""
     state = loop_state(carry0, tol=tol, max_iter=max_iter, lanes=lanes)
+    if is_dry(state.err):
+        cadence = steps_per_check * iters_per_step
+        blocks = _blocks_to(max_iter, cadence)
+        run_check_blocks(step, state, blocks=blocks,
+                         steps_per_check=steps_per_check,
+                         iters_per_step=iters_per_step)
+        return [blocks * cadence] * lanes, state.carry, state.err
     while True:
         run_check_blocks(step, state, blocks=1,
                          steps_per_check=steps_per_check,
@@ -512,8 +543,9 @@ def _plan_loop(plan, a, b, carry0, *, tol, max_iter, inner_steps,
             return p.make_step(a_, b_, momentum=momentum)
     kw = dict(tol=tol, max_iter=max_iter, steps_per_check=steps_per_check,
               iters_per_step=iters_per_step)
-    if not _FORCE["graphs"] or plan.spmd is not None:
-        # a sharded plan's collectives run eagerly, one host read a block
+    if not _FORCE["graphs"] or plan.spmd is not None or is_dry(a):
+        # a sharded plan's collectives run eagerly, one host read a block;
+        # a dry run's loop takes no runner
         step, init = make(plan, a, b)
         if lanes is not None:
             return run_lane_loop(step, init(*carry0), lanes=lanes, **kw)

@@ -174,10 +174,11 @@ def _global_metrics(metrics: Dict[str, torch.Tensor],
     return {k: vals[i] for i, k in enumerate(keys)}
 
 
-def _rows(batch: Dict, lo: int, n: int) -> Dict:
-    """Rows [lo, lo + n) of every input (dicts of inputs recurse)."""
-    return {k: _rows(v, lo, n) if isinstance(v, dict) else v[lo:lo + n]
-            for k, v in batch.items()}
+def _rows(batch: Dict, lo: int, n: int, dim: int = 0) -> Dict:
+    """Rows [lo, lo + n) of every input: its dim 0, or dim 1 of a nested
+    input's leaves (``enc_kv``'s (L, B, T, H, D))."""
+    return {k: _rows(v, lo, n, 1) if isinstance(v, dict)
+            else v.narrow(dim, lo, n) for k, v in batch.items()}
 
 
 def _split(n_rows: int, ctx: MeshContext):
@@ -317,7 +318,10 @@ def make_serve_step(cfg: ArchConfig, mesh, shape: ShapeSpec):
     ``step.context``); each rank runs its rows and the logits come back
     whole on every rank. Prefill runs the experts parallel over
     ``"model"``; decode gathers them and runs them dense, as the
-    reference's decode does."""
+    reference's decode does. A batch that does not divide over the data
+    axes (``long_500k``'s one row) is replicated, as the reference lays it
+    out: each rank gathers the whole tree and runs the whole batch as one
+    card does, with the caches whole."""
     check_ported(cfg)
     ctx = None if mesh is None else mesh_context(mesh)
     p_shape, _ = abstract_state(cfg, None)
@@ -327,10 +331,15 @@ def make_serve_step(cfg: ArchConfig, mesh, shape: ShapeSpec):
     def on_rows(fn, params, batch, *rest, experts_local: bool):
         if ctx is None:
             return fn(params, batch, *rest)
+        n = batch[next(iter(batch))].shape[0]
+        whole = n % ctx.dp.size != 0
         with use_mesh_context(ctx):
-            full = (_compute_view(params, p_specs, ctx) if experts_local
+            full = (_compute_view(params, p_specs, ctx)
+                    if experts_local and not whole
                     else S.gather_tree(params, p_specs, ctx))
-            n = batch[next(iter(batch))].shape[0]
+        if whole:
+            return fn(full, batch, *rest)
+        with use_mesh_context(ctx):
             n_loc, first = _split(n, ctx)
             out = fn(full, _rows(batch, first, n_loc), *rest)
         if isinstance(out, tuple):

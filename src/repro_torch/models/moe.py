@@ -185,6 +185,8 @@ def moe_ep_local(p_local, x: torch.Tensor, *, top_k: int, n_experts: int,
         # every expert runs (and gathers its weights) on every rank, so
         # the collectives of the lazy gathers match in number and order
         rows_e = ((recv_e == e) & valid).nonzero()[:, 0]
+        # at most c_exp rows: the bound a dry run counts this size at
+        torch._check(rows_e.shape[0] <= c_exp)
         wu, wg, wd = (p_local[k][e].to(x.dtype) for k in ("up", "gate",
                                                           "down"))
         if fsdp_axis is not None:
