@@ -420,7 +420,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    on both ranks: 3 steps at 4 x 128 ending in a checkpoint (one
    ``shard_<rank>.npz`` a rank), 3 more uninterrupted, then ``--resume``
    (1e-4 relative), and 8 decode steps at batch 4 on the mesh against one
-   card (1e-4 of max |logit|); the NCCL world of 1 runs (d) on 1 x 1.
+   card (1e-4 of max |logit|); (g) (b)'s step on a 1 x 2 mesh, each rank
+   on its segment of the sequence (128 of 256 positions, K / V gathered
+   over "model", the parameters a layer at a time), against the one-card
+   step at (b)'s bars, then one step counted (dot FLOPs, peak memory,
+   launches) for phase 17 and one timed; the NCCL world of 1 runs (d) on
+   1 x 1. Every mesh step takes its rank's block of the batch
+   (``step.block``).
 17. the dry run against the card (``repro_torch.launch.dryrun``): phase
    12's smollm-135m step at 8 x 256 on a 1 x 1 mesh, (a) traced on fake
    tensors in a fake world of one rank under ``launch.analysis.
@@ -431,7 +437,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    of ``max_memory_allocated`` less what the card held before the step
    outside its arguments (a larger gap fails the phase); the roofline on
    the H100's data-sheet numbers beside the median of 3 real steps (no
-   bar: the step is host-bound); (c) ``run_cell`` of smollm-135m x
+   bar: the step is host-bound); (d) phase 16 (g)'s 1 x 2 step traced on
+   a fake world of 2, rank 0's dot FLOPs (1e-6) and peak (10%) against
+   (g)'s counted step on rank 0 (a gloo world of 2 runs (g) here when
+   phase 16 did not run); (c) ``run_cell`` of smollm-135m x
    decode_32k x 16 x 16 on a fake world of 256, its report under
    ``build/dryrun_torch/``; and the ``nvidia-smi`` name and power
    line.
@@ -465,6 +474,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -7476,10 +7486,11 @@ def mc_train_step(torch, dist, device, rank, lines):
         f"{2 * whole / 2**20:.1f} MiB")
     batch = DataPipeline(DataConfig(0, B, S, cfg.vocab),
                          device=device).batch_at(0)
+    block = step.block(batch)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    new, st, met = step(shards, state, batch)
+    new, st, met = step(shards, state, block)
     sync(torch)
     first_s = time.perf_counter() - t0
     got_p, got_m = gather_tree(new, specs, ctx), gather_tree(st.m, specs,
@@ -7520,7 +7531,7 @@ def mc_train_step(torch, dist, device, rank, lines):
     for _ in range(MC_TIMED):
         sync(torch)
         t0 = time.perf_counter()
-        step(shards, state, batch)
+        step(shards, state, block)
         sync(torch)
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
@@ -7766,8 +7777,10 @@ def mc_moe(torch, np, dist, device, rank, world, lines):
 def mc_ssd(torch, dist, device, rank, world, lines):
     """Phase 16 (e): mamba2-1.3b's SSD at full width (64 heads of 64,
     d_state 128, chunk 128), B x S = MC_SSD, context parallel over a 1 x
-    ``world`` mesh against ``ssd_chunked`` on one rank; both timed."""
-    from repro_torch.distributed import MeshContext, use_mesh_context
+    ``world`` mesh (each rank its segment of the sequence, the outputs
+    gathered back) against ``ssd_chunked`` on one rank; both timed."""
+    from repro_torch.distributed import MeshContext, all_gather, \
+        use_mesh_context
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.ssm import ssd_chunked, ssd_context_parallel
 
@@ -7780,10 +7793,16 @@ def mc_ssd(torch, dist, device, rank, world, lines):
     Bm = 0.5 * torch.randn((B, S, N), generator=gen, device=device)
     Cm = 0.5 * torch.randn((B, S, N), generator=gen, device=device)
     ctx = MeshContext(make_local_mesh(1, world, device=device))
+    tp = ctx.axis("model")
+    seg = S // world
+    x_l, dt_l, B_l, C_l = (t[:, tp.rank * seg:(tp.rank + 1) * seg]
+                           for t in (x, dt, Bm, Cm))
 
     def cp():
+        # the rank's segment in and out; its output gathered back whole
         with use_mesh_context(ctx):
-            return ssd_context_parallel(x, dt, A, Bm, Cm, chunk=Q)
+            return all_gather(ssd_context_parallel(x_l, dt_l, A, B_l, C_l,
+                                                   chunk=Q), tp, dim=1)
 
     def timed(fn, reps=3):
         fn()
@@ -7851,7 +7870,8 @@ def mc_driver(torch, dist, device, rank, build_dir, lines):
     params, opt_state = first.pop("state")
     hist = []
     for s_ in range(half, 2 * half):
-        params, opt_state, m = step(params, opt_state, data.batch_at(s_))
+        params, opt_state, m = step(params, opt_state,
+                                    step.block(data.batch_at(s_)))
         hist.append({k: float(v) for k, v in m.items()})
     t0 = time.perf_counter()
     again = train.main(base + ["--resume"])
@@ -7881,7 +7901,8 @@ def mc_driver(torch, dist, device, rank, build_dir, lines):
                             19))
     err = 0.0
     for t in range(n_tok):
-        lg, c_mesh = dec(shards, {"tokens": tok[:, t:t + 1]}, c_mesh)
+        lg, c_mesh = dec(shards, dec.block({"tokens": tok[:, t:t + 1]}),
+                         c_mesh)
         lw, c_one = one(full, {"tokens": tok[:, t:t + 1]}, c_one)
         err = max(err, rel_to_max(torch, lg, lw))
     if not err <= LM_DECODE_TOL:
@@ -7903,15 +7924,121 @@ def mc_driver(torch, dist, device, rank, build_dir, lines):
     return failures
 
 
+MC_SEQ_MESH = (1, 2)             # (g): data x model, the sequence split
+
+
+def mc_train_seq(torch, dist, device, rank, lines):
+    """Phase 16 (g): (b)'s smollm-135m step at MC_TRAIN on a 1 x 2 mesh,
+    each rank on its segment of the sequence (K / V gathered over
+    "model", the parameters gathered a layer at a time), against the
+    one-card step (rank 0, at (b)'s bars); then one step under a
+    ``StepCounter`` with the launch counters set to 0 before and read
+    after: its dot FLOPs and its peak (``max_memory_allocated`` less the
+    bytes held outside the step's arguments), which phase 17 holds
+    against the dry run on 1 x 2; then one timed step. Returns (failures,
+    the counted step's numbers)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.analysis import StepCounter
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import gather_tree, shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    failures = []
+    cfg = mc_config()
+    B, S = MC_TRAIN
+    shape = ShapeSpec("phase16g", S, B, "train")
+    opt = AdamWConfig(eps=1.0)
+    mesh = make_local_mesh(*MC_SEQ_MESH, device=device)
+    step, _ = make_train_step(cfg, mesh, shape, opt, total_steps=10)
+    specs, ctx = step.shardings[0], step.context
+    params = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(0))
+    shards = shard_tree(params, specs, ctx)
+    state = init_adamw(shards, step.opt)
+    batch = DataPipeline(DataConfig(0, B, S, cfg.vocab),
+                         device=device).batch_at(0)
+    block = step.block(batch)
+    t0 = time.perf_counter()
+    new, st, met = step(shards, state, block)
+    sync(torch)
+    first_s = time.perf_counter() - t0
+    got_p, got_m = gather_tree(new, specs, ctx), gather_tree(st.m, specs,
+                                                             ctx)
+    del new, st
+    if rank == 0:
+        one, _ = make_train_step(cfg, None, shape, opt, total_steps=10)
+        want_p, want_s, want = one(params, init_adamw(params, one.opt),
+                                   batch)
+        ce = abs(float(met["ce"]) - float(want["ce"])) / abs(float(want["ce"]))
+        ot = abs(float(met["ot"]) - float(want["ot"])) / abs(float(want["ot"]))
+        bad_g, worst_g = leaves_within(torch, got_m, want_s.m, LM_GRAD_TOL,
+                                       "(g) gradient")
+        bad_p, worst_p = leaves_within(torch, got_p, want_p, 1e-5,
+                                       "(g) parameter")
+        lines.append(
+            f"  (g) {cfg.name} {B} x {S} on {MC_SEQ_MESH[0]} x "
+            f"{MC_SEQ_MESH[1]} (a rank's block {tuple(block['tokens'].shape)})"
+            f" against one card: ce {float(met['ce']):.7f} / "
+            f"{float(want['ce']):.7f} (rel {ce:.3g}, bar {LM_CE_RTOL}); ot "
+            f"{float(met['ot']):.7f} / {float(want['ot']):.7f} (rel "
+            f"{ot:.3g}, bar {LM_OT_RTOL}); gradients worst {worst_g:.3g} of "
+            f"a leaf's max (bar {LM_GRAD_TOL}); parameters after AdamW "
+            f"worst {worst_p:.3g} (bar 1e-05)")
+        if not ce <= LM_CE_RTOL:
+            failures.append(f"(g) ce rel {ce:.3g}")
+        if not ot <= LM_OT_RTOL:
+            failures.append(f"(g) ot rel {ot:.3g}")
+        failures += bad_g + bad_p
+        del want_p, want_s, one
+    del got_p, got_m, params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    args = (shards, state, block)
+    real = StepCounter()
+    other = torch.cuda.memory_allocated(device) - real.track(args)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    with real:
+        out = step(*args)
+    sync(torch)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    del out
+    sync(torch)
+    t0 = time.perf_counter()
+    step(*args)
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    lines.append(
+        f"  (g) rank {rank}: first step {first_s:.2f} s; a step "
+        f"{ms:.1f} ms; peak memory {peak / 2**30:.4f} GiB less "
+        f"{other / 2**30:.4f} held outside the step's arguments "
+        f"({real.tracked_bytes / 2**30:.4f} GiB); dot FLOPs "
+        f"{real.dot_flops:.6e}; collectives {real.counts}; launches a "
+        f"step {({k: v for k, v in counts.items() if v})}")
+    missing = [k for k in LM_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        failures.append(f"(g) rank {rank}: kernels never launched {missing}")
+    return failures, dict(dot_flops=real.dot_flops,
+                          dot_by_op=dict(real.dot_by_op), peak=peak,
+                          other=other, tracked=real.tracked_bytes, ms=ms,
+                          counts=dict(counts))
+
+
 def _multicard_rank(rank, world, backend, port, src, queue, build_dir,
-                    device="cuda"):
+                    device="cuda", only=None):
     """One rank of a phase-16 world (a spawned process on card 0). A world
-    of 2 runs (a)-(f); a world of 1 runs (d) on a 1 x 1 mesh. Sends back
-    its lines, failures and (b)'s launch counts."""
+    of 2 runs (a)-(g) (``only="g"``: (g) alone); a world of 1 runs (d) on
+    a 1 x 1 mesh. Sends back its lines, failures, (b)'s launch counts and
+    (g)'s counted step."""
     import traceback
     from datetime import timedelta
 
-    lines, failures, counts = [], [], None
+    lines, failures, counts, seq = [], [], None, None
     try:
         sys.path.insert(0, src)
         import numpy as np
@@ -7941,6 +8068,10 @@ def _multicard_rank(rank, world, backend, port, src, queue, build_dir,
         if world == 1:
             failures += part("d", mc_moe, torch, np, dist, device, rank,
                              world, lines)
+        elif only == "g":
+            more, seq = part("g", mc_train_seq, torch, dist, device, rank,
+                             lines)
+            failures += more
         else:
             took = part("a", probe_collectives, torch, dist, device, rank,
                         world)
@@ -7970,18 +8101,23 @@ def _multicard_rank(rank, world, backend, port, src, queue, build_dir,
                              lines)
             failures += part("f", mc_driver, torch, dist, device, rank,
                              build_dir, lines)
+            torch.cuda.empty_cache()
+            more, seq = part("g", mc_train_seq, torch, dist, device, rank,
+                             lines)
+            failures += more
         lines.append(f"  {backend} rank {rank}/{world} parts (s): " + ", ".join(
             f"({k}) {v:.1f}" for k, v in parts.items()))
         dist.barrier(**({"device_ids": [0]} if backend == "nccl" else {}))
         dist.destroy_process_group()
         queue.put(dict(rank=rank, lines=lines, failures=failures,
-                       counts=counts))
+                       counts=counts, seq=seq))
     except Exception:
         queue.put(dict(rank=rank, error=traceback.format_exc(),
                        lines=lines))
 
 
-def run_multicard_world(world, backend, src, build_dir, device="cuda"):
+def run_multicard_world(world, backend, src, build_dir, device="cuda",
+                        only=None):
     """Spawn a phase-16 world of ``world`` ranks on card 0; returns (the
     ranks' reports sorted, or None, and the failure text)."""
     import multiprocessing as mp
@@ -7992,7 +8128,7 @@ def run_multicard_world(world, backend, src, build_dir, device="cuda"):
     port = free_port()
     procs = [ctx.Process(target=_multicard_rank,
                          args=(r, world, backend, port, str(src), q,
-                               str(build_dir), device))
+                               str(build_dir), device, only))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -8027,9 +8163,13 @@ def run_multicard_world(world, backend, src, build_dir, device="cuda"):
     return sorted(reports, key=lambda r: r["rank"]), None
 
 
+# (g)'s counted step on rank 0, for phase 17's dry run on 1 x 2
+MC_SEQ_COUNTED = {}
+
+
 def run_multicard_path(torch, src):
     """Phase 16: the multi-card LM path in a gloo world of 2 ranks on the
-    one card ((a)-(f)), then an NCCL world of 1 ((d) on a 1 x 1 mesh).
+    one card ((a)-(g)), then an NCCL world of 1 ((d) on a 1 x 1 mesh).
     Returns (rank 0's launch counts of (b)'s timed steps, failures)."""
     import gc
     build_dir = Path(__file__).resolve().parent / "build"
@@ -8053,6 +8193,7 @@ def run_multicard_path(torch, src):
             failures += rep["failures"]
         if backend == "gloo":
             counts = reports[0]["counts"]
+            MC_SEQ_COUNTED.update(reports[0]["seq"] or {})
         log(f"  {backend} world of {world}: {time.perf_counter() - t0:.1f} s")
     return counts, failures
 
@@ -8074,7 +8215,60 @@ def dot_flop_gaps(dry, real):
             if dry.dot_by_op.get(op, 0.0) != real.dot_by_op.get(op, 0.0)}
 
 
-def run_dryrun_path(torch, device):
+def dry_seq_mesh(torch, src):
+    """Phase 17 (d): phase 16 (g)'s step (smollm-135m at MC_TRAIN on 1 x
+    2, the sequence split over "model") traced on fake tensors in a fake
+    world of 2, rank 0's dot FLOPs and peak against (g)'s counted step on
+    rank 0 (run here in a gloo world of 2 if phase 16 did not run)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if not MC_SEQ_COUNTED:
+        reports, err = run_multicard_world(
+            2, "gloo", src, Path(__file__).resolve().parent / "build",
+            only="g")
+        if err:
+            return [f"(d) the 1 x 2 world: {err}"]
+        for rep in reports:
+            for line in rep["lines"]:
+                log(line)
+        if any(rep["failures"] for rep in reports):
+            return [f for rep in reports for f in rep["failures"]]
+        MC_SEQ_COUNTED.update(reports[0]["seq"])
+    real = MC_SEQ_COUNTED
+    cfg = mc_config()
+    B, S = MC_TRAIN
+    t0 = time.perf_counter()
+    with dryrun.fake_world(math.prod(MC_SEQ_MESH)):
+        dry, mem = dryrun.dry_step(
+            cfg, ShapeSpec("phase16g", S, B, "train"),
+            make_local_mesh(*MC_SEQ_MESH, device="cpu"))
+    rel = abs(dry.dot_flops - real["dot_flops"]) / real["dot_flops"]
+    gaps = dot_flop_gaps(dry, types.SimpleNamespace(
+        dot_by_op=real["dot_by_op"]))
+    want = real["peak"] - real["other"]
+    prel = abs(mem["peak_bytes"] - want) / want
+    log(f"  (d) {cfg.name} {B} x {S} on {MC_SEQ_MESH[0]} x {MC_SEQ_MESH[1]}, "
+        f"rank 0: dry {time.perf_counter() - t0:.1f} s, {dry.ops} ops, "
+        f"collectives {dry.counts}; dot FLOPs dry {dry.dot_flops:.6e} / "
+        f"real step {real['dot_flops']:.6e}: rel {rel:.3g} (bar "
+        f"{DRY_FLOP_RTOL}); ops that differ: {gaps or 'none'}; peak "
+        f"estimated {mem['peak_bytes'] / 2**30:.4f} GiB, card "
+        f"{real['peak'] / 2**30:.4f} less {real['other'] / 2**30:.4f} = "
+        f"{want / 2**30:.4f} GiB: rel {prel:.4f} (bar {DRY_PEAK_RTOL}); "
+        f"arguments {real['tracked'] / 2**30:.4f} GiB (dry "
+        f"{mem['argument_size_in_bytes'] / 2**30:.4f}); the roofline's "
+        f"terms {dry.roofline()} against a real step of {real['ms']:.1f} ms")
+    failures = []
+    if not rel <= DRY_FLOP_RTOL:
+        failures.append(f"(d) dot FLOPs on 1 x 2 differ in {sorted(gaps)}")
+    if not prel <= DRY_PEAK_RTOL:
+        failures.append(f"(d) estimated peak on 1 x 2 off by {prel:.4f}")
+    return failures
+
+
+def run_dryrun_path(torch, device, src):
     """Phase 17: the dry run against the card. (a) phase 12's smollm-135m
     step at DRY_TRAIN on a DRY_MESH mesh traced on fake tensors in a fake
     world of one rank (``launch.dryrun.dry_step``); (b) the same step for
@@ -8124,7 +8318,7 @@ def run_dryrun_path(torch, device):
         state = init_adamw(shards, step.opt)
         batch = DataPipeline(DataConfig(0, B, S, cfg.vocab),
                              device=device).batch_at(0)
-        args = (shards, state, batch)
+        args = (shards, state, step.block(batch))
         step(*args)                     # warm-up: the OT loss's captures
         sync(torch)
         torch.cuda.empty_cache()
@@ -8181,6 +8375,7 @@ def run_dryrun_path(torch, device):
     missing = [k for k in LM_PATH_KERNELS if counts[k] <= 0]
     if missing:
         failures.append(f"(b) kernels never launched: {missing}")
+    failures += dry_seq_mesh(torch, src)
 
     arch, shape_name = DRY_CELL
     out_dir = Path(__file__).resolve().parent / "build" / "dryrun_torch"
@@ -8614,7 +8809,9 @@ def main(argv=None) -> int:
             f"layer through expert parallelism on 1 x 2 at {MC_MOE[1]} x "
             f"{MC_MOE[2]} tokens; (e) mamba2-1.3b's SSD context parallel on "
             f"1 x 2 at {MC_SSD[0]} x {MC_SSD[1]}; (f) launch.train --mesh "
-            f"2x1 with a checkpoint and a resume, decode on the mesh; then "
+            f"2x1 with a checkpoint and a resume, decode on the mesh; (g) "
+            f"(b)'s step on {MC_SEQ_MESH[0]} x {MC_SEQ_MESH[1]}, the "
+            f"sequence split, against one card, one step counted; then "
             f"an NCCL world of 1: (d) on 1 x 1)")
         t16 = time.perf_counter()
         c16, failures = run_multicard_path(torch, src)
@@ -8631,10 +8828,12 @@ def main(argv=None) -> int:
             f"width and depth, float32: (a) one step at {DRY_TRAIN[0]} x "
             f"{DRY_TRAIN[1]} on {DRY_MESH[0]} x {DRY_MESH[1]} traced on fake "
             f"tensors; (b) the same step on the card, dot FLOPs and peak "
-            f"memory against (a), the roofline against its time; (c) "
+            f"memory against (a), the roofline against its time; (d) phase "
+            f"16 (g)'s step on {MC_SEQ_MESH[0]} x {MC_SEQ_MESH[1]} dry "
+            f"against its counted step; (c) "
             f"{DRY_CELL[0]} x {DRY_CELL[1]} dry on a fake world of 256)")
         t17 = time.perf_counter()
-        c17, failures = run_dryrun_path(torch, device)
+        c17, failures = run_dryrun_path(torch, device, src)
         log(f"  launches on the dry run's real step: {c17}")
         counts["dryrun"] = c17
         log(f"  phase 17: {time.perf_counter() - t17:.1f} s")

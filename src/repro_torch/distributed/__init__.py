@@ -6,9 +6,12 @@ index), the distributed log-sum-exp :func:`~.sharding.psum_logsumexp`,
 the differentiable boundaries :func:`~.sharding.shard_rows` /
 :func:`~.sharding.replicate` and collectives (:func:`~.sharding.
 all_gather`, :func:`~.sharding.all_to_all`, :func:`~.sharding.psum`,
-:func:`~.sharding.pmean`), and the LM models' logical axes
+:func:`~.sharding.pmean`, the halo :func:`~.sharding.from_previous`,
+a leaf's differentiable gather :func:`~.sharding.gather_spec`), and the
+LM models' logical axes and activation layout
 (:class:`~.sharding.MeshContext`, :func:`~.sharding.mesh_context`,
 :func:`~.sharding.use_mesh_context`,
+:func:`~.sharding.seq_axis`, :func:`~.sharding.rows_axis`,
 :func:`~.sharding.logical_spec`, :func:`~.sharding.shard`).
 :mod:`.fault_tolerance` holds the training supervisor. Counterpart of
 ``repro.distributed``.
@@ -26,12 +29,16 @@ from .sharding import (
     all_gather,
     all_to_all,
     current_mesh_context,
+    from_previous,
+    gather_spec,
     logical_spec,
     mesh_context,
     pmean,
     psum,
     psum_logsumexp,
     replicate,
+    rows_axis,
+    seq_axis,
     shard,
     shard_rows,
     use_mesh_context,
@@ -39,7 +46,8 @@ from .sharding import (
 
 __all__ = ["FaultToleranceConfig", "MeshAxis", "MeshContext",
            "PartitionSpec", "TrainingSupervisor", "all_gather", "all_to_all",
-           "current_mesh_context", "logical_spec", "mesh_context", "pmean",
-           "psum",
-           "psum_logsumexp", "remesh_plan", "replicate", "shard",
-           "shard_rows", "suggest_save_every", "use_mesh_context"]
+           "current_mesh_context", "from_previous", "gather_spec",
+           "logical_spec", "mesh_context", "pmean", "psum",
+           "psum_logsumexp", "remesh_plan", "replicate", "rows_axis",
+           "seq_axis", "shard", "shard_rows", "suggest_save_every",
+           "use_mesh_context"]

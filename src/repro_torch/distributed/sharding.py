@@ -52,6 +52,7 @@ all-to-all.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import weakref
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -60,10 +61,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["MeshAxis", "MeshContext", "PartitionSpec", "all_gather",
-           "all_to_all", "current_mesh_context", "logical_spec",
-           "mesh_context", "pmean",
-           "psum", "psum_logsumexp", "replicate", "resolve_logical", "shard",
-           "shard_rows", "use_mesh_context"]
+           "all_to_all", "current_mesh_context", "from_previous",
+           "gather_spec", "logical_spec", "mesh_context", "pmean",
+           "psum", "psum_logsumexp", "replicate", "resolve_logical",
+           "rows_axis", "seq_axis", "shard", "shard_rows",
+           "use_mesh_context"]
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -220,11 +222,23 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         # the adjoint: every rank's cotangent of this rank's block, summed
-        # (a reduce-scatter, as an all-reduce and a slice on every backend)
+        return _reduce_scatter(grad, ctx.axis, ctx.dim, ctx.n), None, None
+
+
+def _reduce_scatter(grad: torch.Tensor, axis: MeshAxis, dim: int,
+                    n: int) -> torch.Tensor:
+    """Block ``axis.rank`` (``n`` wide along ``dim``) of the sum of every
+    rank's ``grad``: a reduce-scatter (``reduce_scatter_tensor``; on gloo
+    an all-reduce and a slice)."""
+    if dist.get_backend(axis.group) == "gloo":
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.axis.group)
-        return (grad.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n)
-                .contiguous(), None, None)
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=axis.group)
+        return grad.narrow(dim, axis.rank * n, n).contiguous()
+    lead = grad.movedim(dim, 0).contiguous()
+    out = lead.new_empty((n,) + lead.shape[1:])
+    dist.reduce_scatter_tensor(out, lead, op=dist.ReduceOp.SUM,
+                               group=axis.group)
+    return out.movedim(0, dim).contiguous()
 
 
 class _AllToAll(torch.autograd.Function):
@@ -262,6 +276,21 @@ def all_to_all(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     if axis.size == 1:
         return x
     return _AllToAll.apply(x, axis)
+
+
+def from_previous(x: torch.Tensor, axis: MeshAxis, n: int,
+                  dim: int = 1) -> torch.Tensor:
+    """The last ``n`` entries along ``dim`` of the previous rank's ``x``
+    (zeros on rank 0): the halo of a causal window over a sequence split
+    in rank order. Differentiable: the backward hands each rank's
+    cotangent of its halo to the rank it came from. Every rank's graph
+    holds the gather, so the backwards' collectives pair up."""
+    if x.shape[dim] < n:
+        raise ValueError(f"a halo of {n} from segments of {x.shape[dim]}")
+    tail = x.narrow(dim, x.shape[dim] - n, n)
+    tails = all_gather(tail[None], axis, dim=0)            # (R, ...)
+    shifted = torch.cat([torch.zeros_like(tails[:1]), tails[:-1]])
+    return shifted[axis.rank]
 
 
 def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
@@ -331,9 +360,21 @@ class MeshContext:
         self.tp_axis: Optional[str] = "model" if "model" in names else None
         self.sizes = _dims(mesh)
         self._axes: Dict[Tuple[str, ...], MeshAxis] = {}
+        # the activations' layout: the batch rows over the data axes and
+        # the sequence over "model" (the inputs' specs where they divide)
+        self.rows_split = True
+        self.seq_split = True
         for key in (self.dp_axes, names):
             if key:
                 self.axis(key)
+
+    def laid_out(self, rows: bool, seq: bool) -> "MeshContext":
+        """This context (its groups shared) with the activations' layout
+        of one step: the batch rows split over the data axes or not, the
+        sequence over ``"model"`` or not."""
+        out = copy.copy(self)
+        out.rows_split, out.seq_split = bool(rows), bool(seq)
+        return out
 
     def resolve(self, logical: Optional[str]):
         return resolve_logical(logical, tuple(self.sizes))
@@ -424,12 +465,47 @@ def current_mesh_context() -> Optional[MeshContext]:
     return _current["ctx"]
 
 
+def seq_axis(ctx: Optional[MeshContext] = None) -> Optional[MeshAxis]:
+    """The ``"model"`` axis when the context (the current one by default)
+    splits the sequence over it and it has more than one rank: then a
+    rank holds the contiguous S / tp segment of every one of its rows."""
+    ctx = current_mesh_context() if ctx is None else ctx
+    if ctx is None or ctx.tp_axis is None or not ctx.seq_split or \
+            ctx.size(ctx.tp_axis) == 1:
+        return None
+    return ctx.axis(ctx.tp_axis)
+
+
+def rows_axis(ctx: Optional[MeshContext] = None) -> Optional[MeshAxis]:
+    """The batch axes when the context (the current one by default)
+    splits the batch rows over them and they have more than one rank."""
+    ctx = current_mesh_context() if ctx is None else ctx
+    if ctx is None or not ctx.dp_axes or not ctx.rows_split or \
+            ctx.dp.size == 1:
+        return None
+    return ctx.dp
+
+
+def gather_spec(t: torch.Tensor, spec: Sequence,
+                ctx: MeshContext) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``t`` of a leaf laid out by
+    ``spec``: every rank's block along each sharded dimension, in rank
+    order. Differentiable: the backward reduce-scatters the cotangent over
+    the same axes, so each rank's shard receives the sum of every rank's
+    cotangent of its block."""
+    for dim, axis in enumerate(spec):
+        if axis is not None and ctx.size(axis) > 1:
+            t = all_gather(t, ctx.axis(axis), dim)
+    return t
+
+
 def logical_spec(*axes: Optional[str]) -> Optional[PartitionSpec]:
     """The mesh spec of logical ``axes`` under the current context, or
-    ``None`` without one. No step of the port calls it or :func:`shard`
-    (each rank slices its own rows, ``launch.specs``); they give the JAX
-    package's names to code that holds the two layouts side by side, as
-    the tests do."""
+    ``None`` without one. The steps lay their inputs out by these names
+    (``launch.specs.input_shardings``, ``batch_block``): each rank is
+    handed its block and computes on it, so nothing constrains a tensor
+    here; they give the JAX package's names to code that holds the two
+    layouts side by side, as the tests do."""
     ctx = current_mesh_context()
     if ctx is None:
         return None
@@ -438,8 +514,9 @@ def logical_spec(*axes: Optional[str]) -> Optional[PartitionSpec]:
 
 def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     """``x`` laid out by logical ``axes`` (one a dimension): in explicit
-    SPMD each rank already holds its own rows, so this names the layout
-    (an unknown logical axis raises ``KeyError``) and returns ``x``."""
+    SPMD each rank already holds its block (its rows, its segment of the
+    sequence), so this names the layout (an unknown logical axis raises
+    ``KeyError``) and returns ``x``."""
     if len(axes) != x.dim():
         raise ValueError(f"{len(axes)} logical axes for a {x.dim()}-d tensor")
     logical_spec(*axes)

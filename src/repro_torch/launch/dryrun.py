@@ -8,17 +8,17 @@ For each cell:
      16 single-pod or 2 x 16 x 16 multi-pod;
   2. build the port's own ``make_train_step`` / ``make_serve_step``;
   3. under a ``FakeTensorMode`` with a ``ShapeEnv``, make rank 0's
-     parameter and moment shards (``abstract_state``, ``shard_tree``), the
-     global batch of ``input_specs`` and, for decode, the rank's caches:
+     parameter and moment shards (``abstract_state``, ``shard_tree``), its
+     block of ``input_specs``' batch and, for decode, the rank's caches:
      shapes and dtypes with no data, nothing allocated;
   4. run one step under ``launch.analysis.StepCounter``: dot FLOPs, HBM
      bytes, collectives and their wire bytes, the peak of live bytes;
   5. write the roofline terms on the H100's numbers and the memory fields
      to ``artifacts/dryrun_torch/{arch}_{shape}_{mesh}.json``.
 
-Rank 0 stands for every rank: the step refuses a training batch that
-would make the ranks' work differ, and replicates a serving batch that does
-not divide over the data axes. The fake tensors take the CPU path (the
+Rank 0 stands for every rank: each takes its block of the batch (its
+rows, its segment of the sequence) and does the same work, and a batch
+that does not divide over the data axes is replicated. The fake tensors take the CPU path (the
 kernels' plain versions: a hand-written kernel needs real pointers), and
 every solve runs its check blocks up to ``max_iter`` with no host read
 (``core.sinkhorn.is_dry``). A size that depends on the data (the expert
@@ -94,13 +94,15 @@ def _empty(t: torch.Tensor) -> torch.Tensor:
 
 def fake_arguments(cfg: ArchConfig, shape: ShapeSpec, step, specs):
     """The step's arguments as fake tensors on the CPU: the rank's
-    shards (the whole tree without a mesh), the global batch and, for
-    decode, the rank's caches. Call under the ``FakeTensorMode``."""
+    shards (the whole tree without a mesh), the rank's block of the batch
+    (``step.block``) and, for decode, the rank's caches. Call under the
+    ``FakeTensorMode``."""
     ctx = getattr(step, "context", None)
     params = tree_map(_empty, specs[0])
     if ctx is not None:
         params = S.shard_tree(params, step.shardings[0], ctx)
-    batch = tree_map(_empty, specs[2] if shape.mode == "train" else specs[1])
+    batch = step.block(tree_map(
+        _empty, specs[2] if shape.mode == "train" else specs[1]))
     if shape.mode == "train":
         return params, init_adamw(params, step.opt), batch
     if shape.mode == "prefill":

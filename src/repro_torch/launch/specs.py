@@ -30,7 +30,9 @@ Optimizer moments take their parameter's spec. ``input_shardings`` and
 A mesh here is a ``DeviceMesh`` or a mapping of dimension names to sizes
 (the rules need only the sizes). :func:`shard_tree` cuts a global tree
 to this rank's shards by a tree of specs, :func:`gather_tree` gathers the
-shards back. Counterpart of ``repro.launch.specs``.
+shards back, and :func:`batch_block` cuts a global batch to the block a
+rank's step takes (its rows of every micro-batch, its segment of the
+sequence). Counterpart of ``repro.launch.specs``.
 """
 from __future__ import annotations
 
@@ -38,11 +40,10 @@ import math
 from typing import Any, Dict, List, Mapping, Sequence
 
 import torch
-import torch.distributed as dist
 
 from ..configs import ArchConfig, ShapeSpec
 from ..distributed.sharding import MeshContext, PartitionSpec, \
-    resolve_logical
+    gather_spec, resolve_logical
 from ..models import cache_logical_axes, init_caches
 from ..tree import named_leaves, tree_leaves, tree_unflatten
 
@@ -52,6 +53,7 @@ __all__ = [
     "input_shardings",
     "param_shardings",
     "cache_shardings",
+    "batch_block",
     "shard_tree",
     "gather_tree",
 ]
@@ -248,12 +250,10 @@ def param_shardings(mesh, cfg: ArchConfig, params_shape) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def cut(t: torch.Tensor, spec: Sequence, ctx: MeshContext,
-        skip: Sequence = ()) -> torch.Tensor:
-    """This rank's block of ``t`` by ``spec`` (dimensions whose axis is in
-    ``skip`` are left whole), a tensor of its own."""
+def cut(t: torch.Tensor, spec: Sequence, ctx: MeshContext) -> torch.Tensor:
+    """This rank's block of ``t`` by ``spec``, a tensor of its own."""
     for dim, axis in enumerate(spec):
-        if axis is None or axis in skip:
+        if axis is None:
             continue
         n = ctx.size(axis)
         if t.shape[dim] % n:
@@ -264,19 +264,44 @@ def cut(t: torch.Tensor, spec: Sequence, ctx: MeshContext,
     return t.clone()
 
 
-def gathered(t: torch.Tensor, spec: Sequence, ctx: MeshContext,
-             skip: Sequence = ()) -> torch.Tensor:
-    """The inverse of :func:`cut`: every rank's block along each sharded
-    dimension, concatenated in rank order (not differentiable)."""
-    for dim, axis in enumerate(spec):
-        if axis is None or axis in skip or ctx.size(axis) == 1:
-            continue
-        ax = ctx.axis(axis)
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(ax.size)]
-        dist.all_gather(parts, t, group=ax.group)
-        t = torch.cat(parts, dim=dim)
-    return t
+def batch_block(batch: Dict[str, Any], specs: Dict[str, Any],
+                ctx: MeshContext, *, micro_batches: int = 1,
+                seq: bool = True) -> Dict[str, Any]:
+    """This rank's block of a global batch laid out by ``specs`` (the
+    inputs' :func:`input_shardings`), tensors of its own: every dimension
+    on the batch axes cut to this rank's rows, every dimension on
+    ``"model"`` (the sequence; ``enc_kv``'s encoder length) to its
+    contiguous segment, unless ``seq`` is False (decode keeps the sequence
+    whole).
+
+    With ``micro_batches`` M > 1 a step cuts the global batch into M
+    micro-batches of consecutive rows, as the reference reshapes it to
+    (M, B / M), and each micro-batch's rows are split over the data axes:
+    the rank's rows are its share of each micro-batch, in micro-batch
+    order, not one contiguous block."""
+    tp = ctx.tp_axis
+
+    def cut_leaf(t: torch.Tensor, spec) -> torch.Tensor:
+        for dim, axis in enumerate(spec):
+            n = ctx.size(axis)
+            if axis is None or n == 1 or (axis == tp and not seq):
+                continue
+            r = ctx.coord(axis)
+            parts = 1 if axis == tp else micro_batches
+            if t.shape[dim] % (parts * n):
+                raise ValueError(
+                    f"dimension {dim} of {tuple(t.shape)} does not divide "
+                    f"into {parts} x {n} blocks over {axis}")
+            each = t.shape[dim] // parts
+            k = each // n
+            blocks = [t.narrow(dim, i * each + r * k, k)
+                      for i in range(parts)]
+            t = blocks[0] if parts == 1 else torch.cat(blocks, dim=dim)
+        return t.clone()
+
+    return {k: batch_block(v, specs[k], ctx, micro_batches=micro_batches,
+                           seq=seq) if isinstance(v, dict)
+            else cut_leaf(v, specs[k]) for k, v in batch.items()}
 
 
 def shard_tree(tree, specs, ctx: MeshContext):
@@ -289,7 +314,8 @@ def shard_tree(tree, specs, ctx: MeshContext):
 
 def gather_tree(tree, specs, ctx: MeshContext):
     """The global tree from every rank's shards (collective: every rank
-    calls it)."""
-    return tree_unflatten(tree, [
-        gathered(t, s, ctx) for t, s in zip(tree_leaves(tree),
-                                            tree_leaves(specs))])
+    calls it; not differentiable)."""
+    with torch.no_grad():
+        return tree_unflatten(tree, [
+            gather_spec(t, s, ctx) for t, s in zip(tree_leaves(tree),
+                                                   tree_leaves(specs))])

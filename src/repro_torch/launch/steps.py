@@ -10,23 +10,32 @@ optimizer state and leaves its inputs as they were.
 
 With ``mesh=None`` the step runs on one card. With a ``DeviceMesh`` of
 dimensions ``("data", "model")`` or ``("pod", "data", "model")`` (one
-rank included) it runs in explicit SPMD on every rank of the mesh:
+rank included) it runs in explicit SPMD on every rank of the mesh, in
+the reference's layout:
 
 * parameters and AdamW moments are the rank's shards by
-  ``specs.param_shardings`` (ZeRO); each step gathers them whole, but the
-  experts, which stay the rank's own (E over ``"model"``, and d over the
-  data axes for ``zero3`` configs, gathered one expert at a time inside
-  the layer);
-* the step takes the GLOBAL batch and each rank runs its rows of every
-  micro-batch (the batch over the data axes); the MoE layers run expert
-  parallel and the SSD context parallel over ``"model"``
-  (``models.model``), and the OT loss gathers its global sample and
-  solves sharded where ``cfg.ot_shard`` says (auto: on whenever the mesh
-  has more than one rank);
-* each rank differentiates its own loss; the gradients are summed over
-  the ranks that computed them (an all-reduce over the mesh, or over the
-  data axes for the experts, then a slice to the rank's shard) and
-  divided by the mesh size, so they are those of the mean of the ranks'
+  ``specs.param_shardings`` (ZeRO). Each is gathered whole where the
+  model uses it (``models.model.forward``'s ``specs``): a stacked
+  group's a layer at a time inside the layer's checkpoint, so the
+  recomputation gathers again and one layer is whole at a time; the
+  experts stay the rank's own (E over ``"model"``, and d over the data
+  axes for ``zero3`` configs, gathered one expert at a time inside the
+  layer);
+* the step takes this rank's BLOCK of the batch (``step.block`` of the
+  global batch, ``specs.batch_block``): its rows of every micro-batch
+  over the data axes, and the contiguous S / tp segment of the sequence
+  over ``"model"`` where it divides. A batch that does not divide over
+  the data axes is replicated, as the reference lays it out: every rank
+  runs all its rows. The activations stay split by sequence from the
+  embedding to the final norm (``models.model``); the OT loss gathers
+  its global sample and solves sharded where ``cfg.ot_shard`` says
+  (auto: on whenever the mesh has more than one rank);
+* each rank differentiates its own share of the loss; the gathers'
+  backwards reduce-scatter each leaf's gradient to its shards over the
+  axes it is sharded on, the rest is summed over the axes it is not
+  sharded on (``"model"`` for the ZeRO shards, whose ranks saw other
+  tokens; the whole mesh for replicated leaves), and everything is
+  divided by the mesh size: the gradient of the mean of the ranks'
   losses, the reference's global objective;
 * AdamW updates the shards, its global-norm clip summing the squares of
   every leaf once across the shards (:func:`global_norm`); the metrics
@@ -37,7 +46,7 @@ Counterpart of ``repro.launch.steps``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,7 +56,7 @@ from ..core.objective import ExecutionPolicy
 from ..distributed.sharding import MeshContext, mesh_context, \
     use_mesh_context
 from ..models import decode_step, init_params, prefill, train_loss
-from ..models.model import check_ported, effective_window
+from ..models.model import _EXPERTS, check_ported, effective_window
 from ..optim import AdamWConfig, adamw_update, init_adamw, \
     linear_warmup_cosine
 from ..tree import named_leaves, tree_leaves, tree_map, tree_unflatten
@@ -55,9 +64,6 @@ from . import specs as S
 
 __all__ = ["make_train_step", "make_serve_step", "abstract_state",
            "global_norm"]
-
-_EXPERTS = ("moe/up", "moe/gate", "moe/down")
-
 
 def abstract_state(cfg: ArchConfig, opt: Optional[AdamWConfig] = None):
     """(params, opt_state) as ``meta`` tensors: no allocation."""
@@ -68,11 +74,13 @@ def abstract_state(cfg: ArchConfig, opt: Optional[AdamWConfig] = None):
 
 
 def loss_and_grads(params, cfg: ArchConfig, batch: Dict,
-                   policy: ExecutionPolicy):
-    """``(grads, metrics)`` of ``train_loss`` at ``params`` (detached)."""
+                   policy: ExecutionPolicy, specs=None):
+    """``(grads, metrics)`` of ``train_loss`` at ``params`` (detached);
+    with ``specs`` the parameters are the rank's shards and so are the
+    gradients."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, metrics = train_loss(tree_unflatten(params, leaves), cfg, batch,
-                               policy=policy)
+                               policy=policy, specs=specs)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -83,10 +91,6 @@ def loss_and_grads(params, cfg: ArchConfig, batch: Dict,
 # ---------------------------------------------------------------------------
 # Shards on a mesh
 # ---------------------------------------------------------------------------
-
-
-def _expert_flags(tree) -> List[bool]:
-    return [name.endswith(_EXPERTS) for name, _ in named_leaves(tree)]
 
 
 def _check_experts(cfg: ArchConfig, ctx: MeshContext, specs) -> None:
@@ -104,15 +108,6 @@ def _check_experts(cfg: ArchConfig, ctx: MeshContext, specs) -> None:
                 f"'model'{' and d over the data axes' if lazy else ''}")
 
 
-def _compute_view(shards, specs, ctx: MeshContext):
-    """The parameters a rank computes with: every leaf gathered whole but
-    the experts, which stay its shards."""
-    return tree_unflatten(shards, [
-        t if expert else S.gathered(t, spec, ctx)
-        for t, spec, expert in zip(tree_leaves(shards), tree_leaves(specs),
-                                   _expert_flags(shards))])
-
-
 def _sum_(tensors: List[torch.Tensor], group) -> None:
     """All-reduce SUM of ``tensors`` in place, one flat buffer a dtype."""
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
@@ -125,21 +120,30 @@ def _sum_(tensors: List[torch.Tensor], group) -> None:
             t.copy_(part.view_as(t))
 
 
-def _reduce_grads(grads, specs, ctx: MeshContext, lazy: bool):
-    """Each leaf's gradient summed over the ranks that computed it, divided
-    by the mesh size, as the rank's shard: the whole leaves over the mesh,
-    then sliced; the experts over the data axes (where the lazy gather's
-    backward has not summed them already)."""
+def _unsharded(spec, ctx: MeshContext) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that ``spec`` does not shard
+    on: the ranks that computed a leaf's gradient apart."""
+    used = {a for e in spec if e is not None
+            for a in ((e,) if isinstance(e, str) else e)}
+    return tuple(a for a in ctx.mesh.mesh_dim_names
+                 if a not in used and ctx.sizes[a] > 1)
+
+
+def _reduce_grads(grads, specs, ctx: MeshContext):
+    """The rank's shards of the gradients (the gathers' backwards have
+    summed each over the axes it is sharded on) summed over the axes it is
+    not sharded on, leaves grouped by those axes, and divided by the mesh
+    size."""
     leaves = [g.contiguous() for g in tree_leaves(grads)]
-    flags = _expert_flags(grads)
-    if ctx.world.size > 1:
-        _sum_([g for g, e in zip(leaves, flags) if not e], ctx.world.group)
-    if ctx.dp.size > 1 and not lazy:
-        _sum_([g for g, e in zip(leaves, flags) if e], ctx.dp.group)
+    groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for g, spec in zip(leaves, tree_leaves(specs)):
+        axes = _unsharded(spec, ctx)
+        if axes:
+            groups.setdefault(axes, []).append(g)
+    for axes, gs in groups.items():
+        _sum_(gs, ctx.axis(axes).group)
     inv = 1.0 / ctx.world.size
-    return tree_unflatten(grads, [
-        (g if e else S.cut(g, spec, ctx)) * inv
-        for g, spec, e in zip(leaves, tree_leaves(specs), flags)])
+    return tree_unflatten(grads, [g * inv for g in leaves])
 
 
 def global_norm(shards, specs, ctx: MeshContext) -> torch.Tensor:
@@ -181,15 +185,35 @@ def _rows(batch: Dict, lo: int, n: int, dim: int = 0) -> Dict:
             else v.narrow(dim, lo, n) for k, v in batch.items()}
 
 
-def _split(n_rows: int, ctx: MeshContext):
-    """(rows a rank, this rank's first row) of a batch of ``n_rows`` over
-    the data axes, which must divide it."""
-    dp = ctx.dp
-    if n_rows % dp.size:
-        raise ValueError(f"a batch of {n_rows} does not divide over "
-                         f"{dp.size} data-parallel ranks")
-    n = n_rows // dp.size
-    return n, dp.rank * n
+def _laid_out(ctx: MeshContext, in_sh: Dict, seq: bool = True):
+    """The step's context: ``ctx`` with the activations' layout of its
+    inputs' specs (the rows split where the batch axes shard the first
+    input, the sequence where ``"model"`` shards its dim 1 and ``seq``)."""
+    lead = next(v for k, v in in_sh.items()
+                if k in ("tokens", "embeds"))
+    return ctx.laid_out(rows=lead[0] is not None,
+                        seq=seq and len(lead) > 1 and lead[1] is not None)
+
+
+def _block_fn(in_specs: Dict, in_sh: Dict, ctx: MeshContext,
+              micro_batches: int, seq: bool):
+    """``(block, check)``: the rank's block of a global batch, and a check
+    that a batch has the block's shapes."""
+    def block(batch: Dict) -> Dict:
+        return S.batch_block(batch, in_sh, ctx, micro_batches=micro_batches,
+                             seq=seq)
+
+    want = {name: tuple(t.shape)
+            for name, t in named_leaves(block(in_specs))}
+
+    def check(batch: Dict) -> None:
+        for name, t in named_leaves(batch):
+            if name in want and tuple(t.shape) != want[name]:
+                raise ValueError(
+                    f"{name} of shape {tuple(t.shape)}: a mesh step takes "
+                    f"this rank's block of the batch, {want[name]} "
+                    "(step.block of the global batch)")
+    return block, check
 
 
 # ---------------------------------------------------------------------------
@@ -206,18 +230,22 @@ def make_train_step(cfg: ArchConfig, mesh=None,
     its attributes ``micro_batches`` and ``opt`` are the ones it runs
     (initialise the optimizer state with ``step.opt``), and on a mesh
     ``context`` (its :class:`MeshContext`) and ``shardings``: the
-    parameters', moments' and inputs' specs. On a mesh ``params`` and
+    parameters', moments' and inputs' specs, and ``block``, which cuts a
+    global batch to this rank's block. On a mesh ``params`` and
     ``opt_state`` are the rank's shards (``specs.shard_tree`` of the
     global tree by ``step.shardings[0]``; ``init_adamw`` of the shards)
-    and ``batch`` the global batch, the same on every rank; build the
+    and ``batch`` is the rank's block (``step.block(global_batch)``: its
+    rows of every micro-batch, its segment of the sequence); build the
     step on every rank, in the same order (the first factory call on a
-    mesh creates its process groups).
+    mesh creates its process groups). Without a mesh ``step.block`` is
+    the identity.
 
     ``micro_batches`` > 1 splits the batch on its leading dim and
     accumulates the gradients (the metrics are their mean), cutting
     activation memory by about M; 0 = auto (4 for ``zero3`` configs, else
     1), halved until it divides the batch into micro-batches that divide
-    over the data axes. The OT solves run on the hidden states' device."""
+    over the data axes (or to 1, where the batch does not divide and is
+    replicated). The OT solves run on the hidden states' device."""
     check_ported(cfg)
     ctx = None if mesh is None else mesh_context(mesh)
     want_shard = (cfg.ot_shard if cfg.ot_shard is not None
@@ -244,21 +272,26 @@ def make_train_step(cfg: ArchConfig, mesh=None,
     while micro_batches > 1 and (B % micro_batches != 0
                                  or (B // micro_batches) % dp_size != 0):
         micro_batches //= 2
-    if ctx is not None:
-        _split(B // micro_batches, ctx)
     p_shape, o_shape = abstract_state(cfg, opt)
     in_specs = S.input_specs(cfg, shape)
+    p_specs = None
     if ctx is not None:
         p_specs = S.param_shardings(mesh, cfg, p_shape)
         _check_experts(cfg, ctx, p_specs)
-    lazy = ctx is not None and cfg.zero3 and bool(ctx.dp_axes)
+        in_sh = S.input_shardings(mesh, cfg, shape, in_specs)
+        step_ctx = _laid_out(ctx, in_sh)
+        block, check = _block_fn(in_specs, in_sh, ctx, micro_batches, True)
+        # the groups of the gradients' sums, built on every rank in order
+        for spec in tree_leaves(p_specs):
+            if _unsharded(spec, ctx):
+                ctx.axis(_unsharded(spec, ctx))
 
-    def accumulate(params, batch, rows_of):
+    def accumulate(params, batch):
         mb = batch[next(iter(batch))].shape[0] // micro_batches
         grads, metrics = None, {}
         for i in range(micro_batches):
-            g, m = loss_and_grads(params, cfg, rows_of(batch, i * mb, mb),
-                                  ot_policy)
+            g, m = loss_and_grads(params, cfg, _rows(batch, i * mb, mb),
+                                  ot_policy, p_specs)
             if micro_batches == 1:
                 return g, m
             grads = tree_map(lambda a: torch.zeros(a.shape, dtype=cfg.dtype,
@@ -273,21 +306,15 @@ def make_train_step(cfg: ArchConfig, mesh=None,
 
     def step(params, opt_state, batch: Dict[str, torch.Tensor]):
         if ctx is None:
-            grads, metrics = accumulate(params, batch, _rows)
+            grads, metrics = accumulate(params, batch)
             params, opt_state, om = adamw_update(params, grads, opt_state,
                                                  opt, lr_schedule=sched)
             metrics.update(om)
             return params, opt_state, metrics
-
-        def rows_of(b, lo, n):
-            n_loc, first = _split(n, ctx)
-            return _rows(b, lo + first, n_loc)
-
-        with use_mesh_context(ctx):
-            full = _compute_view(params, p_specs, ctx)
-            grads, metrics = accumulate(full, batch, rows_of)
-            del full
-            grads = _reduce_grads(grads, p_specs, ctx, lazy)
+        check(batch)
+        with use_mesh_context(step_ctx):
+            grads, metrics = accumulate(params, batch)
+            grads = _reduce_grads(grads, p_specs, ctx)
             metrics = _global_metrics(metrics, ctx)
             params, opt_state, om = adamw_update(
                 params, grads, opt_state, opt, lr_schedule=sched,
@@ -297,10 +324,11 @@ def make_train_step(cfg: ArchConfig, mesh=None,
 
     step.micro_batches = micro_batches     # after the auto rule and halving
     step.opt = opt                         # bf16 moments for zero3 configs
+    step.block = lambda batch: batch
     if ctx is not None:
         step.context = ctx
-        step.shardings = (p_specs, p_specs,
-                          S.input_shardings(mesh, cfg, shape, in_specs))
+        step.shardings = (p_specs, p_specs, in_sh)
+        step.block = block
     return step, (p_shape, o_shape, in_specs)
 
 
@@ -313,61 +341,68 @@ def make_serve_step(cfg: ArchConfig, mesh, shape: ShapeSpec):
 
     On a mesh (``step.context``, ``step.shardings``: the parameters' and
     inputs' specs, and for decode the caches') ``params`` are the rank's
-    shards, ``batch`` the global batch, and the caches the rank's batch
-    rows (``models.shard_caches`` of the global caches under
-    ``step.context``); each rank runs its rows and the logits come back
-    whole on every rank. Prefill runs the experts parallel over
-    ``"model"``; decode gathers them and runs them dense, as the
-    reference's decode does. A batch that does not divide over the data
-    axes (``long_500k``'s one row) is replicated, as the reference lays it
-    out: each rank gathers the whole tree and runs the whole batch as one
-    card does, with the caches whole."""
+    shards and ``batch`` the rank's block (``step.block`` of the global
+    batch); the logits come back whole on every rank. Prefill takes the
+    train step's layout: its rows over the data axes, its segment of the
+    sequence over ``"model"``, the parameters gathered a layer at a time,
+    the experts parallel over ``"model"``; the last position's logits
+    are the last ``"model"`` rank's. Decode takes the rank's batch rows
+    and the caches' (``models.shard_caches`` of the global caches under
+    ``step.context``), gathers the whole tree and runs the experts dense,
+    as the reference's decode does. A batch that does not divide over the
+    data axes (``long_500k``'s one row) is replicated, as the reference
+    lays it out: each rank runs the whole batch, with the caches whole."""
     check_ported(cfg)
     ctx = None if mesh is None else mesh_context(mesh)
     p_shape, _ = abstract_state(cfg, None)
     in_specs = S.input_specs(cfg, shape)
     p_specs = None if ctx is None else S.param_shardings(mesh, cfg, p_shape)
+    seq = shape.mode == "prefill"
+    if ctx is not None:
+        in_sh = S.input_shardings(mesh, cfg, shape, in_specs)
+        step_ctx = _laid_out(ctx, in_sh, seq)
+        block, check = _block_fn(in_specs, in_sh, ctx, 1, seq)
 
-    def on_rows(fn, params, batch, *rest, experts_local: bool):
+    def on_block(fn, params, batch, *rest):
         if ctx is None:
-            return fn(params, batch, *rest)
-        n = batch[next(iter(batch))].shape[0]
-        whole = n % ctx.dp.size != 0
-        with use_mesh_context(ctx):
-            full = (_compute_view(params, p_specs, ctx)
-                    if experts_local and not whole
-                    else S.gather_tree(params, p_specs, ctx))
-        if whole:
-            return fn(full, batch, *rest)
-        with use_mesh_context(ctx):
-            n_loc, first = _split(n, ctx)
-            out = fn(full, _rows(batch, first, n_loc), *rest)
+            return fn(params, batch, *rest, None)
+        check(batch)
+        with use_mesh_context(step_ctx):
+            if seq:
+                out = fn(params, batch, *rest, p_specs)
+            else:
+                out = fn(S.gather_tree(params, p_specs, ctx), batch, *rest,
+                         None)
+        if not step_ctx.rows_split:
+            return out
         if isinstance(out, tuple):
             return (ctx.dp.gather_rows(out[0]),) + out[1:]
         return ctx.dp.gather_rows(out)
 
-    if shape.mode == "prefill":
+    def mark(fn, shardings):
+        fn.block = lambda batch: batch
+        if ctx is not None:
+            fn.context, fn.shardings, fn.block = ctx, shardings, block
+        return fn
+
+    if seq:
         @torch.no_grad()
         def prefill_step(params, batch):
-            return on_rows(lambda p, b: prefill(p, cfg, b), params, batch,
-                           experts_local=True)
+            return on_block(lambda p, b, sp: prefill(p, cfg, b, sp), params,
+                            batch)
         if ctx is not None:
             _check_experts(cfg, ctx, p_specs)
-            prefill_step.context = ctx
-            prefill_step.shardings = (p_specs, S.input_shardings(
-                mesh, cfg, shape, in_specs))
-        return prefill_step, (p_shape, in_specs)
+        return mark(prefill_step, None if ctx is None else (
+            p_specs, in_sh)), (p_shape, in_specs)
 
     win = effective_window(cfg, shape.seq_len)
 
     @torch.no_grad()
     def decode(params, batch, caches):
-        return on_rows(lambda p, b, c: decode_step(p, cfg, b, c, window=win),
-                       params, batch, caches, experts_local=False)
+        return on_block(lambda p, b, c, _: decode_step(p, cfg, b, c,
+                                                       window=win),
+                        params, batch, caches)
 
-    if ctx is not None:
-        decode.context = ctx
-        decode.shardings = (p_specs, S.input_shardings(mesh, cfg, shape,
-                                                       in_specs),
-                            S.cache_shardings(mesh, cfg, shape))
-    return decode, (p_shape, in_specs, S.cache_specs(cfg, shape))
+    return mark(decode, None if ctx is None else (
+        p_specs, in_sh, S.cache_shardings(mesh, cfg, shape))), \
+        (p_shape, in_specs, S.cache_specs(cfg, shape))

@@ -30,7 +30,9 @@ that the driver starts and ends itself:
 The backend is NCCL on the card and gloo on the host; each rank takes
 card ``LOCAL_RANK`` modulo the cards it sees. Every rank draws the same
 weights and cuts its shards from them; the data pipeline gives every
-rank the global batch; checkpoints hold one ``shard_<rank>.npz`` a rank
+rank the global batch, of which the step takes the rank's block
+(``step.block``: its rows, its segment of the sequence); checkpoints
+hold one ``shard_<rank>.npz`` a rank
 and resume onto the same mesh; rank 0 prints. Counterpart of
 ``repro.launch.train``.
 """
@@ -160,8 +162,8 @@ def _run(args, mesh, device) -> Dict:
 
     def one_step(state, step):
         params, opt_state = state
-        params, opt_state, metrics = step_fn(params, opt_state,
-                                             data.batch_at(step))
+        params, opt_state, metrics = step_fn(
+            params, opt_state, step_fn.block(data.batch_at(step)))
         if step % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             losses.append(dict(m, step=step))

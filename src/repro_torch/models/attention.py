@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import MeshAxis, all_gather
 from .layers import apply_rotary, init_device, init_linear, linear, \
     rmsnorm, rotary_cos_sin
 
@@ -143,21 +144,50 @@ def _causal_window_mask(pos_q: torch.Tensor, window: Optional[int]):
     return mask_fn
 
 
+def _segment_positions(S: int, device, positions: Optional[torch.Tensor],
+                       seq_axis: Optional[MeshAxis]) -> torch.Tensor:
+    """The global positions of a rank's S queries: 0..S-1, offset by the
+    segment's first position on a ``seq_axis`` (given ``positions`` as
+    they are)."""
+    if positions is not None:
+        return positions
+    pos = torch.arange(S, device=device)
+    return pos if seq_axis is None else pos + seq_axis.rank * S
+
+
+def _kv_whole(kv: Dict[str, torch.Tensor], s: int,
+              seq_axis: Optional[MeshAxis]):
+    """Keys and values (the sequence on dim 1) of the whole sequence: a
+    rank's segments gathered over ``seq_axis`` in rank order (the
+    backward reduce-scatters their cotangents). Returns ``(kv, S_kv)``."""
+    if seq_axis is None:
+        return kv, s
+    return ({k: all_gather(v, seq_axis, dim=1) for k, v in kv.items()},
+            s * seq_axis.size)
+
+
 def gqa_train(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
               rope_theta: float = 10000.0, window: Optional[int] = None,
               kv_chunk: int = 1024,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal attention, (B, S, d) -> (B, S, d)."""
+              positions: Optional[torch.Tensor] = None,
+              seq_axis: Optional[MeshAxis] = None) -> torch.Tensor:
+    """Full-sequence causal attention, (B, S, d) -> (B, S, d). With a
+    ``seq_axis`` x is this rank's contiguous segment of the sequence:
+    the queries stay the rank's, at their global positions, and K and V
+    are gathered over the axis after RoPE, so the causal and window mask
+    compares global positions (a window reaches into earlier ranks'
+    segments)."""
     B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device) if positions is None else positions
+    pos = _segment_positions(S, x.device, positions, seq_axis)
     q = linear(p["wq"], x).reshape(B, S, n_heads, head_dim)
     k = linear(p["wk"], x).reshape(B, S, n_kv, head_dim)
     v = linear(p["wv"], x).reshape(B, S, n_kv, head_dim)
     cos, sin = rotary_cos_sin(pos, head_dim, rope_theta)
     q = apply_rotary(q, cos[None], sin[None]) * (head_dim ** -0.5)
     k = apply_rotary(k, cos[None], sin[None])
+    kv, s_kv = _kv_whole({"k": k, "v": v}, S, seq_axis)
     out = chunked_attention(
-        q, {"k": k, "v": v}, S,
+        q, kv, s_kv,
         score_fn=_gqa_score_fn(n_kv), value_fn=_gqa_value_fn(n_kv),
         mask_fn=_causal_window_mask(pos, window), kv_chunk=kv_chunk)
     return linear(p["wo"], out.reshape(B, S, n_heads * head_dim).to(x.dtype))
@@ -316,14 +346,17 @@ def _mla_latents(p, x: torch.Tensor, *, kv_lora: int, qk_rope: int,
 def mla_train(p, x: torch.Tensor, *, n_heads: int, kv_lora: int = 512,
               qk_nope: int = 128, qk_rope: int = 64, v_head: int = 128,
               rope_theta: float = 10000.0, kv_chunk: int = 1024,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              positions: Optional[torch.Tensor] = None,
+              seq_axis: Optional[MeshAxis] = None) -> torch.Tensor:
     """Full-sequence causal MLA, (B, S, d) -> (B, S, d), K and V
-    decompressed one KV chunk at a time."""
+    decompressed one KV chunk at a time. With a ``seq_axis`` x is this
+    rank's segment, as in :func:`gqa_train`: the compressed latents and
+    rope keys are gathered over the axis before the up-projection."""
     # the streaming accumulator is shaped from q, and q here is q_nope, so
     # the value head must be as wide (true of DeepSeek-V2 / V3: 128)
     assert qk_nope == v_head, "mla_train requires qk_nope == v_head"
     B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device) if positions is None else positions
+    pos = _segment_positions(S, x.device, positions, seq_axis)
     scale = (qk_nope + qk_rope) ** -0.5
     q_nope, q_rope = _mla_qkr(p, x, n_heads=n_heads, qk_nope=qk_nope,
                               qk_rope=qk_rope, pos=pos,
@@ -344,7 +377,8 @@ def mla_train(p, x: torch.Tensor, *, n_heads: int, kv_lora: int = 512,
             B, -1, n_heads, v_head)
         return torch.einsum("bhqs,bshd->bqhd", pr, v.float())
 
-    out = chunked_attention(q_nope, {"c": c_kv, "r": k_rope}, S,
+    kv, s_kv = _kv_whole({"c": c_kv, "r": k_rope}, S, seq_axis)
+    out = chunked_attention(q_nope, kv, s_kv,
                             score_fn=score_fn, value_fn=value_fn,
                             mask_fn=_causal_window_mask(pos, None),
                             kv_chunk=kv_chunk)
@@ -464,17 +498,21 @@ def init_cross_attention(generator, d_model: int, n_heads: int,
 
 
 def cross_attention(p, x: torch.Tensor, enc: torch.Tensor, *, n_heads: int,
-                    head_dim: int, kv_chunk: int = 1024) -> torch.Tensor:
+                    head_dim: int, kv_chunk: int = 1024,
+                    seq_axis: Optional[MeshAxis] = None) -> torch.Tensor:
     """Decoder states x (B, S, d) attend over encoder states enc (B, T, d):
-    q from x, k and v from enc, no rotation, no mask. (B, S, d)."""
+    q from x, k and v from enc, no rotation, no mask. (B, S, d). With a
+    ``seq_axis`` enc is this rank's segment of the encoder's sequence and
+    its K and V are gathered over the axis."""
     B, S, _ = x.shape
     T = enc.shape[1]
     q = linear(p["wq"], x).reshape(B, S, n_heads, head_dim) * (
         head_dim ** -0.5)
     k = linear(p["wk"], enc).reshape(B, T, n_heads, head_dim)
     v = linear(p["wv"], enc).reshape(B, T, n_heads, head_dim)
+    kv, T = _kv_whole({"k": k, "v": v}, T, seq_axis)
     out = chunked_attention(
-        q, {"k": k, "v": v}, T,
+        q, kv, T,
         score_fn=_gqa_score_fn(n_heads), value_fn=_gqa_value_fn(n_heads),
         mask_fn=lambda pos_k: torch.ones((1, 1, S, pos_k.shape[0]),
                                          dtype=torch.bool,

@@ -34,17 +34,24 @@ token after the next (the multi-token-prediction loss).
 
 On a mesh (a current ``distributed.sharding.MeshContext`` with a
 ``"model"`` axis, one rank included, as the reference's train step always
-enters one) the MoE layers of training and prefill run expert parallel
+enters one) training and prefill take the reference's activation layout:
+each rank holds its block of the batch, its rows and, where the context
+splits the sequence over ``"model"`` (``distributed.seq_axis``), the
+contiguous S / tp segment of each row, from the embedding to the final
+norm. Norms, MLPs and projections are per token; the attention gathers K
+and V over ``"model"`` (MLA its latents) and masks by global positions;
+learned positions and RoPE are offset by the segment's first position;
+the MoE layers run expert parallel on the rank's tokens
 (``models.moe.moe_ep_local``, with its capacity drops) and the SSD
-context parallel (``models.ssm.ssd_context_parallel``). The activations
-are replicated over the ``"model"`` ranks: each rank hands the experts
-the reference's tokens of that rank, the contiguous S / tp segment of
-each of its batch rows in (b, s) order, and the outputs are gathered
-back. Decode runs the dense experts, as the reference's does, on the
-whole batch's tokens (gathered over the data axes, so the Sinkhorn router
-balances the batch a card would); without a context the experts run
-dense. :func:`cache_logical_axes` names the caches' logical axes and
-:func:`shard_caches` cuts a rank's batch rows.
+context parallel (``models.ssm``, the conv's halo from the previous
+rank); the MTP loss pairs a rank's last position with the next rank's
+first label. With ``specs`` (the parameters' specs) the parameters are
+the rank's shards, each gathered whole where it is used, a stacked
+group's a layer at a time. Decode runs the dense experts, as the
+reference's does, on the whole batch's tokens (gathered over the data
+axes, so the Sinkhorn router balances the batch a card would); without a
+context the experts run dense. :func:`cache_logical_axes` names the
+caches' logical axes and :func:`shard_caches` cuts a rank's batch rows.
 
 Learned positions (``cfg.pos == "learned"``) are one (65536, d) table in
 ``params["pos"]``, shared by the encoder and the decoder; decode reads the
@@ -64,9 +71,10 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.objective import ExecutionPolicy
 from ..core.sinkhorn import is_dry
-from ..distributed.sharding import MeshAxis, MeshContext, all_gather, \
-    current_mesh_context, pmean, resolve_logical, use_mesh_context
-from ..tree import tree_leaves, tree_unflatten
+from ..distributed.sharding import MeshAxis, MeshContext, PartitionSpec, \
+    all_gather, current_mesh_context, gather_spec, pmean, resolve_logical, \
+    rows_axis, seq_axis, use_mesh_context
+from ..tree import named_leaves, tree_leaves, tree_unflatten
 from .attention import (
     GQACache,
     MLACache,
@@ -173,6 +181,48 @@ def _unstack(stack: Any, count: int) -> List[Any]:
             for i in range(count)]
 
 
+_EXPERTS = ("moe/up", "moe/gate", "moe/down")
+
+
+def _whole(tree: Any, specs: Any) -> Any:
+    """The leaves of ``tree`` gathered whole from this rank's shards by
+    ``specs`` (a tree of :class:`PartitionSpec` of the same structure)
+    under the current mesh context, differentiably (the backward
+    reduce-scatters each leaf's gradient to the shards); the experts stay
+    the rank's own. ``specs=None``: ``tree`` as it is."""
+    if specs is None:
+        return tree
+    ctx = current_mesh_context()
+    return tree_unflatten(tree, [
+        t if name.endswith(_EXPERTS) else gather_spec(t, spec, ctx)
+        for (name, t), spec in zip(named_leaves(tree), tree_leaves(specs))])
+
+
+def _part(params, specs, key: str) -> Any:
+    """``params[key]`` gathered whole where it is used."""
+    return _whole(params[key], None if specs is None else specs[key])
+
+
+def _layers(stack: Any, specs: Any, count: int) -> List[Tuple[Any, Any]]:
+    """The per-layer (shards, specs) of a stacked group. A leaf whose
+    layer axis is sharded (the MoE router's over ``"model"``, a norm
+    stack's over the data axes) is gathered whole along it first, as one
+    small stack; every other leaf is gathered a layer at a time, where
+    the layer runs."""
+    if specs is None:
+        return [(p, None) for p in _unstack(stack, count)]
+    ctx = current_mesh_context()
+    leaves, layer_specs = [], []
+    for t, spec in zip(tree_leaves(stack), tree_leaves(specs)):
+        if spec and spec[0] is not None:
+            t = gather_spec(t, spec[:1], ctx)
+        leaves.append(t)
+        layer_specs.append(PartitionSpec(*spec[1:]))
+    per_layer = tree_unflatten(specs, layer_specs)
+    return [(p, per_layer) for p in _unstack(
+        tree_unflatten(stack, leaves), count)]
+
+
 # ---------------------------------------------------------------------------
 # per-block init / train / decode
 # ---------------------------------------------------------------------------
@@ -259,8 +309,7 @@ def _moe_apply(p, x2: torch.Tensor, cfg: ArchConfig, *,
         x_all = x2.reshape(-1, d)
         # a decode step's router sees the whole batch, as on one card (the
         # Sinkhorn router balances the tokens it is given)
-        split = decode and ctx is not None and bool(ctx.dp_axes) \
-            and ctx.dp.size > 1
+        split = decode and rows_axis(ctx) is not None
         if split:
             x_all = all_gather(x_all, ctx.dp, dim=0)
         out, aux = moe_dense(p["moe"], x_all, top_k=cfg.top_k,
@@ -270,19 +319,19 @@ def _moe_apply(p, x2: torch.Tensor, cfg: ArchConfig, *,
         return out.reshape(B, S, d), aux
     tp = ctx.axis(ctx.tp_axis)
     fsdp = ctx.dp if (cfg.zero3 and ctx.dp_axes) else None
-    if S % tp.size:
-        raise ValueError(f"a sequence of {S} over {tp.size} 'model' ranks")
-    seg = S // tp.size
-    # the reference's tokens of this rank under P(dp, tp, None): the
-    # contiguous segment of each batch row, in (b, s) order
-    x_loc = x2[:, tp.rank * seg:(tp.rank + 1) * seg].reshape(-1, d)
+    if tp.size > 1 and seq_axis(ctx) is None:
+        raise ValueError(f"a sequence of {S} not split over {tp.size} "
+                         "'model' ranks")
+    # x2 is the rank's block: the reference's tokens of this rank under
+    # P(dp, tp, None), the segment of each of its rows, in (b, s) order
     out, aux = moe_ep_local(
-        _local_experts(p["moe"], cfg, tp, fsdp), x_loc, top_k=cfg.top_k,
-        n_experts=cfg.n_experts, axis=tp, router=cfg.router,
-        capacity_factor=cfg.capacity_factor, fsdp_axis=fsdp, policy=policy)
+        _local_experts(p["moe"], cfg, tp, fsdp), x2.reshape(-1, d),
+        top_k=cfg.top_k, n_experts=cfg.n_experts, axis=tp,
+        router=cfg.router, capacity_factor=cfg.capacity_factor,
+        fsdp_axis=fsdp, policy=policy)
     if ctx.dp_axes:
         aux = pmean(aux, ctx.dp)
-    return all_gather(out.reshape(B, seg, d), tp, dim=1), aux
+    return out.reshape(B, S, d), aux
 
 
 def _ffn(p, x: torch.Tensor, cfg: ArchConfig, *, decode: bool = False
@@ -304,8 +353,11 @@ def _block_train(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
                  enc: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(x_out, aux)``, aux 0-d float32 (0 outside the MoE);
-    ``enc`` is the encoder's output, which a ``dec_attn`` block attends."""
+    ``enc`` is the encoder's output, which a ``dec_attn`` block attends.
+    Under a context that splits the sequence, x and enc are this rank's
+    segments: the attention gathers K and V over ``"model"``."""
     h = _norm(p["norm1"], x, cfg)
+    sq = seq_axis()
     if kind == "mamba":
         return (x + mamba2_train(p["mixer"], h, chunk=cfg.ssm_chunk,
                                  **_ssm_kw(cfg)),
@@ -314,18 +366,20 @@ def _block_train(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
         x = x + mla_train(p["attn"], h, n_heads=cfg.n_heads,
                           kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
                           qk_rope=cfg.qk_rope, v_head=cfg.v_head,
-                          rope_theta=cfg.rope_theta)
+                          rope_theta=cfg.rope_theta, seq_axis=sq)
     elif kind == "enc_attn":
         # bidirectional: the cross-attention's math on the states themselves
         x = x + cross_attention(p["attn"], h, h, n_heads=cfg.n_heads,
-                                head_dim=cfg.head_dim)
+                                head_dim=cfg.head_dim, seq_axis=sq)
     else:
         x = x + gqa_train(p["attn"], h, n_heads=cfg.n_heads,
                           n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                          rope_theta=cfg.rope_theta, window=cfg.window)
+                          rope_theta=cfg.rope_theta, window=cfg.window,
+                          seq_axis=sq)
     if kind == "dec_attn":
         x = x + cross_attention(p["xattn"], _norm(p["norm_x"], x, cfg), enc,
-                                n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+                                n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                                seq_axis=sq)
     return _ffn(p, x, cfg)
 
 
@@ -423,38 +477,49 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _add_positions(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _add_positions(params, cfg: ArchConfig, x: torch.Tensor,
+                   specs=None) -> torch.Tensor:
     """x (B, S, d) plus the learned positions 0..S-1 (where the config has
-    them)."""
+    them), offset by the segment's first position on a sequence split
+    over ``"model"``."""
     if cfg.pos != "learned":
         return x
-    return x + params["pos"][:x.shape[1]][None].to(cfg.cdtype)
+    S = x.shape[1]
+    sq = seq_axis()
+    lo = 0 if sq is None else sq.rank * S
+    table = _part(params, specs, "pos")
+    return x + table[lo:lo + S][None].to(cfg.cdtype)
 
 
-def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+def _embed_inputs(params, cfg: ArchConfig, batch: Dict,
+                  specs=None) -> torch.Tensor:
     if cfg.input_kind == "embeds":
         x = batch["embeds"].to(cfg.cdtype)
     else:
-        x = params["embed"]["table"].to(cfg.cdtype)[batch["tokens"]]
-    return _add_positions(params, cfg, x)
+        table = _part(params, specs, "embed")["table"]
+        x = table.to(cfg.cdtype)[batch["tokens"]]
+    return _add_positions(params, cfg, x, specs)
 
 
 def _run_layer(kind: str, p_l, x: torch.Tensor, cfg: ArchConfig,
-               enc: Optional[torch.Tensor], remat: bool):
+               enc: Optional[torch.Tensor], remat: bool, specs=None):
     """One layer of a stacked group, under ``torch.utils.checkpoint`` with
     ``remat``: the layer's leaves and ``enc`` are arguments of the
     checkpoint, so their gradients flow through the recomputation, which
     runs under the mesh context of the forward (expert and context
-    parallel where it was), wherever the backward is called."""
+    parallel where it was), wherever the backward is called. With
+    ``specs`` the leaves are the rank's shards, gathered whole inside the
+    checkpoint's body: the recomputation gathers them again, so one layer
+    is whole at a time."""
     if not remat:
-        return _block_train(kind, p_l, x, cfg, enc)
+        return _block_train(kind, _whole(p_l, specs), x, cfg, enc)
     leaves = tree_leaves(p_l)
     ctx = current_mesh_context()
 
     def body(x_, enc_, *ls):
         with use_mesh_context(ctx):
-            return _block_train(kind, tree_unflatten(p_l, list(ls)), x_,
-                                cfg, enc_)
+            return _block_train(kind, _whole(tree_unflatten(p_l, list(ls)),
+                                             specs), x_, cfg, enc_)
 
     # a dry run's recomputation makes new symbols for the sizes that depend
     # on the data (EP's kept rows), which the check cannot compare
@@ -463,43 +528,55 @@ def _run_layer(kind: str, p_l, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _run_decoder_groups(params, cfg: ArchConfig, x: torch.Tensor,
-                        enc: Optional[torch.Tensor] = None
+                        enc: Optional[torch.Tensor] = None, specs=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers in order; returns ``(x, aux summed over the layers)``."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for (kind, count), stack in zip(group_plan(cfg.layer_plan()),
-                                    params["groups"]):
+    shared = None
+    groups = [None] * len(params["groups"]) if specs is None \
+        else specs["groups"]
+    for (kind, count), stack, g_specs in zip(group_plan(cfg.layer_plan()),
+                                             params["groups"], groups):
         if kind == "shared_attn":
-            x, aux_l = _block_train("attn", params["shared_attn"], x, cfg)
+            if shared is None:          # gathered once for all its uses
+                shared = _part(params, specs, "shared_attn")
+            x, aux_l = _block_train("attn", shared, x, cfg)
             aux = aux + aux_l
             continue
-        for p_l in _unstack(stack, count):
-            x, aux_l = _run_layer(kind, p_l, x, cfg, enc, remat)
+        for p_l, s_l in _layers(stack, g_specs, count):
+            x, aux_l = _run_layer(kind, p_l, x, cfg, enc, remat, s_l)
             aux = aux + aux_l
     return x, aux
 
 
-def _encode(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+def _encode(params, cfg: ArchConfig, batch: Dict, specs=None) -> torch.Tensor:
     """The encoder: ``enc_embeds`` (B, T, d) plus positions 0..T-1 through
     the ``enc_attn`` layers, then ``enc_norm``. (B, T, d)."""
     remat = cfg.remat and torch.is_grad_enabled()
-    x = _add_positions(params, cfg, batch["enc_embeds"].to(cfg.cdtype))
-    for p_l in _unstack(params["encoder"], cfg.n_enc_layers):
-        x, _ = _run_layer("enc_attn", p_l, x, cfg, None, remat)
-    return _norm(params["enc_norm"], x, cfg)
+    x = _add_positions(params, cfg, batch["enc_embeds"].to(cfg.cdtype),
+                       specs)
+    for p_l, s_l in _layers(params["encoder"],
+                            None if specs is None else specs["encoder"],
+                            cfg.n_enc_layers):
+        x, _ = _run_layer("enc_attn", p_l, x, cfg, None, remat, s_l)
+    return _norm(_part(params, specs, "enc_norm"), x, cfg)
 
 
-def forward(params, cfg: ArchConfig,
-            batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, cfg: ArchConfig, batch: Dict,
+            specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, d) after the final norm, the MoE layers'
     aux losses summed). An ``encdec`` config runs its encoder on
-    ``batch["enc_embeds"]`` first."""
+    ``batch["enc_embeds"]`` first. With ``specs`` (the parameters'
+    :class:`PartitionSpec` tree, under a mesh context) ``params`` are
+    this rank's shards, each gathered whole where it is used: a stacked
+    group's a layer at a time, inside the layer's checkpoint."""
     check_ported(cfg)
-    enc = _encode(params, cfg, batch) if cfg.family == "encdec" else None
-    x = _embed_inputs(params, cfg, batch)
-    x, aux = _run_decoder_groups(params, cfg, x, enc)
-    return _norm(params["final_norm"], x, cfg), aux
+    enc = _encode(params, cfg, batch, specs) if cfg.family == "encdec" \
+        else None
+    x = _embed_inputs(params, cfg, batch, specs)
+    x, aux = _run_decoder_groups(params, cfg, x, enc, specs)
+    return _norm(_part(params, specs, "final_norm"), x, cfg), aux
 
 
 def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -572,8 +649,36 @@ def _lm_ce(params, cfg: ArchConfig, h: torch.Tensor,
     return _xent(_logits(params, cfg, h), labels)
 
 
+def _head(params, cfg: ArchConfig, specs=None) -> Dict:
+    """The parameters the logits read (the embedding or the LM head),
+    gathered whole."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    return {key: _part(params, specs, key)}
+
+
+def _mtp_ce(head, cfg: ArchConfig, hm: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The multi-token-prediction loss: position t against label t + 1,
+    the mean over the B (S - 1) pairs. On a sequence split over
+    ``"model"`` a rank's last position pairs with the next rank's first
+    label and the last rank drops its last position, so the ranks hold
+    unequal counts: each rank's mean is weighted by its pairs' share
+    times the ``"model"`` ranks, and the ranks' mean is the reference's."""
+    tp = seq_axis()
+    if tp is None:
+        return _lm_ce(head, cfg, hm[:, :-1], labels[:, 1:])
+    S = hm.shape[1]
+    # every rank's first label (not differentiable), and the next rank's
+    firsts = tp.gather_rows(labels[:, :1].T.contiguous())      # (tp, B)
+    nxt = firsts[(tp.rank + 1) % tp.size][:, None]
+    n = S - 1 if tp.rank == tp.size - 1 else S
+    lab = torch.cat([labels[:, 1:], nxt], dim=1)[:, :n]
+    mean = _lm_ce(head, cfg, hm[:, :n], lab)
+    return mean * (n * tp.size / (S * tp.size - 1))
+
+
 def train_loss(params, cfg: ArchConfig, batch: Dict,
-               policy: Optional[ExecutionPolicy] = None
+               policy: Optional[ExecutionPolicy] = None, *, specs=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training objective: cross-entropy, plus 0.01 times the MoE
     layers' aux loss, 0.3 times the multi-token-prediction loss where
@@ -582,24 +687,30 @@ def train_loss(params, cfg: ArchConfig, batch: Dict,
     loss. ``policy`` is the run-wide OT execution policy (``None``:
     ``ExecutionPolicy.from_config(cfg)``; its mesh, where it has one,
     shards the OT loss's solves). Under a mesh context each rank holds
-    its batch rows, and the losses are this rank's (``ce`` over its rows;
-    ``aux`` and ``ot`` global). Returns ``(loss, {"ce", "aux"[, "mtp"][,
-    "ot"], "loss"})``, 0-d tensors."""
+    its block of the batch (its rows, its segment of the sequence where
+    the context splits it), and the losses are this rank's share (``ce``
+    over its tokens, ``mtp`` weighted by its pairs; ``aux`` and ``ot``
+    global): the mean of the ranks' losses is the reference's. With
+    ``specs`` ``params`` are the rank's shards (:func:`forward`). Returns
+    ``(loss, {"ce", "aux"[, "mtp"][, "ot"], "loss"})``, 0-d tensors."""
     if policy is None:
         policy = ExecutionPolicy.from_config(cfg)
-    h, aux = forward(params, cfg, batch)
-    loss_ce = _lm_ce(params, cfg, h, batch["labels"])
+    h, aux = forward(params, cfg, batch, specs)
+    head = _head(params, cfg, specs)
+    loss_ce = _lm_ce(head, cfg, h, batch["labels"])
     metrics = {"ce": loss_ce, "aux": aux}
     loss = loss_ce + 0.01 * aux
     if cfg.mtp:
-        hm, _ = _block_train(_mtp_kind(cfg), params["mtp_block"], h, cfg)
-        hm = _norm(params["mtp_norm"], hm, cfg)
-        loss_mtp = _lm_ce(params, cfg, hm[:, :-1], batch["labels"][:, 1:])
+        hm, _ = _block_train(_mtp_kind(cfg),
+                             _part(params, specs, "mtp_block"), h, cfg)
+        hm = _norm(_part(params, specs, "mtp_norm"), hm, cfg)
+        loss_mtp = _mtp_ce(head, cfg, hm, batch["labels"])
         metrics["mtp"] = loss_mtp
         loss = loss + 0.3 * loss_mtp
     if cfg.ot_loss_weight > 0:
         loss_ot = ot_prototype_loss(
-            params["ot"], h, eps=cfg.ot_eps, n_tokens=cfg.ot_tokens,
+            _part(params, specs, "ot"), h, eps=cfg.ot_eps,
+            n_tokens=cfg.ot_tokens,
             n_iter=cfg.ot_iters, policy=policy)
         metrics["ot"] = loss_ot
         loss = loss + cfg.ot_loss_weight * loss_ot
@@ -792,9 +903,16 @@ def decode_step(params, cfg: ArchConfig, token_batch: Dict,
     return _logits(params, cfg, h), caches
 
 
-def prefill(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+def prefill(params, cfg: ArchConfig, batch: Dict,
+            specs=None) -> torch.Tensor:
     """The serving prefill: the full forward, then the logits of the last
-    position, (B, 1, V)."""
-    h, _ = forward(params, cfg, batch)
-    return _logits(params, cfg, h[:, -1:, :])
+    position, (B, 1, V). On a sequence split over ``"model"`` the last
+    position is the last rank's, and its logits come back to every rank.
+    ``specs``: as :func:`forward`'s."""
+    h, _ = forward(params, cfg, batch, specs)
+    logits = _logits(_head(params, cfg, specs), cfg, h[:, -1:, :])
+    tp = seq_axis()
+    if tp is None:
+        return logits
+    return all_gather(logits, tp, dim=1)[:, -1:]
 

@@ -16,13 +16,15 @@ features with learnable anchors), exactly as the paper's GAN objective
 One constant feature column (the kappa floor) is appended, so the rank is
 ``n_features + 1``.
 
-Under a mesh context whose batch axes hold more than one rank, each rank
-holds its rows of the batch: the sample's indices are the GLOBAL ones
-over B * S, each rank contributes its rows of the sample and they are
-all-gathered in rank order (the gather's backward hands each rank its
-rows' gradient, summed over the ranks that hold the loss). With the
-policy's mesh the solves run sharded over its ``"data"`` axis
-(``core.sharded``). Counterpart of ``repro.models.ot_loss``.
+Under a mesh context that splits the batch rows over the data axes or
+the sequence over ``"model"``, each rank holds its block of the batch
+(its rows, its segment): the sample's indices are the GLOBAL ones over
+B * S, each rank contributes the sampled tokens of its block, and they
+are all-gathered and put back in the global order (the gather's backward
+hands each rank its tokens' gradient, summed over the ranks that hold
+the loss). With the policy's mesh the solves run sharded over its
+``"data"`` axis (``core.sharded``). Counterpart of
+``repro.models.ot_loss``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 
 from ..core.features import gaussian_log_features, gaussian_q
 from ..core.objective import ExecutionPolicy, OTObjective
-from ..distributed.sharding import all_gather, current_mesh_context
+from ..distributed.sharding import all_gather, current_mesh_context, \
+    rows_axis, seq_axis
 from .layers import normal, trunc_normal
 
 __all__ = ["init_ot_loss", "ot_prototype_loss", "prototype_log_features",
@@ -78,23 +81,38 @@ def subsample_tokens(hidden: torch.Tensor, n_tokens: int) -> torch.Tensor:
 
 def _sample(hidden: torch.Tensor, n_tokens: int) -> torch.Tensor:
     """The subsampled token states: this rank's alone, or under a mesh
-    context that splits the batch, every rank's rows of the global sample
-    in order (padded to one count for the gather, then unpadded)."""
+    context that splits the batch rows over the data axes and / or the
+    sequence over ``"model"``, the global sample in the reference's
+    order: each rank takes the sample's tokens in its block (its rows,
+    its segment), the blocks are gathered in rank order (padded to one
+    count, then unpadded) and put back in global order."""
     ctx = current_mesh_context()
-    if ctx is None or not ctx.dp_axes or ctx.dp.size == 1:
+    dp, tp = rows_axis(ctx), seq_axis(ctx)
+    if dp is None and tp is None:
         return subsample_tokens(hidden, n_tokens)
-    dp = ctx.dp
     B, S, d = hidden.shape
-    idx = subsample_indices(B * dp.size, S, n_tokens)
-    rows = B * S
-    counts = np.bincount(idx // rows, minlength=dp.size)
-    mine = idx[(idx >= dp.rank * rows) & (idx < (dp.rank + 1) * rows)]
-    local = hidden.reshape(rows, d)[torch.as_tensor(
-        mine - dp.rank * rows, device=hidden.device)]
+    nd = 1 if dp is None else dp.size
+    nt = 1 if tp is None else tp.size
+    idx = subsample_indices(B * nd, S * nt, n_tokens)
+    b, s = idx // (S * nt), idx % (S * nt)
+    # the rank holding each sampled token, in the gather's (dp, tp) order
+    owner = (b // B) * nt + s // S
+    me = (0 if dp is None else dp.rank) * nt + (0 if tp is None else tp.rank)
+    counts = np.bincount(owner, minlength=nd * nt)
+    mine = owner == me
+    local = hidden.reshape(B * S, d)[torch.as_tensor(
+        (b[mine] % B) * S + s[mine] % S, device=hidden.device)]
     width = int(counts.max())
-    local = torch.nn.functional.pad(local, (0, 0, 0, width - len(mine)))
-    parts = all_gather(local, dp, dim=0).split(width)
-    return torch.cat([part[:int(c)] for part, c in zip(parts, counts)])
+    local = torch.nn.functional.pad(local, (0, 0, 0, width - int(counts[me])))
+    axis = ctx.world if (dp is not None and tp is not None) else (
+        dp if tp is None else tp)
+    parts = all_gather(local, axis, dim=0).split(width)
+    out = torch.cat([part[:int(c)] for part, c in zip(parts, counts)])
+    if tp is None:              # the owners follow the global order
+        return out
+    # the gathered tokens are in owner order: invert it to the global one
+    back = np.argsort(np.argsort(owner, kind="stable"))
+    return out[torch.as_tensor(back, device=hidden.device)]
 
 
 def prototype_log_features(p_ot: Dict[str, torch.Tensor],

@@ -14,10 +14,12 @@ XLA (no Pallas kernel), so plain PyTorch is the port; its three-operand
 einsums are written as pairwise products in a fixed order, so no
 contraction path can build a (B, C, Q, K, H, P) temporary.
 
-Under a mesh context with a ``"model"`` axis, :func:`ssd_context_parallel`
-runs the reference's context parallelism on the rank's segment of the
-sequence (the inputs are whole on every ``"model"`` rank, and the output
-is gathered back). Counterpart of ``repro.models.ssm``.
+Under a mesh context that splits the sequence over ``"model"``
+(``distributed.seq_axis``) a rank holds the contiguous S / tp segment of
+its rows: :func:`mamba2_train`'s causal conv takes a halo, the previous
+rank's last ``conv_kernel - 1`` conv inputs (zeros on rank 0), and
+:func:`ssd_context_parallel` runs the reference's context parallelism on
+the segment and returns it. Counterpart of ``repro.models.ssm``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import all_gather, current_mesh_context
+from ..distributed.sharding import MeshAxis, all_gather, \
+    current_mesh_context, from_previous, seq_axis
 from .layers import init_device, init_linear, linear, rmsnorm, trunc_normal
 
 __all__ = [
@@ -116,27 +119,25 @@ def ssd_context_parallel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          chunk: int = 128) -> torch.Tensor:
     """The SSD as the training path calls it: the plain chunked SSD
     without a mesh context (or one whose ``"model"`` axis is absent or of
-    one rank), else the
-    sequence's context parallelism over the ``"model"`` ranks. Each rank
-    runs the chunked SSD on its contiguous S / p segment from a zero
-    state; the ranks gather each segment's final (B, H, P, N) state and
-    (B, H) decay; the scan of ``(d, h) -> (d1 d2, h1 d2 + h2)`` over the
-    ranks before this one gives its inbound state; a linear correction
-    ``C exp(cumsum dA) h_in`` adds it. The segments' outputs are gathered
-    back, so every rank returns the whole (B, S, H, P)."""
+    one rank), else the sequence's context parallelism over the
+    ``"model"`` ranks, whose context must split the sequence
+    (``distributed.seq_axis``): x, dt, Bm and Cm are this rank's
+    contiguous S / p segment. Each rank runs the chunked SSD on its
+    segment from a zero state; the ranks gather each segment's final (B,
+    H, P, N) state and (B, H) decay; the scan of ``(d, h) -> (d1 d2, h1
+    d2 + h2)`` over the ranks before this one gives its inbound state; a
+    linear correction ``C exp(cumsum dA) h_in`` adds it. Returns the
+    segment's (B, S / p, H, P)."""
     ctx = current_mesh_context()
     if ctx is None or ctx.tp_axis is None or ctx.size(ctx.tp_axis) == 1:
         y, _ = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
         return y
-    tp = ctx.axis(ctx.tp_axis)
-    S = x.shape[1]
-    if S % tp.size:
-        raise ValueError(f"a sequence of {S} over {tp.size} 'model' ranks")
-    seg = S // tp.size
-    lo = tp.rank * seg
-    x_l, dt_l, B_l, C_l = (t[:, lo:lo + seg] for t in (x, dt, Bm, Cm))
-    y0, h_loc = ssd_chunked(x_l, dt_l, A, B_l, C_l, chunk=chunk)
-    dacs = torch.cumsum(dt_l * A[None, None, :], dim=1)        # (B, S_l, H)
+    tp = seq_axis(ctx)
+    if tp is None:
+        raise ValueError(f"the SSD over {ctx.size(ctx.tp_axis)} 'model' "
+                         "ranks takes a sequence split over them")
+    y0, h_loc = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    dacs = torch.cumsum(dt * A[None, None, :], dim=1)        # (B, S_l, H)
     seg_decay = torch.exp(dacs[:, -1, :])                      # (B, H)
     hs = all_gather(h_loc[None], tp, dim=0)                    # (R,B,H,P,N)
     ds = all_gather(seg_decay[None], tp, dim=0)                # (R, B, H)
@@ -148,10 +149,9 @@ def ssd_context_parallel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         prefix.append(prefix[-1] * ds[r][..., None, None] + hs[r])
     init = torch.stack(prefix)[tp.rank]
     # y_corr[b,s,h,p] = sum_n C[b,s,n] exp(dacs)[b,s,h] init[b,h,p,n]
-    y_corr = C_l[:, None] @ init.to(x_l.dtype).transpose(-1, -2)  # (B,H,S,P)
+    y_corr = Cm[:, None] @ init.to(x.dtype).transpose(-1, -2)  # (B,H,S,P)
     y_corr = y_corr * torch.exp(dacs).transpose(1, 2)[..., None]
-    y = y0 + y_corr.transpose(1, 2).to(y0.dtype)
-    return all_gather(y, tp, dim=1)
+    return y0 + y_corr.transpose(1, 2).to(y0.dtype)
 
 
 def init_mamba2(generator, d_model: int, *, d_state: int = 128,
@@ -190,12 +190,14 @@ def _conv_sum(windows, w: torch.Tensor) -> torch.Tensor:
     return sum(win * w[k] for k, win in enumerate(windows))
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv over the sequence, then SiLU: x (B, S, C), w
-    (K, C); the sum of K shifted products, as the reference sums it."""
+    (K, C); the sum of K shifted products, as the reference sums it. The
+    K - 1 inputs before x are ``halo`` (B, K - 1, C), zeros without one."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = F.pad(x, (0, 0, K - 1, 0)) if halo is None else \
+        torch.cat([halo, x], dim=1)
     out = _conv_sum([xp[:, k:k + S] for k in range(K)], w)
     return F.silu(out + b)
 
@@ -208,15 +210,20 @@ def _split_proj(zxbcdt: torch.Tensor, d_inner: int, d_state: int):
 
 
 def ssd_inputs(p, x: torch.Tensor, *, d_state: int = 128,
-               head_dim: int = 64, expand: int = 2):
+               head_dim: int = 64, expand: int = 2,
+               seq_axis: Optional[MeshAxis] = None):
     """The mixer up to the SSD: x (B, S, d_model) -> (z (B, S, d_inner),
-    xh (B, S, H, P), dt (B, S, H), A (H,) float32, Bm, Cm (B, S, N))."""
+    xh (B, S, H, P), dt (B, S, H), A (H,) float32, Bm, Cm (B, S, N)).
+    With a ``seq_axis`` x is this rank's segment and the conv's halo comes
+    from the previous rank."""
     B, S, d_model = x.shape
     d_inner = expand * d_model
     z, xr, Bm, Cm, dt = _split_proj(linear(p["in_proj"], x), d_inner,
                                     d_state)
-    conv = _causal_conv(torch.cat([xr, Bm, Cm], dim=-1), p["conv_w"],
-                        p["conv_b"])
+    conv_in = torch.cat([xr, Bm, Cm], dim=-1)
+    halo = None if seq_axis is None else from_previous(
+        conv_in, seq_axis, p["conv_w"].shape[0] - 1, dim=1)
+    conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], halo)
     xr, Bm, Cm = torch.split(conv, [d_inner, d_state, d_state], dim=-1)
     dt = F.softplus(dt + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
@@ -236,9 +243,11 @@ def mamba2_train(p, x: torch.Tensor, *, d_state: int = 128,
                  head_dim: int = 64, expand: int = 2,
                  chunk: int = 128) -> torch.Tensor:
     """The full mixer over a sequence: x (B, S, d_model) -> (B, S,
-    d_model)."""
+    d_model); under a context that splits the sequence, over this rank's
+    segment of it."""
     z, xh, dt, A, Bm, Cm = ssd_inputs(p, x, d_state=d_state,
-                                      head_dim=head_dim, expand=expand)
+                                      head_dim=head_dim, expand=expand,
+                                      seq_axis=seq_axis())
     y = ssd_context_parallel(xh, dt, A, Bm, Cm, chunk=chunk)
     return _mixer_out(p, y, xh, z)
 

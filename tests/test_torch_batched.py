@@ -70,6 +70,17 @@ REL = 1e-5
 P, N, M, R = 3, 48, 40, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file, restored after it: at these sizes
+    the port is op-overhead bound, and torch's pool otherwise contends
+    with XLA's, and with the other test processes', on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a, np.float32)).contiguous()
 

@@ -19,10 +19,9 @@ JAX package's XLA tooling, on the CPU.
   with EP, MLA and the Sinkhorn router): the rank's parameter and moment
   bytes equal the per-device bytes of the reference's shardings on 1 x 1,
   4 x 1 and 2 x 2; dot FLOPs a device within 5% of ``analyze_hlo``'s on
-  1 x 1 and 4 x 1, and equal to them without the OT loss. On 2 x 2 the
-  ratio is printed with no bar: the port
-  keeps the activations whole on every ``"model"`` rank (ROADMAP.md §A
-  item 8e).
+  1 x 1, 4 x 1 and 2 x 2 (where each ``"model"`` rank computes its
+  segment of the sequence, as the reference's), and equal to them
+  without the OT loss.
 * Decode and prefill cells (expert parallel prefill, a replicated
   one-row decode) run dry with no host read.
 * ``run_cell`` writes the full-width production cell smollm-135m x
@@ -381,7 +380,7 @@ def test_rank_shards_equal_the_reference_shardings(reference, case, mesh):
           f"{got['flops'] / ref['flops']:.4f}")
 
 
-@pytest.mark.parametrize("mesh", ("1x1", "4x1"))
+@pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("case", tuple(R.CASES))
 def test_dot_flops_are_within_5_percent_of_analyze_hlo(reference, case,
                                                        mesh):
@@ -390,5 +389,6 @@ def test_dot_flops_are_within_5_percent_of_analyze_hlo(reference, case,
     assert abs(got["flops"] - ref["flops"]) <= FLOP_RTOL * ref["flops"]
     if case == "dense_no_ot":
         # without the OT loss the count is the reference's to the FLOP:
-        # the gap of the others is the OT loss's (PERF.md)
+        # the gap of the others is the OT loss's and, on 2 x 2, MLA's
+        # up-projection of every position's gathered latents (PERF.md)
         assert got["flops"] == ref["flops"]

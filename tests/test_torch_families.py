@@ -65,6 +65,17 @@ from repro_torch.kernels.ops import geometry_ops, observe_plan_selection
 EPS = 0.5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file, restored after it: at these sizes
+    the port is op-overhead bound, and torch's pool otherwise contends
+    with XLA's, and with the other test processes', on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _j(a):
     return jnp.asarray(np.asarray(a, np.float32))
 

@@ -18,11 +18,14 @@ with drops (capacity factor 1.25) keeps the same (token, expert) set as a
 recount of the reference's rule on its dispatch, its output within 1e-5
 of max |out| and its gradients within 1e-5 of each one's max; the SSD's
 context parallelism within 1e-5 of max |y| of the reference's and of the
-chunked SSD; one train step at ``tests/test_torch_lm_train.py``'s bars
+chunked SSD; one train step on each rank's block of the batch (its rows,
+its segment of the sequence) at ``tests/test_torch_lm_train.py``'s bars
 (``ce`` 1e-5 and ``ot`` 1e-4 relative, parameters 1e-5 of each leaf's
 max after AdamW at lr 1 and eps 1, float32 moments 1e-4 of max, bfloat16
 moments one bf16 step, 2^-7 of max), every rank's gathered parameters
-bit-equal; a decode on a mesh within 1e-5 of max |logit| of one rank's;
+bit-equal, and a batch that does not divide over the data axis equal to
+the step with no mesh; a decode and a prefill on a mesh within 1e-5 of
+max |logit| of one rank's;
 a resumed ``launch.train --mesh 2x1`` equal to the uninterrupted run;
 ``launch.train`` on its default 1x1 mesh, with drops, equal to the
 reference's driver at the step bars.
@@ -422,14 +425,24 @@ def _step_agrees(got, want, cfg_zero3):
         assert _rel_to_max(leaf, want["m"][name]) <= tol, name
 
 
-@pytest.mark.parametrize("name", ["v3_2x2", "smollm_2x1", "mamba2_1x2"])
+@pytest.mark.parametrize("name", ["v3_2x2", "smollm_2x1", "mamba2_1x2",
+                                  "smollm_1x2", "smollm_2x2", "danube_1x2",
+                                  "whisper_1x2", "zamba2_1x2",
+                                  "smollm_2x1_odd"])
 def test_train_step_matches_reference(runs, name):
     """One ``make_train_step`` step on the reference's mesh, from its
-    initial parameters and batch: deepseek-v3-tiny on 2 x 2 (expert and
-    data parallelism, ZeRO shards with the experts gathered lazily, the
-    sharded OT loss, two micro-batches), smollm-tiny on 2 x 1, mamba2-tiny
-    on 1 x 2 (the SSD's context parallelism); every rank's gathered
-    parameters are the same bits."""
+    initial parameters and batch, each rank on its block of the batch
+    (``step.block``: its rows of every micro-batch, its segment of the
+    sequence): deepseek-v3-tiny on 2 x 2 (expert and data parallelism on
+    the segments, ZeRO shards with the experts gathered lazily, the
+    sharded OT loss, the MTP loss across the segments' boundary, two
+    micro-batches), smollm-tiny on 2 x 1, 1 x 2 and 2 x 2 (attention's
+    K / V gathered over "model"), mamba2-tiny on 1 x 2 (the SSD's context
+    parallelism, the conv's halo), h2o-danube3-tiny on 1 x 2 at S = 128
+    (its window of 64 reaches into the previous segment), whisper-tiny on
+    1 x 2 (the encoder's length split too), zamba2-tiny on 1 x 2 (the
+    shared block on segments), smollm-tiny on 2 x 1 with a batch of 3
+    (replicated); every rank's gathered parameters are the same bits."""
     arch, mesh, _, _, _, part = W.TRAIN[name]
     want = _ref(runs, part)[name]
     ranks = [rank[name] for rank in _world(runs, mesh[0] * mesh[1])]
@@ -442,6 +455,27 @@ def test_train_step_matches_reference(runs, name):
     if name == "v3_2x2":
         assert ranks[0]["micro_batches"] == 2
         assert ranks[0]["m_dtype"] == "torch.bfloat16"
+
+
+def test_an_indivisible_batch_replicates_as_the_one_card_step(runs):
+    """smollm-tiny on 2 x 1 with a batch of 3 rows, which does not divide
+    over the data axis: every rank runs all three rows, and the step
+    equals the same step with no mesh at the step bars (both solving the
+    OT loss in float32, as the sharded solve does)."""
+    for rank in _world(runs, 2):
+        got = rank["smollm_2x1_odd"]
+        _step_agrees(got["f32"], got["one"], False)
+
+
+def test_prefill_on_a_mesh_equals_one_rank(runs):
+    """smollm-tiny's prefill on 1 x 2: each rank runs its segment of the
+    sequence (8 of 16 positions), and the last position's logits, the
+    last rank's, come back to both within 1e-5 of max |logit| of the
+    prefill with no mesh."""
+    for rank in _world(runs, 2):
+        got = rank["prefill_smollm"]
+        assert got["block"] == (2, 8)
+        assert _rel_to_max(got["got"], got["want"]) <= DECODE_TOL
 
 
 def test_moe_capacity_drops_on_a_1x1_mesh_match_reference(runs):

@@ -41,6 +41,17 @@ SMALL_EPS = 1e-4       # scaling-domain Gaussian features underflow here
 REL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file, restored after it: at these sizes
+    the port is op-overhead bound, and torch's pool otherwise contends
+    with XLA's, and with the other test processes', on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _feature_arrays(n, m, r=8, seed=0, nan_row=None):
     rng = np.random.default_rng(seed)
     xi = np.asarray(rng.uniform(0.05, 1.05, (n, r)), np.float32)

@@ -3,13 +3,17 @@
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/torch_multicard_reference.py PART OUT_DIR
 
-Four parts run side by side: ``a`` deepseek-v3-tiny's
-``make_train_step`` on its 2 x 2 mesh; ``b`` the parameter, input and
-cache shardings of every config on 1 x 1, 2 x 2 and 4 x 2 meshes,
+Four parts run side by side, each with the train steps of its
+``W.TRAIN`` cases: ``a`` deepseek-v3-tiny's ``make_train_step`` on its
+2 x 2 mesh, smollm-tiny's on 2 x 2; ``b`` the parameter, input and cache
+shardings of every config on 1 x 1, 2 x 2 and 4 x 2 meshes,
 ``compressed_psum``, the expert-parallel MoE and the SSD's context
-parallelism under ``shard_map``, and smollm-tiny's step on 2 x 1; ``c``
-the steps of mamba2-tiny (1 x 2) and deepseek-v3-tiny (1 x 1); ``d``
-the reference's ``launch.train`` on deepseek-v3-tiny (1 x 1). Each part
+parallelism under ``shard_map``, smollm-tiny's step on 2 x 1 and
+zamba2-tiny's on 1 x 2; ``c`` the steps of mamba2-tiny (1 x 2),
+deepseek-v3-tiny (1 x 1), h2o-danube3-tiny (1 x 2) and smollm-tiny on
+2 x 1 with a batch of 3; ``d`` the reference's ``launch.train`` on
+deepseek-v3-tiny (1 x 1), and smollm-tiny's and whisper-tiny's steps on
+1 x 2. Each part
 first pickles the initial parameters of its train steps into OUT_DIR (the
 port's ranks wait for them), then ``ref_<part>.pkl``. The inputs are those of
 ``torch_multicard_worker``.
@@ -184,8 +188,11 @@ def train(name, cfg, params):
     opt = AdamWConfig(**W.ADAMW)
     step, _, _ = make_train_step(cfg, mesh, ShapeSpec("t", S, B, "train"),
                                  opt, total_steps=W.TOTAL_STEPS)
-    batch = {k: jnp.asarray(v, jnp.int32) for k, v in
-             W.train_batch(name, cfg.vocab).items()}
+    batch = {k: jnp.asarray(v, jnp.float32 if k == "enc_embeds"
+                            else jnp.int32)
+             for k, v in W.train_batch(
+                 name, cfg.vocab,
+                 cfg.d_model if cfg.input_kind == "encdec" else 0).items()}
     with mesh:
         new, state, metrics = step(params, init_adamw(params, opt), batch)
     return dict(metrics={k: float(v) for k, v in metrics.items()},

@@ -39,6 +39,19 @@ TRAIN = {
     "v3_1x1": ("deepseek_v3_671b", (1, 1), 4, 32, TINY_V3, "c"),
     "smollm_2x1": ("smollm-135m", (2, 1), 4, 16, dict(ot_iters=6), "b"),
     "mamba2_1x2": ("mamba2_1p3b", (1, 2), 2, 32, dict(ot_iters=5), "c"),
+    # the sequence over "model": attention's K / V gathers, positions
+    "smollm_1x2": ("smollm-135m", (1, 2), 2, 16, dict(ot_iters=6), "d"),
+    "smollm_2x2": ("smollm-135m", (2, 2), 4, 16, dict(ot_iters=6), "a"),
+    # the tiny window of 64 crosses the segments' boundary at S = 128
+    "danube_1x2": ("h2o_danube3_4b", (1, 2), 2, 128, dict(ot_iters=5),
+                   "c"),
+    # the encoder's length split too: its K / V and cross-attention's
+    "whisper_1x2": ("whisper_base", (1, 2), 2, 16, dict(ot_iters=5), "d"),
+    # the SSD's context parallelism, the conv's halo and the shared block
+    "zamba2_1x2": ("zamba2_1p2b", (1, 2), 2, 32, dict(ot_iters=5), "b"),
+    # a batch of 3 rows does not divide over 2 data ranks: replicated
+    "smollm_2x1_odd": ("smollm-135m", (2, 1), 3, 16, dict(ot_iters=6),
+                       "c"),
 }
 # ``launch.train`` on deepseek-v3-tiny with its default 1x1 mesh, on
 # ``drop_batch``: the reference's driver (part c) and the port's, the
@@ -53,8 +66,11 @@ BEFORE_WORLD = {1: ("driver_1x1",)}
 EXACT_1X1 = ("smollm-135m", "zamba2_1p2b")
 WORLDS = {1: ("ep", "v3_1x1", "exact_1x1"),
           2: ("compress", "ep", "ssd", "smollm_2x1", "mamba2_1x2",
-              "decode_smollm", "driver"),
-          4: ("compress", "ep", "ssd", "v3_2x2", "decode_v3")}
+              "smollm_1x2", "danube_1x2", "whisper_1x2", "zamba2_1x2",
+              "smollm_2x1_odd", "prefill_smollm", "decode_smollm",
+              "driver"),
+          4: ("compress", "ep", "ssd", "v3_2x2", "smollm_2x2",
+              "decode_v3")}
 
 
 def ep_inputs(world: int):
@@ -93,11 +109,16 @@ def compress_inputs(world: int):
         np.float32)
 
 
-def train_batch(name: str, vocab: int):
+def train_batch(name: str, vocab: int, enc_d_model: int = 0):
     """Tokens and labels (B, S) of a train case; the 1 x 1 case's is
-    :func:`drop_batch`."""
+    :func:`drop_batch`. With ``enc_d_model`` (an encoder-decoder config)
+    also ``enc_embeds`` (B, S, enc_d_model) from seed 8."""
     _, _, B, S, _, _ = TRAIN[name]
-    return drop_batch(B, S, vocab, drops=name == "v3_1x1")
+    out = drop_batch(B, S, vocab, drops=name == "v3_1x1")
+    if enc_d_model:
+        out["enc_embeds"] = np.random.default_rng(8).standard_normal(
+            (B, S, enc_d_model)).astype(np.float32)
+    return out
 
 
 def drop_batch(B: int, S: int, vocab: int, drops: bool = True):
@@ -179,29 +200,39 @@ def _ep(world, ref_dir):
 
 
 def _ssd(world, ref_dir):
+    """The SSD on the rank's segment of the sequence, its output gathered
+    back whole (the gather's backward sums the ranks' cotangents, each
+    rank holding the whole loss)."""
     import torch
-    from repro_torch.distributed import MeshContext, use_mesh_context
+    from repro_torch.distributed import MeshContext, all_gather, \
+        use_mesh_context
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.ssm import ssd_context_parallel
     x, dt, A, Bm, Cm, cot = (torch.tensor(a) for a in ssd_inputs())
     x.requires_grad_(True)
     ctx = MeshContext(make_local_mesh(1, world, device="cpu"))
+    tp = ctx.axis("model")
+    seg = x.shape[1] // world
+    x_l, dt_l, B_l, C_l = (t[:, tp.rank * seg:(tp.rank + 1) * seg]
+                           for t in (x, dt, Bm, Cm))
     with use_mesh_context(ctx):
-        y = ssd_context_parallel(x, dt, A, Bm, Cm, chunk=SSD["chunk"])
+        y = all_gather(ssd_context_parallel(x_l, dt_l, A, B_l, C_l,
+                                            chunk=SSD["chunk"]), tp, dim=1)
     (gx,) = torch.autograd.grad(torch.sum(y * cot), [x])
     return dict(y=y.detach().numpy(), gx=gx.numpy())
 
 
-def _config(name):
+def _config(name, **extra):
     from repro_torch.configs import get_config
     arch, _, _, _, kw, _ = TRAIN[name]
-    return get_config(arch).tiny(**F32, **kw)
+    return get_config(arch).tiny(**F32, **kw, **extra)
 
 
-def _train(name, ref_dir, mesh=True):
+def _train(name, ref_dir, mesh=True, **extra):
     """One step of the case on its mesh (or, ``mesh=False``, on one
-    process with no mesh): the metrics, the gathered parameters and first
-    moments, and the micro-batches the step ran."""
+    process with no mesh), its config with ``extra`` overrides: the
+    metrics, the gathered parameters and first moments, and the
+    micro-batches the step ran."""
     import torch
     from repro_torch import convert
     from repro_torch.configs import ShapeSpec
@@ -210,10 +241,11 @@ def _train(name, ref_dir, mesh=True):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamWConfig, init_adamw
     _, (D, M), B, S, _, _ = TRAIN[name]
-    cfg = _config(name)
+    cfg = _config(name, **extra)
     params = convert.lm_params(wait_params(ref_dir, name), cfg, device="cpu")
-    batch = {k: torch.tensor(v) for k, v in
-             train_batch(name, cfg.vocab).items()}
+    batch = {k: torch.tensor(v) for k, v in train_batch(
+        name, cfg.vocab, cfg.d_model if cfg.input_kind == "encdec" else 0
+    ).items()}
     step, _ = make_train_step(
         cfg, make_local_mesh(D, M, device="cpu") if mesh else None,
         ShapeSpec("t", S, B, "train"), AdamWConfig(**ADAMW),
@@ -221,7 +253,8 @@ def _train(name, ref_dir, mesh=True):
     if mesh:
         specs, ctx = step.shardings[0], step.context
         params = shard_tree(params, specs, ctx)
-    new, state, metrics = step(params, init_adamw(params, step.opt), batch)
+    new, state, metrics = step(params, init_adamw(params, step.opt),
+                               step.block(batch))
     if mesh:
         new, m = gather_tree(new, specs, ctx), gather_tree(state.m, specs,
                                                            ctx)
@@ -306,7 +339,8 @@ def _exact_1x1(world, ref_dir):
                 params = shard_tree(params, step.shardings[0], step.context)
             state = (params, init_adamw(params, step.opt))
             for _ in range(3):
-                *state, metrics = step(state[0], state[1], batch)
+                *state, metrics = step(state[0], state[1],
+                                       step.block(batch))
             runs.append((tree_leaves(state),
                          {k: float(v) for k, v in metrics.items()}))
         (a, ma), (b, mb) = runs
@@ -339,11 +373,37 @@ def _decode(arch, kw, mesh_shape, B=4, S=16, steps=3):
     got, want = [], []
     for t in range(steps):
         lw, c_one = one(params, {"tokens": tok[:, t:t + 1]}, c_one)
-        lg, c_mesh = step(shards, {"tokens": tok[:, t:t + 1]}, c_mesh)
+        lg, c_mesh = step(shards, step.block({"tokens": tok[:, t:t + 1]}),
+                          c_mesh)
         want.append(lw.numpy())
         got.append(lg.numpy())
     return dict(got=np.stack(got), want=np.stack(want),
                 cache_rows=int(c_mesh[0][0].shape[1]))
+
+
+def _prefill(arch, kw, mesh_shape, B=2, S=16):
+    """A prefill on the mesh (the rank's shards, its rows and segment of
+    the sequence) against the same prefill with no mesh on this
+    process."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import shard_tree
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_params
+    cfg = get_config(arch).tiny(**F32, **kw)
+    params = init_params(cfg, device="cpu", seed=2)
+    shape = ShapeSpec("p", S, B, "prefill")
+    batch = {"tokens": torch.tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (B, S)))}
+    one, _ = make_serve_step(cfg, None, shape)
+    step, _ = make_serve_step(cfg, make_local_mesh(*mesh_shape,
+                                                   device="cpu"), shape)
+    shards = shard_tree(params, step.shardings[0], step.context)
+    block = step.block(batch)
+    return dict(got=step(shards, block).numpy(),
+                want=one(params, batch).numpy(),
+                block=tuple(block["tokens"].shape))
 
 
 def _driver(world, ref_dir):
@@ -377,6 +437,19 @@ CASES = {
     "v3_2x2": lambda w, d: _train("v3_2x2", d),
     "smollm_2x1": lambda w, d: _train("smollm_2x1", d),
     "mamba2_1x2": lambda w, d: _train("mamba2_1x2", d),
+    "smollm_1x2": lambda w, d: _train("smollm_1x2", d),
+    "smollm_2x2": lambda w, d: _train("smollm_2x2", d),
+    "danube_1x2": lambda w, d: _train("danube_1x2", d),
+    "whisper_1x2": lambda w, d: _train("whisper_1x2", d),
+    "zamba2_1x2": lambda w, d: _train("zamba2_1x2", d),
+    # against one process, both sides solve the OT loss in float32, as
+    # the sharded solve does whatever the storage policy
+    "smollm_2x1_odd": lambda w, d: dict(
+        _train("smollm_2x1_odd", d),
+        f32=_train("smollm_2x1_odd", d, ot_precision="highest"),
+        one=_train("smollm_2x1_odd", d, mesh=False,
+                   ot_precision="highest")),
+    "prefill_smollm": lambda w, d: _prefill("smollm-135m", {}, (1, 2)),
     "decode_smollm": lambda w, d: _decode("smollm-135m", {}, (2, 1)),
     "decode_v3": lambda w, d: _decode("deepseek_v3_671b", TINY_V3, (2, 2)),
     "driver": _driver,
